@@ -1,0 +1,110 @@
+"""Wire formats for the sync payload: numerics and byte accounting.
+
+  fp32   the paper's payload — 4 bytes/value, lossless;
+  bf16   round to bfloat16 — 2 bytes/value, with error feedback;
+  int8   per-block int8 + one fp32 scale per ``block`` values — ~3.94x
+         less at block=256, with error feedback through the one-pass
+         encode kernel (``kernels/sync_fused.py``).
+
+A :class:`WireCodec` is the single source of both the numerics
+(``encode``/``decode``, or the fused ``ef_roundtrip``) and the accounting
+(``wire_bytes``) that ``core.comm`` charges.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+#: codec names accepted by OptimizerConfig.compression / --compress.
+CODEC_NAMES = ("fp32", "bf16", "int8")
+
+
+@dataclasses.dataclass(frozen=True)
+class WireCodec:
+    """One sync wire format: encode/decode numerics + byte accounting.
+
+    encode(x, batch_ndim)        fp32 tensor -> wire payload
+    decode(payload, shape, batch_ndim)
+                                 wire payload -> fp32 tensor of ``shape``
+    wire_bytes(n_values, dtype_bytes)
+                                 bytes on the wire for ``n_values`` values
+    lossless                     decode(encode(x)) == x bitwise, so error
+                                 feedback is a no-op
+    ef_roundtrip                 optional one-pass error-feedback encode
+                                 ``(x, residual, batch_ndim, clamp_nonneg)
+                                 -> (wire, new_residual)``
+    """
+
+    name: str
+    lossless: bool
+    encode: Callable[[Any, int], Any]
+    decode: Callable[[Any, Tuple[int, ...], int], Any]
+    wire_bytes: Callable[[int, int], float]
+    ef_roundtrip: Optional[Callable[[Any, Any, int, bool],
+                                    Tuple[Any, Any]]] = None
+
+    def roundtrip(self, x, batch_ndim: int = 0):
+        """decode(encode(x)) — the value the sync mean actually averages."""
+        return self.decode(self.encode(x, batch_ndim), x.shape, batch_ndim)
+
+
+def _fp32_codec() -> WireCodec:
+    return WireCodec(
+        name="fp32", lossless=True,
+        encode=lambda x, bnd: x,
+        decode=lambda p, shape, bnd: p,
+        wire_bytes=lambda n, dtype_bytes=4: float(n * dtype_bytes))
+
+
+def _bf16_codec() -> WireCodec:
+    return WireCodec(
+        name="bf16", lossless=False,
+        encode=lambda x, bnd: x.to(torch.bfloat16),
+        decode=lambda p, shape, bnd: p.float(),
+        wire_bytes=lambda n, dtype_bytes=4: float(n * 2))
+
+
+def _unported_quantize(*args):
+    raise NotImplementedError(
+        "the int8 codec's separate encode/decode runs the quantize/"
+        "dequantize kernel pair, which is not ported yet (ROADMAP Queue 2); "
+        "the fused one-pass encode (sync_fused=True) is")
+
+
+def _int8_codec(block: int, use_kernels: bool, fused: bool) -> WireCodec:
+    if not fused:
+        _unported_quantize()
+
+    def ef_roundtrip(x, e, bnd, clamp_nonneg):
+        from repro_torch.kernels.sync_fused import (fused_ef_leaf,
+                                                    fused_ef_leaf_plain)
+        if use_kernels:
+            return fused_ef_leaf(x, e, block=block, batch_ndim=bnd,
+                                 clamp_nonneg=clamp_nonneg)
+        return fused_ef_leaf_plain(x, e, block=block, batch_ndim=bnd,
+                                   clamp_nonneg=clamp_nonneg)
+
+    return WireCodec(
+        name="int8", lossless=False, encode=_unported_quantize,
+        decode=_unported_quantize,
+        wire_bytes=lambda n, dtype_bytes=4: n * (1.0 + 4.0 / block),
+        ef_roundtrip=ef_roundtrip)
+
+
+def get_codec(name, *, block: int = 256, use_kernels: bool = False,
+              fused: bool = True) -> WireCodec:
+    """Resolve a codec name ('', 'fp32', 'bf16', 'int8') -> WireCodec.
+    ``use_kernels`` routes the int8 encode through the CUDA kernel's
+    wrapper, else through its plain version on any device."""
+    if isinstance(name, WireCodec):
+        return name
+    if name in ("", "fp32"):
+        return _fp32_codec()
+    if name == "bf16":
+        return _bf16_codec()
+    if name == "int8":
+        return _int8_codec(block, use_kernels, fused)
+    raise ValueError(f"unknown compression {name!r} "
+                     f"(expected one of {CODEC_NAMES})")

@@ -1,0 +1,69 @@
+"""Plain PyTorch versions of the kernels' functions.
+
+Expression for expression the JAX package's ``kernels/ref.py`` and
+``kernels/quantize.py::block_quantize``, as XLA compiles them: the CPU
+tests hold these bitwise against the JAX oracles, and ``chip_smoke.py``
+holds the CUDA kernels against them on the card.
+
+Every scalar operand is a float32 tensor on the data's device. On CUDA,
+PyTorch turns a division by a Python number into a multiplication by its
+reciprocal, which would round differently from the kernel.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+#: XLA rewrites ``max|v| / 127.0`` (a division by a constant) into a
+#: multiplication by the float32 reciprocal; the jitted JAX reference, its
+#: kernel in interpret mode and the port all compute the scale this way.
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+F32_MIN = float(torch.finfo(torch.float32).min)
+
+
+def f32(value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a float32 0-dim tensor on ``like``'s device."""
+    return torch.as_tensor(value, dtype=torch.float32, device=like.device)
+
+
+def fused_update_ref(x, g, b2_sync, b2_local, eta, extra):
+    """y = x − η·g/sqrt(b2_sync + extra);  b2_local += g²  (all math fp32)."""
+    g32 = g.float()
+    denom = torch.sqrt(b2_sync.float() + f32(extra, x))
+    y = (x.float() - f32(eta, x) * g32 / denom).to(x.dtype)
+    return y, b2_local.float() + g32 * g32
+
+
+def block_quantize(v: torch.Tensor):
+    """Symmetric per-block int8 quantization of a (rows, block) fp32 view:
+    scale = max|v|·f32(1/127), q = round_half_even(v·(1/scale)) clipped to
+    ±127 (all-zero rows quantize to 0). Returns (q int8, scale (rows, 1))."""
+    scale = v.abs().amax(dim=1, keepdim=True) * f32(INV_127, v)
+    pos = scale > 0
+    inv = torch.where(pos, f32(1.0, v) / torch.where(pos, scale, 1.0), 0.0)
+    q = torch.clamp(torch.round(v * inv), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def quantize_blocks_ref(x2d):
+    """Per-block int8 quantization: (q int8 (nb, block), scales fp32 (nb, 1))."""
+    return block_quantize(x2d.float())
+
+
+def dequantize_blocks_ref(q2d, scales):
+    """Inverse of :func:`quantize_blocks_ref`: x̂ = q · scale (fp32)."""
+    return q2d.float() * scales
+
+
+def fused_ef_blocks_ref(x2d, e2d, *, clamp_nonneg: bool = False,
+                        out_dtype=None):
+    """The error-feedback sync encode of a (nblocks, block) view:
+    v = x + e; v̂ = max(dequantize(quantize(v)), lower) with lower 0 for
+    accumulator payloads and float32-min otherwise; wire = v̂ cast to the
+    payload dtype; residual' = v − wire. Returns (wire, residual')."""
+    v = x2d.float() + e2d
+    q, s = quantize_blocks_ref(v)
+    vhat = torch.maximum(dequantize_blocks_ref(q, s),
+                         f32(0.0 if clamp_nonneg else F32_MIN, v))
+    w = vhat.to(out_dtype or x2d.dtype)
+    return w, v - w.float()
