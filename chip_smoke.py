@@ -7,26 +7,38 @@ Run from the root of a checkout. Phases, one JSON line each; any failure
 raises and exits non-zero:
 
   device    the card's name and power limit (nvidia-smi), torch's view of it
-  build     both CUDA kernels compiled from src/repro_torch/kernels/csrc/
+  build     the CUDA kernels compiled from src/repro_torch/kernels/csrc/,
+            one nvcc process per source, all at once
   kernels   each kernel against its plain PyTorch version on the card, at
-            the full-width Big LSTM shapes of the training path: the fused
-            update (y to rtol 8e-3 bf16 / 1e-6 fp32 of the larger of |y|
-            and the update, which is a quarter of |x| here; b2_local
-            bitwise; the same check must reject an update with η 2% off
-            and one that reads b2_local for b2_sync) and the one-pass EF
-            int8 encode (wire and residual bitwise); CUDA-event times
-            beside the memory-bound least time
+            the full-width Big LSTM shapes of the training paths: the fused
+            update and the flat update (y to rtol 8e-3 bf16 / 1e-6 fp32 of
+            the larger of |y| and the update, which is a quarter of |x|
+            here; b2_local bitwise; the same check must reject an update
+            with η 2% off and one that reads b2_local for b2_sync), the
+            one-pass EF int8 encode per leaf and over the flat plane's two
+            halves (wire and residual bitwise), and the quantize /
+            dequantize pair (codes, scales and x̂ bitwise); CUDA-event times
+            beside the memory-bound least time; and the sync round's
+            worker mean, per leaf (beside Tensor.mean) and over the planes
   reference reduced Big LSTM in float32, lr 2, 8 steps, 2 workers, int8
-            sync: the card with the kernels against the CPU with their
-            plain versions, same initial weights (losses to rtol 1e-4,
-            which the CPU run with η 2% larger must exceed)
+            sync, per-leaf and flat, one-pass and three-pass encode: the
+            card with the kernels against the CPU with their plain versions,
+            same initial weights (losses to rtol 1e-4, which the CPU run
+            with η 2% larger must exceed)
+  flat_eq   flat = per-leaf on the card: reduced size, kernels on, a local,
+            a sync and a local step; params, both B² and both residuals
+            bitwise, for the one-pass and the three-pass int8 encode
   train     full-width Big LSTM (793,471 vocab, 832,198,527 parameters,
             bf16), 2 workers stacked on the card, 32 sequences of 20 tokens
             per worker, Local AdaAlter H=4, int8 wire with fused error
-            feedback, kernels on, 8 steps, through train_loop — with the
-            kernels' launch counts read around exactly this run
-  profile   the same run for 4 steps under torch.profiler: per step the
-            device's busy time and idle share and its time by kernel
+            feedback, kernels on, 8 steps, through train_loop, per leaf —
+            with the kernels' launch counts read around exactly this run
+  train_flat  the same over the flat parameter plane (--flat), 8 steps
+  train_unfused  the per-leaf run with the three-pass encode
+            (--unfused-sync), 4 steps: the quantize pair's launches
+  profile   the per-leaf and the flat run for 4 steps each under
+            torch.profiler: per step the device's busy time and idle share
+            and its time by kernel
 
 then the kernels summary line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
@@ -75,14 +87,21 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 def bitwise_equal(a, b) -> bool:
     import torch
-    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
-    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.int8: torch.int8}[a.dtype]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(view), b.view(view)))
+
+
+def max_abs_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
 
 
 def update_agrees(y, y_ref, x, rtol) -> bool:
-    """y within ``rtol`` of ``y_ref``, measured against the larger of
-    |y_ref| and the update |x − y_ref|: where the update nearly cancels x,
-    the error is held at the update's own scale. No absolute floor."""
+    """y within ``rtol`` (a number, or a tensor that broadcasts) of
+    ``y_ref``, measured against the larger of |y_ref| and the update
+    |x − y_ref|: where the update nearly cancels x, the error is held at the
+    update's own scale. No absolute floor."""
     import torch
     yf, rf = y.float(), y_ref.float()
     scale = torch.maximum(rf.abs(), (x.float() - rf).abs())
@@ -169,6 +188,245 @@ def check_ef(gen, shape, dtype, clamp, timed=True):
     return out
 
 
+def full_plane(cfg, workers: int):
+    """The FlatSpace of the full-width stacked parameters, from shapes
+    alone (meta tensors: no memory)."""
+    import torch
+    from repro_torch.core.flatspace import FlatSpace
+    from repro_torch.models.lstm import init_lstm
+    from repro_torch.tree import tree_map
+    meta = init_lstm(None, cfg, getattr(torch, cfg.param_dtype), "meta")
+    return FlatSpace.build(tree_map(
+        lambda x: x[None].expand((workers,) + x.shape), meta), batch_ndim=1)
+
+
+def check_flat_update(gen, fs):
+    """Flat update kernel vs its plain version on the full-width planes
+    (R, P) with the plane's own bf16 row sidecar. The plain version is
+    compared one worker row at a time (it is elementwise, and the full
+    planes' temporaries would not fit beside the kernel's); the same check
+    must reject the two wrong updates of :func:`check_update`."""
+    import torch
+    from repro_torch.kernels import adaalter_update as au
+    shape = fs.batch_shape + (fs.plane_size,)
+    rows = torch.from_numpy(fs.round16_rows(au.LANES)).cuda()
+    x = torch.randn(shape, generator=gen, device="cuda")
+    g = torch.randn(shape, generator=gen, device="cuda")
+    bs = 1.0 + torch.rand(shape, generator=gen, device="cuda")
+    bl = bs + torch.rand(shape, generator=gen, device="cuda")
+    scalars = au.update_scalars(0.5, 3.0, "cuda")
+    y, b2 = au.flat_fused_update(x, g, bs, bl, scalars, rows)
+    torch.cuda.synchronize()
+    rtol = torch.where(rows > 0, 8e-3, 1e-6)          # bf16 rows / fp32 rows
+    by_row = lambda t: t.reshape(-1, au.LANES)        # noqa: E731
+    err = 0.0
+    for w in range(shape[0]):
+        xw, gw, bsw, blw = (t[w:w + 1] for t in (x, g, bs, bl))
+        y_ref, b2_ref = au.flat_fused_update_plain(xw, gw, bsw, blw, scalars,
+                                                   rows)
+        err = max(err, max_abs_err(y[w:w + 1], y_ref))
+        require(update_agrees(by_row(y[w:w + 1]), by_row(y_ref), by_row(xw),
+                              rtol), f"flat update y off its plain version "
+                f"(worker {w}, max {err})")
+        require(bitwise_equal(b2[w:w + 1], b2_ref),
+                f"flat update b2_local not bitwise (worker {w})")
+        del b2_ref
+        wrong = {"eta_2pct_high": (xw, gw, bsw, blw, au.update_scalars(
+                     0.5 * 1.02, 3.0, "cuda"), rows),
+                 "b2_local_for_b2_sync": (xw, gw, blw, blw, scalars, rows)}
+        for what, args in wrong.items():
+            y_bad = au.flat_fused_update_plain(*args)[0]
+            require(not update_agrees(by_row(y_bad), by_row(y_ref), by_row(xw),
+                                      rtol),
+                    f"the flat update check accepts a wrong update ({what})")
+            del y_bad
+        del y_ref
+    del y, b2
+    torch.cuda.empty_cache()
+    nbytes = x.numel() * 6 * 4
+    out = dict(shape=list(shape), bf16_rows=float(rows.mean()),
+               max_abs_err=err, rejects_wrong_updates=True,
+               ms=cuda_ms(lambda: au.flat_fused_update(x, g, bs, bl, scalars,
+                                                       rows)))
+    torch.cuda.empty_cache()
+    out.update(plain_ms=cuda_ms(lambda: au.flat_fused_update_plain(
+        x, g, bs, bl, scalars, rows), reps=3, warmup=1),
+        bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+    return out
+
+
+def check_flat_ef(gen, fs, half):
+    """Flat EF kernel vs its plain version on one half of the full-width
+    ``[params ‖ B²]`` payload, (R, P) fp32 with that half's sidecars:
+    the params half rounds the wire through bf16 on its 16-bit slots and
+    clamps at float32-min; the B² half clamps at 0 and does not round.
+    Wire and residual bitwise, compared one worker row at a time."""
+    import torch
+    from repro_torch.kernels import sync_fused as sf
+    from repro_torch.kernels.ref import F32_MIN
+    shape = fs.batch_shape + (fs.plane_size,)
+    nb_row = fs.plane_size // sf.BLOCK
+    if half == "params":
+        rnd = torch.from_numpy(fs.round16_rows(sf.BLOCK)).cuda()
+        low = torch.full_like(rnd, F32_MIN)
+        x = (torch.randn(shape, generator=gen, device="cuda") * 0.05).to(
+            torch.bfloat16).float()               # bf16 values, as trained
+        e = torch.randn(shape, generator=gen, device="cuda") * 1e-4
+    else:           # B² around 1, a residual stripe that the clamp catches
+        rnd = torch.zeros((nb_row, 1), device="cuda")
+        low = torch.zeros_like(rnd)
+        x = 1.0 + torch.rand(shape, generator=gen, device="cuda")
+        e = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+        e.view(-1)[:4096] = -4.0
+    x.view(-1)[4096:4096 + 512] = 0                # two all-zero blocks
+    e.view(-1)[4096:4096 + 512] = 0
+    x2d, e2d = x.view(-1, sf.BLOCK), e.view(-1, sf.BLOCK)
+    e_k = e2d.clone()
+    wire, r = sf.flat_ef_blocks(x2d, e_k, rnd, low)
+    torch.cuda.synchronize()
+    require(r.data_ptr() == e_k.data_ptr(), "flat EF residual not in place")
+    err = 0.0
+    for w in range(shape[0]):
+        rows = slice(w * nb_row, (w + 1) * nb_row)
+        w_ref, r_ref = sf.flat_ef_blocks_plain(x2d[rows], e2d[rows], rnd, low)
+        require(bitwise_equal(wire[rows], w_ref),
+                f"flat EF wire not bitwise ({half}, worker {w})")
+        require(bitwise_equal(r[rows], r_ref),
+                f"flat EF residual not bitwise ({half}, worker {w})")
+        err = max(err, max_abs_err(wire[rows], w_ref),
+                  max_abs_err(r[rows], r_ref))
+        del w_ref, r_ref
+    del wire, r
+    torch.cuda.empty_cache()
+    nbytes = x.numel() * 4 * 4
+    out = dict(half=half, shape=list(shape), max_abs_err=err,
+               ms=cuda_ms(lambda: sf.flat_ef_blocks(x2d, e_k, rnd, low)))
+    del e_k
+    torch.cuda.empty_cache()
+    out.update(plain_ms=cuda_ms(lambda: sf.flat_ef_blocks_plain(
+        x2d, e2d, rnd, low), reps=3, warmup=1),
+        bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+    return out
+
+
+def check_quantize(gen, shape):
+    """Quantize and dequantize kernels vs their plain versions on one
+    stacked leaf's blocks: codes, scales and x̂ bitwise (an all-zero block,
+    and -0 and tiny negative inputs whose codes round to -0, included).
+    ``torch.mul`` of the codes and the scales (type promotion to fp32) is
+    the one PyTorch call that computes x̂."""
+    import torch
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels.ref import (dequantize_blocks_ref,
+                                         quantize_blocks_ref)
+    x = torch.randn(shape, generator=gen, device="cuda") * 0.05
+    flat = x.view(-1)
+    flat[4096:4096 + 256] = 0                      # an all-zero block
+    flat[8192:8192 + 8] = -0.0
+    flat[8200:8200 + 8] = -1e-9                    # codes that round to -0
+    x2d = x.view(-1, qz.BLOCK)
+    q, s = qz.quantize_blocks(x2d)
+    q_ref, s_ref = quantize_blocks_ref(x2d)
+    y = qz.dequantize_blocks(q, s)
+    y_ref = dequantize_blocks_ref(q, s)
+    torch.cuda.synchronize()
+    require(bitwise_equal(q, q_ref), "quantize codes not bitwise")
+    require(bitwise_equal(s, s_ref), "quantize scales not bitwise")
+    require(bitwise_equal(y, y_ref), "dequantize not bitwise")
+    require(not bool((torch.signbit(y) & (y == 0)).any()),
+            "dequantize wrote a -0")
+    lib = torch.mul(q, s)
+    require(bitwise_equal(lib, y_ref), "torch.mul(q, scales) is not x̂")
+    err = dict(quantize=max(max_abs_err(q, q_ref), max_abs_err(s, s_ref)),
+               dequantize=max_abs_err(y, y_ref))
+    del q_ref, s_ref, y_ref, lib, y
+    n, nb = x.numel(), x2d.shape[0]
+    qbytes = n * 4 + n + nb * 4
+    dbytes = n + nb * 4 + n * 4
+    return dict(
+        shape=list(shape), max_abs_err=err,
+        quantize=dict(ms=cuda_ms(lambda: qz.quantize_blocks(x2d)),
+                      plain_ms=cuda_ms(lambda: quantize_blocks_ref(x2d)),
+                      bytes=qbytes, bound_ms=1e3 * qbytes / HBM_BYTES_PER_S,
+                      library_ms=None),
+        dequantize=dict(ms=cuda_ms(lambda: qz.dequantize_blocks(q, s)),
+                        plain_ms=cuda_ms(lambda: dequantize_blocks_ref(q, s)),
+                        bytes=dbytes, bound_ms=1e3 * dbytes / HBM_BYTES_PER_S,
+                        library_ms=cuda_ms(lambda: torch.mul(q, s))))
+
+
+def time_sync_mean(gen, cfg, fs):
+    """CUDA-event times of the sync round's worker mean at full width: the
+    ordered fp32 sum of ``core.comm.worker_mean_`` over the stacked
+    per-leaf params (bf16) and B² (fp32), beside ``Tensor.mean`` on the same
+    trees (what slice 1 took; it rounds differently from the reference at
+    3 and more workers), timed in turns; and ``mean_planes`` over the flat
+    path's two fp32 payload planes."""
+    import torch
+    from repro_torch.core.flatspace import mean_planes
+    from repro_torch.launch.steps import mean_over_workers
+    from repro_torch.tree import tree_map
+    shapes = fs.unpack(torch.empty(fs.batch_shape + (fs.plane_size,),
+                                   device="meta"))
+    trees = [tree_map(lambda m: torch.randn(m.shape, generator=gen,
+                                            device="cuda").to(dt), shapes)
+             for dt in (getattr(torch, cfg.param_dtype), torch.float32)]
+
+    def tensor_mean():
+        tree_map(lambda x: x.copy_(x.mean(dim=0, keepdim=True).expand_as(x)),
+                 trees)
+
+    def ordered_mean():
+        mean_over_workers(trees)
+
+    turns = [cuda_ms(f) for f in (tensor_mean, ordered_mean, ordered_mean,
+                                  tensor_mean)]
+    del trees
+    torch.cuda.empty_cache()
+    planes = [torch.randn(fs.batch_shape + (fs.plane_size,), generator=gen,
+                          device="cuda") for _ in range(2)]
+    ranges = fs.round16_ranges()
+    flat_ms = cuda_ms(lambda: (mean_planes(planes[0], ranges),
+                               mean_planes(planes[1])))
+    return {"per_leaf_ms": turns[1:3], "tensor_mean_ms": [turns[0], turns[3]],
+            "flat_ms": flat_ms}
+
+
+def flat_equals_per_leaf(small, base, fused: bool):
+    """The flat and the per-leaf train steps on the card, kernels on, from
+    the same weights and batches: a local, a sync and a local step (H=2).
+    Params, both B² and both residuals must be bitwise equal after each."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, ShapeConfig
+    from repro_torch.data import SyntheticLM, make_train_batch
+    from repro_torch.launch.steps import build_train_programs
+    from repro_torch.tree import leaves
+    shape = ShapeConfig("eq", seq_len=16, global_batch=4, kind="train")
+    programs = [build_train_programs(small, OptimizerConfig(
+        compression="int8", sync_fused=fused, use_kernels=True, H=2, lr=0.5,
+        warmup_steps=3, flat=flat), n_workers=2, device="cuda")
+        for flat in (False, True)]
+    fs = programs[1].flatspace
+    (pL, sL), (pF, sF) = (p.init_fn(0, base) for p in programs)
+    ds = SyntheticLM(vocab_size=small.vocab_size, seq_len=shape.seq_len,
+                     n_workers=2, seed=0, non_iid=True)
+    for step in range(3):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 make_train_batch(small, shape, ds, step, n_workers=2).items()}
+        kind = "sync_step" if step == 1 else "local_step"
+        pL, sL, _ = getattr(programs[0], kind)(pL, sL, batch)
+        pF, sF, _ = getattr(programs[1], kind)(pF, sF, batch)
+        pairs = [("params", pL, fs.unpack(pF))] + [
+            (k, sL[k], fs.unpack(sF[k], dtype=torch.float32))
+            for k in ("b2_sync", "b2_local", "res_params", "res_b2")]
+        for what, a, b in pairs:
+            require(all(bitwise_equal(x, y) for x, y in
+                        zip(leaves(a), leaves(b))),
+                    f"flat != per-leaf: {what} after step {step} "
+                    f"(fused={fused})")
+    return {"fused": fused, "steps": 3, "bitwise": True}
+
+
 def _busy_us(spans) -> float:
     """Length of the union of [start, end) intervals."""
     busy, end = 0.0, float("-inf")
@@ -215,6 +473,20 @@ def profile_steps(run, top: int = 12):
     return out
 
 
+
+
+def warm_stats(res, batch: int, seq: int) -> dict:
+    """Step times of a train_loop result, step 0 (the warm-up) left out."""
+    warm = list(range(1, len(res.step_s)))
+    local = [1e3 * res.step_s[i] for i in warm if i not in res.sync_steps]
+    sync = [1e3 * res.step_s[i] for i in warm if i in res.sync_steps]
+    return {"step_ms": [1e3 * s for s in res.step_s],
+            "local_step_ms_median": statistics.median(local),
+            "sync_step_ms_median": statistics.median(sync),
+            "tokens_per_s_warm": batch * seq * len(warm)
+            / sum(res.step_s[i] for i in warm)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -230,6 +502,7 @@ def main() -> int:
                                      reduced)
     from repro_torch.kernels import _build
     from repro_torch.kernels import adaalter_update as au
+    from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import sync_fused as sf
     from repro_torch.launch.train import train_loop
     from repro_torch.models.counting import count_params
@@ -238,6 +511,11 @@ def main() -> int:
     # float32 products in full float32 everywhere (the defaults, stated)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    counters = {"adaalter_update": au.launches, "fused_ef": sf.launches,
+                "flat_fused_update": au.flat_launches,
+                "flat_ef": sf.flat_launches,
+                "quantize_blocks": qz.quantize_launches,
+                "dequantize_blocks": qz.dequantize_launches}
 
     # ---- device --------------------------------------------------------- #
     smi = subprocess.run(
@@ -259,19 +537,33 @@ def main() -> int:
           "library": str(_build.library_path().relative_to(root)),
           "sources": [p.name for p in _build.sources()], "ptxas": ptxas})
 
-    # ---- kernels vs plain, at the full-width shapes of the path --------- #
+    # ---- kernels vs plain, at the full-width shapes of the paths -------- #
     cfg = get_arch("biglstm")
     V, P = cfg.vocab_size, cfg.lstm_proj
+    R, batch, seq = 2, 64, 20
     gen = torch.Generator("cuda").manual_seed(0)
-    upd = [check_update(gen, (2, V, P), torch.bfloat16),
-           check_update(gen, (2, P, 4 * cfg.d_model), torch.float32)]
+    upd = [check_update(gen, (R, V, P), torch.bfloat16),
+           check_update(gen, (R, P, 4 * cfg.d_model), torch.float32)]
     torch.cuda.empty_cache()
-    ef = [check_ef(gen, (2, V, P), torch.bfloat16, False),
-          check_ef(gen, (2, V, P), torch.float32, True),
-          check_ef(gen, (2, V), torch.bfloat16, False, timed=False),
-          check_ef(gen, (2, V), torch.float32, True, timed=False)]
+    ef = [check_ef(gen, (R, V, P), torch.bfloat16, False),
+          check_ef(gen, (R, V, P), torch.float32, True),
+          check_ef(gen, (R, V), torch.bfloat16, False, timed=False),
+          check_ef(gen, (R, V), torch.float32, True, timed=False)]
     torch.cuda.empty_cache()
-    emit({"phase": "kernels", "nvidia_smi": smi, "update": upd, "ef": ef})
+    fs = full_plane(cfg, R)
+    flat_upd = check_flat_update(gen, fs)
+    torch.cuda.empty_cache()
+    flat_ef = [check_flat_ef(gen, fs, "params"), check_flat_ef(gen, fs, "b2")]
+    torch.cuda.empty_cache()
+    quant = check_quantize(gen, (R, V, P))
+    torch.cuda.empty_cache()
+    mean = time_sync_mean(gen, cfg, fs)
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "nvidia_smi": smi, "update": upd, "ef": ef,
+          "flat_update": flat_upd, "flat_ef": flat_ef, "quantize": quant,
+          "sync_mean": mean,
+          "plane": {"plane_size": fs.plane_size, "real": fs.n_real,
+                    "slots": fs.n_leaves, "buckets": fs.bucket_ranges()}})
 
     # ---- reduced reference: card + kernels vs CPU + plain versions ------ #
     # lr 2 makes the losses move enough that a wrong update shows: the same
@@ -280,99 +572,145 @@ def main() -> int:
     base = init_lstm(torch.Generator().manual_seed(1), small)
     shape = ShapeConfig("smoke", seq_len=16, global_batch=8, kind="train")
 
-    def reduced_losses(dev, lr):
+    def reduced_losses(dev, lr, **kw):
         oc = OptimizerConfig(compression="int8", use_kernels=True, H=4,
-                             lr=lr, warmup_steps=0)
+                             lr=lr, warmup_steps=0, **kw)
         res = train_loop(small, shape, oc, steps=TRAIN_STEPS, n_workers=2,
                          verbose=False, device=dev, init_params=base)
         require(res.sync_steps == [3, 7],
-                f"reduced run on {dev}: sync steps {res.sync_steps}")
+                f"reduced run {kw} on {dev}: sync steps {res.sync_steps}")
         return res.losses
 
     def max_rel(a, b):
         return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
-    cuda, cpu = reduced_losses("cuda", 2.0), reduced_losses("cpu", 2.0)
-    rel, rtol = max_rel(cuda, cpu), 1e-4
-    rel_wrong = max_rel(reduced_losses("cpu", 2.0 * 1.02), cpu)
-    require(rel <= rtol, f"reduced run: losses differ by {rel} relative")
-    require(rel_wrong > rtol, f"reduced run: an η 2% off moves the losses "
-            f"by only {rel_wrong}, within the tolerance")
-    emit({"phase": "reference", "losses_cuda": cuda, "losses_cpu": cpu,
-          "max_rel_diff": rel, "rtol": rtol,
-          "max_rel_diff_eta_2pct_high": rel_wrong})
+    setups = {"per_leaf": {}, "flat": {"flat": True},
+              "per_leaf_unfused": {"sync_fused": False},
+              "flat_unfused": {"flat": True, "sync_fused": False}}
+    rtol, reference = 1e-4, {}
+    for name, kw in setups.items():
+        cuda, cpu = reduced_losses("cuda", 2.0, **kw), reduced_losses(
+            "cpu", 2.0, **kw)
+        rel = max_rel(cuda, cpu)
+        rel_wrong = max_rel(reduced_losses("cpu", 2.0 * 1.02, **kw), cpu)
+        require(rel <= rtol, f"reduced run {name}: losses differ by {rel} "
+                "relative")
+        require(rel_wrong > rtol, f"reduced run {name}: an η 2% off moves "
+                f"the losses by only {rel_wrong}, within the tolerance")
+        reference[name] = {"losses_cuda": cuda, "losses_cpu": cpu,
+                           "max_rel_diff": rel,
+                           "max_rel_diff_eta_2pct_high": rel_wrong}
+    emit({"phase": "reference", "rtol": rtol, "setups": reference})
+
+    # ---- flat = per-leaf on the card ------------------------------------ #
+    emit({"phase": "flat_eq", "runs": [flat_equals_per_leaf(small, base, f)
+                                       for f in (True, False)]})
 
     # ---- full-width training through train_loop ------------------------- #
-    R, batch, seq = 2, 64, 20
-    oc = OptimizerConfig(name="local_adaalter", lr=0.5, H=4,
-                         warmup_steps=100, compression="int8",
-                         use_kernels=True)
     shape = ShapeConfig("full", seq_len=seq, global_batch=batch, kind="train")
-    torch.cuda.reset_peak_memory_stats()
-    au.launches.reset()
-    sf.launches.reset()
-    res = train_loop(cfg, shape, oc, steps=TRAIN_STEPS, n_workers=R,
-                     log_every=1, device="cuda")
-    launches = {"adaalter_update": au.launches.n, "fused_ef": sf.launches.n}
     n_leaves = 3 + 4 * cfg.n_layers
-    require(res.sync_steps == [3, 7], f"sync steps {res.sync_steps}")
-    require(launches["adaalter_update"] == n_leaves * TRAIN_STEPS,
-            f"update launches {launches}")
-    require(launches["fused_ef"] == 2 * n_leaves * len(res.sync_steps),
-            f"EF launches {launches}")
-    require(all(math.isfinite(v) for v in res.losses), "non-finite loss")
-    require(abs(res.losses[0] - math.log(V)) <= 1.5,
-            f"step-0 loss {res.losses[0]} vs ln V {math.log(V)}")
-    warm = list(range(1, TRAIN_STEPS))
-    local_ms = [1e3 * res.step_s[i] for i in warm if i not in res.sync_steps]
-    sync_ms = [1e3 * res.step_s[i] for i in warm if i in res.sync_steps]
-    emit({"phase": "train", "nvidia_smi": smi, "arch": cfg.name,
-          "params": count_params(cfg), "workers": R, "global_batch": batch,
-          "seq": seq, "steps": TRAIN_STEPS, "losses": res.losses,
-          "sync_steps": res.sync_steps, "launches": launches,
-          "step_ms": [1e3 * s for s in res.step_s],
-          "local_step_ms_median": statistics.median(local_ms),
-          "sync_step_ms_median": statistics.median(sync_ms),
-          "tokens_per_s_warm": batch * seq * len(warm)
-          / sum(res.step_s[i] for i in warm),
-          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "comm_bytes_total": res.comm_bytes_total})
+
+    def train(steps, **kw):
+        """train_loop at full width, every launch count set to 0 just
+        before and read just after."""
+        oc = OptimizerConfig(name="local_adaalter", lr=0.5, H=4,
+                             warmup_steps=100, compression="int8",
+                             use_kernels=True, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        res = train_loop(cfg, shape, oc, steps=steps, n_workers=R,
+                         log_every=1, device="cuda")
+        launches = {k: c.n for k, c in counters.items()}
+        require(res.sync_steps == [3, 7][:steps // 4],
+                f"sync steps {res.sync_steps} ({kw})")
+        require(all(math.isfinite(v) for v in res.losses),
+                f"non-finite loss ({kw})")
+        require(abs(res.losses[0] - math.log(V)) <= 1.5,
+                f"step-0 loss {res.losses[0]} vs ln V {math.log(V)} ({kw})")
+        out = {"nvidia_smi": smi, "arch": cfg.name,
+               "params": count_params(cfg), "workers": R,
+               "global_batch": batch, "seq": seq, "steps": steps,
+               "options": kw, "losses": res.losses,
+               "sync_steps": res.sync_steps, "launches": launches,
+               **warm_stats(res, batch, seq),
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "comm_bytes_total": res.comm_bytes_total}
+        return oc, out, launches
+
+    def expect(launches, **want):
+        full = {k: want.get(k, 0) for k in counters}
+        require(launches == full, f"launches {launches}, expected {full}")
+
+    oc_leaf, leaf, leaf_n = train(TRAIN_STEPS)
+    expect(leaf_n, adaalter_update=n_leaves * TRAIN_STEPS,
+           fused_ef=2 * n_leaves * 2)
+    emit({"phase": "train", **leaf})
+    oc_flat, flat, flat_n = train(TRAIN_STEPS, flat=True)
+    # one update launch a step; one EF launch per payload half per round
+    expect(flat_n, flat_fused_update=TRAIN_STEPS, flat_ef=2 * 2)
+    emit({"phase": "train_flat", **flat})
+    _, unfused, unfused_n = train(4, sync_fused=False)
+    expect(unfused_n, adaalter_update=n_leaves * 4,
+           quantize_blocks=2 * n_leaves, dequantize_blocks=2 * n_leaves)
+    emit({"phase": "train_unfused", **unfused})
+    require(flat["max_memory_allocated_gb"] < 80.0,
+            f"flat run peak {flat['max_memory_allocated_gb']} GB")
 
     # ---- where a full-width step's time goes ---------------------------- #
-    # the same run, 4 steps (3 local, then a sync), under torch.profiler;
+    # each run again, 4 steps (3 local, then a sync), under torch.profiler;
     # step 0 is left out as the warm-up. The profiler slows the host, so
     # the idle share is also given against the unprofiled walls above.
-    prof = profile_steps(lambda: train_loop(
-        cfg, shape, oc, steps=4, n_workers=R, verbose=False, device="cuda"))
-    require([p["step"] for p in prof] == ["train_step 0 local",
-                                          "train_step 1 local",
-                                          "train_step 2 local",
-                                          "train_step 3 sync"]
-            and all(p["launches"] for p in prof),
-            f"the profiler saw steps {[p['step'] for p in prof]} and "
-            f"launches {[p['launches'] for p in prof]}")
-    for p in prof:
-        p["device_idle_share_vs_unprofiled_wall"] = 1.0 - p[
-            "device_busy_ms"] / statistics.median(
-            sync_ms if p["step"].endswith("sync") else local_ms)
-    emit({"phase": "profile", "nvidia_smi": smi, "steps": prof[1:]})
+    profiles = {}
+    for name, oc, walls in (("per_leaf", oc_leaf, leaf),
+                            ("flat", oc_flat, flat)):
+        prof = profile_steps(lambda: train_loop(
+            cfg, shape, oc, steps=4, n_workers=R, verbose=False,
+            device="cuda"))
+        require([p["step"] for p in prof] == ["train_step 0 local",
+                                              "train_step 1 local",
+                                              "train_step 2 local",
+                                              "train_step 3 sync"]
+                and all(p["launches"] for p in prof),
+                f"the profiler saw steps {[p['step'] for p in prof]} and "
+                f"launches {[p['launches'] for p in prof]} ({name})")
+        for p in prof:
+            p["device_idle_share_vs_unprofiled_wall"] = 1.0 - p[
+                "device_busy_ms"] / walls[
+                "sync_step_ms_median" if p["step"].endswith("sync")
+                else "local_step_ms_median"]
+        profiles[name] = prof[1:]
+    emit({"phase": "profile", "nvidia_smi": smi, "steps": profiles["per_leaf"],
+          "flat_steps": profiles["flat"]})
 
-    u, e = upd[0], ef[0]
+    def entry(name, source, replaces, n, err, timed, library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/" + source,
+                "replaces": "src/repro/kernels/" + replaces, "launches": n,
+                "max_abs_err": err, "ms": timed["ms"],
+                "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+                "bound_by": "bytes", "library_ms": library_ms}
+
     emit({"kernels": [
-        {"name": "adaalter_update", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/adaalter_update.cu",
-         "replaces": "src/repro/kernels/adaalter_update.py:55",
-         "launches": launches["adaalter_update"],
-         "max_abs_err": max(x["max_abs_err"] for x in upd),
-         "ms": u["ms"], "plain_ms": u["plain_ms"], "bound_ms": u["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
-        {"name": "fused_ef", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/sync_fused.cu",
-         "replaces": "src/repro/kernels/sync_fused.py:81",
-         "launches": launches["fused_ef"],
-         "max_abs_err": max(x["max_abs_err"] for x in ef),
-         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+        entry("adaalter_update", "adaalter_update.cu", "adaalter_update.py:55",
+              leaf_n["adaalter_update"],
+              max(x["max_abs_err"] for x in upd), upd[0]),
+        entry("fused_ef", "sync_fused.cu", "sync_fused.py:81",
+              leaf_n["fused_ef"], max(x["max_abs_err"] for x in ef), ef[0]),
+        entry("flat_fused_update", "adaalter_update.cu",
+              "adaalter_update.py:137", flat_n["flat_fused_update"],
+              flat_upd["max_abs_err"], flat_upd),
+        entry("flat_ef", "sync_fused.cu", "sync_fused.py:164",
+              flat_n["flat_ef"], max(x["max_abs_err"] for x in flat_ef),
+              flat_ef[0]),
+        entry("quantize_blocks", "quantize.cu", "quantize.py:75",
+              unfused_n["quantize_blocks"], quant["max_abs_err"]["quantize"],
+              quant["quantize"]),
+        entry("dequantize_blocks", "quantize.cu", "quantize.py:96",
+              unfused_n["dequantize_blocks"],
+              quant["max_abs_err"]["dequantize"], quant["dequantize"],
+              quant["dequantize"]["library_ms"]),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

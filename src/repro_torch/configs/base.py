@@ -147,6 +147,12 @@ class OptimizerConfig:
     warmup_steps: int = 600                # paper: 600
     grad_clip: float = 0.0                 # global-norm clip; 0 -> off
     use_kernels: bool = False              # fused CUDA update + EF kernels
+    # flat parameter plane (core/flatspace.py): params and optimizer state
+    # packed into a few aligned fp32 planes at init; a step is one update
+    # launch over the plane and a sync round one EF encode per half and one
+    # mean. Train state bitwise equal to the per-leaf layout under the same
+    # schedule. local_adaalter only; needs eps > 0.
+    flat: bool = False
     # --- flat aliases of the SyncConfig block (read ``cfg.sync`` instead) ---
     sync_policy: str = "fixed_h"
     sync_threshold: float = 0.0
@@ -164,6 +170,15 @@ class OptimizerConfig:
         "compression": "compression", "block": "compression_block",
         "fused": "sync_fused",
     }
+
+    def __post_init__(self):
+        # the zero slot padding of the flat planes stays zero through the
+        # update only because eps > 0 keeps rsqrt(B² + t'·eps²) finite there
+        if self.flat and self.eps <= 0:
+            raise ValueError(
+                "flat mode requires eps > 0: FlatSpace's zero slot padding "
+                "survives the update only because rsqrt(B² + t'·eps²) stays "
+                f"finite on zero pads (got eps={self.eps!r})")
 
     @property
     def sync(self) -> SyncConfig:

@@ -5,6 +5,8 @@ The JAX side is given as nested dicts/lists of NumPy arrays (e.g.
 arrays cross as 16-bit integer views, as the JAX package's checkpoints
 store them, so the port needs neither JAX nor ``ml_dtypes``. Integer
 leaves are the optimizer's step counters, which the port keeps on the host.
+A flat train state (``--flat``: fp32 planes and integer counters, laid out
+by ``core/flatspace.py`` as the JAX package lays them out) crosses as it is.
 """
 from __future__ import annotations
 

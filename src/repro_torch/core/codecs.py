@@ -4,7 +4,8 @@
   bf16   round to bfloat16 — 2 bytes/value, with error feedback;
   int8   per-block int8 + one fp32 scale per ``block`` values — ~3.94x
          less at block=256, with error feedback through the one-pass
-         encode kernel (``kernels/sync_fused.py``).
+         encode kernel (``kernels/sync_fused.py``), or through the
+         quantize/dequantize pair (``kernels/quantize.py``) unfused.
 
 A :class:`WireCodec` is the single source of both the numerics
 (``encode``/``decode``, or the fused ``ef_roundtrip``) and the accounting
@@ -66,16 +67,21 @@ def _bf16_codec() -> WireCodec:
         wire_bytes=lambda n, dtype_bytes=4: float(n * 2))
 
 
-def _unported_quantize(*args):
-    raise NotImplementedError(
-        "the int8 codec's separate encode/decode runs the quantize/"
-        "dequantize kernel pair, which is not ported yet (ROADMAP Queue 2); "
-        "the fused one-pass encode (sync_fused=True) is")
-
-
 def _int8_codec(block: int, use_kernels: bool, fused: bool) -> WireCodec:
-    if not fused:
-        _unported_quantize()
+    # kernel modules are imported inside the closures: accounting callers
+    # (comm.payload_bytes) resolve the codec without touching them
+
+    def encode(x, bnd):
+        from repro_torch.kernels.quantize import quantize
+        return quantize(x, block=block, batch_ndim=min(bnd, x.ndim),
+                        use_kernels=use_kernels)
+
+    def decode(payload, shape, bnd):
+        from repro_torch.kernels.quantize import dequantize
+        q, scales = payload
+        return dequantize(q, scales, shape, block=block,
+                          batch_ndim=min(bnd, len(shape)),
+                          use_kernels=use_kernels)
 
     def ef_roundtrip(x, e, bnd, clamp_nonneg):
         from repro_torch.kernels.sync_fused import (fused_ef_leaf,
@@ -87,17 +93,19 @@ def _int8_codec(block: int, use_kernels: bool, fused: bool) -> WireCodec:
                                    clamp_nonneg=clamp_nonneg)
 
     return WireCodec(
-        name="int8", lossless=False, encode=_unported_quantize,
-        decode=_unported_quantize,
+        name="int8", lossless=False, encode=encode, decode=decode,
         wire_bytes=lambda n, dtype_bytes=4: n * (1.0 + 4.0 / block),
-        ef_roundtrip=ef_roundtrip)
+        ef_roundtrip=ef_roundtrip if fused else None)
 
 
 def get_codec(name, *, block: int = 256, use_kernels: bool = False,
               fused: bool = True) -> WireCodec:
     """Resolve a codec name ('', 'fp32', 'bf16', 'int8') -> WireCodec.
-    ``use_kernels`` routes the int8 encode through the CUDA kernel's
-    wrapper, else through its plain version on any device."""
+    ``use_kernels`` routes the int8 numerics through the CUDA kernels'
+    wrappers, else through their plain versions on any device.
+    ``fused=False`` strips the one-pass ``ef_roundtrip``, so the engine
+    composes the encode from three passes (quantize, dequantize, residual);
+    the two are bitwise identical."""
     if isinstance(name, WireCodec):
         return name
     if name in ("", "fp32"):

@@ -1,10 +1,36 @@
-"""Communication accounting: the bytes each algorithm's sync rounds move.
+"""Communication: the sync mean's arithmetic and the bytes each round moves.
 
 The byte accounting of the JAX package's ``core/comm.py``, copied. Its
 fabric time model is not carried over: its constants describe another
 machine's interconnect.
 """
 from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def worker_mean_(x: torch.Tensor, round16=()) -> torch.Tensor:
+    """Replace every row of ``x``'s leading (worker) axis by the mean over
+    that axis, in place, as the reference's jitted ``jnp.mean`` computes it:
+    the R rows summed in float32 one after another (row 0 + row 1, then
+    + row 2, ...), times ``f32(1/R)``, cast back to ``x``'s dtype. The sum
+    is spelled out as a loop because a reduction kernel may add a short
+    axis in another order. ``round16`` lists ``(start, stop)`` ranges of the
+    last axis whose mean is rounded through bfloat16 (a flat plane's 16-bit
+    slots). Returns ``x``."""
+    workers = x.shape[0]
+    if workers == 1:              # the sum of one row, times f32(1): x
+        return x
+    acc = x[0].float() + x[1]
+    for r in range(2, workers):
+        acc.add_(x[r])
+    acc.mul_(torch.as_tensor(np.float32(1.0) / np.float32(workers),
+                             device=x.device))
+    for start, stop in round16:
+        seg = acc[..., start:stop]
+        seg.copy_(seg.to(torch.bfloat16))
+    return x.copy_(acc.expand_as(x))      # the copy rounds to x's dtype
 
 
 def payload_bytes(n_values: int, dtype_bytes: int = 4, compression="",
@@ -47,9 +73,13 @@ def ef_sync_hbm_bytes(n_values: int, *, fused: bool, dtype_bytes: int = 4,
         + (d * n + 4.0 * n))                 #           write wire, e'
 
 
-def round_collectives(algorithm: str, n_payload_leaves: int) -> int:
-    """Collectives ONE per-leaf sync round issues: one per payload leaf
-    times the algorithm's round multiplier."""
+def round_collectives(algorithm: str, n_payload_leaves: int,
+                      flat: bool = False) -> int:
+    """Collectives ONE sync round issues: the flat plane all-reduces a
+    single packed wire array; the per-leaf path pays one all-reduce per
+    payload leaf times the algorithm's round multiplier."""
+    if flat:
+        return 1
     return max(1, int(n_payload_leaves * sync_round_multiplier(algorithm)))
 
 

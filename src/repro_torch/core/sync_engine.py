@@ -159,6 +159,14 @@ class SyncEngine:
             self.algorithm, n_params, self.H, compression=self.codec,
             block=self.block)
 
+    def round_collectives(self, n_payload_leaves: int, *,
+                          flat: bool = False) -> int:
+        """Collectives ONE sync round issues: one for the flat plane's
+        single wire array, else one per payload leaf times the algorithm's
+        round multiplier."""
+        return comm.round_collectives(self.algorithm, n_payload_leaves,
+                                      flat=flat)
+
     def __repr__(self) -> str:
         return (f"SyncEngine(policy={self.policy.name!r}, "
                 f"codec={self.codec.name!r}, H={self.H}, "

@@ -1,10 +1,11 @@
 """Build the CUDA kernels from ``csrc/`` on first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` has a plain C interface; one ``nvcc`` call compiles
-them all into one shared library under ``build/kernels/`` at the root of
-the checkout (listed in ``.gitignore``). The library's file name carries a
-hash of the sources and the flags, so an edited source is never served a
-stale build.
+Every ``csrc/*.cu`` has a plain C interface (the ``*.cuh`` headers hold
+device code they share). One ``nvcc`` process per source compiles them
+all at once, and one more links the objects into one shared library under
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``).
+The library's file name carries a hash of the sources, the headers and
+the flags, so an edited file is never served a stale build.
 
 Nothing is built or loaded when a module is imported: the CPU tests import
 every module on a machine without ``nvcc``.
@@ -25,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # product and sum as their plain versions do (they also spell it out with
 # __fmul_rn/__fadd_rn). No --use_fast_math: divisions stay IEEE.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -57,9 +58,13 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"repro_torch_kernels-{digest.hexdigest()[:16]}.so"
 
@@ -72,14 +77,27 @@ def build() -> str:
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in sources()]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]     # all compile at once
+    if any(p.returncode for p in procs):
+        raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+    tmp = out.with_name(f"{tag}.tmp.so")
+    link = subprocess.run([_nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                           *map(str, objs)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode:
+        raise RuntimeError(f"nvcc failed to link:\n{link.stdout}")
     os.replace(tmp, out)          # another process may be loading `out`
-    return proc.stdout
+    return "\n".join(logs)
 
 
 def load() -> ctypes.CDLL:

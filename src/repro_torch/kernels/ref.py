@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.tiling import round_through_bf16
+
 #: XLA rewrites ``max|v| / 127.0`` (a division by a constant) into a
 #: multiplication by the float32 reciprocal; the jitted JAX reference, its
 #: kernel in interpret mode and the port all compute the scale this way.
@@ -67,3 +69,29 @@ def fused_ef_blocks_ref(x2d, e2d, *, clamp_nonneg: bool = False,
                          f32(0.0 if clamp_nonneg else F32_MIN, v))
     w = vhat.to(out_dtype or x2d.dtype)
     return w, v - w.float()
+
+
+def flat_fused_update_ref(plane, g_plane, bs_plane, bl_plane, eta, extra,
+                          rnd16):
+    """The flat-plane Local AdaAlter step without the kernel: the same bits
+    the per-leaf ``LocalOptimizer.local_step`` produces, which computes the
+    update in fp32, casts it to the parameter dtype and subtracts there. So
+    16-bit slots (``rnd16``, a bool mask broadcastable to the plane) take
+    ``bf16(x) − bf16(upd)``, not the rounded fp32 difference that the
+    kernel's plain version takes: each mirrors its own per-leaf path."""
+    upd = f32(eta, plane) * g_plane / torch.sqrt(bs_plane + f32(extra, plane))
+    y32 = plane - upd
+    y16 = (plane.to(torch.bfloat16) - upd.to(torch.bfloat16)).float()
+    return torch.where(rnd16, y16, y32), bl_plane + torch.square(g_plane)
+
+
+def flat_ef_blocks_ref(x2d, e2d, rnd, low):
+    """The flat EF sync encode of (nblocks, block) fp32 views: the int8
+    roundtrip with a per-block lower clamp ``low`` and bf16 wire rounding
+    where ``rnd`` > 0 (both (nblocks, 1) fp32). Returns (wire, residual'),
+    both fp32."""
+    v = x2d + e2d
+    q, s = quantize_blocks_ref(v)
+    vhat = torch.maximum(dequantize_blocks_ref(q, s), low)
+    w = torch.where(rnd > 0, round_through_bf16(vhat), vhat)
+    return w, v - w

@@ -6,12 +6,16 @@ The sync round's device-side work, fused into one pass: read (x, e), write
     v = x + e ; (q, s) = quantize(v) ; v̂ = max(q·s, lower)
     wire = v̂ cast to x's dtype ; e' = v − wire
 
-The CUDA kernel is ``csrc/sync_fused.cu``; it replaces the TPU kernel
+The CUDA kernels are in ``csrc/sync_fused.cu``. :func:`fused_ef_leaf` (one
+payload leaf) replaces the TPU kernel
 ``repro/kernels/sync_fused.py:fused_ef_blocks``. Unlike that kernel's
 wrapper it pads nothing: it takes each leaf's (workers, elements per
-worker) geometry and masks the ragged end of every worker's row, and it
-writes the new residual over ``e`` in place (the sync round drops the old
-residual anyway; at full Big LSTM width that saves about 13 GB).
+worker) geometry and masks the ragged end of every worker's row.
+:func:`flat_ef_blocks` (a whole fp32 flat plane, per-block sidecars for
+the lower clamp and the bf16 wire rounding) replaces ``flat_ef_blocks``
+there. Both write the new residual over ``e`` in place (the sync round
+drops the old residual anyway; at full Big LSTM width that saves about
+13 GB).
 """
 from __future__ import annotations
 
@@ -20,8 +24,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import INV_127, fused_ef_blocks_ref
-from repro_torch.kernels.tiling import from_blocks, lead_body, to_blocks
+from repro_torch.kernels.ref import (INV_127, dequantize_blocks_ref,
+                                     flat_ef_blocks_ref, fused_ef_blocks_ref,
+                                     quantize_blocks_ref)
+from repro_torch.kernels.tiling import (from_blocks, lead_body,
+                                        round_through_bf16, tile_rows,
+                                        to_blocks)
 
 BLOCK = 256               # elements per quantization block (one warp x 8)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -94,3 +102,107 @@ def fused_ef_blocks(x2d, e2d, *, clamp_nonneg: bool = False):
         raise ValueError(f"expected a (nblocks, {BLOCK}) view, got "
                          f"{tuple(x2d.shape)}")
     return fused_ef_leaf(x2d, e2d, batch_ndim=1, clamp_nonneg=clamp_nonneg)
+
+
+# --------------------------------------------------------------------------- #
+# flat-plane variant: one launch for a whole payload plane
+# --------------------------------------------------------------------------- #
+#: launches of the flat CUDA kernel (the plain version counts none)
+flat_launches = _build.LaunchCount()
+
+
+def flat_ef_blocks_plain(x2d, e2d, rnd, low):
+    """The flat kernel's arithmetic in plain PyTorch ops
+    (``ref.flat_ef_blocks_ref``), the sidecars tiled over the blocks.
+    Returns (wire, new residual); ``e2d`` is left untouched."""
+    nb = x2d.shape[0]
+    return flat_ef_blocks_ref(x2d, e2d, tile_rows(rnd, nb), tile_rows(low, nb))
+
+
+def flat_ef_blocks(x2d, e2d, rnd, low):
+    """One-pass EF encode of a flat payload viewed as (nblocks, 256) fp32
+    blocks, with per-block fp32 sidecars ``rnd`` (> 0: the wire rounds
+    through bf16) and ``low`` (the lower clamp), each (nblocks, 1) or of
+    one plane row's blocks, which then serve every worker. Returns
+    ``(wire, e2d)``: the fp32 wire, and ``e2d`` itself overwritten with the
+    new residual.
+
+    CPU tensors take :func:`flat_ef_blocks_plain`; CUDA tensors launch the
+    kernel."""
+    if x2d.ndim != 2 or x2d.shape[1] != BLOCK:
+        raise ValueError(f"expected a (nblocks, {BLOCK}) view, got "
+                         f"{tuple(x2d.shape)}")
+    nb = x2d.shape[0]
+    for name, t in (("x2d", x2d), ("e2d", e2d), ("rnd", rnd), ("low", low)):
+        if t.dtype != torch.float32 or t.device != x2d.device:
+            raise TypeError(f"{name} must be float32 on {x2d.device}, got "
+                            f"{t.dtype} on {t.device}")
+    if e2d.shape != x2d.shape:
+        raise ValueError(f"e2d {tuple(e2d.shape)} != x2d {tuple(x2d.shape)}")
+    for name, t in (("rnd", rnd), ("low", low)):
+        if t.ndim != 2 or t.shape[1] != 1 or not t.shape[0] or nb % t.shape[0]:
+            raise ValueError(f"{name} {tuple(t.shape)} does not tile {nb} "
+                             "blocks")
+    if rnd.shape != low.shape:
+        raise ValueError(f"rnd {tuple(rnd.shape)} != low {tuple(low.shape)}")
+    if x2d.device.type == "cpu":
+        w, r = flat_ef_blocks_plain(x2d, e2d, rnd, low)
+        e2d.copy_(r)
+        return w, e2d
+    if x2d.device.type != "cuda":
+        raise ValueError(f"flat_ef_blocks runs on cuda or cpu, not {x2d.device}")
+    for name, t in (("x2d", x2d), ("e2d", e2d), ("rnd", rnd), ("low", low)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    wire = torch.empty_like(x2d)
+    fn = _build.load().flat_ef
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(x2d.data_ptr(), e2d.data_ptr(), wire.data_ptr(),
+                    rnd.data_ptr(), low.data_ptr(), nb, rnd.shape[0], INV_127,
+                    _build.stream_ptr(x2d)), "flat_ef")
+    flat_launches.n += 1
+    return wire, e2d
+
+
+def flat_ef_plane(plane, residual, rnd_blocks, low_blocks, *,
+                  block: int = BLOCK, use_kernels: bool = True,
+                  fused: bool = True):
+    """EF encode of one whole ``(..., M)`` fp32 payload plane, M a multiple
+    of ``block`` (FlatSpace slot alignment guarantees it, so blocks never
+    straddle leaves or workers). ``rnd_blocks``/``low_blocks`` are the
+    (M // block, 1) sidecars of one plane row. ``fused`` runs the one-pass
+    kernel (:func:`flat_ef_blocks`, or its plain version without
+    ``use_kernels``); ``fused=False`` composes the same numerics from the
+    quantize/dequantize pair (``kernels/quantize.py``). Returns
+    ``(wire_plane, residual)``, ``residual`` overwritten with the new one."""
+    shape = plane.shape
+    if shape[-1] % block or residual.shape != shape:
+        raise ValueError(f"plane {tuple(shape)} and residual "
+                         f"{tuple(residual.shape)} must match, rows a "
+                         f"multiple of {block}")
+    x2d = plane.reshape(-1, block)
+    e2d = residual.view(-1, block)
+    if fused and use_kernels:
+        wire, _ = flat_ef_blocks(x2d, e2d, rnd_blocks, low_blocks)
+        return wire.reshape(shape), residual
+    nb = x2d.shape[0]
+    rnd, low = tile_rows(rnd_blocks, nb), tile_rows(low_blocks, nb)
+    if fused:
+        wire, r = flat_ef_blocks_ref(x2d, e2d, rnd, low)
+    else:
+        # three passes over the same blocked view (the generic ef_apply
+        # composition, with its separately materialised v̂)
+        from repro_torch.kernels.quantize import (dequantize_blocks,
+                                                  quantize_blocks)
+        v = x2d + e2d
+        if use_kernels:
+            vhat = dequantize_blocks(*quantize_blocks(v))
+        else:
+            vhat = dequantize_blocks_ref(*quantize_blocks_ref(v))
+        vhat = torch.maximum(vhat, low)
+        wire = torch.where(rnd > 0, round_through_bf16(vhat), vhat)
+        r = v - wire
+    e2d.copy_(r)
+    return wire.reshape(shape), residual

@@ -45,3 +45,26 @@ def from_blocks(y2d: torch.Tensor, shape, batch_ndim: int) -> torch.Tensor:
     ``shape``."""
     lead, body = lead_body(shape, batch_ndim)
     return y2d.reshape(lead, -1)[:, :body].reshape(shape)
+
+
+def tile_rows(side: torch.Tensor, rows: int) -> torch.Tensor:
+    """A (rows, 1) sidecar: ``side`` as given, or the sidecar of one flat
+    plane row repeated over the workers' rows."""
+    if side.shape[0] == rows:
+        return side
+    if not side.shape[0] or rows % side.shape[0]:
+        raise ValueError(f"a sidecar of {side.shape[0]} rows does not tile "
+                         f"{rows} rows")
+    return side.repeat(rows // side.shape[0], 1)
+
+
+def padded_size(n: int, align: int) -> int:
+    """``n`` rounded up to a multiple of ``align`` (elements)."""
+    return n + (-n) % align
+
+
+def round_through_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The nearest-bfloat16 value of float32 ``x`` (round half to even), as
+    float32: how a flat plane, which holds 16-bit leaves in float32, keeps
+    the exact bits a bfloat16 store would have produced."""
+    return x.to(torch.bfloat16).float()

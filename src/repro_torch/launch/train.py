@@ -1,15 +1,17 @@
 """Training driver of the port: Local AdaAlter on the synthetic non-IID stream.
 
 The counterpart of the JAX package's ``launch/train.py`` for the local
-per-leaf path: R workers stacked on one device, the sync round owned by a
-``SyncEngine`` (fixed-H or adaptive schedule, fp32/bf16/int8 wire), and a
-``TrainResult`` with the measured sync schedule and the bytes it moved.
-Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
+paths: R workers stacked on one device, per-leaf or over the flat parameter
+plane (``--flat``), the sync round owned by a ``SyncEngine`` (fixed-H or
+adaptive schedule, fp32/bf16/int8 wire, one-pass or three-pass encode),
+and a ``TrainResult`` with the measured sync schedule and the bytes it
+moved. Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
 
-  python -m repro_torch.launch.train --arch biglstm --use-kernels \\
-      --compress int8 --workers 2 --batch 64 --seq 20 --steps 8
+  python -m repro_torch.launch.train --arch biglstm --optimizer \\
+      local_adaalter --flat --compress int8 --use-kernels --workers 2 \\
+      --batch 64 --seq 20 --steps 8
   python -m repro_torch.launch.train --device cpu --arch biglstm --reduced \\
-      --use-kernels --compress int8 --steps 8
+      --use-kernels --compress int8 --steps 8 [--flat] [--unfused-sync]
 """
 from __future__ import annotations
 
@@ -125,9 +127,6 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
 
 #: flags of the JAX training CLI whose paths are later slices of the port
 _NOT_PORTED = {
-    "flat": "the flat parameter plane (ROADMAP Queue 1: flat plane)",
-    "unfused_sync": "the three-pass sync encode, which needs the quantize "
-                    "kernel pair (ROADMAP Queue 2)",
     "trace": "span tracing (ROADMAP Queue 1: trace/obs)",
     "metrics": "the health-metrics stream (ROADMAP Queue 1: trace/obs)",
     "checkpoint_dir": "checkpoints (ROADMAP Queue 1: checkpoints)",
@@ -171,9 +170,16 @@ def main(argv=None) -> None:
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--iid", action="store_true", help="disable non-IID workers")
     ap.add_argument("--out", default="", help="write the TrainResult JSON here")
-    for flag in ("flat", "unfused_sync"):
-        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                        help="not ported yet: raises")
+    ap.add_argument("--unfused-sync", action="store_true",
+                    help="compose the sync encode from three passes (EF add "
+                         "/ quantize / dequantize + residual) instead of the "
+                         "one-pass kernel; bitwise identical")
+    ap.add_argument("--flat", action="store_true",
+                    help="flat parameter plane (core/flatspace.py): params "
+                         "and optimizer state packed into fp32 planes at "
+                         "init; a step is one update launch and a sync round "
+                         "one EF encode per payload half. Train state bitwise "
+                         "equal to the per-leaf layout's. local_adaalter only")
     for flag in ("trace", "metrics", "checkpoint_dir"):
         ap.add_argument("--" + flag.replace("_", "-"), default="",
                         help="not ported yet: raises")
@@ -192,13 +198,15 @@ def main(argv=None) -> None:
         SyncConfig(policy=args.sync_policy, threshold=args.sync_threshold,
                    h_min=args.h_min, h_max=args.h_max,
                    drift_metric=args.drift_metric,
-                   compression=args.compress),
+                   compression=args.compress, fused=not args.unfused_sync),
         name=args.optimizer, lr=args.lr, H=args.H,
-        warmup_steps=args.warmup, use_kernels=args.use_kernels)
+        warmup_steps=args.warmup, use_kernels=args.use_kernels,
+        flat=args.flat)
     R = max(1, args.workers)
     print(f"training {cfg.name} ({count_params(cfg):,} params) with "
           f"{args.optimizer} H={args.H}"
-          f"{' +' + args.compress + ' sync' if args.compress else ''}, "
+          f"{' +' + args.compress + ' sync' if args.compress else ''}"
+          f"{' (flat plane)' if args.flat else ''}, "
           f"{R} stacked worker(s) on {resolve_device(args.device)}")
     res = train_loop(cfg, shape, opt_cfg, steps=args.steps, seed=args.seed,
                      n_workers=R, non_iid=not args.iid, device=args.device)

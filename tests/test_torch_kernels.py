@@ -235,18 +235,24 @@ def test_importing_builds_nothing():
 
 
 def test_build_is_keyed_by_source_content(tmp_path, monkeypatch):
-    """One library for every source, named by a hash of their contents."""
+    """One library for every source, named by a hash of their contents
+    and of the headers they share."""
     assert [p.name for p in _build.sources()] == ["adaalter_update.cu",
+                                                  "quantize.cu",
                                                   "sync_fused.cu"]
+    assert [p.name for p in _build.headers()] == ["numerics.cuh"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
-    for src in _build.sources():
+    for src in _build.sources() + _build.headers():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert _build.library_path() == path
-    with open(tmp_path / "sync_fused.cu", "a") as f:
-        f.write("\n")
-    assert _build.library_path() != path
+    seen = {path}
+    for name in ("sync_fused.cu", "numerics.cuh"):
+        with open(tmp_path / name, "a") as f:
+            f.write("\n")
+        assert _build.library_path() not in seen
+        seen.add(_build.library_path())
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 

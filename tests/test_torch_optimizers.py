@@ -316,8 +316,9 @@ def test_comm_accounting_matches_jax(algorithm, compression):
                                      compression=compression) \
         == jcomm.sync_bytes_per_step(algorithm, n, H=4,
                                      compression=compression)
-    assert tcomm.round_collectives(algorithm, 11) == \
-        jcomm.round_collectives(algorithm, 11)
+    for flat in (False, True):
+        assert tcomm.round_collectives(algorithm, 11, flat=flat) == \
+            jcomm.round_collectives(algorithm, 11, flat=flat)
     for fused in (True, False):
         assert tcomm.ef_sync_hbm_bytes(n, fused=fused, dtype_bytes=2) == \
             jcomm.ef_sync_hbm_bytes(n, fused=fused, dtype_bytes=2)
@@ -338,7 +339,39 @@ def test_sync_engine_state_round_trips_and_unported_codec_paths_raise():
     other.reset(0)
     other.import_state(st)
     assert other.policy.host_state() == engine.policy.host_state() == (3, 0.1 + 0.1 + 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        get_codec("int8", fused=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        get_codec("int8").encode(torch.zeros(4), 0)
+    assert engine.round_collectives(11) == 22
+    assert engine.round_collectives(11, flat=True) == 1
+    # the unfused int8 codec round-trips through the quantize pair, as the
+    # reference's does, and its one-pass encode is stripped
+    codec = get_codec("int8", fused=False)
+    assert codec.ef_roundtrip is None
+    x = np.random.default_rng(0).standard_normal((2, 700)).astype(np.float32)
+    got = codec.roundtrip(torch.from_numpy(x), 1)
+    from repro.core.codecs import get_codec as jget_codec
+    want = jax.jit(lambda a: jget_codec("int8", fused=False).roundtrip(a, 1))(
+        jnp.asarray(x))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want).view(np.uint32))
+    assert got.shape == (2, 700)
+    assert float((got - torch.from_numpy(x)).abs().max()) <= \
+        float(np.abs(x).max()) / 253
+
+
+@pytest.mark.parametrize("workers", [2, 3, 6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mean_over_workers_bitwise_vs_jax(workers, dtype):
+    """The sync mean is the reference's compiled ``jnp.mean``: an fp32 sum
+    over the workers in order, times f32(1/R), cast back; at R = 3 and 6
+    a plain ``Tensor.mean`` differs on about a third of the elements."""
+    from repro.launch.steps import _mean_over_workers
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    x = np.random.default_rng(workers).standard_normal(
+        (workers, 3, 40_000)).astype(np.float32)
+    xj = jnp.asarray(x).astype(jdt)
+    want = np.asarray(jax.jit(_mean_over_workers)(xj))
+    t = convert.to_torch(np.asarray(xj))
+    got = mean_over_workers({"w": t})["w"]
+    assert got is t                          # written in place
+    bits = np.uint16 if dtype == "bfloat16" else np.uint32
+    np.testing.assert_array_equal(convert.to_numpy(got).view(bits),
+                                  want.view(bits))

@@ -1,8 +1,9 @@
 """The port's training slice against the JAX package's ``train_loop``.
 
 One subprocess drives the reference (``repro.launch.train.train_loop``)
-for reduced Big LSTM on a 2-worker Auto-axis CPU mesh, in three
-configurations, and dumps its results and initial weights. The port starts
+for reduced Big LSTM on a 2-worker Auto-axis CPU mesh, in five
+configurations (per-leaf and flat plane, one-pass and three-pass int8
+encode), and dumps its results and initial weights. The port starts
 from the same weights (``repro_torch.convert``) and trains on the CPU.
 
 What must match:
@@ -43,11 +44,13 @@ THRESHOLD = 0.0025
 SEQ, BATCH, STEPS = 16, 8, 8
 
 RUNS = {
-    # name: (SyncConfig kwargs, use_kernels)
-    "int8_kernels": (dict(compression="int8"), True),
-    "fp32_plain": (dict(), False),
+    # name: (SyncConfig kwargs, use_kernels, flat)
+    "int8_kernels": (dict(compression="int8"), True, False),
+    "fp32_plain": (dict(), False, False),
     "adaptive_bf16": (dict(policy="adaptive", threshold=THRESHOLD,
-                           compression="bf16"), True),
+                           compression="bf16"), True, False),
+    "flat_int8_kernels": (dict(compression="int8"), True, True),
+    "flat_int8_unfused": (dict(compression="int8", fused=False), True, True),
 }
 
 REF_SCRIPT = r"""
@@ -77,10 +80,11 @@ def recording_observe(self, step, synced, metrics=None):
     return observe(self, step, synced, metrics)
 sync_engine.SyncEngine.observe = recording_observe
 res = {}
-for name, (sync_kw, use_pallas) in runs.items():
+for name, (sync_kw, use_pallas, flat) in runs.items():
     drifts.clear()
     oc = OptimizerConfig.from_sync(SyncConfig(**sync_kw), lr=0.5, H=4,
-                                   warmup_steps=0, use_pallas=use_pallas)
+                                   warmup_steps=0, use_pallas=use_pallas,
+                                   flat=flat)
     r = train_loop(cfg, shape, oc, steps=steps, seed=0, mesh=mesh,
                    verbose=False)
     res[name] = dict(losses=r.losses, sync_steps=r.sync_steps,
@@ -143,11 +147,11 @@ def port_runs(reference):
     out = {}
     sync_engine.SyncEngine.observe = recording_observe
     try:
-        for name, (sync_kw, use_kernels) in RUNS.items():
+        for name, (sync_kw, use_kernels, flat) in RUNS.items():
             drifts.clear()
             oc = OptimizerConfig.from_sync(SyncConfig(**sync_kw), lr=0.5,
                                            H=4, warmup_steps=0,
-                                           use_kernels=use_kernels)
+                                           use_kernels=use_kernels, flat=flat)
             res = train_loop(_cfg(), shape, oc, steps=STEPS, seed=0,
                              n_workers=2, verbose=False, device="cpu",
                              init_params=params0)
@@ -191,7 +195,7 @@ def test_adaptive_drift_stream_matches(reference, port_runs):
     assert got.sync_steps == ref["sync_steps"]
 
 
-def test_cli_smoke(tmp_path):
+def _cli_run(tmp_path, *flags):
     out = tmp_path / "r.json"
     env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
            "OMP_NUM_THREADS": "1"}
@@ -199,16 +203,29 @@ def test_cli_smoke(tmp_path):
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--arch", "biglstm", "--reduced", "--use-kernels", "--compress",
          "int8", "--steps", "8", "--batch", "8", "--seq", "16",
-         "--workers", "2", "--out", str(out)],
+         "--workers", "2", "--out", str(out), *flags],
         capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     res = json.loads(out.read_text())
     assert res["sync_steps"] == [3, 7]
     assert all(np.isfinite(res["losses"]))
+    return res
 
 
-@pytest.mark.parametrize("flag", ["--flat", "--unfused-sync",
-                                  "--trace=t.json", "--metrics=m.jsonl",
+def test_cli_smoke(tmp_path):
+    _cli_run(tmp_path)
+
+
+@pytest.mark.parametrize("flags", [["--flat"], ["--flat", "--unfused-sync"]])
+def test_cli_smoke_flat(tmp_path, flags):
+    """The slice-2 flags run (they raised before the flat plane and the
+    quantize pair were ported), with the per-leaf run's losses."""
+    flat = _cli_run(tmp_path, *flags)
+    leaf = _cli_run(tmp_path)
+    np.testing.assert_allclose(flat["losses"], leaf["losses"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("flag", ["--trace=t.json", "--metrics=m.jsonl",
                                   "--checkpoint-dir=ck"])
 def test_cli_refuses_flags_of_later_slices(flag):
     from repro_torch.launch.train import main
