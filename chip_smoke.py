@@ -39,9 +39,22 @@ raises and exits non-zero:
   profile   the per-leaf and the flat run for 4 steps each under
             torch.profiler: per step the device's busy time and idle share
             and its time by kernel
+  reference_ssm  reduced mamba2 in float32 with ssm_pallas: logits_fn on
+            the card through the SSD kernel against the CPU through its plain
+            version, prefill and 8 decode steps card against CPU, and on the
+            card decode by the recurrence against the kernel forward,
+            position by position (all to rtol 1e-4, atol 1e-5)
+  score     full-width mamba2-370m (419,714,560 parameters, bf16,
+            ssm_pallas): logits_fn and loss_fn over 8 x 2048 tokens, 3 times,
+            48 SSD launches a forward; one warm forward under torch.profiler
+  serve     full-width serve_session: batch 8, prompt 512, 32 new tokens;
+            prefill and decode take the chunked and recurrent paths, so no
+            SSD launch
 
-then the kernels summary line, the nvidia-smi line, and the last line
-{"ok": true, "device": {...}}.
+The kernels phase also holds the SSD chunk-scan kernel against its plain
+version at the scoring shape (fp32 and bf16 inputs) and at a 32k-token
+sequence. Then the script's wall, the kernels summary line, the nvidia-smi
+line, and the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -55,7 +68,10 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 TRAIN_STEPS = 8
+SSD_TOL = 1e-4                 # SSD kernel vs plain, fp32 and bf16 inputs
+MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5   # reduced mamba2 in float32
 
 
 def emit(obj) -> None:
@@ -437,7 +453,20 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def profile_steps(run, top: int = 12):
+def kernel_summary(kernels, top: int = 12) -> dict:
+    """Device busy ms (the union of the kernels' [start, end) intervals, in
+    µs from the profiler), launches and device ms by kernel name."""
+    by_name = {}
+    for k0, k1, name in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (k1 - k0) / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return {"device_busy_ms": _busy_us((k0, k1) for k0, k1, _ in kernels) / 1e3,
+            "launches": len(kernels),
+            "device_ms_by_kernel": {k[:100]: v for k, v in ranked[:top]},
+            "device_ms_other_kernels": sum(v for _, v in ranked[top:])}
+
+
+def profile_steps(run):
     """``run()`` (a train_loop call) under ``torch.profiler``. For each
     ``train_step`` span that train_loop records: its host wall, the device's
     busy time (the union of the kernels launched in it — train_loop
@@ -458,21 +487,276 @@ def profile_steps(run, top: int = 12):
     out = []
     for s in steps:
         a, b = s.time_range.start, s.time_range.end
-        mine = [k for k in kernels if a <= k[0] < b]
-        by_name = {}
-        for k0, k1, name in mine:
-            by_name[name] = by_name.get(name, 0.0) + (k1 - k0) / 1e3
-        busy = _busy_us((k0, k1) for k0, k1, _ in mine)
-        ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+        summary = kernel_summary([k for k in kernels if a <= k[0] < b])
         out.append({"step": s.name, "wall_ms": (b - a) / 1e3,
-                    "device_busy_ms": busy / 1e3,
-                    "device_idle_share": 1.0 - busy / (b - a),
-                    "launches": len(mine),
-                    "device_ms_by_kernel": {k[:100]: v for k, v in ranked[:top]},
-                    "device_ms_other_kernels": sum(v for _, v in ranked[top:])})
+                    "device_idle_share": 1.0 - summary["device_busy_ms"]
+                    / ((b - a) / 1e3), **summary})
     return out
 
 
+def ssd_bound(b, nz, c, nh, hd, n, in_bytes):
+    """The least time of one SSD chunk scan on the card: bytes (x̄, B, C in
+    the input dtype and dA fp32 read once, y fp32 written once) over the
+    HBM rate, and the least work (C·Bᵀ once per (batch, chunk) and M·x̄ over
+    the lower triangle only, C·S and the state update per head, one FMA = 2
+    operations) over the fp32 rate outside the tensor cores; the larger."""
+    tri = c * (c + 1) // 2
+    nbytes = (b * nz * c * (nh * hd + 2 * n) * in_bytes + b * nz * c * nh * 4
+              + b * nz * c * nh * hd * 4)
+    ops = 2 * b * nz * (tri * n + nh * (tri * hd + 2 * c * n * hd))
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_FLOP_PER_S
+    return dict(bytes=nbytes, operations=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_ssd(gen, dims, dtype, timed=True):
+    """SSD chunk-scan kernel vs its plain version on the card, inputs drawn
+    as the reference's kernel test draws them. Both read the same values
+    (bf16 widens exactly to fp32) and sum in fp32, so bf16 inputs are held
+    to the same 1e-4 as fp32 ones (the reference's 3e-2 for bf16 could not
+    see the decay); the check must reject a plain run with dA 2% off."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_ref
+    b, nz, c, nh, hd, n = dims
+    x = (torch.randn((b, nz, c, nh, hd), generator=gen, device="cuda")
+         * 0.2).to(dtype)
+    Bm = (torch.randn((b, nz, c, n), generator=gen, device="cuda")
+          * 0.3).to(dtype)
+    Cm = (torch.randn((b, nz, c, n), generator=gen, device="cuda")
+          * 0.3).to(dtype)
+    dA = -torch.randn((b, nz, c, nh), generator=gen, device="cuda").abs() * 0.1
+    y = ssd.ssd_scan(x, Bm, Cm, dA)
+    y_ref = ssd_ref(x, Bm, Cm, dA)
+    torch.cuda.synchronize()
+    err = max_abs_err(y, y_ref)
+    require(bool(torch.isfinite(y).all()), f"SSD kernel wrote a non-finite "
+            f"value ({dims}, {dtype})")
+    require(torch.allclose(y, y_ref, rtol=SSD_TOL, atol=SSD_TOL),
+            f"SSD kernel off its plain version ({dims}, {dtype}, max {err})")
+    y_bad = ssd_ref(x, Bm, Cm, dA * 1.02)
+    require(not torch.allclose(y_bad, y_ref, rtol=SSD_TOL, atol=SSD_TOL),
+            f"the SSD check accepts a decay 2% off ({dims}, {dtype})")
+    del y_bad, y_ref, y
+    out = dict(dtype=str(dtype).replace("torch.", ""), shape=list(dims),
+               max_abs_err=err, rejects_dA_2pct_off=True,
+               blocks=b * nh, smem_bytes_per_block=ssd.smem_bytes(c, n, hd),
+               **ssd_bound(b, nz, c, nh, hd, n, x.element_size()))
+    if timed:
+        out.update(ms=cuda_ms(lambda: ssd.ssd_scan(x, Bm, Cm, dA)),
+                   plain_ms=cuda_ms(lambda: ssd_ref(x, Bm, Cm, dA), reps=5,
+                                    warmup=1))
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_call(fn, unprofiled_ms: float) -> dict:
+    """``fn()`` under ``torch.profiler``: the device's busy time (the union of
+    its kernels' intervals), its idle share against the unprofiled wall, the
+    launches and the device time by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("window"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = next(e for e in events if e.name == "window"
+                  and e.device_type == torch.autograd.DeviceType.CPU)
+    summary = kernel_summary(
+        [(e.time_range.start, e.time_range.end, e.name) for e in events
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.name != "window"])
+    return {"wall_ms_profiled": (window.time_range.end
+                                 - window.time_range.start) / 1e3,
+            "wall_ms_unprofiled": unprofiled_ms,
+            "device_idle_share_vs_unprofiled_wall":
+                1.0 - summary["device_busy_ms"] / unprofiled_ms, **summary}
+
+
+def reference_ssm(counter) -> dict:
+    """Reduced mamba2 in float32 with ssm_pallas: the card through the SSD
+    kernel against the CPU through its plain version, same weights."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(reduced(get_arch("mamba2-370m")),
+                              param_dtype="float32", ssm_pallas=True)
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(3))
+    card = tree_map(lambda t: t.cuda(), cpu)
+    B, L, n_dec = 4, 71, 8                 # 71: padded to the 16-token chunk
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=L + n_dec,
+                        seed=1).worker_batch(0, 0, B)
+    tokens = torch.from_numpy(batch["tokens"])
+
+    def close(a, b, what):
+        a, b = a.float().cpu(), b.float().cpu()
+        err = max_abs_err(a, b)
+        require(torch.allclose(a, b, rtol=MODEL_RTOL, atol=MODEL_ATOL),
+                f"reduced mamba2: {what} differs (max abs {err})")
+        return err
+
+    out = {"arch": cfg.name, "batch": B, "seq": L, "rtol": MODEL_RTOL,
+           "atol": MODEL_ATOL}
+    with torch.inference_mode():
+        counter.reset()
+        lg_card = model.logits_fn(card, {"tokens": tokens[:, :L].cuda()})
+        torch.cuda.synchronize()
+        require(counter.n == cfg.n_layers, f"reduced forward launched the SSD "
+                f"kernel {counter.n} times, want {cfg.n_layers}")
+        out["ssd_launches_per_forward"] = counter.n
+        lg_cpu = model.logits_fn(cpu, {"tokens": tokens[:, :L]})
+        out["logits_max_abs_err"] = close(lg_card, lg_cpu, "logits_fn")
+
+        # prefill, then decode n_dec tokens teacher-forced, card vs CPU
+        errs = []
+        runs = []
+        for params, dev in ((card, "cuda"), (cpu, "cpu")):
+            pl, cache = model.prefill(params, {"tokens": tokens[:, :L].to(dev)})
+            steps = [pl]
+            for t in range(n_dec):
+                lg, cache = model.decode_step(
+                    params, cache, tokens[:, L + t:L + t + 1].to(dev),
+                    torch.full((B,), L + t, dtype=torch.int32, device=dev))
+                steps.append(lg)
+            runs.append((steps, leaves(cache)))
+        for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0])):
+            errs.append(close(a, b, f"prefill/decode step {i} logits"))
+        for a, b in zip(runs[0][1], runs[1][1]):
+            errs.append(close(a, b, "decode cache"))
+        out["prefill_decode_max_abs_err"] = max(errs)
+
+        # on the card: the recurrence from a zero cache vs the kernel forward
+        cache = model.init_cache(B, L, device="cuda")
+        dec = []
+        for t in range(L):
+            lg, cache = model.decode_step(
+                card, cache, tokens[:, t:t + 1].cuda(),
+                torch.full((B,), t, dtype=torch.int32, device="cuda"))
+            dec.append(lg[:, 0])
+        out["decode_vs_kernel_forward_max_abs_err"] = close(
+            torch.stack(dec, dim=1), lg_card, "decode by the recurrence vs "
+            "the kernel forward")
+    return out
+
+
+def score_mamba2(cfg, params, counters, *, batch, seq, reps=3):
+    """logits_fn and loss_fn of ``cfg`` (ssm_pallas) over batch x seq tokens
+    of the synthetic stream, ``reps`` times each, under inference mode, with
+    every launch count set to 0 just before and read just after; then one
+    warm forward under torch.profiler. Returns (report, launches)."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import build_model
+    from repro_torch.models.counting import count_params
+    model = build_model(cfg)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                       seed=0).worker_batch(0, 0, batch)
+    sb = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms, loss_ms, losses = [], [], []
+    with torch.inference_mode():
+        for c in counters.values():
+            c.reset()
+        for _ in range(reps):
+            n0 = ssd.launches.n
+            t0 = time.perf_counter()
+            logits = model.logits_fn(params, {"tokens": sb["tokens"]})
+            torch.cuda.synchronize()
+            fwd_ms.append(1e3 * (time.perf_counter() - t0))
+            require(ssd.launches.n - n0 == cfg.n_layers,
+                    f"a forward launched the SSD kernel "
+                    f"{ssd.launches.n - n0} times, want {cfg.n_layers}")
+            require(tuple(logits.shape) == (batch, seq, cfg.vocab_size)
+                    and bool(torch.isfinite(logits).all()),
+                    f"logits {tuple(logits.shape)} not finite")
+            del logits
+            t0 = time.perf_counter()
+            loss, _ = model.loss_fn(params, sb)
+            losses.append(float(loss))                 # synchronises
+            loss_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = {k: c.n for k, c in counters.items()}
+    require(all(abs(x - math.log(cfg.vocab_size)) <= 1.5 for x in losses),
+            f"initial xent {losses} vs ln V {math.log(cfg.vocab_size)}")
+    fwd_med = statistics.median(fwd_ms)
+    out = {"arch": cfg.name, "params": count_params(cfg), "batch": batch,
+           "seq": seq, "dtype": cfg.param_dtype, "launches": launches,
+           "forward_ms": fwd_ms, "forward_ms_median": fwd_med,
+           "loss_fn_ms": loss_ms, "xent": losses,
+           "tokens_per_s": batch * seq / (fwd_med / 1e3),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    require(out["max_memory_allocated_gb"] < 80.0,
+            f"scoring peak {out['max_memory_allocated_gb']} GB")
+    with torch.inference_mode():
+        out["profile"] = profile_call(
+            lambda: model.logits_fn(params, {"tokens": sb["tokens"]}), fwd_med)
+    return out, launches
+
+
+def serve_mamba2(cfg, params, counters, *, batch, prompt, new, k=64):
+    """serve_session on the card with every launch count set to 0 just
+    before and read just after: prefill takes the chunked SSD (it needs the
+    last state) and decode the recurrence, as in the JAX package, so the SSD
+    kernel is not launched. Also reported, not required: the decode logits
+    over the first ``k`` prompt positions against the kernel forward's.
+    Returns (report, launches)."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import build_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    stats = {}
+    gen, tps = serve_session(cfg, batch=batch, prompt_len=prompt,
+                             new_tokens=new, seed=0, device="cuda",
+                             params=params, verbose=False, stats=stats)
+    launches = {name: c.n for name, c in counters.items()}
+    require(gen.shape == (batch, new)
+            and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+            f"generated tokens {gen.shape} outside the vocabulary")
+    require(stats["logits_finite"], "serving produced a non-finite logit")
+    out = {"arch": cfg.name, "batch": batch, "prompt_len": prompt,
+           "new_tokens": new, "launches": launches,
+           "prefill_ms": 1e3 * stats["prefill_s"],
+           "decode_steps": stats["decode_steps"],
+           "decode_ms_per_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
+           "tokens_per_s": tps,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "sample": gen[0, :8].tolist()}
+    model = build_model(cfg)
+    prompts = torch.from_numpy(SyntheticLM(
+        vocab_size=cfg.vocab_size, seq_len=prompt, seed=0).worker_batch(
+            0, 0, batch)["tokens"][:, :k]).cuda()
+    with torch.inference_mode():
+        fwd = model.logits_fn(params, {"tokens": prompts}).float()
+        cache = model.init_cache(batch, k, device="cuda")
+        diffs = []
+        for t in range(k):
+            lg, cache = model.decode_step(
+                params, cache, prompts[:, t:t + 1],
+                torch.full((batch,), t, dtype=torch.int32, device="cuda"))
+            diffs.append((lg[:, 0].float() - fwd[:, t]).abs())
+        diffs = torch.stack(diffs)
+        # where a decode step's time goes: one more step, profiled
+        out["decode_step_profile"] = profile_call(
+            lambda: model.decode_step(
+                params, cache, prompts[:, :1],
+                torch.full((batch,), k, dtype=torch.int32, device="cuda")),
+            out["decode_ms_per_step"])
+    out[f"decode_vs_kernel_forward_first_{k}"] = {
+        "max_abs_diff": float(diffs.max()), "mean_abs_diff": float(diffs.mean()),
+        "logit_max_abs": float(fwd.abs().max()),
+        "logit_mean_abs": float(fwd.abs().mean())}
+    return out, launches
 
 
 def warm_stats(res, batch: int, seq: int) -> dict:
@@ -488,6 +772,7 @@ def warm_stats(res, batch: int, seq: int) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -503,8 +788,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import adaalter_update as au
     from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import sync_fused as sf
     from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
     from repro_torch.models.counting import count_params
     from repro_torch.models.lstm import init_lstm
 
@@ -515,7 +802,8 @@ def main() -> int:
                 "flat_fused_update": au.flat_launches,
                 "flat_ef": sf.flat_launches,
                 "quantize_blocks": qz.quantize_launches,
-                "dequantize_blocks": qz.dequantize_launches}
+                "dequantize_blocks": qz.dequantize_launches,
+                "ssd_scan": ssd.launches}
 
     # ---- device --------------------------------------------------------- #
     smi = subprocess.run(
@@ -532,7 +820,7 @@ def main() -> int:
     log = _build.build()
     _build.load()
     ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "entry function" in ln or "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(_build.library_path().relative_to(root)),
           "sources": [p.name for p in _build.sources()], "ptxas": ptxas})
@@ -559,9 +847,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     mean = time_sync_mean(gen, cfg, fs)
     torch.cuda.empty_cache()
+    # the SSD chunk scan at the mamba2-370m scoring shape (8 x 2048 tokens:
+    # 32 chunks of 64, 32 heads of 64, state 128) and at a 32k-token
+    # sequence (512 chunks, 32 blocks on the card)
+    m2 = get_arch("mamba2-370m")
+    score_dims = (8, 2048 // m2.ssm_chunk, m2.ssm_chunk, m2.n_ssm_heads,
+                  m2.ssm_head_dim, m2.ssm_state)
+    long_dims = (1, 32768 // m2.ssm_chunk) + score_dims[2:]
+    ssd_checks = [check_ssd(gen, score_dims, torch.float32),
+                  check_ssd(gen, score_dims, torch.bfloat16),
+                  check_ssd(gen, long_dims, torch.float32)]
     emit({"phase": "kernels", "nvidia_smi": smi, "update": upd, "ef": ef,
           "flat_update": flat_upd, "flat_ef": flat_ef, "quantize": quant,
-          "sync_mean": mean,
+          "sync_mean": mean, "ssd": ssd_checks,
           "plane": {"plane_size": fs.plane_size, "real": fs.n_real,
                     "slots": fs.n_leaves, "buckets": fs.bucket_ranges()}})
 
@@ -683,6 +981,22 @@ def main() -> int:
         profiles[name] = prof[1:]
     emit({"phase": "profile", "nvidia_smi": smi, "steps": profiles["per_leaf"],
           "flat_steps": profiles["flat"]})
+    torch.cuda.empty_cache()
+
+    # ---- mamba2: reduced card vs CPU, then full-width scoring and serving #
+    emit({"phase": "reference_ssm", **reference_ssm(ssd.launches)})
+
+    m2 = dataclasses.replace(m2, ssm_pallas=True)
+    params = build_model(m2).init(torch.Generator("cuda").manual_seed(0))
+    score, score_n = score_mamba2(m2, params, counters, batch=8, seq=2048)
+    expect(score_n, ssd_scan=2 * 3 * m2.n_layers)
+    emit({"phase": "score", "nvidia_smi": smi, **score})
+    serve, serve_n = serve_mamba2(m2, params, counters, batch=8, prompt=512,
+                                  new=32)
+    expect(serve_n)
+    emit({"phase": "serve", "nvidia_smi": smi, **serve})
+    del params
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
 
     def entry(name, source, replaces, n, err, timed, library_ms=None):
         return {"name": name, "route": "cuda",
@@ -690,7 +1004,8 @@ def main() -> int:
                 "replaces": "src/repro/kernels/" + replaces, "launches": n,
                 "max_abs_err": err, "ms": timed["ms"],
                 "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-                "bound_by": "bytes", "library_ms": library_ms}
+                "bound_by": timed.get("bound_by", "bytes"),
+                "library_ms": library_ms}
 
     emit({"kernels": [
         entry("adaalter_update", "adaalter_update.cu", "adaalter_update.py:55",
@@ -711,6 +1026,10 @@ def main() -> int:
               unfused_n["dequantize_blocks"],
               quant["max_abs_err"]["dequantize"], quant["dequantize"],
               quant["dequantize"]["library_ms"]),
+        # no single PyTorch call computes the SSD chunk scan
+        entry("ssd_scan", "ssd_scan.cu", "ssd_scan.py:88",
+              score_n["ssd_scan"], max(x["max_abs_err"] for x in ssd_checks),
+              ssd_checks[0]),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,21 @@
-"""Architecture registry of the port.
+"""Architecture and shape registry of the port.
 
-``get_arch(name)`` returns a ported architecture's full config and
-``reduced(cfg)`` its smoke-test variant. Only the paper's Big LSTM is
-ported so far; the JAX package's other architectures raise.
+``get_arch(name)`` returns a ported architecture's full config,
+``get_shape(name)`` one of the four assigned input shapes and
+``reduced(cfg)`` a smoke-test variant. The paper's Big LSTM and mamba2-370m
+are ported so far; the JAX package's other architectures raise.
 """
-from repro_torch.configs import biglstm
+from repro_torch.configs import biglstm, mamba2_370m
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
                                       ShapeConfig, SyncConfig, reduced)
+from repro_torch.configs.shapes import SHAPES, get_shape
 
 #: architectures the port can build.
-ARCHS = {biglstm.CONFIG.name: biglstm.CONFIG}
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (mamba2_370m, biglstm)}
 
 #: the JAX package's architectures that the port does not build yet.
 NOT_PORTED = (
-    "llama4-maverick-400b-a17b", "mamba2-370m", "seamless-m4t-large-v2",
+    "llama4-maverick-400b-a17b", "seamless-m4t-large-v2",
     "qwen2-7b", "llama3-405b", "minitron-4b", "phi4-mini-3.8b",
     "llama-3.2-vision-11b", "hymba-1.5b", "phi3.5-moe-42b-a6.6b",
 )
@@ -24,10 +26,11 @@ def get_arch(name: str) -> ModelConfig:
         return ARCHS[name]
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet (ROADMAP Queue 1: "
-            "transformer families, SSM); ported: " f"{sorted(ARCHS)}")
+            f"arch {name!r} is not ported to PyTorch yet (ROADMAP Queue 1 "
+            "item 10: transformer families; hymba after them); ported: "
+            f"{sorted(ARCHS)}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
 
 
-__all__ = ["ARCHS", "ModelConfig", "OptimizerConfig", "ShapeConfig",
-           "SyncConfig", "get_arch", "reduced"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "OptimizerConfig",
+           "ShapeConfig", "SyncConfig", "get_arch", "get_shape", "reduced"]

@@ -87,8 +87,16 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.n_encoder_layers > 0
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
     def param_count(self) -> int:
-        """Analytic parameter count (exact for the port's LSTM)."""
+        """Analytic parameter count (exact for the port's LSTM and SSM)."""
         from repro_torch.models.counting import count_params
         return count_params(self)
 
@@ -101,6 +109,10 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                              # 'train' | 'prefill' | 'decode'
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
 
 
 @dataclasses.dataclass(frozen=True)

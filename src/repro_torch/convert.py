@@ -1,6 +1,7 @@
-"""Weights and optimizer state carried between the JAX package and the port.
+"""Weights, optimizer state and decode caches carried between the JAX
+package and the port.
 
-The JAX side is given as nested dicts/lists of NumPy arrays (e.g.
+The JAX side is given as nested dicts/lists/tuples of NumPy arrays (e.g.
 ``jax.tree_util.tree_map(np.asarray, (params, opt_state))``). bfloat16
 arrays cross as 16-bit integer views, as the JAX package's checkpoints
 store them, so the port needs neither JAX nor ``ml_dtypes``. Integer

@@ -95,3 +95,42 @@ def flat_ef_blocks_ref(x2d, e2d, rnd, low):
     vhat = torch.maximum(dequantize_blocks_ref(q, s), low)
     w = torch.where(rnd > 0, round_through_bf16(vhat), vhat)
     return w, v - w
+
+
+def ssd_chunked(xbar, Bm, Cm, dA):
+    """The chunked Mamba-2 SSD in plain PyTorch, all in float32: within a
+    chunk the dual (attention-like) form, its upper triangle set to −inf
+    before ``exp``; across chunks the state carried by a loop.
+
+    xbar: (B, NZ, c, NH, hd) dt-scaled inputs; Bm/Cm: (B, NZ, c, N);
+    dA: (B, NZ, c, NH), dt·A. Returns (y (B, NZ, c, NH, hd) without the
+    D-skip term, S_last (B, NH, N, hd), the state after the last chunk)."""
+    b, nz, c, nh, hd = xbar.shape
+    xbar, Bm, Cm = xbar.float(), Bm.float(), Cm.float()
+    cum = torch.cumsum(dA.float(), dim=2)                          # (B,nz,c,nh)
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=xbar.device))
+    CB = torch.einsum("bzln,bzsn->bzls", Cm, Bm)                   # (B,nz,c,c)
+    logdecay = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,nz,l,s,nh)
+    logdecay = torch.where(tri[None, None, :, :, None], logdecay,
+                           f32(float("-inf"), logdecay))
+    M = CB[..., None] * torch.exp(logdecay)
+    y = torch.einsum("bzlsh,bzshp->bzlhp", M, xbar)
+    seg = torch.exp(cum[:, :, -1:, :] - cum)                       # decay to chunk end
+    chunk_states = torch.einsum("bzsn,bzsh,bzshp->bzhnp", Bm, seg, xbar)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                      # (B,nz,nh)
+    S = torch.zeros((b, nh, Bm.shape[-1], hd), dtype=torch.float32,
+                    device=xbar.device)
+    S_before = []
+    for z in range(nz):                                            # lax.scan
+        S_before.append(S)
+        S = S * chunk_decay[:, z, :, None, None] + chunk_states[:, z]
+    S_before = torch.stack(S_before, dim=1)                        # (B,nz,nh,N,hd)
+    y = y + torch.einsum("bzln,bzlh,bzhnp->bzlhp", Cm, torch.exp(cum),
+                         S_before)
+    return y, S
+
+
+def ssd_ref(xbar, Bm, Cm, dA):
+    """Plain version of the SSD chunk-scan kernel: y (B, NZ, c, NH, hd)
+    float32, without the D-skip term (see :func:`ssd_chunked`)."""
+    return ssd_chunked(xbar, Bm, Cm, dA)[0]

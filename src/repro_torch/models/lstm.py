@@ -10,15 +10,7 @@ from __future__ import annotations
 
 import torch
 
-
-def init_dense(gen: torch.Generator, d_in: int, d_out: int, scale=None,
-               dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """N(0, scale²) weights of shape (d_in, d_out), scale 1/sqrt(d_in) by
-    default, drawn in float32 and cast."""
-    scale = (1.0 / d_in) ** 0.5 if scale is None else scale
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=device)
-    return (w * scale).to(dtype)
+from repro_torch.models.layers import init_dense
 
 
 def init_lstm(gen: torch.Generator, cfg, dtype=torch.float32, device="cpu"):

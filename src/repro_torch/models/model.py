@@ -1,0 +1,134 @@
+"""Unified model API: ``build_model(cfg)`` -> init / loss_fn / prefill / decode.
+
+The JAX package's ``models/model.py`` for the decoder-only families the port
+builds: the SSM stack (mamba2). The encoder-decoder and cross-attention
+branches and the fused cross-entropy come with the transformer families
+(ROADMAP Queue 1 item 10); the Big LSTM is trained through
+``models/lstm.py`` directly. Parameters, batches and caches are nested
+dicts, lists and tuples of tensors laid out like the JAX pytrees; every
+function runs on the device its inputs lie on.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import init_dense, rms_norm
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean token cross-entropy in fp32. logits: (B,S,V), labels: (B,S)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: Any
+    init: Callable[..., Dict]            # (gen: torch.Generator) -> params
+    loss_fn: Callable[..., Any]          # (params, batch, rng=None) -> (loss, metrics)
+    logits_fn: Callable[..., Any]        # (params, batch) -> logits
+    prefill: Callable[..., Any]          # (params, batch) -> (logits, cache)
+    decode_step: Callable[..., Any]      # (params, cache, token, pos) -> (logits, cache)
+    init_cache: Callable[..., Any]       # (batch_size, cache_len, ...) -> cache
+
+
+def _build_transformer(cfg) -> Model:
+    if cfg.is_encdec or cfg.cross_attn_every or cfg.fused_xent:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder, cross-attention and fused "
+            "cross-entropy branches are not ported to PyTorch yet (ROADMAP "
+            "Queue 1 item 10)")
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def init(gen: torch.Generator):
+        """Fresh parameters on ``gen``'s device, the JAX package's
+        initialisation distribution drawn from ``gen`` (the two frameworks'
+        generators give other numbers; tests carry weights across with
+        ``repro_torch.convert``)."""
+        dev = gen.device
+        embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                            dtype=torch.float32, device=dev)
+        params = {
+            "embed": (embed * 0.02).to(dtype),
+            "blocks": tfm.init_stack(gen, cfg, dtype, dev),
+            "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+        }
+        del embed
+        if not cfg.tie_embeddings:
+            params["lm_head"] = init_dense(gen, cfg.d_model, cfg.vocab_size,
+                                           scale=0.02, dtype=dtype, device=dev)
+        return params
+
+    def _trunk(params, batch, *, collect_cache=False):
+        tokens = batch["tokens"]
+        x = params["embed"][tokens.long()].to(dtype)
+        x, aux, caches = tfm.apply_stack(params["blocks"], cfg, x,
+                                         collect_cache=collect_cache)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x, aux, caches
+
+    def _head(params, x):
+        w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+        return x @ w
+
+    def logits_fn(params, batch):
+        x, _, _ = _trunk(params, batch)
+        return _head(params, x)
+
+    def loss_fn(params, batch, rng=None):
+        x, aux, _ = _trunk(params, batch)
+        logits = _head(params, x)
+        loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
+        return loss + aux, {"xent": loss, "aux": aux}
+
+    def prefill(params, batch, *, window: int = 0):
+        """``window`` serves the attention families (0 for the SSM)."""
+        x, _, caches = _trunk(params, batch, collect_cache=True)
+        logits = _head(params, x[:, -1:])
+        return logits, caches
+
+    def init_cache(batch_size: int, cache_len: int, *, windowed: bool = False,
+                   cross_len: int = 0, device="cpu"):
+        """Zero-initialized stacked decode cache: for each kind of the group,
+        ``{"ssm": (S (g,B,nh,N,hd) fp32, conv_tail (g,B,W-1,C))}``."""
+        kinds = tfm.group_kinds(cfg)
+        g = cfg.n_layers // len(kinds)
+        entries = []
+        for _ in kinds:                  # every kind is "ssm" (build_model)
+            s, ct = ssm_mod.init_ssm_state(cfg, batch_size, dtype, device)
+            entries.append({"ssm": (s.new_zeros((g,) + s.shape),
+                                    ct.new_zeros((g,) + ct.shape))})
+        return entries
+
+    def decode_step(params, caches, token, pos, *, window: int = 0):
+        """token: (B,1); pos: (B,). Returns (logits (B,1,V), caches)."""
+        x = params["embed"][token.long()].to(dtype)
+        x, caches = tfm.decode_stack(params["blocks"], cfg, x, caches)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return _head(params, x), caches
+
+    return Model(cfg=cfg, init=init, loss_fn=loss_fn, logits_fn=logits_fn,
+                 prefill=prefill, decode_step=decode_step, init_cache=init_cache)
+
+
+def build_model(cfg) -> Model:
+    if cfg.family == "lstm":
+        raise NotImplementedError(
+            "the Big LSTM is built through repro_torch.models.lstm "
+            "(init_lstm, lstm_logits, loss_fn); its Model API and decode "
+            "are not ported yet")
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to PyTorch yet (ROADMAP "
+            "Queue 1 item 10)")
+    return _build_transformer(cfg)

@@ -239,6 +239,7 @@ def test_build_is_keyed_by_source_content(tmp_path, monkeypatch):
     and of the headers they share."""
     assert [p.name for p in _build.sources()] == ["adaalter_update.cu",
                                                   "quantize.cu",
+                                                  "ssd_scan.cu",
                                                   "sync_fused.cu"]
     assert [p.name for p in _build.headers()] == ["numerics.cuh"]
     path = _build.library_path()
