@@ -46,15 +46,21 @@ raises and exits non-zero:
             position by position (all to rtol 1e-4, atol 1e-5)
   score     full-width mamba2-370m (419,714,560 parameters, bf16,
             ssm_pallas): logits_fn and loss_fn over 8 x 2048 tokens, 3 times,
-            48 SSD launches a forward; one warm forward under torch.profiler
+            48 SSD calls a forward (the SSD counter counts wrapper calls,
+            three kernel launches each); one warm forward under
+            torch.profiler
   serve     full-width serve_session: batch 8, prompt 512, 32 new tokens;
             prefill and decode take the chunked and recurrent paths, so no
             SSD launch
 
-The kernels phase also holds the SSD chunk-scan kernel against its plain
-version at the scoring shape (fp32 and bf16 inputs) and at a 32k-token
-sequence. Then the script's wall, the kernels summary line, the nvidia-smi
-line, and the last line {"ok": true, "device": {...}}.
+The kernels phase also holds the SSD chunk scan's warp-level 3xTF32
+product helper alone against a float64 product, then the SSD kernels
+against their plain version at the scoring shape (fp32 and bf16 inputs)
+and at a 32k-token sequence, with each of the three kernels' device time
+and launch geometry, and counts the TF32 tensor-core instructions in the
+built SSD kernels (cuobjdump -sass). Then the script's wall, the kernels
+summary line, the nvidia-smi line, and the last line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -69,8 +75,11 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 TRAIN_STEPS = 8
 SSD_TOL = 1e-4                 # SSD kernel vs plain, fp32 and bf16 inputs
+MMA_TOL = 1e-5                 # 3xTF32 product helper vs float64, of Σ|a||b|
+SSD_KERNELS = ("ssd_chunk_states", "ssd_state_pass", "ssd_chunk_output")
 MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5   # reduced mamba2 in float32
 
 
@@ -499,14 +508,99 @@ def ssd_bound(b, nz, c, nh, hd, n, in_bytes):
     the input dtype and dA fp32 read once, y fp32 written once) over the
     HBM rate, and the least work (C·Bᵀ once per (batch, chunk) and M·x̄ over
     the lower triangle only, C·S and the state update per head, one FMA = 2
-    operations) over the fp32 rate outside the tensor cores; the larger."""
+    operations) three times over, as the kernels' 3xTF32 products do it, over
+    the dense TF32 tensor-core rate; the larger. ``bound_fp32_cores_ms`` is
+    the same work once over the fp32 rate outside the tensor cores, as the
+    earlier CUDA-core kernel was bounded."""
     tri = c * (c + 1) // 2
     nbytes = (b * nz * c * (nh * hd + 2 * n) * in_bytes + b * nz * c * nh * 4
               + b * nz * c * nh * hd * 4)
     ops = 2 * b * nz * (tri * n + nh * (tri * hd + 2 * c * n * hd))
-    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_FLOP_PER_S
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * 3 * ops / TF32_FLOP_PER_S
     return dict(bytes=nbytes, operations=ops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_fp32_cores_ms=max(t_bytes,
+                                        1e3 * ops / FP32_FLOP_PER_S))
+
+
+def device_ms_by_kernel(fn, reps: int = 5) -> dict:
+    """Device milliseconds of each kernel that one ``fn()`` launches, by
+    kernel name: ``reps`` warm calls under torch.profiler, the sum over
+    them divided by ``reps``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
+def check_mma_selftest(gen):
+    """The kernels' warp-level 3xTF32 product helper alone, before any SSD
+    check uses it: a (64 × 128)·(128 × 64) product in both operand layouts
+    against float64, each element to MMA_TOL of Σ|a||b| (the scale of a dot
+    product's rounding). A one-pass TF32 product of the same operands
+    (rounded as cvt.rna does, here) must miss it, so that the check can
+    see the split go wrong; a fragment layout mistake misses by far."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    a = torch.randn((64, 128), generator=gen, device="cuda")
+    b = torch.randn((128, 64), generator=gen, device="cuda")
+    ref = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+
+    def rel(c):
+        return float(((c.double() - ref).abs() / scale).max())
+
+    out = {"tol": MMA_TOL}
+    for transposed in (False, True):
+        c = ssd.mma_selftest(a, b, transposed)
+        torch.cuda.synchronize()
+        err = rel(c)
+        require(err <= MMA_TOL, f"the 3xTF32 product helper is off a "
+                f"float64 product by {err} of Σ|a||b| (transposed="
+                f"{transposed})")
+        out["transposed" if transposed else "row_major"] = err
+
+    def tf32(t):
+        return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    one_pass = rel(tf32(a).double() @ tf32(b).double())
+    require(one_pass > MMA_TOL, f"one TF32 pass holds the helper's "
+            f"tolerance ({one_pass}): the self-test cannot see the split")
+    out["one_tf32_pass"] = one_pass
+    return out
+
+
+def sass_tf32_mma_counts(lib) -> dict:
+    """TF32 tensor-core instructions (SASS ``HMMA`` with ``TF32``) in each
+    SSD kernel of the built library, by ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1]
+            name = next((k for k in SSD_KERNELS if k in fn), None)
+            if name and "ssd_chunk" in name:
+                name += "<bf16>" if "bfloat16" in fn else "<float>"
+            if name:
+                counts.setdefault(name, 0)
+        elif name and "HMMA" in line and "TF32" in line:
+            counts[name] += 1
+    return counts
 
 
 def check_ssd(gen, dims, dtype, timed=True):
@@ -526,6 +620,7 @@ def check_ssd(gen, dims, dtype, timed=True):
     Cm = (torch.randn((b, nz, c, n), generator=gen, device="cuda")
           * 0.3).to(dtype)
     dA = -torch.randn((b, nz, c, nh), generator=gen, device="cuda").abs() * 0.1
+    plan = ssd.launch_plan(b, nz, nh, hd, n)
     y = ssd.ssd_scan(x, Bm, Cm, dA)
     y_ref = ssd_ref(x, Bm, Cm, dA)
     torch.cuda.synchronize()
@@ -540,12 +635,18 @@ def check_ssd(gen, dims, dtype, timed=True):
     del y_bad, y_ref, y
     out = dict(dtype=str(dtype).replace("torch.", ""), shape=list(dims),
                max_abs_err=err, rejects_dA_2pct_off=True,
-               blocks=b * nh, smem_bytes_per_block=ssd.smem_bytes(c, n, hd),
+               launch_plan=plan,
                **ssd_bound(b, nz, c, nh, hd, n, x.element_size()))
     if timed:
         out.update(ms=cuda_ms(lambda: ssd.ssd_scan(x, Bm, Cm, dA)),
                    plain_ms=cuda_ms(lambda: ssd_ref(x, Bm, Cm, dA), reps=5,
                                     warmup=1))
+        by_name = device_ms_by_kernel(lambda: ssd.ssd_scan(x, Bm, Cm, dA))
+        out["kernel_ms"] = {k: sum(v for name, v in by_name.items()
+                                   if k in name) for k in SSD_KERNELS}
+        require(all(out["kernel_ms"].values()) and len(by_name) == 3,
+                f"the profiler saw {sorted(by_name)} in one SSD call, want "
+                f"the three kernels {SSD_KERNELS}")
     torch.cuda.empty_cache()
     return out
 
@@ -849,17 +950,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the SSD chunk scan at the mamba2-370m scoring shape (8 x 2048 tokens:
     # 32 chunks of 64, 32 heads of 64, state 128) and at a 32k-token
-    # sequence (512 chunks, 32 blocks on the card)
+    # sequence (512 chunks, batch 1), after its product helper alone
     m2 = get_arch("mamba2-370m")
     score_dims = (8, 2048 // m2.ssm_chunk, m2.ssm_chunk, m2.n_ssm_heads,
                   m2.ssm_head_dim, m2.ssm_state)
     long_dims = (1, 32768 // m2.ssm_chunk) + score_dims[2:]
+    mma = check_mma_selftest(gen)            # the helper alone, first
     ssd_checks = [check_ssd(gen, score_dims, torch.float32),
                   check_ssd(gen, score_dims, torch.bfloat16),
                   check_ssd(gen, long_dims, torch.float32)]
+    sass = sass_tf32_mma_counts(_build.library_path())
+    require(all(sass.get(f"{k}<{t}>", 0) > 0 for k in SSD_KERNELS[::2]
+                for t in ("float", "bf16")),
+            f"no TF32 tensor-core instruction in an SSD chunk kernel: {sass}")
     emit({"phase": "kernels", "nvidia_smi": smi, "update": upd, "ef": ef,
           "flat_update": flat_upd, "flat_ef": flat_ef, "quantize": quant,
-          "sync_mean": mean, "ssd": ssd_checks,
+          "sync_mean": mean, "mma_selftest": mma, "ssd": ssd_checks,
+          "ssd_sass_tf32_hmma": sass,
           "plane": {"plane_size": fs.plane_size, "real": fs.n_real,
                     "slots": fs.n_leaves, "buckets": fs.bucket_ranges()}})
 

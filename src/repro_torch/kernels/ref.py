@@ -97,17 +97,43 @@ def flat_ef_blocks_ref(x2d, e2d, rnd, low):
     return w, v - w
 
 
-def ssd_chunked(xbar, Bm, Cm, dA):
-    """The chunked Mamba-2 SSD in plain PyTorch, all in float32: within a
-    chunk the dual (attention-like) form, its upper triangle set to −inf
-    before ``exp``; across chunks the state carried by a loop.
+def _chunk_cumsum(dA):
+    """cum = cumsum(dA) over each chunk, float32: (B, NZ, c, NH)."""
+    return torch.cumsum(dA.float(), dim=2)
 
-    xbar: (B, NZ, c, NH, hd) dt-scaled inputs; Bm/Cm: (B, NZ, c, N);
-    dA: (B, NZ, c, NH), dt·A. Returns (y (B, NZ, c, NH, hd) without the
-    D-skip term, S_last (B, NH, N, hd), the state after the last chunk)."""
-    b, nz, c, nh, hd = xbar.shape
+
+def ssd_chunk_states_ref(xbar, Bm, dA):
+    """Stage 1 of the chunked SSD: each chunk's own contribution to the
+    state, from a zero state, and its decay across the chunk.
+
+    Returns (states (B, NZ, NH, N, hd) = (seg ⊙ B)ᵀ·x̄ with seg =
+    exp(cum_last − cum), decay (B, NZ, NH) = exp(cum_last)), float32."""
+    cum = _chunk_cumsum(dA)
+    seg = torch.exp(cum[:, :, -1:, :] - cum)                       # decay to chunk end
+    states = torch.einsum("bzsn,bzsh,bzshp->bzhnp", Bm.float(), seg,
+                          xbar.float())
+    return states, torch.exp(cum[:, :, -1, :])
+
+
+def ssd_state_pass_ref(states, decay):
+    """Stage 2: the recurrence across chunks, S ← S·decay[z] + states[z]
+    from S = 0. Returns (the state entering each chunk (B, NZ, NH, N, hd),
+    the state after the last chunk (B, NH, N, hd))."""
+    S = torch.zeros_like(states[:, 0])
+    S_before = []
+    for z in range(states.shape[1]):                               # lax.scan
+        S_before.append(S)
+        S = S * decay[:, z, :, None, None] + states[:, z]
+    return torch.stack(S_before, dim=1), S
+
+
+def ssd_chunk_output_ref(xbar, Bm, Cm, dA, S_before):
+    """Stage 3: y = tril(C·Bᵀ ⊙ exp(cumᵢ − cumⱼ))·x̄ + exp(cum) ⊙ (C·S),
+    with S the state entering the chunk; the upper triangle is set to −inf
+    before ``exp``. Returns y (B, NZ, c, NH, hd) float32."""
+    c = xbar.shape[2]
     xbar, Bm, Cm = xbar.float(), Bm.float(), Cm.float()
-    cum = torch.cumsum(dA.float(), dim=2)                          # (B,nz,c,nh)
+    cum = _chunk_cumsum(dA)                                        # (B,nz,c,nh)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=xbar.device))
     CB = torch.einsum("bzln,bzsn->bzls", Cm, Bm)                   # (B,nz,c,c)
     logdecay = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,nz,l,s,nh)
@@ -115,19 +141,23 @@ def ssd_chunked(xbar, Bm, Cm, dA):
                            f32(float("-inf"), logdecay))
     M = CB[..., None] * torch.exp(logdecay)
     y = torch.einsum("bzlsh,bzshp->bzlhp", M, xbar)
-    seg = torch.exp(cum[:, :, -1:, :] - cum)                       # decay to chunk end
-    chunk_states = torch.einsum("bzsn,bzsh,bzshp->bzhnp", Bm, seg, xbar)
-    chunk_decay = torch.exp(cum[:, :, -1, :])                      # (B,nz,nh)
-    S = torch.zeros((b, nh, Bm.shape[-1], hd), dtype=torch.float32,
-                    device=xbar.device)
-    S_before = []
-    for z in range(nz):                                            # lax.scan
-        S_before.append(S)
-        S = S * chunk_decay[:, z, :, None, None] + chunk_states[:, z]
-    S_before = torch.stack(S_before, dim=1)                        # (B,nz,nh,N,hd)
-    y = y + torch.einsum("bzln,bzlh,bzhnp->bzlhp", Cm, torch.exp(cum),
-                         S_before)
-    return y, S
+    return y + torch.einsum("bzln,bzlh,bzhnp->bzlhp", Cm, torch.exp(cum),
+                            S_before)
+
+
+def ssd_chunked(xbar, Bm, Cm, dA):
+    """The chunked Mamba-2 SSD in plain PyTorch, all in float32: within a
+    chunk the dual (attention-like) form, across chunks the state carried
+    by a loop. The composition of the three stages the CUDA kernel
+    launches: :func:`ssd_chunk_states_ref`, :func:`ssd_state_pass_ref`,
+    :func:`ssd_chunk_output_ref`.
+
+    xbar: (B, NZ, c, NH, hd) dt-scaled inputs; Bm/Cm: (B, NZ, c, N);
+    dA: (B, NZ, c, NH), dt·A. Returns (y (B, NZ, c, NH, hd) without the
+    D-skip term, S_last (B, NH, N, hd), the state after the last chunk)."""
+    states, decay = ssd_chunk_states_ref(xbar, Bm, dA)
+    S_before, S_last = ssd_state_pass_ref(states, decay)
+    return ssd_chunk_output_ref(xbar, Bm, Cm, dA, S_before), S_last
 
 
 def ssd_ref(xbar, Bm, Cm, dA):

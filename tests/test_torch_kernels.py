@@ -241,7 +241,8 @@ def test_build_is_keyed_by_source_content(tmp_path, monkeypatch):
                                                   "quantize.cu",
                                                   "ssd_scan.cu",
                                                   "sync_fused.cu"]
-    assert [p.name for p in _build.headers()] == ["numerics.cuh"]
+    assert [p.name for p in _build.headers()] == ["mma_tf32.cuh",
+                                                  "numerics.cuh"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     for src in _build.sources() + _build.headers():
@@ -249,7 +250,7 @@ def test_build_is_keyed_by_source_content(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert _build.library_path() == path
     seen = {path}
-    for name in ("sync_fused.cu", "numerics.cuh"):
+    for name in ("sync_fused.cu", "numerics.cuh", "mma_tf32.cuh"):
         with open(tmp_path / name, "a") as f:
             f.write("\n")
         assert _build.library_path() not in seen

@@ -38,7 +38,8 @@ from repro.models.counting import count_params as jax_count_params
 from repro_torch import convert
 from repro_torch.configs import ModelConfig, get_arch, reduced
 from repro_torch.kernels import ssd_scan as ssd_mod
-from repro_torch.kernels.ref import ssd_ref
+from repro_torch.kernels.ref import (ssd_chunk_output_ref, ssd_chunk_states_ref,
+                                    ssd_chunked, ssd_ref, ssd_state_pass_ref)
 from repro_torch.models import build_model, ssm
 from repro_torch.models.counting import count_params
 from repro_torch.models.model import softmax_xent
@@ -100,6 +101,68 @@ def test_ssd_scan_refuses_autograd_and_bad_shapes():
         ssd_mod.ssd_scan(xbar, Bm, Cm[..., :4], dA)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ssd_mod.ssd_scan(xbar.double(), Bm, Cm, dA)
+
+
+def _np_cum(dA):
+    return np.cumsum(dA.astype(np.float64), axis=2)                # (b,nz,c,nh)
+
+
+@pytest.mark.parametrize("dims", SSD_SHAPES)
+def test_ssd_chunk_states_ref_is_the_einsum(dims):
+    """Stage 1 against the einsum it replaces, in float64: each chunk's
+    state Σₛ B[s]ᵀ·exp(cum_last − cum[s])·x̄[s] and its decay."""
+    xbar, Bm, _, dA = _ssd_inputs(dims, np.float32)
+    cum = _np_cum(dA)
+    seg = np.exp(cum[:, :, -1:, :] - cum)
+    want = np.einsum("bzsn,bzsh,bzshp->bzhnp", Bm.astype(np.float64), seg,
+                     xbar.astype(np.float64))
+    states, decay = ssd_chunk_states_ref(*convert.to_torch([xbar, Bm, dA]))
+    assert states.dtype == torch.float32 and decay.dtype == torch.float32
+    np.testing.assert_allclose(states.numpy(), want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(decay.numpy(), np.exp(cum[:, :, -1, :]),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dims", SSD_SHAPES)
+def test_ssd_state_pass_ref_is_the_loop(dims):
+    """Stage 2 against the recurrence written as a loop in float64: the
+    state entering chunk z is Σ_{z' < z} states[z']·Π_{z' < u < z} decay[u]."""
+    xbar, Bm, _, dA = _ssd_inputs(dims, np.float32)
+    states, decay = ssd_chunk_states_ref(*convert.to_torch([xbar, Bm, dA]))
+    S_before, S_last = ssd_state_pass_ref(states, decay)
+    st, dc = states.numpy().astype(np.float64), decay.numpy().astype(np.float64)
+    want = np.zeros_like(st)
+    S = np.zeros_like(st[:, 0])
+    for z in range(st.shape[1]):
+        want[:, z] = S
+        S = S * dc[:, z, :, None, None] + st[:, z]
+    assert S_before.shape == states.shape and S_last.shape == S.shape
+    np.testing.assert_allclose(S_before.numpy(), want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(S_last.numpy(), S, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dims", SSD_SHAPES)
+def test_ssd_chunk_output_ref_is_the_sum(dims):
+    """Stage 3 against y[l] = Σ_{s ≤ l} (C[l]·B[s]) exp(cum[l] − cum[s]) x̄[s]
+    + exp(cum[l]) C[l]·S in float64, row by row, with the state S entering
+    each chunk; and ssd_chunked is the three stages composed."""
+    xbar, Bm, Cm, dA = _ssd_inputs(dims, np.float32)
+    args = convert.to_torch([xbar, Bm, Cm, dA])
+    S_before, S_last = ssd_state_pass_ref(
+        *ssd_chunk_states_ref(args[0], args[1], args[3]))
+    y = ssd_chunk_output_ref(*args, S_before)
+    x, B, C = (a.astype(np.float64) for a in (xbar, Bm, Cm))
+    cum, S = _np_cum(dA), S_before.numpy().astype(np.float64)
+    want = np.zeros(x.shape)
+    for l in range(x.shape[2]):
+        w = np.einsum("bzn,bzsn->bzs", C[:, :, l], B[:, :, :l + 1])[..., None] \
+            * np.exp(cum[:, :, l:l + 1, :] - cum[:, :, :l + 1, :])  # (b,nz,s,nh)
+        want[:, :, l] = (np.einsum("bzsh,bzshp->bzhp", w, x[:, :, :l + 1])
+                         + np.exp(cum[:, :, l, :])[..., None]
+                         * np.einsum("bzn,bzhnp->bzhp", C[:, :, l], S))
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-6, atol=1e-6)
+    y_all, S_all = ssd_chunked(*args)
+    assert torch.equal(y_all, y) and torch.equal(S_all, S_last)
 
 
 # --------------------------------------------------------------------------- #
