@@ -39,6 +39,31 @@ raises and exits non-zero:
   profile   the per-leaf and the flat run for 4 steps each under
             torch.profiler: per step the device's busy time and idle share
             and its time by kernel
+  baselines the synchronous optimizers (sgd, adagrad, adaalter): reduced
+            float32 AdaAlter card against CPU (lr 2, rtol 1e-4, an η 2%
+            larger on the CPU must exceed it), then each at full width
+            through train_loop, R = 1, 64 sequences of 20 tokens in one
+            model, 8 steps: finite losses, step 0 within 1.5 nats of ln V,
+            comm_bytes_total 8 x 4 x 832,198,527, no kernel launched; warm
+            step walls, tokens/s and peak memory beside the per-leaf
+            local_adaalter walls (one card: no collective runs); one
+            profiled AdaAlter step
+  checkpoint  full-width AdaAlter 8 steps straight against 4 steps, a
+            checkpoint (5 GB: bf16 params, fp32 B²) and a fresh train_loop
+            resuming to 8: losses 4-7 and the final state bitwise equal,
+            with the bytes on disk and the save and restore seconds; then
+            reduced Big LSTM on the card, Local AdaAlter int8 with the
+            kernels and the adaptive policy, per leaf and flat, resumed
+            mid-window at step 5 of 9 (bitwise), and a per-leaf checkpoint
+            resumed over the flat plane (fixed H, bitwise state). The
+            checkpoints go to a temporary directory, removed at the end;
+            the phase fails if the disk has no room for two
+  instrumented  the train phase's per-leaf run with trace_out and
+            metrics_out: its launch counts, 8 metrics rows (residual fields
+            from the first sync round, changing only on sync rounds), the
+            span counts, the replay gate, the Chrome export; step walls
+            and the health probe's seconds beside the uninstrumented walls;
+            peak memory under 80 GB
   reference_ssm  reduced mamba2 in float32 with ssm_pallas: logits_fn on
             the card through the SSD kernel against the CPU through its plain
             version, prefill and 8 decode steps card against CPU, and on the
@@ -872,6 +897,306 @@ def warm_stats(res, batch: int, seq: int) -> dict:
             / sum(res.step_s[i] for i in warm)}
 
 
+def baseline_stats(res, batch: int, seq: int) -> dict:
+    """Step times of a synchronous run (every step applies the gradient),
+    step 0 (the warm-up) left out."""
+    warm = res.step_s[1:]
+    return {"step_ms": [1e3 * s for s in res.step_s],
+            "step_ms_median_warm": 1e3 * statistics.median(warm),
+            "tokens_per_s_warm": batch * seq * len(warm) / sum(warm)}
+
+
+def state_digests(directory: Path) -> dict:
+    """sha256 of every array of the latest checkpoint under ``directory``."""
+    import hashlib
+    import numpy as np
+    from repro_torch.checkpoint import latest_step
+    step = latest_step(str(directory))
+    with np.load(directory / f"step_{step}" / "arrays.npz") as z:
+        return {k: hashlib.sha256(z[k].tobytes()).hexdigest()
+                for k in z.files}
+
+
+def timed_checkpoints():
+    """Wrap the checkpoint store's save and restore (train_loop looks them
+    up on each call) to time them; returns the lists of seconds."""
+    from repro_torch import checkpoint as ck
+    times = {"save_s": [], "restore_s": []}
+    for name, key in (("save_checkpoint", "save_s"),
+                      ("restore_checkpoint", "restore_s")):
+        fn = getattr(ck, name)
+
+        def timed(*args, _fn=fn, _key=key, **kwargs):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            times[_key].append(time.perf_counter() - t0)
+            return out
+        setattr(ck, name, timed)
+    return times
+
+
+def resume_matches(cfg, shape, oc, root: Path, tag: str, *, save_at: int,
+                   steps: int, n_workers: int, resume_oc=None) -> dict:
+    """A run straight to ``steps`` against ``save_at`` steps, a checkpoint,
+    and a fresh train_loop resuming to ``steps`` (in ``resume_oc``'s
+    layout, if given): losses and the final state (the checkpoint each run
+    writes at ``steps``) must be bitwise equal when the layouts agree, the
+    losses within 1e-6 relative across layouts."""
+    import shutil
+    from repro_torch.launch.train import train_loop
+    straight_dir, resumed_dir = root / (tag + "_straight"), root / tag
+    straight = train_loop(cfg, shape, resume_oc or oc, steps=steps,
+                          n_workers=n_workers, verbose=False, device="cuda",
+                          checkpoint_dir=str(straight_dir),
+                          checkpoint_every=steps)
+    want = state_digests(straight_dir)
+    shutil.rmtree(straight_dir)
+    first = train_loop(cfg, shape, oc, steps=save_at, n_workers=n_workers,
+                       verbose=False, device="cuda",
+                       checkpoint_dir=str(resumed_dir),
+                       checkpoint_every=save_at)
+    ckpt_bytes = sum(f.stat().st_size for f in
+                     (resumed_dir / f"step_{save_at}").iterdir())
+    resumed = train_loop(cfg, shape, resume_oc or oc, steps=steps,
+                         n_workers=n_workers, verbose=False, device="cuda",
+                         checkpoint_dir=str(resumed_dir),
+                         checkpoint_every=steps)
+    got = state_digests(resumed_dir)
+    shutil.rmtree(resumed_dir)
+    require(resumed.start_step == save_at,
+            f"{tag}: resumed at {resumed.start_step}, want {save_at}")
+    tail = straight.losses[save_at:]
+    if resume_oc is None:
+        require(first.losses + resumed.losses == straight.losses,
+                f"{tag}: resumed losses {resumed.losses} differ from the "
+                f"straight run's {tail}")
+        require(first.sync_steps + resumed.sync_steps == straight.sync_steps,
+                f"{tag}: schedule {first.sync_steps} + {resumed.sync_steps}"
+                f" vs {straight.sync_steps}")
+    else:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed.losses, tail))
+        require(rel <= 1e-6, f"{tag}: resumed losses {resumed.losses} vs "
+                f"{tail} ({rel} relative)")
+        require(resumed.sync_steps == straight.sync_steps[
+            len(first.sync_steps):], f"{tag}: schedule {resumed.sync_steps}")
+    require(got == want, f"{tag}: final state differs from the straight "
+            f"run's in {sorted(k for k in want if got.get(k) != want[k])}")
+    return {"losses_straight": straight.losses,
+            "losses_resumed": resumed.losses,
+            "sync_steps": straight.sync_steps,
+            "state_leaves_bitwise": len(want), "checkpoint_bytes": ckpt_bytes}
+
+
+def _expect_launches(counters, **want) -> dict:
+    launches = {k: c.n for k, c in counters.items()}
+    full = {k: want.get(k, 0) for k in counters}
+    require(launches == full, f"launches {launches}, expected {full}")
+    return launches
+
+
+def baselines_phase(cfg, shape, small, base, counters, leaf) -> dict:
+    """The synchronous baselines (sgd, adagrad, adaalter): reduced float32
+    AdaAlter card against CPU (lr 2: an η 2% larger on the CPU must leave
+    the tolerance), then each at full width through train_loop, R = 1, the
+    train phase's global batch in one model, no kernel launched; one
+    profiled AdaAlter step."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, ShapeConfig
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.counting import count_params
+    rtol = 1e-4
+    small_shape = ShapeConfig("smoke", seq_len=16, global_batch=8,
+                              kind="train")
+
+    def reduced_losses(dev, lr):
+        res = train_loop(small, small_shape,
+                         OptimizerConfig(name="adaalter", lr=lr,
+                                         warmup_steps=0),
+                         steps=TRAIN_STEPS, verbose=False, device=dev,
+                         init_params=base)
+        require(res.sync_steps == list(range(TRAIN_STEPS)),
+                f"reduced adaalter on {dev}: rounds at {res.sync_steps}")
+        return res.losses
+
+    def max_rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    cuda, cpu = reduced_losses("cuda", 2.0), reduced_losses("cpu", 2.0)
+    rel = max_rel(cuda, cpu)
+    rel_wrong = max_rel(reduced_losses("cpu", 2.0 * 1.02), cpu)
+    require(rel <= rtol, f"reduced adaalter: losses differ by {rel}")
+    require(rel_wrong > rtol, f"reduced adaalter: an η 2% off moves the "
+            f"losses by only {rel_wrong}, within the tolerance")
+    n_params, V = count_params(cfg), cfg.vocab_size
+    batch, seq = shape.global_batch, shape.seq_len
+    runs = {}
+    for name in ("sgd", "adagrad", "adaalter"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        res = train_loop(cfg, shape, OptimizerConfig(
+            name=name, lr=0.5, warmup_steps=100), steps=TRAIN_STEPS,
+            log_every=1, device="cuda")
+        launches = _expect_launches(counters)     # plain tensor ops
+        require(res.n_workers == 1 and res.sync_count == TRAIN_STEPS,
+                f"{name}: {res.n_workers} workers, {res.sync_count} rounds")
+        require(all(math.isfinite(v) for v in res.losses),
+                f"{name}: non-finite loss {res.losses}")
+        require(abs(res.losses[0] - math.log(V)) <= 1.5,
+                f"{name}: step-0 loss {res.losses[0]} vs ln V {math.log(V)}")
+        require(res.comm_bytes_total == TRAIN_STEPS * 4 * n_params,
+                f"{name}: comm_bytes_total {res.comm_bytes_total}")
+        runs[name] = {"losses": res.losses, "launches": launches,
+                      "comm_bytes_total": res.comm_bytes_total,
+                      **baseline_stats(res, batch, seq),
+                      "max_memory_allocated_gb":
+                          torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.empty_cache()
+    prof = profile_steps(lambda: train_loop(
+        cfg, shape, OptimizerConfig(name="adaalter", lr=0.5,
+                                    warmup_steps=100),
+        steps=3, verbose=False, device="cuda"))
+    require([p["step"] for p in prof] == [f"train_step {i} sync"
+                                          for i in range(3)],
+            f"the profiler saw steps {[p['step'] for p in prof]}")
+    for p in prof:
+        p["device_idle_share_vs_unprofiled_wall"] = 1.0 - p[
+            "device_busy_ms"] / runs["adaalter"]["step_ms_median_warm"]
+    return {"arch": cfg.name, "params": n_params, "workers": 1,
+            "global_batch": batch, "seq": seq, "steps": TRAIN_STEPS,
+            "note": "one card: no collective runs, so these walls hold no "
+                    "communication; comm_bytes_total is what a P-value fp32 "
+                    "gradient all-reduce a step would move",
+            "reduced_adaalter": {"rtol": rtol, "losses_cuda": cuda,
+                                 "losses_cpu": cpu, "max_rel_diff": rel,
+                                 "max_rel_diff_eta_2pct_high": rel_wrong},
+            "runs": runs,
+            "local_adaalter_per_leaf": {
+                k: leaf[k] for k in ("local_step_ms_median",
+                                     "sync_step_ms_median",
+                                     "tokens_per_s_warm",
+                                     "max_memory_allocated_gb")},
+            "profile_adaalter": prof[1:]}
+
+
+def checkpoint_phase(cfg, shape, workers: int) -> dict:
+    """Resumes bitwise equal to the straight run: full-width AdaAlter
+    (R = 1; bf16 params and fp32 B² on disk), with the save and restore
+    seconds; reduced Big LSTM on the card, Local AdaAlter with the int8
+    kernels and the adaptive policy, per leaf and flat, mid-window; and a
+    per-leaf checkpoint resumed over the flat plane (fixed H). The
+    checkpoints go to a temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import OptimizerConfig, ShapeConfig, reduced
+    from repro_torch.models.counting import count_params
+    n_params = count_params(cfg)
+    times = timed_checkpoints()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        # two checkpoints of bf16 params + fp32 B² on disk at once
+        need = 2 * 6 * n_params + 1e9
+        free = shutil.disk_usage(root).free
+        require(free >= need, f"checkpoint phase: {free / 1e9:.1f} GB free "
+                f"under {root}, {need / 1e9:.1f} GB needed")
+        torch.cuda.empty_cache()
+        full = resume_matches(cfg, shape, OptimizerConfig(
+            name="adaalter", lr=0.5, warmup_steps=100), root, "full",
+            save_at=TRAIN_STEPS // 2, steps=TRAIN_STEPS, n_workers=1)
+        full.update(save_s=list(times["save_s"]),
+                    restore_s=list(times["restore_s"]))
+        small = reduced(cfg)                 # bf16, as the full model
+        small_shape = ShapeConfig("smoke", seq_len=16, global_batch=8,
+                                  kind="train")
+        adaptive = dict(name="local_adaalter", compression="int8",
+                        use_kernels=True, H=4, lr=0.5, warmup_steps=0,
+                        sync_policy="adaptive", sync_threshold=0.002)
+        fixed = dict(adaptive, sync_policy="fixed_h")
+        small_runs = {
+            name: resume_matches(
+                small, small_shape, OptimizerConfig(**kw), root, name,
+                save_at=5, steps=9, n_workers=workers,
+                resume_oc=None if rkw is None else OptimizerConfig(**rkw))
+            for name, kw, rkw in (
+                ("per_leaf", adaptive, None),
+                ("flat", dict(adaptive, flat=True), None),
+                ("per_leaf_to_flat", fixed, dict(fixed, flat=True)))}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"full": {"optimizer": "adaalter", "params": n_params, **full},
+            "reduced": small_runs}
+
+
+def instrumented_phase(cfg, shape, oc, counters, leaf, leaf_n,
+                       workers: int) -> dict:
+    """The train phase's per-leaf run with trace_out and metrics_out: the
+    same launches, one metrics row a step, the residual fields appearing at
+    the first sync round and changing only on sync rounds, the span counts,
+    the replay gate, the Chrome export; step walls and the probe's seconds
+    beside the uninstrumented run's."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.trace import Trace
+    from repro_torch.trace.chrome import export
+    from repro_torch.trace.replay import validate
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        t_path, m_path = root / "run.trace.json", root / "run.jsonl"
+        res = train_loop(cfg, shape, oc, steps=TRAIN_STEPS,
+                         n_workers=workers, verbose=False, device="cuda",
+                         trace_out=str(t_path), metrics_out=str(m_path))
+        launches = _expect_launches(counters, **leaf_n)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        require(peak < 80.0, f"instrumented run peak {peak} GB")
+        require(res.sync_steps == [3, 7], f"sync steps {res.sync_steps}")
+        rows = [json.loads(line) for line in
+                m_path.read_text().splitlines()]
+        require([r["step"] for r in rows[1:]] == list(range(TRAIN_STEPS)),
+                f"{len(rows)} metrics lines")
+        keys = [sorted(k for k in r["metrics"] if k.startswith(
+            ("ef_residual_norm", "quant_mse"))) for r in rows[1:]]
+        vals = [[r["metrics"][k] for k in ks]
+                for r, ks in zip(rows[1:], keys)]
+        require(not any(keys[:3]) and all(keys[3:]),
+                f"residual fields by step {keys}")
+        require(vals[3] == vals[4] == vals[5] == vals[6] != vals[7],
+                f"residual values by step {vals}")
+        trace = Trace.load(str(t_path))
+        counts = {k: len(trace.by_name(k)) for k in
+                  ("local_step", "ef_encode", "collective", "eval", "ckpt")}
+        require(counts == {"local_step": workers * TRAIN_STEPS,
+                           "ef_encode": workers * 2,
+                           "collective": workers * 2, "eval": 0, "ckpt": 0},
+                f"span counts {counts}")
+        gate = validate(trace)
+        require(gate["ok"], f"replay gate: {gate}")
+        doc = export(str(t_path), str(root / "run.chrome.json"))
+        return {"launches": launches, "span_counts": counts,
+                "validate": gate, "chrome_events": len(doc["traceEvents"]),
+                "chrome_bytes": (root / "run.chrome.json").stat().st_size,
+                "metrics_rows": len(rows) - 1,
+                "probe_ms": [1e3 * t for t in res.probe_s],
+                **warm_stats(res, shape.global_batch, shape.seq_len),
+                "uninstrumented_local_step_ms_median":
+                    leaf["local_step_ms_median"],
+                "uninstrumented_sync_step_ms_median":
+                    leaf["sync_step_ms_median"],
+                "max_memory_allocated_gb": peak,
+                "last_row": {k: v for k, v in rows[-1]["metrics"].items()
+                             if k.startswith(("b2", "grad_norm", "ef_",
+                                              "quant", "loss"))}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1088,6 +1413,15 @@ def main() -> int:
         profiles[name] = prof[1:]
     emit({"phase": "profile", "nvidia_smi": smi, "steps": profiles["per_leaf"],
           "flat_steps": profiles["flat"]})
+    torch.cuda.empty_cache()
+
+    # ---- slice 4: the synchronous baselines, checkpoints, instrumentation #
+    emit({"phase": "baselines", "nvidia_smi": smi, **baselines_phase(
+        cfg, shape, small, base, counters, leaf)})
+    emit({"phase": "checkpoint", "nvidia_smi": smi,
+          **checkpoint_phase(cfg, shape, R)})
+    emit({"phase": "instrumented", "nvidia_smi": smi, **instrumented_phase(
+        cfg, shape, oc_leaf, counters, leaf, leaf_n, R)})
     torch.cuda.empty_cache()
 
     # ---- mamba2: reduced card vs CPU, then full-width scoring and serving #

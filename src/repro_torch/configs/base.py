@@ -165,6 +165,11 @@ class OptimizerConfig:
     # mean. Train state bitwise equal to the per-leaf layout under the same
     # schedule. local_adaalter only; needs eps > 0.
     flat: bool = False
+    # observability (obs/): the steps also return the raw gradients' L2
+    # norm (``metrics['grad_norm']``). Off by default, so an uninstrumented
+    # run computes nothing extra; train_loop turns it on under
+    # ``trace_out`` / ``metrics_out``.
+    obs_metrics: bool = False
     # --- flat aliases of the SyncConfig block (read ``cfg.sync`` instead) ---
     sync_policy: str = "fixed_h"
     sync_threshold: float = 0.0

@@ -1,13 +1,62 @@
-"""Communication: the sync mean's arithmetic and the bytes each round moves.
+"""Communication: the sync mean's arithmetic, the bytes each round moves,
+and the alpha-beta time model of a round.
 
-The byte accounting of the JAX package's ``core/comm.py``, copied. Its
-fabric time model is not carried over: its constants describe another
-machine's interconnect.
+The byte accounting and the alpha-beta model of the JAX package's
+``core/comm.py``. :class:`FabricModel` keeps the reference's field names
+(traces of either package carry ``dataclasses.asdict(FabricModel())`` and
+each package reads the other's), with the H100 SXM's links as defaults.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricModel:
+    """Bandwidths in bytes/s; latency in s per collective.
+
+    ``ici_bw``   the intra-node link: NVLink 4, 450 GB/s a direction per
+                 H100 SXM (NVIDIA data sheet);
+    ``dcn_bw``   the inter-node link: one NDR InfiniBand port, 400 Gb/s =
+                 50 GB/s per GPU (NVIDIA data sheet);
+    ``latency``  launch and rendezvous of one collective: an assumption
+                 (10 µs), not a measurement. It waits for the port's
+                 multi-card workers (ROADMAP Queue 1 item 9) to be measured.
+    """
+    ici_bw: float = 450e9
+    dcn_bw: float = 50e9
+    latency: float = 10e-6
+
+    def scaled(self, bw_scale: float = 1.0,
+               latency_scale: float = 1.0) -> "FabricModel":
+        """The bandwidths (and optionally the latency) scaled: the replay's
+        one-knob "slower interconnect" what-if."""
+        return dataclasses.replace(self, ici_bw=self.ici_bw * bw_scale,
+                                   dcn_bw=self.dcn_bw * bw_scale,
+                                   latency=self.latency * latency_scale)
+
+    def collective_time(self, n_bytes: float, n_collectives: int, n: int,
+                        cross_pod: bool = False) -> float:
+        """One sync round issued as ``n_collectives`` all-reduces totalling
+        ``n_bytes`` per replica: every collective pays the latency, the
+        ring transfer depends on the total payload,
+        ``t = n_collectives·α + 2(n−1)/n · n_bytes / bw``."""
+        if n <= 1 or n_collectives <= 0:
+            return 0.0
+        bw = self.dcn_bw if cross_pod else self.ici_bw
+        return (n_collectives * self.latency
+                + 2.0 * (n - 1) / n * n_bytes / bw)
+
+
+def collective_time(n_bytes: float, n_collectives: int, n_workers: int,
+                    fabric: FabricModel = FabricModel(),
+                    cross_pod: bool = False) -> float:
+    """:meth:`FabricModel.collective_time` of the default fabric."""
+    return fabric.collective_time(n_bytes, n_collectives, n_workers,
+                                  cross_pod)
 
 
 def worker_mean_(x: torch.Tensor, round16=()) -> torch.Tensor:

@@ -100,6 +100,9 @@ def clip_by_global_norm(grads: Tree, max_norm: float, batch_ndim: int = 0):
 # --------------------------------------------------------------------------- #
 # fully synchronous optimizers (consume averaged gradients)
 # --------------------------------------------------------------------------- #
+#: the synchronous algorithms: one model, the gradient applied every step
+SYNC_OPTIMIZERS = ("sgd", "adagrad", "adaalter")
+
 class Optimizer(NamedTuple):
     init: Callable[..., Tree]
     # update(grads, sq_grads, state, params) -> (new_params, new_state)
@@ -281,8 +284,11 @@ def with_grad_clip(opt, max_norm: float):
 
     def update(grads, sq_grads, state, params):
         clipped, factor = clip_by_global_norm(grads, max_norm)
-        sq = tree_map(lambda s: (s.float() * torch.square(factor)).to(s.dtype),
-                      sq_grads)
+        sq = None
+        if sq_grads is not None:      # None where the update never reads it
+            sq = tree_map(
+                lambda s: (s.float() * torch.square(factor)).to(s.dtype),
+                sq_grads)
         return opt.update(clipped, sq, state, params)
 
     return Optimizer(opt.init, update)
@@ -399,7 +405,7 @@ def make_optimizer(cfg) -> Any:
     """
     sync = cfg.sync
     compression = sync.compression
-    if cfg.name in ("sgd", "adagrad", "adaalter"):
+    if cfg.name in SYNC_OPTIMIZERS:
         if compression and compression != "fp32":
             raise ValueError(
                 f"compression={compression!r} requires a local optimizer "

@@ -153,11 +153,51 @@ class SyncEngine:
             self.algorithm, n_params, compression=self.codec,
             block=self.block)
 
+    def round_bytes_per_shard(self, n_params: int, n_shards: int = 1
+                              ) -> float:
+        """Per-device wire bytes of one sync round when each worker's plane
+        is split ``n_shards`` ways: ``round_bytes / n_shards`` (the number
+        the alpha-beta model and the replay charge a device's collective
+        with). ``n_shards == 1`` is :meth:`round_bytes`."""
+        return self.round_bytes(n_params) / max(1, int(n_shards))
+
     def modeled_bytes_per_step(self, n_params: int) -> float:
         """The static fixed-H formula (the paper's 2P/H claim)."""
         return comm.sync_bytes_per_step(
             self.algorithm, n_params, self.H, compression=self.codec,
             block=self.block)
+
+    def grad_allreduce_bytes(self, n_params: int) -> float:
+        """Per-step gradient all-reduce of synchronous execution: what
+        moves when there is no sync round to skip."""
+        return comm.payload_bytes(n_params)
+
+    def encode_hbm_bytes(self, n_params: int, *,
+                         fused: Optional[bool] = None) -> float:
+        """Modeled device-memory traffic of one int8 EF encode
+        (``comm.ef_sync_hbm_bytes``); other codecs run no such pipeline,
+        so asking is a caller bug."""
+        if self.codec.name != "int8":
+            raise ValueError(
+                f"ef_sync_hbm_bytes models the int8 quantize pipeline; "
+                f"this engine's codec is {self.codec.name!r}")
+        if fused is None:
+            fused = self.codec.ef_roundtrip is not None
+        return comm.ef_sync_hbm_bytes(
+            int(n_params * comm.sync_round_multiplier(self.algorithm)),
+            fused=fused, block=self.block)
+
+    def modeled_encode_hbm_bytes(self, n_params: int) -> float:
+        """Modeled device-memory traffic of one sync round's EF encode for
+        any codec (the trace's ``ef_encode`` span): int8 the pipeline model
+        above, bf16 one pass reading x and the residual and writing the
+        wire and the residual (16 bytes an element), fp32 none."""
+        if self.codec.name == "int8":
+            return self.encode_hbm_bytes(n_params)
+        n = int(n_params * comm.sync_round_multiplier(self.algorithm))
+        if self.codec.name == "bf16":
+            return 16.0 * n
+        return 0.0
 
     def round_collectives(self, n_payload_leaves: int, *,
                           flat: bool = False) -> int:

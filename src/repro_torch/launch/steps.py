@@ -1,7 +1,8 @@
-"""Train steps of the local optimizers, R workers stacked on one device.
+"""Train steps, R workers stacked on one device or one synchronous model.
 
-Every parameter and accumulator carries a leading worker axis R, as in the
-JAX package's ``launch/steps.py``; replicas diverge between syncs.
+With a local optimizer (``local_sgd``, ``local_adaalter``) every parameter
+and accumulator carries a leading worker axis R, as in the JAX package's
+``launch/steps.py``; replicas diverge between syncs.
 
 * ``local_step`` — H-1 out of H steps — moves nothing between workers;
 * ``sync_step`` adds the params + accumulator average (Alg. 4 lines
@@ -23,6 +24,18 @@ optimizer state the steps exchange are FlatSpace planes
 and the sync round one EF encode per half of the ``[params ‖ B²]`` payload
 and one mean per half. Given the same schedule the train state is bitwise
 equal to the per-leaf layout's.
+
+With a synchronous optimizer (``sgd``, ``adagrad``, ``adaalter``: the
+paper's Algorithms 1 and 3, its baselines) one model takes the whole
+global batch and ``opt.update(grads, g∘g, ...)`` applies the gradient every
+step, as the reference's non-local branch does: plain tensor ops, no
+kernel (no Pallas kernel is reachable from that branch either). On one
+device there is no all-reduce; ``train_loop`` charges the bytes it would
+move.
+
+With ``OptimizerConfig.obs_metrics`` every step also returns
+``metrics['grad_norm']``: the L2 norm of the raw (pre-clip) gradients, one
+per worker on the local paths, a scalar on the synchronous one.
 """
 from __future__ import annotations
 
@@ -39,7 +52,7 @@ from repro_torch.core.sync_engine import drift_statistic
 from repro_torch.kernels.ref import F32_MIN
 from repro_torch.kernels.tiling import round_through_bf16
 from repro_torch.models import lstm
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 
 def mean_over_workers(tree):
@@ -106,9 +119,15 @@ class TrainPrograms:
     sync_step: Callable[..., Any]   # same signature; ends with the sync round
     n_workers: int
     H: int
+    is_local: bool = True        # False: a synchronous optimizer, R = 1
     n_payload_leaves: int = 0    # param leaves a sync round touches
     is_flat: bool = False
     flatspace: Any = None        # FlatSpace geometry (local_adaalter runs)
+    # (params, opt_state) of the per-leaf and the flat layout on the meta
+    # device: the restore templates of checkpoints written in the layout
+    # this run does not train in (local_adaalter runs)
+    legacy_abstract: Any = None
+    flat_abstract: Any = None
     to_flat: Any = None          # per-leaf (params, opt_state) -> planes
     to_legacy: Any = None        # planes -> per-leaf (params, opt_state)
 
@@ -124,10 +143,14 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int,
                          f"AdaAlter run (got optimizer={opt_cfg.name!r})")
     opt = opt_lib.make_optimizer(opt_cfg)
     if not opt_lib.is_local(opt):
-        raise NotImplementedError(
-            f"{opt_cfg.name!r} trains on the synchronous data-parallel path, "
-            "which is not ported yet (ROADMAP Queue 1); the port trains the "
-            "local optimizers local_sgd and local_adaalter")
+        if n_workers != 1:
+            raise ValueError(
+                f"{opt_cfg.name!r} is a synchronous optimizer: one model "
+                "takes the whole global batch (R = 1), so it trains with "
+                f"one worker, not {n_workers}. The reference runs a local "
+                "optimizer on its synchronous branch only for models over "
+                "100 B parameters, which the port does not build")
+        return _sync_programs(cfg, opt_cfg, opt, torch.device(device))
     R = n_workers
     device = torch.device(device)
     dtype = getattr(torch, cfg.param_dtype)
@@ -179,6 +202,8 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int,
         else:
             new_params, new_state = opt.local_step(grads, opt_state, params)
         metrics = {"loss": torch.mean(loss)}
+        if opt_cfg.obs_metrics:
+            metrics["grad_norm"] = opt_lib.global_norm(grads, batch_ndim=1)
         if staleness:
             metrics["drift"] = _staleness_stat(grads, opt_state["g_anchor"])
         elif stat is not None:
@@ -197,8 +222,14 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int,
     if opt_cfg.name == "local_adaalter":
         fs = fsp.FlatSpace.build(abstract, batch_ndim=1,
                                  eps=opt_cfg.eps if opt_cfg.flat else None)
+        state_abs = opt.init(abstract, workers=R)
+        plane_abs = torch.empty((R, fs.plane_size), dtype=torch.float32,
+                                device="meta")
         flat_fields = dict(
-            flatspace=fs,
+            flatspace=fs, legacy_abstract=(abstract, state_abs),
+            flat_abstract=(plane_abs, {
+                k: (v if k in fsp.SCALAR_STATE_KEYS else plane_abs)
+                for k, v in state_abs.items()}),
             to_flat=lambda p_, s_: (fs.pack(p_), fsp.pack_opt_state(fs, s_)),
             to_legacy=lambda pl_, st_: (fs.unpack(pl_),
                                         fsp.unpack_opt_state(fs, st_)))
@@ -209,6 +240,45 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int,
                          sync_step=sync_step, n_workers=R, H=opt.H,
                          n_payload_leaves=len(leaves(abstract)),
                          is_flat=opt_cfg.flat, **flat_fields)
+
+
+# --------------------------------------------------------------------------- #
+# synchronous steps (sgd, adagrad, adaalter: the paper's baselines)
+# --------------------------------------------------------------------------- #
+def _sync_programs(cfg, opt_cfg, opt, device) -> TrainPrograms:
+    """One model over the global batch; ``opt.update`` every step. Both
+    step functions are the same step (a synchronous optimizer has no round
+    to skip; ``train_loop`` runs the sync step every step, as the
+    reference's H = 1 schedule does)."""
+    dtype = getattr(torch, cfg.param_dtype)
+    # Alg. 3 folds g∘g into B²; Alg. 1 and plain SGD never read it, and the
+    # reference's compiled step drops it as dead code
+    wants_sq = opt_cfg.name == "adaalter"
+
+    def init_fn(seed: int, base=None):
+        if base is None:
+            gen = torch.Generator(device).manual_seed(seed)
+            base = lstm.init_lstm(gen, cfg, dtype, device)
+        params = tree_map(lambda x: x.to(device), base)
+        return params, opt.init(params)
+
+    def step(params, opt_state, batch):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = lstm.loss_fn(p, batch, cfg)
+        grads = unflatten_like(params, list(
+            torch.autograd.grad(loss, leaves(p))))
+        sq = (tree_map(lambda g: torch.square(g.float()), grads)
+              if wants_sq else None)
+        new_params, new_state = opt.update(grads, sq, opt_state, params)
+        metrics = {"loss": loss.detach()}
+        if opt_cfg.obs_metrics:
+            metrics["grad_norm"] = opt_lib.global_norm(grads)
+        return new_params, new_state, metrics
+
+    n_leaves = len(leaves(lstm.init_lstm(None, cfg, dtype, "meta")))
+    return TrainPrograms(init_fn=init_fn, local_step=step, sync_step=step,
+                         n_workers=1, H=1, is_local=False,
+                         n_payload_leaves=n_leaves)
 
 
 # --------------------------------------------------------------------------- #
@@ -340,6 +410,9 @@ def _flat_programs(fs, cfg, opt_cfg, opt, abstract, base_params, device):
         new_state = {**fstate, "step": step_no, "tprime": tprime,
                      "b2_local": new_b2}
         metrics = {"loss": torch.mean(loss)}
+        if opt_cfg.obs_metrics:       # over the per-leaf views, leaf by leaf
+            metrics["grad_norm"] = opt_lib.global_norm(
+                fs.unpack(g_plane, dtype=torch.float32), batch_ndim=1)
         if staleness:
             d2 = torch.sum(torch.square(g_plane - fstate["g_anchor"]), -1)
             g2 = torch.sum(torch.square(g_plane), -1)

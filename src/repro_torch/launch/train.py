@@ -1,17 +1,30 @@
-"""Training driver of the port: Local AdaAlter on the synthetic non-IID stream.
+"""Training driver of the port: the paper's optimizers on the synthetic
+non-IID stream.
 
-The counterpart of the JAX package's ``launch/train.py`` for the local
-paths: R workers stacked on one device, per-leaf or over the flat parameter
-plane (``--flat``), the sync round owned by a ``SyncEngine`` (fixed-H or
-adaptive schedule, fp32/bf16/int8 wire, one-pass or three-pass encode),
-and a ``TrainResult`` with the measured sync schedule and the bytes it
-moved. Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
+The counterpart of the JAX package's ``launch/train.py`` for Big LSTM:
+
+* the local optimizers (``local_sgd``, ``local_adaalter``) with R workers
+  stacked on one device, per-leaf or over the flat parameter plane
+  (``--flat``), the sync round owned by a ``SyncEngine`` (fixed-H or
+  adaptive schedule, fp32/bf16/int8 wire, one-pass or three-pass encode);
+* the synchronous baselines (``sgd``, ``adagrad``, ``adaalter``): one model
+  over the global batch, R = 1, the bytes of a gradient all-reduce charged
+  every step;
+* checkpoints (``--checkpoint-dir``, ``--checkpoint-every``) in the JAX
+  package's format, restored across layouts and, for flat planes, across
+  worker counts, with the sync engine's ``SyncState``;
+* ``--trace`` (a span timeline, ``repro_torch.trace``) and ``--metrics``
+  (a JSONL health stream and a Prometheus textfile, ``repro_torch.obs``).
+
+``TrainResult`` carries the measured sync schedule and the bytes it moved.
+Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
 
   python -m repro_torch.launch.train --arch biglstm --optimizer \\
       local_adaalter --flat --compress int8 --use-kernels --workers 2 \\
       --batch 64 --seq 20 --steps 8
   python -m repro_torch.launch.train --device cpu --arch biglstm --reduced \\
-      --use-kernels --compress int8 --steps 8 [--flat] [--unfused-sync]
+      --optimizer adaalter --steps 8 --checkpoint-dir ck --checkpoint-every 4 \\
+      --trace t.json --metrics m.jsonl
 """
 from __future__ import annotations
 
@@ -28,23 +41,25 @@ import torch
 from repro_torch.configs import (ARCHS, OptimizerConfig, ShapeConfig,
                                  SyncConfig, get_arch, reduced)
 from repro_torch.core.codecs import CODEC_NAMES
+from repro_torch.core.optimizers import SYNC_OPTIMIZERS
 from repro_torch.core.sync_engine import DRIFT_METRICS, make_sync_engine
 from repro_torch.core.sync_policy import POLICY_NAMES
 from repro_torch.data import SyntheticLM, make_train_batch
 from repro_torch.launch.steps import build_train_programs
 from repro_torch.models.counting import count_params
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
 class TrainResult:
-    losses: List[float]
+    losses: List[float]                    # this run only (after a restore)
     ppl: List[float]
-    steps: int                             # steps executed
+    steps: int                             # steps executed by this run
     n_workers: int
     comm_bytes_per_step: float             # MEASURED: moved bytes / steps run
     wall_s: float
     final_loss: float
-    start_step: int = 0
+    start_step: int = 0                    # the restored step (0: fresh)
     sync_count: int = 0                    # sync rounds the policy triggered
     sync_steps: List[int] = dataclasses.field(default_factory=list)
     comm_bytes_total: float = 0.0          # measured wire bytes, whole run
@@ -53,6 +68,9 @@ class TrainResult:
     step_s: List[float] = dataclasses.field(default_factory=list)
                                            # host seconds of each step, the
                                            # device's work included
+    probe_s: List[float] = dataclasses.field(default_factory=list)
+                                           # host seconds of each step's
+                                           # health probe (instrumented runs)
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -66,33 +84,183 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
     return torch.device(device)
 
 
+def _place(tree, dev):
+    """Float tensors on ``dev``, contiguous; the integer step counters on
+    the host, where the steps keep them."""
+    return tree_map(lambda t: t.to(dev).contiguous() if t.is_floating_point()
+                    else t.cpu(), tree)
+
+
+def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
+             verbose):
+    """(params, opt_state, SyncState or None, step) from the latest
+    checkpoint, written in either layout (per-leaf or flat plane), a flat
+    plane under any worker count, with or without the SyncState."""
+    from repro_torch.checkpoint import (checkpoint_keys, disk_like,
+                                        restore_checkpoint)
+    from repro_torch.core.flatspace import (adapt_flat_state,
+                                            is_flat_checkpoint)
+    keys = checkpoint_keys(checkpoint_dir)
+    # states written before the SyncState are (params, opt_state) pairs
+    no_ss = not any(k.startswith("#2/") for k in keys)
+    disk_flat = is_flat_checkpoint(keys)
+    if disk_flat == programs.is_flat:
+        like = (params, opt_state)
+    elif disk_flat:
+        if programs.flat_abstract is None:
+            raise ValueError(
+                "checkpoint holds a flat parameter plane but this run has "
+                "no FlatSpace (flat layout is local Local AdaAlter only)")
+        like = programs.flat_abstract
+    else:
+        like = programs.legacy_abstract
+    if not no_ss:
+        like = (*like, engine.export_state())
+    if disk_flat:       # the plane may come from another worker count
+        like = disk_like(checkpoint_dir, like)
+    state, step = restore_checkpoint(checkpoint_dir, like)
+    del like, params, opt_state
+    params, opt_state = state[:2]
+    sync_state = None if no_ss else state[2]
+    notes = ""
+    if disk_flat:
+        want = (programs.n_workers, programs.flatspace.plane_size)
+        if tuple(params.shape) != want:
+            notes = f" (plane {tuple(params.shape)} -> {want})"
+            plane, fstate = adapt_flat_state(
+                params.cpu().numpy(),
+                {k: v.cpu().numpy() for k, v in opt_state.items()},
+                workers=want[0], plane_size=want[1])
+            params = torch.from_numpy(plane)
+            opt_state = {k: torch.from_numpy(v) for k, v in fstate.items()}
+    params, opt_state = _place((params, opt_state), dev)
+    if disk_flat and not programs.is_flat:
+        params, opt_state = _place(programs.to_legacy(params, opt_state),
+                                   dev)
+        notes += " (flat -> per-leaf)"
+    elif programs.is_flat and not disk_flat:
+        params, opt_state = programs.to_flat(params, opt_state)
+        notes += " (per-leaf -> flat)"
+    if verbose:
+        print(f"restored checkpoint at step {step}"
+              f"{' (no SyncState)' if no_ss else ''}{notes}")
+    return params, opt_state, sync_state, step
+
+
 def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
                steps: int = 100, seed: int = 0, log_every: int = 10,
                n_workers: int = 1, non_iid: bool = True,
+               checkpoint_dir: str = "", checkpoint_every: int = 0,
                verbose: bool = True, device: Optional[str] = None,
-               init_params=None) -> TrainResult:
-    """Train ``steps`` steps with ``n_workers`` workers stacked on
-    ``device``. ``init_params`` (one worker's parameter dict) replaces the
-    seeded initialisation, e.g. with weights carried across from the JAX
-    package by ``repro_torch.convert``."""
+               init_params=None, trace_out: str = "",
+               metrics_out: str = "") -> TrainResult:
+    """Train up to step ``steps`` with ``n_workers`` workers stacked on
+    ``device`` (a synchronous optimizer takes one). ``init_params`` (one
+    worker's parameter dict) replaces the seeded initialisation, e.g. with
+    weights carried across from the JAX package by ``repro_torch.convert``.
+
+    ``checkpoint_dir`` resumes from its latest checkpoint (``start_step``)
+    and, with ``checkpoint_every``, saves ``(params, opt_state,
+    SyncState)`` after every ``checkpoint_every``-th step.
+
+    ``trace_out`` records the run as a span stream (``repro_torch.trace``):
+    one ``local_step`` span per worker per step with the sync decision the
+    engine took, and modeled ``ef_encode`` and ``collective`` spans on sync
+    rounds. ``metrics_out`` streams one JSONL row a step of health metrics
+    (``repro_torch.obs``) and writes a Prometheus textfile beside it
+    (``<base>.prom``). Both share one ``SyncHealthProbe``, so the spans and
+    the rows report the same numbers; the probe runs after the step's span.
+    All host times share ``time.perf_counter``."""
+    if trace_out or metrics_out:
+        opt_cfg = dataclasses.replace(opt_cfg, obs_metrics=True)
     dev = resolve_device(device)
     programs = build_train_programs(cfg, opt_cfg, n_workers=n_workers,
                                     device=dev)
     R = programs.n_workers
+    batch_workers = R if programs.is_local else 0
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
                      n_workers=R, seed=seed, non_iid=non_iid)
     params, opt_state = programs.init_fn(seed, init_params)
-    engine = make_sync_engine(opt_cfg, is_local=True, H=programs.H)
-    engine.reset(0)
+    engine = make_sync_engine(opt_cfg, is_local=programs.is_local,
+                              H=programs.H)
+    start_step, sync_state = 0, None
+    if checkpoint_dir:
+        from repro_torch.checkpoint import latest_step
+        if latest_step(checkpoint_dir) is not None:
+            params, opt_state, sync_state, start_step = _restore(
+                checkpoint_dir, programs, engine, params, opt_state, dev,
+                verbose)
+    engine.reset(start_step)
+    if sync_state is not None:
+        engine.import_state(sync_state)
     n_params = count_params(cfg)
 
-    losses, ppls, step_s = [], [], []
+    # ---- obs: metrics registry + the shared sync-health probe ---------- #
+    from repro_torch.obs import NULL_REGISTRY, SyncHealthProbe
+    registry = NULL_REGISTRY
+    if metrics_out:
+        from repro_torch.obs import MetricsRegistry
+        registry = MetricsRegistry(labels={
+            "arch": cfg.name, "algorithm": opt_cfg.name,
+            "policy": opt_cfg.sync.policy,
+            "codec": opt_cfg.sync.compression or "fp32", "workers": R})
+        registry.open_jsonl(metrics_out)
+    probe = None
+    if registry or trace_out:
+        probe = SyncHealthProbe.build(engine, programs, n_params)
+        if registry:
+            registry.set_many(probe.static_summary())
+
+    # ---- trace recorder: spans + modeled round costs ------------------- #
+    recorder = None
+    if trace_out:
+        from repro_torch.core import comm
+        from repro_torch.hardware import H100
+        from repro_torch.trace import TraceRecorder
+        n_coll = engine.round_collectives(programs.n_payload_leaves,
+                                          flat=programs.is_flat)
+        round_b = engine.round_bytes(n_params)
+        # modeled device-side encode and wire time of ONE sync round (the
+        # workers share one card: no bytes cross a link)
+        enc_bytes = engine.modeled_encode_hbm_bytes(n_params)
+        enc_t = enc_bytes / H100.hbm_bw
+        # one device: no sharded plane (ROADMAP Queue 1 item 9)
+        n_shards = 1
+        shard_b = engine.round_bytes_per_shard(n_params, n_shards)
+        wire_t = comm.collective_time(shard_b, n_coll, R)
+        st0 = engine.export_state()
+        recorder = TraceRecorder(meta={
+            "kind": "train", "framework": "torch", "arch": cfg.name,
+            "algorithm": opt_cfg.name, "n_params": int(n_params),
+            "n_workers": R, "steps": steps, "start_step": start_step,
+            "H": programs.H, "is_local": programs.is_local,
+            "flat": programs.is_flat,
+            "sync": dataclasses.asdict(opt_cfg.sync),
+            "use_kernels": opt_cfg.use_kernels,
+            "n_payload_leaves": programs.n_payload_leaves,
+            "n_collectives_per_round": n_coll,
+            "n_shards": n_shards,
+            "round_wire_bytes_per_shard": shard_b,
+            "fabric": dataclasses.asdict(comm.FabricModel()),
+            "hbm_bw": H100.hbm_bw, "hardware": H100.name,
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"),
+            "clock": "perf_counter",
+            "sync_state0": {"since": int(st0.since),
+                            "drift": float(st0.drift)},
+        })
+
+    def now() -> float:
+        return recorder.now() if recorder is not None else time.perf_counter()
+
+    losses, ppls, step_s, probe_s = [], [], [], []
     t0 = time.perf_counter()
-    for step in range(steps):
+    for step in range(start_step, steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in
-                 make_train_batch(cfg, shape, ds, step, n_workers=R).items()}
+                 make_train_batch(cfg, shape, ds, step,
+                                  n_workers=batch_workers).items()}
         do_sync = engine.want_sync(step)
-        t_step = time.perf_counter()
+        t_step = now()
         fn = programs.sync_step if do_sync else programs.local_step
         # a span per step for torch.profiler (a no-op when none is active)
         with torch.profiler.record_function(
@@ -101,36 +269,107 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)  # the step's time includes its kernels
         loss = float(metrics["loss"])
-        step_s.append(time.perf_counter() - t_step)
+        dur = now() - t_step
+        step_s.append(dur)
         drift_val = (float(metrics.get("drift", 0.0))
                      if engine.wants_drift else 0.0)
+        # decision-time window state (before observe folds this step in)
+        st = engine.export_state() if recorder is not None else None
         engine.observe(step, do_sync,
                        {"drift": drift_val} if engine.wants_drift else None)
+        summary = {}
+        if probe is not None:   # one summary feeds both exports
+            t_probe = time.perf_counter()
+            summary = probe.step_summary(opt_state, metrics, synced=do_sync)
+            probe_s.append(time.perf_counter() - t_probe)
+        if recorder is not None:
+            from repro_torch.trace.events import health_span_args
+            t_end = t_step + dur
+            health = health_span_args(summary)
+            for w in range(R):
+                recorder.add("local_step", worker=w, step=step, t0=t_step,
+                             dur=dur, synced=do_sync, loss=loss,
+                             drift=drift_val, sync_since=int(st.since),
+                             sync_drift=float(st.drift), **health)
+                if do_sync:
+                    recorder.add("ef_encode", worker=w, step=step, t0=t_end,
+                                 dur=enc_t, modeled=True,
+                                 hbm_bytes=enc_bytes, codec=engine.codec.name)
+                    recorder.add("collective", worker=w, step=step,
+                                 t0=t_end + enc_t, dur=wire_t, modeled=True,
+                                 wire_bytes=round_b,
+                                 wire_bytes_per_shard=shard_b,
+                                 n_shards=n_shards,
+                                 n_collectives=n_coll,
+                                 codec=engine.codec.name, workers=R)
+        if registry:
+            registry.counter("steps_total").inc()
+            registry.gauge("loss", help="train loss (mean over workers)"
+                           ).set(loss)
+            registry.histogram("step_time_s",
+                               help="host wall of one train step"
+                               ).observe(dur)
+            probe.record(registry, summary, step=step, synced=do_sync)
+            registry.collect(step)
         losses.append(loss)
         ppls.append(math.exp(min(loss, 30.0)))
         if verbose and (step % log_every == 0 or step == steps - 1):
+            t_ev = now()
             print(f"step {step:5d} loss {loss:8.4f} ppl {ppls[-1]:10.2f} "
                   f"{'sync' if do_sync else 'local'}")
+            if recorder is not None:
+                recorder.add("eval", step=step, t0=t_ev, dur=now() - t_ev,
+                             loss=loss)
+        if checkpoint_dir and checkpoint_every and \
+                (step + 1) % checkpoint_every == 0:
+            from repro_torch.checkpoint import save_checkpoint
+            t_ck = now()
+            save_checkpoint(checkpoint_dir, step + 1,
+                            (params, opt_state, engine.export_state()))
+            if recorder is not None:
+                recorder.add("ckpt", step=step, t0=t_ck, dur=now() - t_ck,
+                             dir=checkpoint_dir)
+
     wall = time.perf_counter() - t0
-    total = engine.sync_count * engine.round_bytes(n_params)
+    executed = max(steps - start_step, 0)
+    # Measured comm: the schedule that ran times the codec's round payload
+    # (local optimizers); a synchronous optimizer all-reduces its gradient
+    # every step (P fp32 values), untouched by H or the codec.
+    if programs.is_local:
+        total = engine.sync_count * engine.round_bytes(n_params)
+        modeled = engine.modeled_bytes_per_step(n_params)
+    else:
+        total = executed * engine.grad_allreduce_bytes(n_params)
+        modeled = engine.grad_allreduce_bytes(n_params)
     final = float(np.mean(losses[-10:])) if losses else float("nan")
-    return TrainResult(losses=losses, ppl=ppls, steps=steps, n_workers=R,
-                       comm_bytes_per_step=total / steps if steps else 0.0,
-                       wall_s=wall, final_loss=final,
+    if registry:
+        registry.gauge("final_loss",
+                       help="mean loss over the last 10 steps").set(final)
+        base = (metrics_out[:-len(".jsonl")]
+                if metrics_out.endswith(".jsonl") else metrics_out)
+        registry.write_prom(base + ".prom")
+        registry.close()
+        if verbose:
+            print(f"wrote metrics {metrics_out} "
+                  f"(+ Prometheus textfile {base + '.prom'})")
+    if recorder is not None:
+        recorder.meta["measured"] = {
+            "wall_s": wall, "sync_count": engine.sync_count,
+            "sync_steps": list(engine.sync_steps), "final_loss": final}
+        recorder.save(trace_out)
+        if verbose:
+            print(f"wrote trace {trace_out} ({len(recorder.spans)} spans; "
+                  f"python -m repro_torch.trace.chrome {trace_out} to view, "
+                  "python -m repro_torch.trace.replay for what-ifs)")
+    return TrainResult(losses=losses, ppl=ppls, steps=executed, n_workers=R,
+                       comm_bytes_per_step=total / executed if executed
+                       else 0.0,
+                       wall_s=wall, final_loss=final, start_step=start_step,
                        sync_count=engine.sync_count,
                        sync_steps=list(engine.sync_steps),
-                       comm_bytes_total=total,
-                       comm_bytes_modeled=engine.modeled_bytes_per_step(
-                           n_params),
-                       sync_policy=engine.name, step_s=step_s)
-
-
-#: flags of the JAX training CLI whose paths are later slices of the port
-_NOT_PORTED = {
-    "trace": "span tracing (ROADMAP Queue 1: trace/obs)",
-    "metrics": "the health-metrics stream (ROADMAP Queue 1: trace/obs)",
-    "checkpoint_dir": "checkpoints (ROADMAP Queue 1: checkpoints)",
-}
+                       comm_bytes_total=total, comm_bytes_modeled=modeled,
+                       sync_policy=engine.name, step_s=step_s,
+                       probe_s=probe_s)
 
 
 def main(argv=None) -> None:
@@ -180,14 +419,26 @@ def main(argv=None) -> None:
                          "init; a step is one update launch and a sync round "
                          "one EF encode per payload half. Train state bitwise "
                          "equal to the per-leaf layout's. local_adaalter only")
-    for flag in ("trace", "metrics", "checkpoint_dir"):
-        ap.add_argument("--" + flag.replace("_", "-"), default="",
-                        help="not ported yet: raises")
+    ap.add_argument("--trace", default="", metavar="OUT.json",
+                    help="record the run as a span timeline "
+                         "(repro_torch.trace): per-worker per-step spans "
+                         "with the engine's sync decisions and modeled "
+                         "encode/wire costs. Export with `python -m "
+                         "repro_torch.trace.chrome`, what-ifs with `python "
+                         "-m repro_torch.trace.replay`")
+    ap.add_argument("--metrics", default="", metavar="OUT.jsonl",
+                    help="stream per-step health metrics (repro_torch.obs): "
+                         "one JSONL row a step (loss, raw-grad norm, drift, "
+                         "B² quantiles per dtype bucket, EF residual norms "
+                         "and quantization MSE on sync rounds, wire "
+                         "compression ratio) and a Prometheus textfile "
+                         "beside it (OUT.prom)")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="resume from the latest checkpoint here (either "
+                         "package's, either layout) and save into it")
+    ap.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                    help="save after every N-th step (0: never)")
     args = ap.parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not "
-                             "ported to PyTorch yet")
 
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -203,13 +454,22 @@ def main(argv=None) -> None:
         warmup_steps=args.warmup, use_kernels=args.use_kernels,
         flat=args.flat)
     R = max(1, args.workers)
+    if R > 1 and args.optimizer in SYNC_OPTIMIZERS:
+        ap.error(f"--workers {R}: {args.optimizer} is a synchronous "
+                 "optimizer, trained as one model over the global batch "
+                 "(R = 1); the reference runs local optimizers on that "
+                 "path only for models over 100 B parameters, which the "
+                 "port does not build")
     print(f"training {cfg.name} ({count_params(cfg):,} params) with "
           f"{args.optimizer} H={args.H}"
           f"{' +' + args.compress + ' sync' if args.compress else ''}"
           f"{' (flat plane)' if args.flat else ''}, "
           f"{R} stacked worker(s) on {resolve_device(args.device)}")
     res = train_loop(cfg, shape, opt_cfg, steps=args.steps, seed=args.seed,
-                     n_workers=R, non_iid=not args.iid, device=args.device)
+                     n_workers=R, non_iid=not args.iid, device=args.device,
+                     checkpoint_dir=args.checkpoint_dir,
+                     checkpoint_every=args.checkpoint_every,
+                     trace_out=args.trace, metrics_out=args.metrics)
     print(f"done in {res.wall_s:.1f}s; final loss {res.final_loss:.4f}; "
           f"{res.sync_count} syncs in {res.steps} steps; measured comm/step "
           f"{res.comm_bytes_per_step / 1e6:.1f} MB (modeled "

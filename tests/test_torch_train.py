@@ -43,19 +43,55 @@ DRIFT_RTOL = 0.01
 THRESHOLD = 0.0025
 SEQ, BATCH, STEPS = 16, 8, 8
 
+STALENESS_THRESHOLD = 2.5
+
 RUNS = {
-    # name: (SyncConfig kwargs, use_kernels, flat)
+    # name: (SyncConfig kwargs, use_kernels, flat[, extras]); extras may set
+    # OptimizerConfig fields ("opt"), the worker count ("workers", default
+    # 2; the global batch grows to 4 sequences a worker), "non_iid"
     "int8_kernels": (dict(compression="int8"), True, False),
     "fp32_plain": (dict(), False, False),
     "adaptive_bf16": (dict(policy="adaptive", threshold=THRESHOLD,
                            compression="bf16"), True, False),
     "flat_int8_kernels": (dict(compression="int8"), True, True),
     "flat_int8_unfused": (dict(compression="int8", fused=False), True, True),
+    "local_sgd": (dict(), False, False, dict(opt=dict(name="local_sgd"))),
+    "warmup3_int8_kernels": (dict(compression="int8"), True, False,
+                             dict(opt=dict(warmup_steps=3))),
+    # the per-worker raw gradient norm is ~0.28 here: a 0.2 clip fires
+    "clip_int8_kernels": (dict(compression="int8"), True, False,
+                          dict(opt=dict(grad_clip=0.2))),
+    "clip_int8_plain": (dict(compression="int8"), False, False,
+                        dict(opt=dict(grad_clip=0.2))),
+    # the first window reads exactly 1 a step (zero anchor); every
+    # accumulated value the schedule decides on sits >= 20% from 2.5
+    "adaptive_staleness_bf16": (dict(policy="adaptive",
+                                     threshold=STALENESS_THRESHOLD,
+                                     drift_metric="grad_staleness",
+                                     compression="bf16"), True, False),
+    "iid_int8_kernels": (dict(compression="int8"), True, False,
+                         dict(non_iid=False)),
+    "r3_int8_kernels": (dict(compression="int8"), True, False,
+                        dict(workers=3)),
+    "r3_flat_int8_kernels": (dict(compression="int8"), True, True,
+                             dict(workers=3)),
 }
+
+
+def _run(name):
+    """(sync kwargs, use_kernels, flat, opt extras, workers, batch,
+    non_iid) of one RUNS entry."""
+    sync_kw, use_kernels, flat, *rest = RUNS[name]
+    extra = rest[0] if rest else {}
+    workers = extra.get("workers", 2)
+    batch = BATCH if workers == 2 else 4 * workers
+    return (sync_kw, use_kernels, flat, extra.get("opt", {}), workers,
+            batch, extra.get("non_iid", True))
+
 
 REF_SCRIPT = r"""
 import json, os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=3"
 import jax, numpy as np
 from jax.sharding import AxisType
 from repro.configs import OptimizerConfig, ShapeConfig, get_arch, reduced
@@ -64,11 +100,8 @@ from repro.core import sync_engine
 from repro.launch.train import train_loop
 from repro.models import build_model
 
-out, runs, seq, batch, steps = sys.argv[1], json.loads(sys.argv[2]), *map(int, sys.argv[3:6])
+out, runs, seq, steps = sys.argv[1], json.loads(sys.argv[2]), *map(int, sys.argv[3:5])
 cfg = reduced(get_arch("biglstm"))
-shape = ShapeConfig("t", seq_len=seq, global_batch=batch, kind="train")
-mesh = jax.make_mesh((2, 1), ("data", "model"),
-                     axis_types=(AxisType.Auto,) * 2)
 params0 = jax.jit(build_model(cfg).init)(jax.random.PRNGKey(0))
 leaves, _ = jax.tree_util.tree_flatten_with_path(params0)
 np.savez(out + ".npz", **{jax.tree_util.keystr(k): np.asarray(v).view(np.uint16)
@@ -80,15 +113,19 @@ def recording_observe(self, step, synced, metrics=None):
     return observe(self, step, synced, metrics)
 sync_engine.SyncEngine.observe = recording_observe
 res = {}
-for name, (sync_kw, use_pallas, flat) in runs.items():
+for name, (sync_kw, use_pallas, flat, opt_kw, workers, batch, non_iid) in runs.items():
     drifts.clear()
-    oc = OptimizerConfig.from_sync(SyncConfig(**sync_kw), lr=0.5, H=4,
-                                   warmup_steps=0, use_pallas=use_pallas,
-                                   flat=flat)
+    mesh = jax.make_mesh((workers, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2,
+                         devices=jax.devices()[:workers])
+    shape = ShapeConfig("t", seq_len=seq, global_batch=batch, kind="train")
+    oc = OptimizerConfig.from_sync(SyncConfig(**sync_kw), **{
+        "lr": 0.5, "H": 4, "warmup_steps": 0, "use_pallas": use_pallas,
+        "flat": flat, **opt_kw})
     r = train_loop(cfg, shape, oc, steps=steps, seed=0, mesh=mesh,
-                   verbose=False)
+                   non_iid=non_iid, verbose=False)
     res[name] = dict(losses=r.losses, sync_steps=r.sync_steps,
-                     sync_count=r.sync_count,
+                     sync_count=r.sync_count, n_workers=r.n_workers,
                      comm_bytes_total=r.comm_bytes_total,
                      comm_bytes_modeled=r.comm_bytes_modeled,
                      drift=list(drifts))
@@ -105,9 +142,10 @@ def reference(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("jax_ref") / "ref")
     env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
            "JAX_PLATFORMS": "cpu"}
-    subprocess.run([sys.executable, "-c", REF_SCRIPT, out, json.dumps(RUNS),
-                    str(SEQ), str(BATCH), str(STEPS)],
-                   check=True, env=env, timeout=600)
+    runs = {name: _run(name) for name in RUNS}
+    subprocess.run([sys.executable, "-c", REF_SCRIPT, out, json.dumps(runs),
+                    str(SEQ), str(STEPS)],
+                   check=True, env=env, timeout=900)
     with np.load(out + ".npz") as z:
         flat = dict(z)
     cfg = _cfg()
@@ -136,7 +174,6 @@ def port_runs(reference):
     sync engine was fed."""
     from repro_torch.core import sync_engine
     params0, _ = reference
-    shape = ShapeConfig("t", seq_len=SEQ, global_batch=BATCH, kind="train")
     drifts = []
     observe = sync_engine.SyncEngine.observe
 
@@ -147,13 +184,18 @@ def port_runs(reference):
     out = {}
     sync_engine.SyncEngine.observe = recording_observe
     try:
-        for name, (sync_kw, use_kernels, flat) in RUNS.items():
+        for name in RUNS:
+            (sync_kw, use_kernels, flat, opt_kw, workers, batch,
+             non_iid) = _run(name)
             drifts.clear()
-            oc = OptimizerConfig.from_sync(SyncConfig(**sync_kw), lr=0.5,
-                                           H=4, warmup_steps=0,
-                                           use_kernels=use_kernels, flat=flat)
+            shape = ShapeConfig("t", seq_len=SEQ, global_batch=batch,
+                                kind="train")
+            oc = OptimizerConfig.from_sync(SyncConfig(**sync_kw), **{
+                "lr": 0.5, "H": 4, "warmup_steps": 0,
+                "use_kernels": use_kernels, "flat": flat, **opt_kw})
             res = train_loop(_cfg(), shape, oc, steps=STEPS, seed=0,
-                             n_workers=2, verbose=False, device="cpu",
+                             n_workers=workers, non_iid=non_iid,
+                             verbose=False, device="cpu",
                              init_params=params0)
             out[name] = (res, list(drifts))
     finally:
@@ -168,7 +210,8 @@ def test_schedule_and_comm_bytes_match_exactly(reference, port_runs, name):
     assert got.sync_count == ref["sync_count"]
     assert got.comm_bytes_total == ref["comm_bytes_total"]
     assert got.comm_bytes_modeled == ref["comm_bytes_modeled"]
-    if name != "adaptive_bf16":
+    assert got.n_workers == ref["n_workers"] == _run(name)[4]
+    if RUNS[name][0].get("policy") != "adaptive":
         assert got.sync_steps == [3, 7]
 
 
@@ -195,7 +238,21 @@ def test_adaptive_drift_stream_matches(reference, port_runs):
     assert got.sync_steps == ref["sync_steps"]
 
 
-def _cli_run(tmp_path, *flags):
+def test_staleness_schedule_has_margin(reference, port_runs):
+    """The grad-staleness run: the port's policy fed the reference's drift
+    stream takes its decisions, the port's stream agrees to DRIFT_RTOL, and
+    both schedules sync at least once."""
+    ref = reference[1]["adaptive_staleness_bf16"]
+    got, drift = port_runs["adaptive_staleness_bf16"]
+    policy = AdaptiveSyncPolicy(STALENESS_THRESHOLD, h_min=1, h_max=16)
+    for step, d in enumerate(ref["drift"]):
+        policy.observe(step, policy.want_sync(step), {"drift": d})
+    assert policy.sync_steps == ref["sync_steps"] == got.sync_steps
+    assert got.sync_steps
+    np.testing.assert_allclose(drift, ref["drift"], rtol=DRIFT_RTOL)
+
+
+def _cli_run(tmp_path, *flags, sync_steps=(3, 7)):
     out = tmp_path / "r.json"
     env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
            "OMP_NUM_THREADS": "1"}
@@ -207,7 +264,7 @@ def _cli_run(tmp_path, *flags):
         capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     res = json.loads(out.read_text())
-    assert res["sync_steps"] == [3, 7]
+    assert res["sync_steps"] == list(sync_steps)
     assert all(np.isfinite(res["losses"]))
     return res
 
@@ -225,12 +282,51 @@ def test_cli_smoke_flat(tmp_path, flags):
     np.testing.assert_allclose(flat["losses"], leaf["losses"], rtol=1e-6)
 
 
-@pytest.mark.parametrize("flag", ["--trace=t.json", "--metrics=m.jsonl",
-                                  "--checkpoint-dir=ck"])
-def test_cli_refuses_flags_of_later_slices(flag):
-    from repro_torch.launch.train import main
-    with pytest.raises(SystemExit, match="not ported"):
-        main(["--device", "cpu", "--reduced", flag])
+def test_cli_trace(tmp_path):
+    """--trace writes a span timeline that the Chrome export and the
+    replay gate read (``--trace`` raised before slice 4)."""
+    trace = tmp_path / "t.json"
+    _cli_run(tmp_path, f"--trace={trace}")
+    from repro_torch.trace import Trace
+    t = Trace.load(str(trace))
+    steps = t.by_name("local_step")
+    assert len(steps) == 2 * 8
+    assert sorted({s.step for s in t.by_name("collective")}) == [3, 7]
+    assert all("grad_norm" in s.args and "b2" in s.args for s in steps)
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    for mod, args in (("chrome", ["-o", str(tmp_path / "c.json")]),
+                      ("replay", ["--check"])):
+        proc = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.trace.{mod}", str(trace),
+             *args], capture_output=True, text=True, env=env, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+    assert json.loads((tmp_path / "c.json").read_text())["traceEvents"]
+
+
+def test_cli_metrics(tmp_path):
+    """--metrics streams one JSONL row a step after a header, with the
+    Prometheus textfile beside it (``--metrics`` raised before slice 4)."""
+    _cli_run(tmp_path, f"--metrics={tmp_path / 'm.jsonl'}")
+    rows = [json.loads(line) for line in
+            (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert rows[0]["stream"] == "repro.obs.metrics"
+    assert [r["step"] for r in rows[1:]] == list(range(8))
+    assert all("grad_norm" in r["metrics"] for r in rows[1:])
+    assert "# TYPE repro_loss gauge" in (tmp_path / "m.prom").read_text()
+
+
+def test_cli_checkpoint(tmp_path):
+    """--checkpoint-dir with --checkpoint-every saves, and a second run
+    resumes from the latest checkpoint with the straight run's losses
+    (``--checkpoint-dir`` raised before slice 4)."""
+    straight = _cli_run(tmp_path)
+    ck = tmp_path / "ck"
+    first = _cli_run(tmp_path, "--steps=4", f"--checkpoint-dir={ck}",
+                     "--checkpoint-every=4", sync_steps=[3])
+    assert sorted(os.listdir(ck)) == ["step_4"]
+    resumed = _cli_run(tmp_path, f"--checkpoint-dir={ck}", sync_steps=[7])
+    assert resumed["start_step"] == 4 and resumed["steps"] == 4
+    assert first["losses"] + resumed["losses"] == straight["losses"]
 
 
 def test_default_device_is_cuda_or_raises(monkeypatch):
@@ -241,10 +337,13 @@ def test_default_device_is_cuda_or_raises(monkeypatch):
     assert train.resolve_device("cpu").type == "cpu"
 
 
-IMPORT_PATTERN = r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)"
+IMPORT_PATTERN = r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)"
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
+    """Nor ``ml_dtypes``: the port reads and writes bfloat16 checkpoints
+    through 16-bit integer views. Every module is imported, the
+    checkpoint, obs and trace subpackages included."""
     import re
     files = list((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -254,9 +353,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
            if re.match(IMPORT_PATTERN, line)]
     assert not bad, bad
     code = ("import importlib, pkgutil, sys, repro_torch\n"
-            "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-            "    importlib.import_module(m.name)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro']\n"
+            "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "need = {'repro_torch.checkpoint.store', 'repro_torch.obs.health', 'repro_torch.obs.metrics', 'repro_torch.trace.events', 'repro_torch.trace.chrome', 'repro_torch.trace.replay', 'repro_torch.hardware'}\n"
+            "assert need <= set(names), need - set(names)\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
