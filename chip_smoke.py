@@ -77,18 +77,42 @@ raises and exits non-zero:
   serve     full-width serve_session: batch 8, prompt 512, 32 new tokens;
             prefill and decode take the chunked and recurrent paths, so no
             SSD launch
+  reference_dense  reduced qwen2-7b in float32 (2 layers, 8 heads over 2 KV
+            heads of 32, QKV bias, vocab 512), card against CPU, same
+            weights: logits_fn over 2 x 2560 tokens (the blockwise path, its
+            last block padded), prefill then 16 decode steps, a windowed
+            decode (window 64) over 96 positions (all to rtol 1e-4, atol
+            1e-5); on the card the prompt replayed through decode_step
+            against logits_fn position by position, a check that must
+            reject queries rotated a position ahead and scores scaled 2% up
+  reference_lstm_serve  reduced Big LSTM in float32: prefill's last logits
+            against lstm_logits' last position on each device, prefill and
+            8 decode steps card against CPU (same tolerance)
+  score_dense  full-width qwen2-7b (7,615,616,512 parameters, bf16):
+            logits_fn and loss_fn over 2 x 4096 tokens, 3 times, losses
+            within 1.5 nats of ln V; one warm forward under torch.profiler
+  serve_dense  full-width qwen2-7b serve_session, batch 8, prompt 512, 32
+            new tokens: the prefill's last logits against their replay
+            through decode_step, to a relative L2 of 5e-2 that a prefill one
+            token short and one with queries rotated a position ahead must
+            exceed; one decode step under torch.profiler
+  serve_lstm  the same for full-width Big LSTM (the one-token-short fault)
+  The five slice-5 phases launch none of the seven kernels: every counter
+  must read 0.
 
 The kernels phase also holds the SSD chunk scan's warp-level 3xTF32
 product helper alone against a float64 product, then the SSD kernels
 against their plain version at the scoring shape (fp32 and bf16 inputs)
 and at a 32k-token sequence, with each of the three kernels' device time
-and launch geometry, and counts the TF32 tensor-core instructions in the
+and launch geometry, and at the CPU tests' shapes of 2 and 4 heads (a part
+of one 8-head group), and counts the TF32 tensor-core instructions in the
 built SSD kernels (cuobjdump -sass). Then the script's wall, the kernels
 summary line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -105,7 +129,17 @@ TRAIN_STEPS = 8
 SSD_TOL = 1e-4                 # SSD kernel vs plain, fp32 and bf16 inputs
 MMA_TOL = 1e-5                 # 3xTF32 product helper vs float64, of Σ|a||b|
 SSD_KERNELS = ("ssd_chunk_states", "ssd_state_pass", "ssd_chunk_output")
-MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5   # reduced mamba2 in float32
+MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5   # reduced models in float32
+# the SSD at the CPU tests' shapes (b, nz, c, nh, hd, n): 2 and 4 heads, a
+# part of one 8-head group (tests/test_torch_ssm.py SSD_SHAPES)
+SSD_PARTIAL_GROUP_SHAPES = [(1, 2, 8, 2, 16, 8), (2, 4, 16, 4, 32, 16),
+                            (2, 3, 32, 2, 64, 32), (1, 8, 64, 2, 64, 128)]
+# full width in bf16: the prefill's last logits against the replay's,
+# relative L2 over the batch's logits. The two paths round in bf16 at other
+# places over 28 layers (qwen2-7b: 0.017 measured on an H100); a prefill
+# one token short (0.66) or with queries rotated a position ahead (0.21)
+# must exceed it
+SERVE_REL_L2 = 5e-2
 
 
 def emit(obj) -> None:
@@ -676,17 +710,20 @@ def check_ssd(gen, dims, dtype, timed=True):
     return out
 
 
-def profile_call(fn, unprofiled_ms: float) -> dict:
+def profile_call(fn, unprofiled_ms: float, reps: int = 1) -> dict:
     """``fn()`` under ``torch.profiler``: the device's busy time (the union of
     its kernels' intervals), its idle share against the unprofiled wall, the
-    launches and the device time by kernel name."""
+    launches and the device time by kernel name. With ``reps`` > 1 the
+    window holds that many calls and every figure is a mean over them (a
+    short call's profile can miss events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("window"):
-            fn()
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
     events = prof.events()
     window = next(e for e in events if e.name == "window"
@@ -695,11 +732,16 @@ def profile_call(fn, unprofiled_ms: float) -> dict:
         [(e.time_range.start, e.time_range.end, e.name) for e in events
          if e.device_type == torch.autograd.DeviceType.CUDA
          and e.name != "window"])
-    return {"wall_ms_profiled": (window.time_range.end
-                                 - window.time_range.start) / 1e3,
-            "wall_ms_unprofiled": unprofiled_ms,
-            "device_idle_share_vs_unprofiled_wall":
-                1.0 - summary["device_busy_ms"] / unprofiled_ms, **summary}
+    out = {"wall_ms_profiled": (window.time_range.end
+                                - window.time_range.start) / 1e3,
+           "wall_ms_unprofiled": unprofiled_ms * reps, **summary}
+    if reps > 1:
+        out = {k: ({n: t / reps for n, t in v.items()} if isinstance(v, dict)
+                   else v / reps) for k, v in out.items()}
+        out["calls_profiled"] = reps
+    out["device_idle_share_vs_unprofiled_wall"] = (
+        1.0 - out["device_busy_ms"] / out["wall_ms_unprofiled"])
+    return out
 
 
 def reference_ssm(counter) -> dict:
@@ -721,11 +763,7 @@ def reference_ssm(counter) -> dict:
     tokens = torch.from_numpy(batch["tokens"])
 
     def close(a, b, what):
-        a, b = a.float().cpu(), b.float().cpu()
-        err = max_abs_err(a, b)
-        require(torch.allclose(a, b, rtol=MODEL_RTOL, atol=MODEL_ATOL),
-                f"reduced mamba2: {what} differs (max abs {err})")
-        return err
+        return require_close(a, b, f"reduced mamba2: {what}")
 
     out = {"arch": cfg.name, "batch": B, "seq": L, "rtol": MODEL_RTOL,
            "atol": MODEL_ATOL}
@@ -771,11 +809,12 @@ def reference_ssm(counter) -> dict:
     return out
 
 
-def score_mamba2(cfg, params, counters, *, batch, seq, reps=3):
-    """logits_fn and loss_fn of ``cfg`` (ssm_pallas) over batch x seq tokens
-    of the synthetic stream, ``reps`` times each, under inference mode, with
-    every launch count set to 0 just before and read just after; then one
-    warm forward under torch.profiler. Returns (report, launches)."""
+def score_model(cfg, params, counters, *, batch, seq, ssd_calls, reps=3):
+    """logits_fn and loss_fn of ``cfg`` over batch x seq tokens of the
+    synthetic stream, ``reps`` times each, under inference mode, with every
+    launch count set to 0 just before and read just after (``ssd_calls``
+    SSD wrapper calls a forward required); then one warm forward under
+    torch.profiler. Returns (report, launches)."""
     import torch
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ssd_scan as ssd
@@ -797,9 +836,9 @@ def score_mamba2(cfg, params, counters, *, batch, seq, reps=3):
             logits = model.logits_fn(params, {"tokens": sb["tokens"]})
             torch.cuda.synchronize()
             fwd_ms.append(1e3 * (time.perf_counter() - t0))
-            require(ssd.launches.n - n0 == cfg.n_layers,
+            require(ssd.launches.n - n0 == ssd_calls,
                     f"a forward launched the SSD kernel "
-                    f"{ssd.launches.n - n0} times, want {cfg.n_layers}")
+                    f"{ssd.launches.n - n0} times, want {ssd_calls}")
             require(tuple(logits.shape) == (batch, seq, cfg.vocab_size)
                     and bool(torch.isfinite(logits).all()),
                     f"logits {tuple(logits.shape)} not finite")
@@ -826,17 +865,11 @@ def score_mamba2(cfg, params, counters, *, batch, seq, reps=3):
     return out, launches
 
 
-def serve_mamba2(cfg, params, counters, *, batch, prompt, new, k=64):
+def serve_run(cfg, params, counters, *, batch, prompt, new):
     """serve_session on the card with every launch count set to 0 just
-    before and read just after: prefill takes the chunked SSD (it needs the
-    last state) and decode the recurrence, as in the JAX package, so the SSD
-    kernel is not launched. Also reported, not required: the decode logits
-    over the first ``k`` prompt positions against the kernel forward's.
-    Returns (report, launches)."""
+    before and read just after. Returns (report, launches, stats)."""
     import torch
-    from repro_torch.data import SyntheticLM
     from repro_torch.launch.serve import serve_session
-    from repro_torch.models import build_model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
@@ -858,6 +891,20 @@ def serve_mamba2(cfg, params, counters, *, batch, prompt, new, k=64):
            "tokens_per_s": tps,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "sample": gen[0, :8].tolist()}
+    return out, launches, stats
+
+
+def serve_mamba2(cfg, params, counters, *, batch, prompt, new, k=64):
+    """serve_run on mamba2: prefill takes the chunked SSD (it needs the
+    last state) and decode the recurrence, as in the JAX package, so the SSD
+    kernel is not launched. Also reported, not required: the decode logits
+    over the first ``k`` prompt positions against the kernel forward's.
+    Returns (report, launches)."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    out, launches, _ = serve_run(cfg, params, counters, batch=batch,
+                                 prompt=prompt, new=new)
     model = build_model(cfg)
     prompts = torch.from_numpy(SyntheticLM(
         vocab_size=cfg.vocab_size, seq_len=prompt, seed=0).worker_batch(
@@ -883,6 +930,260 @@ def serve_mamba2(cfg, params, counters, *, batch, prompt, new, k=64):
         "logit_max_abs": float(fwd.abs().max()),
         "logit_mean_abs": float(fwd.abs().mean())}
     return out, launches
+
+
+def rel_l2(a, b) -> float:
+    """‖a − b‖₂ / ‖b‖₂ in float32."""
+    import torch
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def serve_model(cfg, params, counters, faults, *, batch, prompt, new,
+                reported=None):
+    """serve_run on a dense or LSTM model (no kernel of the port's reaches
+    either), then: the prefill's logits for the prompt's last position
+    against its replay through decode_step, to SERVE_REL_L2 (relative L2
+    over the batch's logits), with each of ``faults`` (name -> a function
+    of the prompts giving faulty prefill logits) required to exceed it and
+    each of ``reported`` measured; one decode step from a zero cache of the
+    session's length under torch.profiler (the mean of 5). Returns
+    (report, launches)."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    out, launches, stats = serve_run(cfg, params, counters, batch=batch,
+                                     prompt=prompt, new=new)
+    model = build_model(cfg)
+    prompts = torch.from_numpy(SyntheticLM(
+        vocab_size=cfg.vocab_size, seq_len=prompt, seed=0).worker_batch(
+            0, 0, batch)["tokens"]).cuda()
+    want = stats["replay_logits"]
+    err = rel_l2(stats["prefill_logits"], want)
+    out["prefill_vs_replay"] = {
+        "position": prompt - 1, "rel_l2": err, "tol": SERVE_REL_L2,
+        "max_abs_diff": max_abs_err(stats["prefill_logits"], want),
+        "logit_max_abs": float(want.float().abs().max())}
+    require(err <= SERVE_REL_L2, f"{cfg.name}: prefill's last logits off "
+            f"the replay's by {err} (relative L2)")
+    with torch.inference_mode():
+        for name, fault in {**faults, **(reported or {})}.items():
+            bad = rel_l2(fault(prompts), want)
+            out["prefill_vs_replay"][f"fault_{name}_rel_l2"] = bad
+            require(bad > SERVE_REL_L2 or name not in faults,
+                    f"{cfg.name}: the prefill/replay check accepts a fault "
+                    f"({name}: {bad})")
+        cache = model.init_cache(batch, prompt + new, device="cuda")
+        out["decode_step_profile"] = profile_call(
+            lambda: model.decode_step(
+                params, cache, prompts[:, :1],
+                torch.full((batch,), prompt, dtype=torch.int32,
+                           device="cuda")),
+            out["decode_ms_per_step"], reps=5)
+    return out, launches
+
+
+def require_close(a, b, what: str) -> float:
+    """a and b within MODEL_RTOL / MODEL_ATOL, on the CPU in float32;
+    returns the max abs error."""
+    import torch
+    a, b = a.float().cpu(), b.float().cpu()
+    err = max_abs_err(a, b)
+    require(torch.allclose(a, b, rtol=MODEL_RTOL, atol=MODEL_ATOL),
+            f"{what} differs (max abs {err})")
+    return err
+
+
+def decode_replay(model, params, tokens, cache_len, window=0):
+    """decode_step over every position of ``tokens`` (B, S) from a zero
+    cache of ``cache_len`` slots; the logits stacked (B, S, V)."""
+    import torch
+    B, S = tokens.shape
+    dev = tokens.device
+    cache = model.init_cache(B, cache_len, windowed=bool(window), device=dev)
+    out = []
+    for t in range(S):
+        lg, cache = model.decode_step(
+            params, cache, tokens[:, t:t + 1],
+            torch.full((B,), t, dtype=torch.int32, device=dev), window=window)
+        out.append(lg[:, 0])
+    return torch.stack(out, dim=1)
+
+
+@contextlib.contextmanager
+def queries_rotated_ahead(n_heads: int):
+    """A fault: RoPE rotates the queries (the tensors with ``n_heads``
+    heads) one position ahead of the keys, while the context is open."""
+    from repro_torch.models import attention
+    real = attention.apply_rope
+    attention.apply_rope = lambda x, positions, theta: real(
+        x, positions + int(x.shape[-2] == n_heads), theta)
+    try:
+        yield
+    finally:
+        attention.apply_rope = real
+
+
+def rotated_prefill(model, params, tokens):
+    """The prefill's last logits with queries rotated a position ahead."""
+    with queries_rotated_ahead(model.cfg.n_heads):
+        return model.prefill(params, {"tokens": tokens})[0]
+
+
+def scaled_queries(params, factor: float):
+    """A fault: the parameters with wq and bq scaled by ``factor``, which
+    scales every attention score by it."""
+    def one(blk):
+        attn = dict(blk["attn"])
+        attn["wq"] = attn["wq"] * factor
+        if "bq" in attn:
+            attn["bq"] = attn["bq"] * factor
+        return {**blk, "attn": attn}
+    return {**params, "blocks": [one(b) for b in params["blocks"]]}
+
+
+def reference_dense(counters) -> dict:
+    """Reduced qwen2-7b in float32 (random QKV biases), card against CPU,
+    same weights: logits_fn over 2 x 2560 tokens (the blockwise path, its
+    last block padded), prefill then decode steps, and a windowed decode
+    past the window; on the card, the prompt replayed through decode_step
+    against logits_fn position by position, which must reject queries
+    rotated a position ahead and scores scaled 2% up. No kernel of the
+    port's is launched."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(reduced(get_arch("qwen2-7b")),
+                              param_dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(5)
+    cpu = model.init(gen)
+    for blk in cpu["blocks"]:            # the reference initialises them to 0
+        for name in ("bq", "bk", "bv"):
+            blk["attn"][name] = 0.5 * torch.randn(
+                blk["attn"][name].shape, generator=gen)
+    card = tree_map(lambda t: t.cuda(), cpu)
+    B, L, n_dec, W, n_fault = 2, 2560, 16, cfg.sliding_window, 256
+    tokens = torch.from_numpy(SyntheticLM(
+        vocab_size=cfg.vocab_size, seq_len=L + n_dec, seed=1).worker_batch(
+            0, 0, B)["tokens"])
+    out = {"arch": cfg.name, "batch": B, "seq": L, "kv_block": 1024,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "rtol": MODEL_RTOL, "atol": MODEL_ATOL}
+    for c in counters.values():
+        c.reset()
+    with torch.inference_mode():
+        lg_card = model.logits_fn(card, {"tokens": tokens[:, :L].cuda()})
+        lg_cpu = model.logits_fn(cpu, {"tokens": tokens[:, :L]})
+        out["logits_max_abs_err"] = require_close(
+            lg_card, lg_cpu, "reduced qwen2: logits_fn (blockwise)")
+        del lg_cpu
+
+        # prefill into a cache with room for n_dec more, then decode them
+        runs = []
+        for params, dev in ((card, "cuda"), (cpu, "cpu")):
+            pl, pre = model.prefill(params, {"tokens": tokens[:, :L].to(dev)})
+            room = model.init_cache(B, L + n_dec, device=dev)
+            cache = [{"kv": tuple(torch.cat([p, z[:, :, L:]], dim=2)
+                                  for p, z in zip(e["kv"], r["kv"]))}
+                     for e, r in zip(pre, room)]
+            steps = [pl]
+            for t in range(n_dec):
+                lg, cache = model.decode_step(
+                    params, cache, tokens[:, L + t:L + t + 1].to(dev),
+                    torch.full((B,), L + t, dtype=torch.int32, device=dev))
+                steps.append(lg)
+            runs.append((steps, leaves(cache)))
+        errs = [require_close(a, b, f"reduced qwen2: prefill/decode step {i}")
+                for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0]))]
+        errs += [require_close(a, b, "reduced qwen2: decode cache")
+                 for a, b in zip(runs[0][1], runs[1][1])]
+        out["prefill_decode_max_abs_err"] = max(errs)
+        del runs
+
+        # on the card: the replay against the forward, then two faults
+        rep = decode_replay(model, card, tokens[:, :L].cuda(), L)
+        out["replay_vs_logits_fn_max_abs_err"] = require_close(
+            rep, lg_card, "reduced qwen2: decode replay vs logits_fn")
+        ref = lg_card[:, :n_fault]
+        short = tokens[:, :n_fault].cuda()
+        with queries_rotated_ahead(cfg.n_heads):
+            rot = decode_replay(model, card, short, n_fault)
+        bad = {"queries_rotated_one_ahead": rot,
+               "scores_scaled_2pct": decode_replay(
+                   model, scaled_queries(card, 1.02), short, n_fault)}
+        out["faults_first_positions"] = n_fault
+        for name, lg in bad.items():
+            require(not torch.allclose(lg.cpu(), ref.cpu(), rtol=MODEL_RTOL,
+                                       atol=MODEL_ATOL),
+                    f"the replay check accepts a fault ({name})")
+            out[f"fault_{name}_max_abs_err"] = max_abs_err(lg, ref)
+
+        # a ring of W slots over W + 32 positions, card vs CPU
+        n_win = W + 32
+        win_card = decode_replay(model, card, tokens[:, :n_win].cuda(), W,
+                                 window=W)
+        win_cpu = decode_replay(model, cpu, tokens[:, :n_win], W, window=W)
+        out["windowed"] = {
+            "window": W, "positions": n_win,
+            "max_abs_err": require_close(win_card, win_cpu,
+                                         "reduced qwen2: windowed decode"),
+            # past the window the ring forgets: off the full forward there
+            "vs_full_forward_past_window_max_abs": max_abs_err(
+                win_card[:, W:], lg_card[:, W:n_win])}
+        require_close(win_card[:, :W], lg_card[:, :W],
+                      "reduced qwen2: windowed decode within the window")
+    out["launches"] = _expect_launches(counters)
+    return out
+
+
+def reference_lstm_serve(counters) -> dict:
+    """Reduced Big LSTM in float32: on each device the prefill's last
+    logits against lstm_logits' last position; prefill and decode steps
+    card against CPU, same weights. No kernel of the port's is launched."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(reduced(get_arch("biglstm")),
+                              param_dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(3))
+    card = tree_map(lambda t: t.cuda(), cpu)
+    B, L, n_dec = 4, 71, 8
+    tokens = torch.from_numpy(SyntheticLM(
+        vocab_size=cfg.vocab_size, seq_len=L + n_dec, seed=1).worker_batch(
+            0, 0, B)["tokens"])
+    out = {"arch": cfg.name, "batch": B, "seq": L, "rtol": MODEL_RTOL,
+           "atol": MODEL_ATOL}
+    for c in counters.values():
+        c.reset()
+    runs = []
+    with torch.inference_mode():
+        for params, dev in ((card, "cuda"), (cpu, "cpu")):
+            fwd = model.logits_fn(params, {"tokens": tokens[:, :L].to(dev)})
+            pl, state = model.prefill(params,
+                                      {"tokens": tokens[:, :L].to(dev)})
+            out[f"prefill_vs_forward_{dev}_max_abs_err"] = require_close(
+                pl[:, 0], fwd[:, -1], f"reduced Big LSTM on {dev}: prefill "
+                "vs lstm_logits' last position")
+            steps = [pl]
+            for t in range(n_dec):
+                lg, state = model.decode_step(
+                    params, state, tokens[:, L + t:L + t + 1].to(dev),
+                    torch.full((B,), L + t, dtype=torch.int32, device=dev))
+                steps.append(lg)
+            runs.append((steps, leaves(state)))
+    errs = [require_close(a, b, f"reduced Big LSTM: prefill/decode step {i}")
+            for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0]))]
+    errs += [require_close(a, b, "reduced Big LSTM: decode state")
+             for a, b in zip(runs[0][1], runs[1][1])]
+    out["prefill_decode_max_abs_err"] = max(errs)
+    out["launches"] = _expect_launches(counters)
+    return out
 
 
 def warm_stats(res, batch: int, seq: int) -> dict:
@@ -1284,6 +1585,9 @@ def main() -> int:
     ssd_checks = [check_ssd(gen, score_dims, torch.float32),
                   check_ssd(gen, score_dims, torch.bfloat16),
                   check_ssd(gen, long_dims, torch.float32)]
+    ssd_partial = [check_ssd(gen, dims, dtype, timed=False)
+                   for dims in SSD_PARTIAL_GROUP_SHAPES
+                   for dtype in (torch.float32, torch.bfloat16)]
     sass = sass_tf32_mma_counts(_build.library_path())
     require(all(sass.get(f"{k}<{t}>", 0) > 0 for k in SSD_KERNELS[::2]
                 for t in ("float", "bf16")),
@@ -1291,6 +1595,7 @@ def main() -> int:
     emit({"phase": "kernels", "nvidia_smi": smi, "update": upd, "ef": ef,
           "flat_update": flat_upd, "flat_ef": flat_ef, "quantize": quant,
           "sync_mean": mean, "mma_selftest": mma, "ssd": ssd_checks,
+          "ssd_partial_head_groups": ssd_partial,
           "ssd_sass_tf32_hmma": sass,
           "plane": {"plane_size": fs.plane_size, "real": fs.n_real,
                     "slots": fs.n_leaves, "buckets": fs.bucket_ranges()}})
@@ -1429,7 +1734,8 @@ def main() -> int:
 
     m2 = dataclasses.replace(m2, ssm_pallas=True)
     params = build_model(m2).init(torch.Generator("cuda").manual_seed(0))
-    score, score_n = score_mamba2(m2, params, counters, batch=8, seq=2048)
+    score, score_n = score_model(m2, params, counters, batch=8, seq=2048,
+                                 ssd_calls=m2.n_layers)
     expect(score_n, ssd_scan=2 * 3 * m2.n_layers)
     emit({"phase": "score", "nvidia_smi": smi, **score})
     serve, serve_n = serve_mamba2(m2, params, counters, batch=8, prompt=512,
@@ -1437,6 +1743,39 @@ def main() -> int:
     expect(serve_n)
     emit({"phase": "serve", "nvidia_smi": smi, **serve})
     del params
+    torch.cuda.empty_cache()
+
+    # ---- slice 5: the dense family (qwen2-7b) and Big LSTM serving ----- #
+    emit({"phase": "reference_dense", **reference_dense(counters)})
+    emit({"phase": "reference_lstm_serve", **reference_lstm_serve(counters)})
+    torch.cuda.empty_cache()
+    qwen = get_arch("qwen2-7b")
+    params = build_model(qwen).init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.empty_cache()
+    score, score_dense_n = score_model(qwen, params, counters, batch=2,
+                                       seq=4096, ssd_calls=0)
+    expect(score_dense_n)
+    emit({"phase": "score_dense", "nvidia_smi": smi, **score})
+    model = build_model(qwen)
+    serve, serve_n = serve_model(qwen, params, counters, {
+        "one_token_short": lambda p: model.prefill(
+            params, {"tokens": p[:, :-1]})[0],
+        "queries_rotated_one_ahead": lambda p: rotated_prefill(
+            model, params, p)}, batch=8, prompt=512, new=32, reported={
+        "scores_scaled_2pct": lambda p: model.prefill(
+            scaled_queries(params, 1.02), {"tokens": p})[0]})
+    expect(serve_n)
+    emit({"phase": "serve_dense", "nvidia_smi": smi, **serve})
+    del params, model
+    torch.cuda.empty_cache()
+    params = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    model = build_model(cfg)
+    serve, serve_n = serve_model(cfg, params, counters, {
+        "one_token_short": lambda p: model.prefill(
+            params, {"tokens": p[:, :-1]})[0]}, batch=8, prompt=512, new=32)
+    expect(serve_n)
+    emit({"phase": "serve_lstm", "nvidia_smi": smi, **serve})
+    del params, model
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
 
     def entry(name, source, replaces, n, err, timed, library_ms=None):

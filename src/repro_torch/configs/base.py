@@ -96,7 +96,7 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     def param_count(self) -> int:
-        """Analytic parameter count (exact for the port's LSTM and SSM)."""
+        """Analytic parameter count (exact for the families the port builds)."""
         from repro_torch.models.counting import count_params
         return count_params(self)
 

@@ -2,12 +2,15 @@
 
 The JAX package's ``launch/serve.py`` on one device: the same prompts from
 the synthetic stream, the same teacher-forced replay of the prompt through
-``decode_step``, the same greedy decode. Runs on the CUDA device unless
-``device='cpu'`` / ``--device cpu``.
+``decode_step``, the same greedy decode, for every family the port builds
+(dense attention with a KV cache, the SSM recurrence, the Big LSTM's
+state). Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
 
-  python -m repro_torch.launch.serve --arch mamba2-370m --batch 8 \\
+  python -m repro_torch.launch.serve --arch qwen2-7b --batch 8 \\
       --prompt-len 512 --new-tokens 32
-  python -m repro_torch.launch.serve --device cpu --arch mamba2-370m \\
+  python -m repro_torch.launch.serve --arch biglstm --batch 8 \\
+      --prompt-len 512 --new-tokens 32
+  python -m repro_torch.launch.serve --device cpu --arch qwen2-7b \\
       --reduced --batch 4 --prompt-len 32 --new-tokens 16
 """
 from __future__ import annotations
@@ -42,8 +45,11 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
 
     ``params`` replaces the seeded initialisation, e.g. with weights carried
     across from the JAX package by ``repro_torch.convert``. A ``stats`` dict
-    is filled with ``prefill_s``, ``decode_s``, ``decode_steps`` and
-    ``logits_finite`` (every prefill and decode logit finite)."""
+    is filled with ``prefill_s``, ``decode_s``, ``decode_steps``,
+    ``logits_finite`` (every prefill and decode logit finite), and the
+    logits of the prompt's last position from the prefill
+    (``prefill_logits``) and from its replay through ``decode_step``
+    (``replay_logits``), which should agree."""
     dev = resolve_device(device)
     cache_len = prompt_len + new_tokens
     shape = ShapeConfig(name="decode_32k", seq_len=cache_len,
@@ -64,8 +70,9 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
             pre_batch[k] = torch.zeros(v.shape, dtype=v.dtype, device=dev)
     _sync(dev)
     t_pre = time.perf_counter()
-    logits, _ = programs.prefill(params, pre_batch)
-    finite = torch.isfinite(logits).all() if stats is not None else None
+    prefill_logits, _ = programs.prefill(params, pre_batch)
+    finite = (torch.isfinite(prefill_logits).all() if stats is not None
+              else None)
     _sync(dev)
     prefill_s = time.perf_counter() - t_pre
 
@@ -77,6 +84,7 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
     tok = prompts[:, :1]
     out = []
     steps = 0
+    replay_logits = None
     t0 = time.perf_counter()
     for pos in range(cache_len - 1):
         nxt = prompts[:, pos + 1:pos + 2] if pos + 1 < prompt_len else None
@@ -86,6 +94,8 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
         steps += 1
         if finite is not None:
             finite = finite & torch.isfinite(logits).all()
+            if pos == prompt_len - 1:
+                replay_logits = logits
         if nxt is None:
             nxt = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
             out.append(nxt)
@@ -99,7 +109,8 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
     tps = batch * gen.shape[1] / max(dt, 1e-9)
     if stats is not None:
         stats.update(prefill_s=prefill_s, decode_s=dt, decode_steps=steps,
-                     logits_finite=bool(finite))
+                     logits_finite=bool(finite), prefill_logits=prefill_logits,
+                     replay_logits=replay_logits)
     if verbose:
         print(f"generated {gen.shape} tokens in {dt:.2f}s "
               f"({tps:.1f} tok/s incl. prompt replay) on {dev}")
@@ -108,7 +119,7 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="mamba2-370m",
+    ap.add_argument("--arch", default="qwen2-7b",
                     help=f"one of {sorted(ARCHS)}")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)

@@ -7,6 +7,10 @@ The JAX package's ``launch/serving.py`` on one device. Shape semantics:
   * ``decode_32k`` / ``long_500k`` run ``decode_step`` — ONE new token
     against a pre-allocated cache of ``cache_len`` entries.
 
+The cache is what the model's ``init_cache`` lays out: stacked ``"kv"``
+ring buffers (g, B, cache_len, KV, hd) for attention layers, the SSM state
+for mamba2, and the Big LSTM's list of (h_proj, c) pairs.
+
 The JAX package's meshes, shardings and ``serve_plan`` /
 ``cache_shardings`` wait for more than one device (ROADMAP Queue 1 item 9);
 the programs here run eagerly under ``torch.inference_mode()``.

@@ -1,9 +1,21 @@
 """Analytic parameter counts; they match the port's parameter dicts exactly.
 
 The JAX package's ``models/counting.py`` for the families the port builds:
-the Big LSTM and the SSM stack. Other families raise.
+the Big LSTM, the SSM stack and the dense decoder. Other families raise.
 """
 from __future__ import annotations
+
+
+def _attn_params(cfg) -> int:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = d * h * hd + 2 * d * kv * hd + h * hd * d          # wq, wk, wv, wo
+    if cfg.qkv_bias:
+        n += h * hd + 2 * kv * hd
+    return n
+
+
+def _mlp_params(cfg, d_ff: int) -> int:
+    return (3 if cfg.act == "swiglu" else 2) * cfg.d_model * d_ff
 
 
 def _ssm_params(cfg) -> int:
@@ -20,6 +32,9 @@ def _ssm_params(cfg) -> int:
 def _block_params(cfg, kind: str) -> int:
     if kind == "ssm":
         return _ssm_params(cfg) + cfg.d_model                # + pre-norm
+    if kind == "self_dense":                                 # + ln1, ln2
+        d_ff = cfg.dense_d_ff if (cfg.is_moe and cfg.moe_every > 1) else cfg.d_ff
+        return _attn_params(cfg) + 2 * cfg.d_model + _mlp_params(cfg, d_ff)
     raise NotImplementedError(
         f"layer kind {kind!r} is not ported to PyTorch yet (ROADMAP Queue 1 "
         "item 10)")
@@ -50,7 +65,7 @@ def count_params(cfg) -> int:
         n += cfg.n_layers * per
         n += p * v + v                                       # softmax
         return n
-    if cfg.family != "ssm":
+    if cfg.family not in ("ssm", "dense"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet "
             "(ROADMAP Queue 1 item 10)")

@@ -1,12 +1,12 @@
 """Unified model API: ``build_model(cfg)`` -> init / loss_fn / prefill / decode.
 
-The JAX package's ``models/model.py`` for the decoder-only families the port
-builds: the SSM stack (mamba2). The encoder-decoder and cross-attention
-branches and the fused cross-entropy come with the transformer families
-(ROADMAP Queue 1 item 10); the Big LSTM is trained through
-``models/lstm.py`` directly. Parameters, batches and caches are nested
-dicts, lists and tuples of tensors laid out like the JAX pytrees; every
-function runs on the device its inputs lie on.
+The JAX package's ``models/model.py`` for the families the port builds:
+the decoder-only SSM stack (mamba2) and dense stack (qwen2, phi4-mini,
+minitron), and the paper's Big LSTM. The MoE, encoder-decoder and
+cross-attention branches and the fused cross-entropy come with the rest of
+the transformer families (ROADMAP Queue 1 item 10). Parameters, batches and
+caches are nested dicts, lists and tuples of tensors laid out like the JAX
+pytrees; every function runs on the device its inputs lie on.
 """
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import lstm as lstm_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import init_dense, rms_norm
@@ -69,10 +71,13 @@ def _build_transformer(cfg) -> Model:
                                            scale=0.02, dtype=dtype, device=dev)
         return params
 
-    def _trunk(params, batch, *, collect_cache=False):
+    def _trunk(params, batch, *, window=0, collect_cache=False):
         tokens = batch["tokens"]
         x = params["embed"][tokens.long()].to(dtype)
-        x, aux, caches = tfm.apply_stack(params["blocks"], cfg, x,
+        pos = torch.arange(tokens.shape[1],
+                           device=tokens.device).expand(tokens.shape)
+        x, aux, caches = tfm.apply_stack(params["blocks"], cfg, x, pos,
+                                         window=window,
                                          collect_cache=collect_cache)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, aux, caches
@@ -92,28 +97,43 @@ def _build_transformer(cfg) -> Model:
         return loss + aux, {"xent": loss, "aux": aux}
 
     def prefill(params, batch, *, window: int = 0):
-        """``window`` serves the attention families (0 for the SSM)."""
-        x, _, caches = _trunk(params, batch, collect_cache=True)
+        """Last-position logits and the stacked caches: the attention
+        layers' post-RoPE (k, v), the SSM layers' last state."""
+        x, _, caches = _trunk(params, batch, window=window,
+                              collect_cache=True)
         logits = _head(params, x[:, -1:])
         return logits, caches
 
     def init_cache(batch_size: int, cache_len: int, *, windowed: bool = False,
                    cross_len: int = 0, device="cpu"):
         """Zero-initialized stacked decode cache: for each kind of the group,
-        ``{"ssm": (S (g,B,nh,N,hd) fp32, conv_tail (g,B,W-1,C))}``."""
+        ``{"kv": (k, v) (g,B,cache_len,KV,hd)}`` or ``{"ssm": (S
+        (g,B,nh,N,hd) fp32, conv_tail (g,B,W-1,C))}``."""
         kinds = tfm.group_kinds(cfg)
         g = cfg.n_layers // len(kinds)
+        kv, hd = cfg.n_kv_heads, cfg.head_dim
         entries = []
-        for _ in kinds:                  # every kind is "ssm" (build_model)
-            s, ct = ssm_mod.init_ssm_state(cfg, batch_size, dtype, device)
-            entries.append({"ssm": (s.new_zeros((g,) + s.shape),
-                                    ct.new_zeros((g,) + ct.shape))})
+        for kind in kinds:               # "self_dense" or "ssm" (build_model)
+            if kind == "ssm":
+                s, ct = ssm_mod.init_ssm_state(cfg, batch_size, dtype, device)
+                entries.append({"ssm": (s.new_zeros((g,) + s.shape),
+                                        ct.new_zeros((g,) + ct.shape))})
+            else:
+                entries.append({"kv": tuple(
+                    torch.zeros((g, batch_size, cache_len, kv, hd),
+                                dtype=dtype, device=device)
+                    for _ in range(2))})
         return entries
 
     def decode_step(params, caches, token, pos, *, window: int = 0):
         """token: (B,1); pos: (B,). Returns (logits (B,1,V), caches)."""
         x = params["embed"][token.long()].to(dtype)
-        x, caches = tfm.decode_stack(params["blocks"], cfg, x, caches)
+        kv_leaves = [v for e in caches for k, v in e.items() if k == "kv"]
+        spec = attn_mod.KVCacheSpec(
+            cache_len=kv_leaves[0][0].shape[2] if kv_leaves else 0,
+            windowed=bool(window))
+        x, caches = tfm.decode_stack(params["blocks"], cfg, x, pos, caches,
+                                     spec=spec)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return _head(params, x), caches
 
@@ -121,13 +141,59 @@ def _build_transformer(cfg) -> Model:
                  prefill=prefill, decode_step=decode_step, init_cache=init_cache)
 
 
+def _build_lstm(cfg) -> Model:
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def init(gen: torch.Generator):
+        """Fresh parameters on ``gen``'s device (``lstm.init_lstm``)."""
+        return lstm_mod.init_lstm(gen, cfg, dtype, gen.device)
+
+    def logits_fn(params, batch):
+        return lstm_mod.lstm_logits(params, batch["tokens"], cfg)
+
+    def loss_fn(params, batch, rng=None):
+        """Dropout 0.1 when ``rng`` (a ``torch.Generator``) is given; the
+        training path passes none, as the reference's does."""
+        logits = lstm_mod.lstm_logits(
+            params, batch["tokens"], cfg, rng=rng,
+            dropout_rate=0.1 if rng is not None else 0.0)
+        loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
+        return loss, {"xent": loss,
+                      "aux": torch.zeros((), dtype=torch.float32,
+                                         device=loss.device)}
+
+    def prefill(params, batch, *, window: int = 0):
+        """The state after the prompt, and the logits of its last position:
+        the 793k-vocab head runs once, on the last hidden state, not at
+        every position."""
+        tokens = batch["tokens"]
+        state = lstm_mod.init_lstm_state(cfg, tokens.shape[0], dtype,
+                                         tokens.device)
+        h = torch.zeros((tokens.shape[0], cfg.lstm_proj), dtype=dtype,
+                        device=tokens.device)
+        for t in range(tokens.shape[1]):
+            h, state = lstm_mod.lstm_hidden_step(params, tokens[:, t:t + 1],
+                                                 state, cfg)
+        logits = (h @ params["head_w"] + params["head_b"])[:, None]
+        return logits, state
+
+    def init_cache(batch_size: int, cache_len: int, *, windowed: bool = False,
+                   cross_len: int = 0, device="cpu"):
+        """The zero recurrent state; its size does not depend on
+        ``cache_len``."""
+        return lstm_mod.init_lstm_state(cfg, batch_size, dtype, device)
+
+    def decode_step(params, caches, token, pos, *, window: int = 0):
+        return lstm_mod.lstm_decode_step(params, token, caches, cfg)
+
+    return Model(cfg=cfg, init=init, loss_fn=loss_fn, logits_fn=logits_fn,
+                 prefill=prefill, decode_step=decode_step, init_cache=init_cache)
+
+
 def build_model(cfg) -> Model:
     if cfg.family == "lstm":
-        raise NotImplementedError(
-            "the Big LSTM is built through repro_torch.models.lstm "
-            "(init_lstm, lstm_logits, loss_fn); its Model API and decode "
-            "are not ported yet")
-    if cfg.family != "ssm":
+        return _build_lstm(cfg)
+    if cfg.family not in ("ssm", "dense"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet (ROADMAP "
             "Queue 1 item 10)")

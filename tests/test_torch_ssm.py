@@ -261,9 +261,9 @@ def test_param_count_matches_reference_and_tree():
     params = build_model(tcfg).init(torch.Generator().manual_seed(0))
     assert sum(t.numel() for t in leaves(params)) == count_params(tcfg)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        count_params(ModelConfig(name="d", family="dense", n_layers=1,
+        count_params(ModelConfig(name="d", family="moe", n_layers=1,
                                  d_model=8, n_heads=1, n_kv_heads=1, d_ff=8,
-                                 vocab_size=8))
+                                 vocab_size=8, n_experts=2))
 
 
 def test_fresh_init_is_seeded_and_has_reference_structure():
@@ -282,9 +282,10 @@ def test_fresh_init_is_seeded_and_has_reference_structure():
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         build_model(dataclasses.replace(get_arch("mamba2-370m"),
-                                        family="dense"))
-    with pytest.raises(NotImplementedError, match="models.lstm"):
-        build_model(get_arch("biglstm"))
+                                        family="moe"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        build_model(dataclasses.replace(get_arch("mamba2-370m"),
+                                        family="hybrid", hybrid=True))
     with pytest.raises(NotImplementedError, match="not ported"):
         get_arch("hymba-1.5b")
 
