@@ -99,6 +99,42 @@ raises and exits non-zero:
   serve_lstm  the same for full-width Big LSTM (the one-token-short fault)
   The five slice-5 phases launch none of the seven kernels: every counter
   must read 0.
+  reference_moe  reduced phi3.5-moe (4 experts, top-2; with its router
+            and with a zero router, where every probability ties and
+            capacity drops 37.5% of the choices) and reduced
+            llama4-maverick (top-1, shared expert, MoE every other layer)
+            in float32, card against CPU, same weights: logits_fn, loss_fn
+            and its aux loss, prefill caches, 8 decode steps after the
+            prefill, the prompt replayed from a zero cache (rtol 1e-4, atol
+            1e-5); top-2 gates left un-renormalised and capacity ignored
+            (where the forward drops a choice) must fail it
+  reference_cross  reduced llama-3.2-vision (tanh gate 0.7) and
+            seamless-m4t (over 96 frames and over 2,500, where the blockwise
+            path pads 572 keys) with the reference's modality stubs, the
+            same checks; on the card the prompt replayed through
+            decode_step with the prefill's cross (k, v) against logits_fn
+            (equal on the direct path; over 2,500 frames the difference the
+            padded keys make is reported); the gate ignored and a causal
+            encoder must fail the card-vs-CPU check
+  score_moe  phi3.5-moe at full width, 16 of its 32 layers (32 do not fit
+            one 80 GB card): logits_fn, loss_fn over 2 x 4096 tokens
+            (capacity 1,280), the share of choices capacity drops; one
+            forward profiled by layer (attention, MoE, expert GEMMs)
+  serve_moe  serve_session on it, batch 8, prompt 512, 32 new tokens;
+            capacity drops at prefill and decode; prefill vs replay with
+            capacity unbounded (128 positions, relative L2 5e-2, which a
+            prefill one token short and one with un-renormalised gates must
+            exceed), the reference's bounded prefill vs replay reported;
+            one decode step profiled by layer
+  score_vlm / serve_vlm  llama-3.2-vision-11b at full width and depth (40
+            layers, 8 cross; 1,601 image tokens, gate 0.7): scoring over 2
+            x 4096 tokens with the reference's image stubs; serve_session
+            as serve_dense (zero image embeddings, as the reference's)
+  score_audio / serve_audio  seamless-m4t-large-v2 at full width and depth
+            (24 + 24 layers, vocab 256,206) over 4,096 audio frames; serving
+            as serve_dense (one fault: with as many KV heads as heads,
+            rotating the queries rotates the keys too)
+  The slice-6 phases launch none of the seven kernels either.
 
 The kernels phase also holds the SSD chunk scan's warp-level 3xTF32
 product helper alone against a float64 product, then the SSD kernels
@@ -140,6 +176,20 @@ SSD_PARTIAL_GROUP_SHAPES = [(1, 2, 8, 2, 16, 8), (2, 4, 16, 4, 32, 16),
 # one token short (0.66) or with queries rotated a position ahead (0.21)
 # must exceed it
 SERVE_REL_L2 = 5e-2
+CROSS_GATE = 0.7               # the VLM's tanh gate in the checks (0 at init)
+# phi3.5-moe's 32 layers hold 83.75 GB of bf16 weights, more than one 80 GB
+# card: the MoE phases run its first 16 (42.1 GB) at full width
+MOE_LAYERS = 16
+SERVE_PROMPT = 512             # the slice-6 serve phases' prompt length
+
+
+def free_card() -> None:
+    """Give the freed weights back to the card and restart the peak."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def emit(obj) -> None:
@@ -528,9 +578,13 @@ def kernel_summary(kernels, top: int = 12) -> dict:
     for k0, k1, name in kernels:
         by_name[name] = by_name.get(name, 0.0) + (k1 - k0) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    shown = {}
+    for k, v in ranked[:top]:          # names cut to 100 characters
+        shown[k[:100]] = shown.get(k[:100], 0.0) + v
     return {"device_busy_ms": _busy_us((k0, k1) for k0, k1, _ in kernels) / 1e3,
+            "device_ms_kernel_sum": sum(by_name.values()),
             "launches": len(kernels),
-            "device_ms_by_kernel": {k[:100]: v for k, v in ranked[:top]},
+            "device_ms_by_kernel": shown,
             "device_ms_other_kernels": sum(v for _, v in ranked[top:])}
 
 
@@ -710,31 +764,97 @@ def check_ssd(gen, dims, dtype, timed=True):
     return out
 
 
-def profile_call(fn, unprofiled_ms: float, reps: int = 1) -> dict:
+@contextlib.contextmanager
+def labelled(labels):
+    """While open, each function of ``labels`` (label -> [(module, name of
+    the function in it)]) runs inside ``record_function(label)``."""
+    from torch.profiler import record_function
+    saved = []
+    for label, targets in labels.items():
+        for mod, name in targets:
+            real = getattr(mod, name)
+
+            def wrapped(*a, _real=real, _label=label, **kw):
+                with record_function(_label):
+                    return _real(*a, **kw)
+            saved.append((mod, name, real))
+            setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, real in reversed(saved):
+            setattr(mod, name, real)
+
+
+def model_labels() -> dict:
+    """The layers of the transformer families, for ``profile_call``: the
+    self- and cross-attention (forward and decode, projections included),
+    the dense MLPs, the MoE layer (routing, dispatch, experts, combine) and,
+    inside it, the expert GEMMs."""
+    from repro_torch.models import attention, moe
+    from repro_torch.models import transformer as tfm
+    return {"self_attention": [(attention, "self_attention"),
+                               (attention, "decode_self_attention")],
+            "cross_attention": [(attention, "cross_attention_full"),
+                                (attention, "cross_attention_cached")],
+            "mlp": [(tfm, "mlp_apply")],
+            "moe": [(moe, "moe_apply")],
+            "expert_gemms": [(moe, "_expert_ffn")]}
+
+
+def _ms_by_label(events, labels) -> dict:
+    """Device ms of the kernels that start inside each label's span on the
+    device timeline (the profiler's annotation of a labelled range, from
+    its first kernel to its last); ``spans``: how many it saw."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.device_type == cuda and e.name in labels]
+    out = dict.fromkeys(labels, 0.0)
+    for e in events:
+        if e.device_type != cuda or e.name in labels or e.name == "window":
+            continue
+        t = e.time_range.start
+        for a, b, name in spans:
+            if a <= t < b:
+                out[name] += e.time_range.end - t
+    return {**{k: v / 1e3 for k, v in out.items()}, "spans": len(spans)}
+
+
+def profile_call(fn, unprofiled_ms: float, reps: int = 1,
+                 labels=None) -> dict:
     """``fn()`` under ``torch.profiler``: the device's busy time (the union of
     its kernels' intervals), its idle share against the unprofiled wall, the
     launches and the device time by kernel name. With ``reps`` > 1 the
     window holds that many calls and every figure is a mean over them (a
-    short call's profile can miss events)."""
+    short call's profile can miss events). With ``labels`` (see
+    ``labelled``), also the device time of the kernels launched inside each
+    label (``device_ms_by_label``; a label nested in another counts in
+    both)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
+    labels = labels or {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with labelled(labels), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
         with record_function("window"):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
     events = prof.events()
+    cpu, cuda = (torch.autograd.DeviceType.CPU,
+                 torch.autograd.DeviceType.CUDA)
     window = next(e for e in events if e.name == "window"
-                  and e.device_type == torch.autograd.DeviceType.CPU)
+                  and e.device_type == cpu)
     summary = kernel_summary(
         [(e.time_range.start, e.time_range.end, e.name) for e in events
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.name != "window"])
+         if e.device_type == cuda and e.name != "window"
+         and e.name not in labels])
     out = {"wall_ms_profiled": (window.time_range.end
                                 - window.time_range.start) / 1e3,
            "wall_ms_unprofiled": unprofiled_ms * reps, **summary}
+    if labels:
+        out["device_ms_by_label"] = _ms_by_label(events, labels)
     if reps > 1:
         out = {k: ({n: t / reps for n, t in v.items()} if isinstance(v, dict)
                    else v / reps) for k, v in out.items()}
@@ -809,12 +929,15 @@ def reference_ssm(counter) -> dict:
     return out
 
 
-def score_model(cfg, params, counters, *, batch, seq, ssd_calls, reps=3):
+def score_model(cfg, params, counters, *, batch, seq, ssd_calls, reps=3,
+                extra=None, labels=None):
     """logits_fn and loss_fn of ``cfg`` over batch x seq tokens of the
-    synthetic stream, ``reps`` times each, under inference mode, with every
-    launch count set to 0 just before and read just after (``ssd_calls``
-    SSD wrapper calls a forward required); then one warm forward under
-    torch.profiler. Returns (report, launches)."""
+    synthetic stream (with the tensors of ``extra``, image embeddings or
+    audio frames, in each batch), ``reps`` times each, under inference
+    mode, with every launch count set to 0 just before and read just after
+    (``ssd_calls`` SSD wrapper calls a forward required); then one warm
+    forward under torch.profiler (by ``labels`` too, where given). Returns
+    (report, launches)."""
     import torch
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ssd_scan as ssd
@@ -824,16 +947,19 @@ def score_model(cfg, params, counters, *, batch, seq, ssd_calls, reps=3):
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
                        seed=0).worker_batch(0, 0, batch)
     sb = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    extra = extra or {}
+    sb.update(extra)
+    fwd_batch = {"tokens": sb["tokens"], **extra}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fwd_ms, loss_ms, losses = [], [], []
+    fwd_ms, loss_ms, losses, aux = [], [], [], []
     with torch.inference_mode():
         for c in counters.values():
             c.reset()
         for _ in range(reps):
             n0 = ssd.launches.n
             t0 = time.perf_counter()
-            logits = model.logits_fn(params, {"tokens": sb["tokens"]})
+            logits = model.logits_fn(params, fwd_batch)
             torch.cuda.synchronize()
             fwd_ms.append(1e3 * (time.perf_counter() - t0))
             require(ssd.launches.n - n0 == ssd_calls,
@@ -844,8 +970,9 @@ def score_model(cfg, params, counters, *, batch, seq, ssd_calls, reps=3):
                     f"logits {tuple(logits.shape)} not finite")
             del logits
             t0 = time.perf_counter()
-            loss, _ = model.loss_fn(params, sb)
-            losses.append(float(loss))                 # synchronises
+            _, metrics = model.loss_fn(params, sb)
+            losses.append(float(metrics["xent"]))      # synchronises
+            aux.append(float(metrics["aux"]))
             loss_ms.append(1e3 * (time.perf_counter() - t0))
         launches = {k: c.n for k, c in counters.items()}
     require(all(abs(x - math.log(cfg.vocab_size)) <= 1.5 for x in losses),
@@ -854,14 +981,15 @@ def score_model(cfg, params, counters, *, batch, seq, ssd_calls, reps=3):
     out = {"arch": cfg.name, "params": count_params(cfg), "batch": batch,
            "seq": seq, "dtype": cfg.param_dtype, "launches": launches,
            "forward_ms": fwd_ms, "forward_ms_median": fwd_med,
-           "loss_fn_ms": loss_ms, "xent": losses,
+           "loss_fn_ms": loss_ms, "xent": losses, "aux": aux,
            "tokens_per_s": batch * seq / (fwd_med / 1e3),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     require(out["max_memory_allocated_gb"] < 80.0,
             f"scoring peak {out['max_memory_allocated_gb']} GB")
     with torch.inference_mode():
         out["profile"] = profile_call(
-            lambda: model.logits_fn(params, {"tokens": sb["tokens"]}), fwd_med)
+            lambda: model.logits_fn(params, fwd_batch), fwd_med,
+            labels=labels)
     return out, launches
 
 
@@ -940,7 +1068,7 @@ def rel_l2(a, b) -> float:
 
 
 def serve_model(cfg, params, counters, faults, *, batch, prompt, new,
-                reported=None):
+                reported=None, labels=None):
     """serve_run on a dense or LSTM model (no kernel of the port's reaches
     either), then: the prefill's logits for the prompt's last position
     against its replay through decode_step, to SERVE_REL_L2 (relative L2
@@ -973,14 +1101,29 @@ def serve_model(cfg, params, counters, faults, *, batch, prompt, new,
             require(bad > SERVE_REL_L2 or name not in faults,
                     f"{cfg.name}: the prefill/replay check accepts a fault "
                     f"({name}: {bad})")
-        cache = model.init_cache(batch, prompt + new, device="cuda")
-        out["decode_step_profile"] = profile_call(
-            lambda: model.decode_step(
-                params, cache, prompts[:, :1],
-                torch.full((batch,), prompt, dtype=torch.int32,
-                           device="cuda")),
-            out["decode_ms_per_step"], reps=5)
+        out["decode_step_profile"] = profile_decode_step(
+            model, params, out, batch, prompt, new, labels)
     return out, launches
+
+
+def profile_decode_step(model, params, out, batch, prompt, new, labels=None):
+    """One decode step at position ``prompt`` from a zero cache of the
+    session's geometry (``decode_cache_specs``), under torch.profiler: the
+    mean of 5."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.serving import decode_cache_specs
+    from repro_torch.tree import tree_map
+    shape = ShapeConfig(name="decode_32k", seq_len=prompt + new,
+                        global_batch=batch, kind="decode")
+    cache = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                           device="cuda"),
+                     decode_cache_specs(model.cfg, shape))
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((batch,), prompt, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        return profile_call(lambda: model.decode_step(params, cache, tok, pos),
+                            out["decode_ms_per_step"], reps=5, labels=labels)
 
 
 def require_close(a, b, what: str) -> float:
@@ -1027,7 +1170,7 @@ def queries_rotated_ahead(n_heads: int):
 def rotated_prefill(model, params, tokens):
     """The prefill's last logits with queries rotated a position ahead."""
     with queries_rotated_ahead(model.cfg.n_heads):
-        return model.prefill(params, {"tokens": tokens})[0]
+        return model.prefill(params, prefill_batch(model.cfg, tokens))[0]
 
 
 def scaled_queries(params, factor: float):
@@ -1184,6 +1327,447 @@ def reference_lstm_serve(counters) -> dict:
     out["prefill_decode_max_abs_err"] = max(errs)
     out["launches"] = _expect_launches(counters)
     return out
+
+
+@contextlib.contextmanager
+def moe_fault(name: str):
+    """A fault in the MoE layer while the context is open:
+    ``gates_not_renormalised`` (top-k gates left as the router's
+    probabilities) or ``capacity_ignored`` (every expert takes every
+    choice routed to it)."""
+    import torch
+    from repro_torch.models import moe
+    real_router, real_capacity = moe._router, moe._capacity
+
+    def raw_gates(params, xt, cfg):
+        gate_vals, gate_idx, probs, pos, keep, cap = real_router(params, xt,
+                                                                 cfg)
+        raw = torch.gather(probs, 1, gate_idx) * keep
+        return raw, gate_idx, probs, pos, keep, cap
+
+    if name == "gates_not_renormalised":
+        moe._router = raw_gates
+    elif name == "capacity_ignored":
+        moe._capacity = lambda n_tokens, n_experts, top_k, factor: (
+            n_tokens * top_k)
+    else:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        moe._router, moe._capacity = real_router, real_capacity
+
+
+@contextlib.contextmanager
+def recorded_routing(log: list):
+    """While open, each MoE layer appends its (T, k) expert ids and kept
+    mask to ``log`` (copies: not for timed runs)."""
+    from repro_torch.models import moe
+    real = moe._router
+
+    def rec(params, xt, cfg):
+        out = real(params, xt, cfg)
+        log.append((out[1].clone(), out[4].clone()))
+        return out
+    moe._router = rec
+    try:
+        yield
+    finally:
+        moe._router = real
+
+
+def dropped_share(log) -> float:
+    kept = sum(int(keep.sum()) for _, keep in log)
+    return 1.0 - kept / max(sum(keep.numel() for _, keep in log), 1)
+
+
+def routing_flips(prefill_log, replay_log, batch: int, n_layers: int):
+    """The share of tokens, per MoE layer, whose set of experts differs
+    between a prefill over (batch, S) tokens and its replay through S
+    decode steps."""
+    import torch
+    out = []
+    for layer in range(n_layers):
+        a = prefill_log[layer][0].reshape(batch, -1, prefill_log[layer][0]
+                                          .shape[-1])
+        b = torch.stack([ids for ids, _ in replay_log[layer::n_layers]], 1)
+        out.append(float((a.sort(-1).values != b.sort(-1).values)
+                         .any(-1).float().mean()))
+    return out
+
+
+def set_gates(params, value: float):
+    """The params with every cross-attention layer's tanh gate at
+    ``value`` (the reference initialises it to 0, where the image layers
+    add nothing)."""
+    import torch
+    return {**params, "blocks": [
+        {**b, "gate": torch.full_like(b["gate"], value)} if "gate" in b
+        else b for b in params["blocks"]]}
+
+
+def prefill_batch(cfg, tokens):
+    """A serving prefill batch as serve_session builds it: the tokens and
+    zero image embeddings / audio frames."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.serving import serve_batch_specs
+    shape = ShapeConfig(name="prefill", seq_len=tokens.shape[1],
+                        global_batch=tokens.shape[0], kind="prefill")
+    return {k: tokens if k == "tokens" else torch.zeros(
+        v.shape, dtype=v.dtype, device=tokens.device)
+        for k, v in serve_batch_specs(cfg, shape)["prefill"].items()}
+
+
+@contextlib.contextmanager
+def causal_encoder():
+    """A fault: the encoder-decoder's encoder runs causally while the
+    context is open."""
+    from repro_torch.models import transformer as tfm
+    real = tfm.apply_stack
+
+    def causal(params, cfg, x, positions, ctx=None, **kw):
+        if ctx and ctx.get("causal") is False:
+            ctx = {**ctx, "causal": True}
+        return real(params, cfg, x, positions, ctx, **kw)
+    tfm.apply_stack = causal
+    try:
+        yield
+    finally:
+        tfm.apply_stack = real
+
+
+def card_vs_cpu(model, card, cpu, batch, L, n_dec, what, cross_len=0):
+    """One reduced float32 model on the card and on the CPU, same weights
+    and batch (tokens of L + n_dec positions; labels; image embeddings or
+    audio frames): logits_fn, loss_fn (loss with the MoE aux, and the aux),
+    prefill over L tokens (logits and caches), then n_dec decode steps from
+    the prefill's caches. Returns (report, card logits_fn logits, CPU
+    logits)."""
+    import torch
+    from repro_torch.tree import leaves
+    B = batch["tokens"].shape[0]
+    extra = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    out = {}
+    runs = []
+    for params, dev in ((card, "cuda"), (cpu, "cpu")):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        fwd = {"tokens": b["tokens"][:, :L], **{k: b[k] for k in extra}}
+        logits = model.logits_fn(params, fwd)
+        loss, met = model.loss_fn(params, {**fwd,
+                                           "labels": b["labels"][:, :L]})
+        pl, pre = model.prefill(params, fwd)
+        # the prefill's caches with room for n_dec more self-attention slots
+        room = model.init_cache(B, L + n_dec, cross_len=cross_len, device=dev)
+        cache = [{k: (tuple(torch.cat([p, z[:, :, L:]], dim=2)
+                            for p, z in zip(e[k], r[k])) if k == "kv"
+                      else e[k]) for k in r} for e, r in zip(pre, room)]
+        steps = [pl]
+        for t in range(n_dec):
+            lg, cache = model.decode_step(
+                params, cache, b["tokens"][:, L + t:L + t + 1],
+                torch.full((B,), L + t, dtype=torch.int32, device=dev))
+            steps.append(lg)
+        runs.append((logits, float(loss), float(met["aux"]), leaves(pre),
+                     steps, leaves(cache)))
+    (lg_a, loss_a, aux_a, pre_a, st_a, c_a), (lg_b, loss_b, aux_b, pre_b,
+                                               st_b, c_b) = runs
+    out["logits_max_abs_err"] = require_close(lg_a, lg_b,
+                                              f"{what}: logits_fn")
+    for name, a, b in (("loss", loss_a, loss_b), ("aux", aux_a, aux_b)):
+        require(abs(a - b) <= MODEL_RTOL * abs(b) + MODEL_ATOL,
+                f"{what}: {name} {a} on the card, {b} on the CPU")
+        out[name] = {"cuda": a, "cpu": b}
+    out["prefill_cache_max_abs_err"] = max(
+        require_close(a, b, f"{what}: prefill cache")
+        for a, b in zip(pre_a, pre_b))
+    out["prefill_decode_max_abs_err"] = max(
+        [require_close(a, b, f"{what}: prefill/decode step {i}")
+         for i, (a, b) in enumerate(zip(st_a, st_b))]
+        + [require_close(a, b, f"{what}: decode cache")
+           for a, b in zip(c_a, c_b)])
+    return out, lg_a, lg_b
+
+
+def fault_rejected(got, want, what: str) -> float:
+    """A faulty run's logits must fall outside the tolerance."""
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    require(not torch.allclose(got, want, rtol=MODEL_RTOL, atol=MODEL_ATOL),
+            f"the card-vs-CPU check accepts a fault ({what})")
+    return max_abs_err(got, want)
+
+
+def reference_moe(counters) -> dict:
+    """Reduced phi3.5-moe (4 experts, top-2) with its router, and with a
+    zero router (every probability ties: the lowest ids win, experts 0 and
+    1 take every token, capacity drops most choices), and reduced
+    llama4-maverick (top-1, shared expert, MoE every other layer), in
+    float32, card against CPU with the same weights: logits_fn, loss_fn
+    with the aux loss, prefill caches, decode steps after the prefill and
+    the prompt replayed through decode_step from a zero cache. Top-2 gates
+    left un-renormalised and capacity ignored must fail the check (the
+    latter where the forward drops a choice). No kernel of the port's is
+    launched."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    from repro_torch.models.moe import _capacity
+    B, L, n_dec = 4, 96, 8
+    out = {"rtol": MODEL_RTOL, "atol": MODEL_ATOL, "batch": B, "seq": L,
+           "cases": []}
+    for c in counters.values():
+        c.reset()
+    for arch, zero_router in (("phi3.5-moe-42b-a6.6b", False),
+                              ("phi3.5-moe-42b-a6.6b", True),
+                              ("llama4-maverick-400b-a17b", False)):
+        cfg = dataclasses.replace(reduced(get_arch(arch)),
+                                  param_dtype="float32")
+        model = build_model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(7))
+        if zero_router:
+            for blk in cpu["blocks"]:
+                if "moe" in blk:
+                    blk["moe"]["router"].zero_()
+        card = tree_map(lambda t: t.cuda(), cpu)
+        data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=L + n_dec,
+                           seed=1).worker_batch(0, 0, B)
+        batch = {k: torch.from_numpy(v) for k, v in data.items()}
+        what = f"reduced {arch}" + (" (zero router)" if zero_router else "")
+        case = {"arch": cfg.name, "zero_router": zero_router,
+                "experts": cfg.n_experts, "top_k": cfg.top_k,
+                "capacity": None}
+        with torch.inference_mode():
+            rep, lg_card, lg_cpu = card_vs_cpu(model, card, cpu, batch, L,
+                                               n_dec, what)
+            case.update(rep)
+            tokens = batch["tokens"][:, :L]
+            log = []
+            with recorded_routing(log):
+                model.logits_fn(card, {"tokens": tokens.cuda()})
+            case["forward_dropped_share"] = dropped_share(log)
+            case["capacity"] = _capacity(B * L, cfg.n_experts, cfg.top_k,
+                                         cfg.capacity_factor)
+            if zero_router:
+                require(case["forward_dropped_share"] > 0.3,
+                        f"{what}: capacity dropped only "
+                        f"{case['forward_dropped_share']} of the choices")
+            # the prompt replayed from a zero cache, card vs CPU
+            rep_card = decode_replay(model, card, tokens.cuda(), L)
+            rep_cpu = decode_replay(model, cpu, tokens, L)
+            case["replay_max_abs_err"] = require_close(
+                rep_card, rep_cpu, f"{what}: decode replay")
+            case["replay_vs_forward_max_abs_diff"] = max_abs_err(rep_card,
+                                                                 lg_card)
+            faults = {}
+            if cfg.top_k > 1:
+                faults["gates_not_renormalised"] = True
+            faults["capacity_ignored"] = case["forward_dropped_share"] > 0
+            for name, required in faults.items():
+                with moe_fault(name):
+                    bad = model.logits_fn(card, {"tokens": tokens.cuda()})
+                if required:
+                    case[f"fault_{name}_max_abs_err"] = fault_rejected(
+                        bad, lg_cpu, f"{what}: {name}")
+                else:
+                    case[f"fault_{name}_max_abs_err_reported"] = max_abs_err(
+                        bad.cpu(), lg_cpu)
+        out["cases"].append(case)
+    out["launches"] = _expect_launches(counters)
+    return out
+
+
+def reference_cross(counters) -> dict:
+    """Reduced llama-3.2-vision (16 image tokens, tanh gate set to 0.7) and
+    seamless-m4t (2 + 2 layers) in float32 with the reference's modality
+    stubs (normal x 0.02), card against CPU with the same weights, as
+    reference_moe compares them; seamless over 96 frames and over 2,500,
+    where the encoder and the decoder's cross-attention take the blockwise
+    path with 572 padded keys. On the card, the prompt replayed through
+    decode_step with the prefill's cross (k, v) copied into the cache
+    against logits_fn: equal where the cross keys take the direct path;
+    over 2,500 frames the replay's direct attention leaves out the padded
+    keys that the forward's includes (a reference caveat), and the
+    difference is reported. The gate ignored and the encoder run causally
+    must fail the card-vs-CPU check."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.data import SyntheticLM, make_train_batch
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    B, L, n_dec = 2, 96, 8
+    out = {"rtol": MODEL_RTOL, "atol": MODEL_ATOL, "batch": B, "seq": L,
+           "gate": CROSS_GATE, "cases": []}
+    for c in counters.values():
+        c.reset()
+    for arch, frames in (("llama-3.2-vision-11b", 0),
+                         ("seamless-m4t-large-v2", L),
+                         ("seamless-m4t-large-v2", 2500)):
+        cfg = dataclasses.replace(reduced(get_arch(arch)),
+                                  param_dtype="float32")
+        model = build_model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(5))
+        if cfg.cross_attn_every:
+            cpu = set_gates(cpu, CROSS_GATE)
+        card = tree_map(lambda t: t.cuda(), cpu)
+        shape = ShapeConfig("reference", seq_len=L + n_dec, global_batch=B,
+                            kind="train")
+        data = make_train_batch(cfg, shape, SyntheticLM(
+            vocab_size=cfg.vocab_size, seq_len=L + n_dec, seed=1), 0)
+        if cfg.is_encdec:
+            data["audio_frames"] = (np.random.default_rng(2).standard_normal(
+                (B, frames, cfg.d_model)) * 0.02).astype(np.float32)
+        batch = {k: torch.from_numpy(v) for k, v in data.items()}
+        cross_len = frames or cfg.n_image_tokens
+        what = f"reduced {arch}, {cross_len} cross keys"
+        case = {"arch": cfg.name, "cross_len": cross_len}
+        with torch.inference_mode():
+            rep, lg_card, lg_cpu = card_vs_cpu(model, card, cpu, batch, L,
+                                               n_dec, what,
+                                               cross_len=cross_len)
+            case.update(rep)
+            fwd = {k: v[:, :L] if k == "tokens" else v
+                   for k, v in batch.items() if k != "labels"}
+            fwd_card = {k: v.cuda() for k, v in fwd.items()}
+            # on the card: the replay with the prefill's cross (k, v)
+            _, pre = model.prefill(card, fwd_card)
+            cache = [{**c, "xkv": p["xkv"]} if "xkv" in c else c
+                     for c, p in zip(model.init_cache(
+                         B, L, cross_len=cross_len, device="cuda"), pre)]
+            steps = []
+            for t in range(L):
+                lg, cache = model.decode_step(
+                    card, cache, fwd_card["tokens"][:, t:t + 1],
+                    torch.full((B,), t, dtype=torch.int32, device="cuda"))
+                steps.append(lg[:, 0])
+            replay = torch.stack(steps, dim=1)
+            if cross_len <= 2048:
+                case["replay_vs_logits_fn_max_abs_err"] = require_close(
+                    replay, lg_card, f"{what}: replay vs logits_fn")
+            else:
+                case["replay_vs_logits_fn_padded_keys_max_abs_diff"] = (
+                    max_abs_err(replay, lg_card))
+            if cfg.cross_attn_every:
+                # tanh(+inf) = 1: the output of x + out, the gate ignored
+                bad = model.logits_fn(set_gates(card, float("inf")),
+                                      fwd_card)
+                case["fault_gate_ignored_max_abs_err"] = fault_rejected(
+                    bad, lg_cpu, f"{what}: gate ignored")
+            elif cross_len <= 2048:
+                with causal_encoder():
+                    bad = model.logits_fn(card, fwd_card)
+                case["fault_encoder_causal_max_abs_err"] = fault_rejected(
+                    bad, lg_cpu, f"{what}: encoder run causally")
+        out["cases"].append(case)
+    out["launches"] = _expect_launches(counters)
+    return out
+
+
+def moe_score_phase(cfg, params, counters) -> dict:
+    """score_model at 2 x 4096 tokens with the MoE labels, and the share of
+    (token, choice) pairs that capacity dropped in one more forward."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import _capacity
+    out, launches = score_model(cfg, params, counters, batch=2, seq=4096,
+                                ssd_calls=0, labels=model_labels())
+    tokens = torch.from_numpy(SyntheticLM(
+        vocab_size=cfg.vocab_size, seq_len=4096, seed=0).worker_batch(
+            0, 0, 2)["tokens"]).cuda()
+    log = []
+    with torch.inference_mode(), recorded_routing(log):
+        build_model(cfg).logits_fn(params, {"tokens": tokens})
+    out["capacity"] = _capacity(2 * 4096, cfg.n_experts, cfg.top_k,
+                                cfg.capacity_factor)
+    out["dropped_share"] = dropped_share(log)
+    out["dropped_share_by_layer"] = [dropped_share([e]) for e in log]
+    return out, launches
+
+
+def serve_moe(cfg, params, counters, *, batch, prompt, new) -> dict:
+    """serve_run on an MoE model, then the capacity drops of its prefill
+    (batch x prompt tokens) and of decode steps (batch tokens each, replayed
+    over the first 64 prompt positions). Capacity depends on the number of
+    tokens routed together, so the reference's prefill and its replay
+    through decode_step are different functions wherever the prefill drops
+    choices: their relative L2 is reported. With capacity unbounded
+    (capacity_factor E / top_k: capacity T), over the first 128 positions:
+    in bf16 the two paths' rounding flips some top-2 choices, reported by
+    layer with the relative L2; the check runs in float32, at full width
+    over 4 layers (22 GB) with weights of its own, to
+    SERVE_REL_L2, which a prefill one token short and one with
+    un-renormalised gates must exceed. One profiled decode step, by label.
+    Returns (report, launches)."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    check_len, check_layers = 128, 4
+    out, launches, stats = serve_run(cfg, params, counters, batch=batch,
+                                     prompt=prompt, new=new)
+    model = build_model(cfg)
+    prompts = torch.from_numpy(SyntheticLM(
+        vocab_size=cfg.vocab_size, seq_len=prompt, seed=0).worker_batch(
+            0, 0, batch)["tokens"]).cuda()
+    out["prefill_vs_replay_capacity_bound"] = {
+        "position": prompt - 1,
+        "rel_l2": rel_l2(stats["prefill_logits"], stats["replay_logits"])}
+    unbounded = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    short = {"tokens": prompts[:, :check_len]}
+    with torch.inference_mode():
+        log = []
+        with recorded_routing(log):
+            model.prefill(params, {"tokens": prompts})
+        out["prefill_dropped_share"] = dropped_share(log)
+        log = []
+        with recorded_routing(log):
+            decode_replay(model, params, prompts[:, :64], 64)
+        out["decode_dropped_share_first_64"] = dropped_share(log)
+
+        free = build_model(unbounded)
+        pre, rep = [], []
+        with recorded_routing(pre):
+            got = free.prefill(params, short)[0][:, 0]
+        with recorded_routing(rep):
+            want = decode_replay(free, params, short["tokens"],
+                                 check_len)[:, -1]
+        out["prefill_vs_replay_capacity_unbounded_bf16"] = {
+            "positions": check_len, "rel_l2": rel_l2(got, want),
+            "routing_flip_share_by_layer": routing_flips(
+                pre, rep, batch, cfg.n_layers)}
+        del pre, rep
+
+        f32 = dataclasses.replace(unbounded, param_dtype="float32",
+                                  n_layers=check_layers)
+        fm = build_model(f32)
+        p32 = fm.init(torch.Generator("cuda").manual_seed(1))
+        want = decode_replay(fm, p32, short["tokens"], check_len)[:, -1]
+        err = rel_l2(fm.prefill(p32, short)[0][:, 0], want)
+        check = {"dtype": "float32", "layers": check_layers,
+                 "positions": check_len, "capacity_factor":
+                 f32.capacity_factor, "rel_l2": err, "tol": SERVE_REL_L2}
+        require(err <= SERVE_REL_L2, f"{cfg.name}: float32 prefill's last "
+                f"logits off the replay's by {err} (relative L2, capacity "
+                "unbounded)")
+        with moe_fault("gates_not_renormalised"):
+            raw = fm.prefill(p32, short)[0][:, 0]
+        for name, bad in (("one_token_short", fm.prefill(
+                p32, {"tokens": short["tokens"][:, :-1]})[0][:, 0]),
+                ("gates_not_renormalised", raw)):
+            check[f"fault_{name}_rel_l2"] = rel_l2(bad, want)
+            require(check[f"fault_{name}_rel_l2"] > SERVE_REL_L2,
+                    f"{cfg.name}: the prefill/replay check accepts a fault "
+                    f"({name})")
+        out["prefill_vs_replay_check"] = check
+        del p32
+        torch.cuda.empty_cache()
+        out["decode_step_profile"] = profile_decode_step(
+            model, params, out, batch, prompt, new, model_labels())
+    return out, launches
 
 
 def warm_stats(res, batch: int, seq: int) -> dict:
@@ -1498,6 +2082,89 @@ def instrumented_phase(cfg, shape, oc, counters, leaf, leaf_n,
         shutil.rmtree(root, ignore_errors=True)
 
 
+def slice6_phases(counters, smi: str) -> None:
+    """The MoE, VLM and encoder-decoder phases: reduced card-vs-CPU checks,
+    then scoring and serving at full width, each freeing its weights
+    before the next loads. Every kernel counter must read 0."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data import SyntheticLM, make_train_batch
+    from repro_torch.models import build_model
+
+    def expect(launches):
+        require(not any(launches.values()), f"launches {launches}, "
+                "expected none")
+
+    t0 = time.perf_counter()
+    emit({"phase": "reference_moe", **reference_moe(counters),
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({"phase": "reference_cross", **reference_cross(counters),
+          "seconds": time.perf_counter() - t0})
+    free_card()
+
+    # phi3.5-moe at full width, MOE_LAYERS of its 32 layers (one card)
+    t0 = time.perf_counter()
+    phi = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b"),
+                              n_layers=MOE_LAYERS)
+    params = build_model(phi).init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.empty_cache()
+    score, n = moe_score_phase(phi, params, counters)
+    expect(n)
+    emit({"phase": "score_moe", "nvidia_smi": smi, "layers": MOE_LAYERS,
+          "layers_of_config": get_arch("phi3.5-moe-42b-a6.6b").n_layers,
+          **score, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    serve, n = serve_moe(phi, params, counters, batch=8, prompt=SERVE_PROMPT,
+                         new=32)
+    expect(n)
+    emit({"phase": "serve_moe", "nvidia_smi": smi, "layers": MOE_LAYERS,
+          **serve, "seconds": time.perf_counter() - t0})
+    del params
+    free_card()
+
+    # llama-3.2-vision-11b and seamless-m4t-large-v2 at full width and depth
+    for phase, arch in (("vlm", "llama-3.2-vision-11b"),
+                        ("audio", "seamless-m4t-large-v2")):
+        t0 = time.perf_counter()
+        full = get_arch(arch)
+        model = build_model(full)
+        params = model.init(torch.Generator("cuda").manual_seed(0))
+        if full.cross_attn_every:
+            params = set_gates(params, CROSS_GATE)
+        torch.cuda.empty_cache()
+        stubs = make_train_batch(full, ShapeConfig(
+            "score", seq_len=4096, global_batch=2, kind="train"),
+            SyntheticLM(vocab_size=full.vocab_size, seq_len=4096, seed=0), 0)
+        extra = {k: torch.from_numpy(v).cuda() for k, v in stubs.items()
+                 if k in ("image_embeds", "audio_frames")}
+        score, n = score_model(full, params, counters, batch=2, seq=4096,
+                               ssd_calls=0, extra=extra,
+                               labels=model_labels())
+        expect(n)
+        emit({"phase": f"score_{phase}", "nvidia_smi": smi,
+              "cross_keys": {k: v.shape[1] for k, v in extra.items()},
+              **score, "seconds": time.perf_counter() - t0})
+        del extra
+        t0 = time.perf_counter()
+        faults = {"one_token_short": lambda p: model.prefill(
+            params, prefill_batch(full, p[:, :-1]))[0]}
+        reported = {"scores_scaled_2pct": lambda p: model.prefill(
+            scaled_queries(params, 1.02), prefill_batch(full, p))[0]}
+        if full.n_kv_heads < full.n_heads:
+            # (with as many KV heads as heads the fault rotates the keys too)
+            faults["queries_rotated_one_ahead"] = lambda p: rotated_prefill(
+                model, params, p)
+        serve, n = serve_model(full, params, counters, faults, batch=8,
+                               prompt=SERVE_PROMPT, new=32,
+                               reported=reported, labels=model_labels())
+        expect(n)
+        emit({"phase": f"serve_{phase}", "nvidia_smi": smi, **serve,
+              "seconds": time.perf_counter() - t0})
+        del params, model, faults, reported
+        free_card()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1776,6 +2443,9 @@ def main() -> int:
     expect(serve_n)
     emit({"phase": "serve_lstm", "nvidia_smi": smi, **serve})
     del params, model
+    free_card()
+
+    slice6_phases(counters, smi)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
 
     def entry(name, source, replaces, n, err, timed, library_ms=None):

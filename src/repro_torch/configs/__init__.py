@@ -2,25 +2,27 @@
 
 ``get_arch(name)`` returns a ported architecture's full config,
 ``get_shape(name)`` one of the four assigned input shapes and
-``reduced(cfg)`` a smoke-test variant. The paper's Big LSTM, mamba2-370m
-and the dense decoders (qwen2-7b, phi4-mini-3.8b, minitron-4b) are ported
-so far; the JAX package's other architectures raise.
+``reduced(cfg)`` a smoke-test variant. Every architecture of the JAX
+package is ported but two: hymba-1.5b (ROADMAP Queue 1 item 18, the hybrid
+layer) and llama3-405b (item 9: it needs several devices); those raise.
 """
-from repro_torch.configs import (biglstm, mamba2_370m, minitron_4b,
-                                 phi4_mini_3_8b, qwen2_7b)
+from repro_torch.configs import (biglstm, llama4_maverick_400b_a17b,
+                                 llama_3_2_vision_11b, mamba2_370m,
+                                 minitron_4b, phi3_5_moe_42b_a6_6b,
+                                 phi4_mini_3_8b, qwen2_7b,
+                                 seamless_m4t_large_v2)
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
                                       ShapeConfig, SyncConfig, reduced)
 from repro_torch.configs.shapes import SHAPES, get_shape
 
 #: architectures the port can build.
 ARCHS = {m.CONFIG.name: m.CONFIG for m in (
-    mamba2_370m, qwen2_7b, minitron_4b, phi4_mini_3_8b, biglstm)}
+    llama4_maverick_400b_a17b, mamba2_370m, seamless_m4t_large_v2, qwen2_7b,
+    minitron_4b, phi4_mini_3_8b, llama_3_2_vision_11b, phi3_5_moe_42b_a6_6b,
+    biglstm)}
 
 #: the JAX package's architectures that the port does not build yet.
-NOT_PORTED = (
-    "llama4-maverick-400b-a17b", "seamless-m4t-large-v2", "llama3-405b",
-    "llama-3.2-vision-11b", "hymba-1.5b", "phi3.5-moe-42b-a6.6b",
-)
+NOT_PORTED = ("hymba-1.5b", "llama3-405b")
 
 
 def get_arch(name: str) -> ModelConfig:
@@ -29,9 +31,8 @@ def get_arch(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to PyTorch yet (ROADMAP Queue 1 "
-            "item 10: MoE, VLM and audio families, then hymba; llama3-405b "
-            "with item 9, several devices); ported: "
-            f"{sorted(ARCHS)}")
+            "item 18: hymba, the hybrid layer; item 9: llama3-405b, several "
+            f"devices); ported: {sorted(ARCHS)}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
 
 

@@ -3,13 +3,19 @@
 The JAX package's ``launch/serve.py`` on one device: the same prompts from
 the synthetic stream, the same teacher-forced replay of the prompt through
 ``decode_step``, the same greedy decode, for every family the port builds
-(dense attention with a KV cache, the SSM recurrence, the Big LSTM's
-state). Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
+(dense and MoE attention with a KV cache, cross-attention to image
+embeddings or an encoder's output, the SSM recurrence, the Big LSTM's
+state). As in the reference, the prefill is given zero image embeddings /
+audio frames, and decode starts from a zero cache, its cross-attention
+(k, v) included. Runs on the CUDA device unless ``device='cpu'`` /
+``--device cpu``.
 
   python -m repro_torch.launch.serve --arch qwen2-7b --batch 8 \\
       --prompt-len 512 --new-tokens 32
   python -m repro_torch.launch.serve --arch biglstm --batch 8 \\
       --prompt-len 512 --new-tokens 32
+  python -m repro_torch.launch.serve --arch llama-3.2-vision-11b \\
+      --batch 8 --prompt-len 512 --new-tokens 32
   python -m repro_torch.launch.serve --device cpu --arch qwen2-7b \\
       --reduced --batch 4 --prompt-len 32 --new-tokens 16
 """
@@ -118,7 +124,12 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__)
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        epilog="phi3.5-moe-42b-a6.6b holds 83.75 GB of bf16 weights and "
+               "llama4-maverick-400b-a17b 807 GB: more than one 80 GB card. "
+               "They need several cards (ROADMAP Queue 1 item 9) and run "
+               "only --reduced on one.")
     ap.add_argument("--arch", default="qwen2-7b",
                     help=f"one of {sorted(ARCHS)}")
     ap.add_argument("--reduced", action="store_true")

@@ -8,9 +8,10 @@ path. The numerics follow the reference: an additive float32 mask of
 -1e30, float32 scores of q and k cast to float32, the direct path scaling
 the scores after the product and the blockwise path scaling q before it,
 by the scale rounded to q's dtype. No library attention: it would differ
-at the masked edges and in precision. Cross-attention waits for the VLM and audio
-families (ROADMAP Queue 1 item 10), and the tensor-parallel head padding
-for more than one device (item 9).
+at the masked edges and in precision. Cross-attention (the VLM's image
+layers, the audio decoder's attention to the encoder) is non-causal, at
+position 0 on both sides, without RoPE. The tensor-parallel head padding
+waits for more than one device (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -86,7 +87,9 @@ def blockwise_attention(q, k, v, pos_q, pos_kv, *, causal: bool,
                         bf16_probs: bool = False):
     """Online-softmax attention over KV blocks of ``kv_block``, first to
     last; the direct path when the keys fit in two blocks. The last block
-    is padded with zero keys at position 2³⁰, which causality masks."""
+    is padded with zero keys at position 2³⁰, which causality masks; as in
+    the reference, non-causal attention does not mask them, so they enter
+    its softmax."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     if skv <= 2 * kv_block:
@@ -142,6 +145,30 @@ def self_attention(params, x, positions, cfg, *, window: int = 0,
                               bf16_probs=cfg.attn_bf16_probs)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ params["wo"]
     return out, (k, v)
+
+
+def cross_attention_cached(params, x, k, v, cfg):
+    """Cross-attention to cached (k, v) (B, Skv, KV, hd). x: (B, Sq, D)."""
+    b, sq, _ = x.shape
+    q = x @ params["wq"]
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(q.dtype)
+    q = q.reshape(b, sq, cfg.n_heads, cfg.head_dim)
+    zeros = torch.zeros((b, 1), dtype=torch.int32, device=x.device)
+    out = direct_attention(q, k, v, zeros.expand(b, sq),
+                           zeros.expand(b, k.shape[1]), causal=False)
+    return out.reshape(b, sq, -1) @ params["wo"]
+
+
+def cross_attention_full(params, x, kv_src, cfg):
+    """Cross-attention of x (B, Sq, D) to kv_src (B, Skv, D); returns (out,
+    (k, v)) for the cache."""
+    b, sq, _ = x.shape
+    q, k, v = _project_qkv(params, x, kv_src, cfg)
+    zeros = torch.zeros((b, 1), dtype=torch.int32, device=x.device)
+    out = blockwise_attention(q, k, v, zeros.expand(b, sq),
+                              zeros.expand(b, k.shape[1]), causal=False)
+    return out.reshape(b, sq, -1) @ params["wo"], (k, v)
 
 
 @dataclasses.dataclass

@@ -1,7 +1,9 @@
 """Analytic parameter counts; they match the port's parameter dicts exactly.
 
-The JAX package's ``models/counting.py`` for the families the port builds:
-the Big LSTM, the SSM stack and the dense decoder. Other families raise.
+The JAX package's ``models/counting.py``: the same terms for every family,
+so each count equals the reference's. The hybrid term is counted as the
+reference counts it, though the port does not build hymba yet (ROADMAP
+Queue 1 item 18).
 """
 from __future__ import annotations
 
@@ -29,15 +31,30 @@ def _ssm_params(cfg) -> int:
     return in_proj + conv + other + norm + out
 
 
+def _moe_params(cfg) -> int:
+    n = cfg.d_model * cfg.n_experts                         # router
+    n += cfg.n_experts * _mlp_params(cfg, cfg.d_ff)         # w1, (w3), w2
+    if cfg.shared_expert:
+        n += _mlp_params(cfg, cfg.dense_d_ff)
+    return n
+
+
 def _block_params(cfg, kind: str) -> int:
+    d = cfg.d_model
     if kind == "ssm":
-        return _ssm_params(cfg) + cfg.d_model                # + pre-norm
-    if kind == "self_dense":                                 # + ln1, ln2
+        return _ssm_params(cfg) + d                          # + pre-norm
+    if kind == "hybrid":              # the reference's count: 3 norms
+        return (_attn_params(cfg) + _ssm_params(cfg) + 3 * d
+                + _mlp_params(cfg, cfg.d_ff))
+    n = _attn_params(cfg) + 2 * d                            # + ln1, ln2
+    if kind == "self_moe":
+        return n + _moe_params(cfg)
+    if kind == "cross":                                      # + tanh gate
+        return n + _mlp_params(cfg, cfg.dense_d_ff or cfg.d_ff) + 1
+    if kind == "self_dense":
         d_ff = cfg.dense_d_ff if (cfg.is_moe and cfg.moe_every > 1) else cfg.d_ff
-        return _attn_params(cfg) + 2 * cfg.d_model + _mlp_params(cfg, d_ff)
-    raise NotImplementedError(
-        f"layer kind {kind!r} is not ported to PyTorch yet (ROADMAP Queue 1 "
-        "item 10)")
+        return n + _mlp_params(cfg, d_ff)
+    raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def layer_kinds(cfg) -> list:
@@ -65,14 +82,28 @@ def count_params(cfg) -> int:
         n += cfg.n_layers * per
         n += p * v + v                                       # softmax
         return n
-    if cfg.family not in ("ssm", "dense"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet "
-            "(ROADMAP Queue 1 item 10)")
-    n = cfg.vocab_size * cfg.d_model                         # embedding
+    d = cfg.d_model
+    n = cfg.vocab_size * d                                   # embedding
     for kind in layer_kinds(cfg):
         n += _block_params(cfg, kind)
-    n += cfg.d_model                                         # final norm
+    if cfg.is_encdec:
+        # the encoder's self_dense blocks and final norm; the decoder
+        # blocks' cross-attention (xattn) and its norm (ln3)
+        n += cfg.n_encoder_layers * (_attn_params(cfg)
+                                     + _mlp_params(cfg, cfg.d_ff) + 2 * d)
+        n += d
+        n += cfg.n_layers * (_attn_params(cfg) + d)
+    n += d                                                   # final norm
     if not cfg.tie_embeddings:
-        n += cfg.d_model * cfg.vocab_size                    # lm head
+        n += d * cfg.vocab_size                              # lm head
     return n
+
+
+def count_active_params(cfg) -> int:
+    """Parameters a token passes through: an MoE layer counts its top_k
+    experts (and the shared one), not all of them."""
+    n = count_params(cfg)
+    if not cfg.is_moe:
+        return n
+    n_moe = sum(1 for k in layer_kinds(cfg) if k == "self_moe")
+    return n - n_moe * (cfg.n_experts - cfg.top_k) * _mlp_params(cfg, cfg.d_ff)

@@ -1,12 +1,15 @@
 """Unified model API: ``build_model(cfg)`` -> init / loss_fn / prefill / decode.
 
-The JAX package's ``models/model.py`` for the families the port builds:
-the decoder-only SSM stack (mamba2) and dense stack (qwen2, phi4-mini,
-minitron), and the paper's Big LSTM. The MoE, encoder-decoder and
-cross-attention branches and the fused cross-entropy come with the rest of
-the transformer families (ROADMAP Queue 1 item 10). Parameters, batches and
-caches are nested dicts, lists and tuples of tensors laid out like the JAX
-pytrees; every function runs on the device its inputs lie on.
+The JAX package's ``models/model.py``. Families:
+
+  dense / moe / ssm : decoder-only LM over tokens
+  vlm               : decoder LM + cross-attention to (stubbed) image embeds
+  audio             : encoder-decoder over (stubbed) audio frame embeds
+  lstm              : the paper's Big LSTM
+
+The hybrid family (hymba) raises until ROADMAP Queue 1 item 18. Parameters,
+batches and caches are nested dicts, lists and tuples of tensors laid out
+like the JAX pytrees; every function runs on the device its inputs lie on.
 """
 from __future__ import annotations
 
@@ -33,6 +36,42 @@ def softmax_xent(logits, labels, mask=None):
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
+class FusedSoftmaxXent(torch.autograd.Function):
+    """The reference's ``fused_softmax_xent``: the mean token cross-entropy
+    with the gold logit picked by comparing against an iota, and a backward
+    that returns (g / n)·(softmax − onehot) in the logits' dtype."""
+
+    @staticmethod
+    def _onehot(x, labels):
+        iota = torch.arange(x.shape[-1], device=x.device)
+        return iota == labels.long()[..., None]
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        x = logits.float()
+        m = torch.amax(x, dim=-1, keepdim=True)
+        z = torch.sum(torch.exp(x - m), dim=-1)
+        logz = torch.log(z) + m[..., 0]
+        gold = torch.sum(torch.where(FusedSoftmaxXent._onehot(x, labels), x,
+                                     0.0), dim=-1)
+        ctx.save_for_backward(logits, labels, m[..., 0], z)
+        return torch.mean(logz - gold)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, m, z = ctx.saved_tensors
+        x = logits.float()
+        p = torch.exp(x - m[..., None]) / z[..., None]
+        onehot = FusedSoftmaxXent._onehot(x, labels).float()
+        dlogits = (g / labels.numel()) * (p - onehot)
+        return dlogits.to(logits.dtype), None
+
+
+def fused_softmax_xent(logits, labels):
+    """Mean token cross-entropy; logits: (B,S,V), labels: (B,S)."""
+    return FusedSoftmaxXent.apply(logits, labels)
+
+
 @dataclasses.dataclass
 class Model:
     cfg: Any
@@ -44,12 +83,13 @@ class Model:
     init_cache: Callable[..., Any]       # (batch_size, cache_len, ...) -> cache
 
 
+def _encoder_cfg(cfg):
+    """The encoder's stack: self_dense blocks, as many as n_encoder_layers."""
+    return dataclasses.replace(cfg, n_layers=cfg.n_encoder_layers,
+                               cross_attn_every=0, n_experts=0, hybrid=False)
+
+
 def _build_transformer(cfg) -> Model:
-    if cfg.is_encdec or cfg.cross_attn_every or cfg.fused_xent:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder, cross-attention and fused "
-            "cross-entropy branches are not ported to PyTorch yet (ROADMAP "
-            "Queue 1 item 10)")
     dtype = getattr(torch, cfg.param_dtype)
 
     def init(gen: torch.Generator):
@@ -62,23 +102,45 @@ def _build_transformer(cfg) -> Model:
                             dtype=torch.float32, device=dev)
         params = {
             "embed": (embed * 0.02).to(dtype),
-            "blocks": tfm.init_stack(gen, cfg, dtype, dev),
+            "blocks": tfm.init_stack(gen, cfg, dtype, dev,
+                                     encdec_dec=cfg.is_encdec),
             "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
         }
         del embed
+        if cfg.is_encdec:
+            params["encoder"] = tfm.init_stack(gen, _encoder_cfg(cfg), dtype,
+                                               dev)
+            params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                            device=dev)
         if not cfg.tie_embeddings:
             params["lm_head"] = init_dense(gen, cfg.d_model, cfg.vocab_size,
                                            scale=0.02, dtype=dtype, device=dev)
         return params
+
+    def _encode(params, batch):
+        """The encoder over the (stubbed) audio frames, non-causal."""
+        frames = batch["audio_frames"].to(dtype)            # (B,F,D)
+        pos = torch.arange(frames.shape[1],
+                           device=frames.device).expand(frames.shape[:2])
+        h, _, _ = tfm.apply_stack(params["encoder"], _encoder_cfg(cfg),
+                                  frames, pos, ctx={"causal": False})
+        return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+    def _ctx(params, batch):
+        if cfg.is_encdec:
+            return {"cross_src": _encode(params, batch)}
+        if cfg.cross_attn_every:
+            return {"cross_src": batch["image_embeds"].to(dtype)}
+        return {}
 
     def _trunk(params, batch, *, window=0, collect_cache=False):
         tokens = batch["tokens"]
         x = params["embed"][tokens.long()].to(dtype)
         pos = torch.arange(tokens.shape[1],
                            device=tokens.device).expand(tokens.shape)
-        x, aux, caches = tfm.apply_stack(params["blocks"], cfg, x, pos,
-                                         window=window,
-                                         collect_cache=collect_cache)
+        x, aux, caches = tfm.apply_stack(
+            params["blocks"], cfg, x, pos, _ctx(params, batch), window=window,
+            collect_cache=collect_cache, encdec_dec=cfg.is_encdec)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, aux, caches
 
@@ -93,12 +155,17 @@ def _build_transformer(cfg) -> Model:
     def loss_fn(params, batch, rng=None):
         x, aux, _ = _trunk(params, batch)
         logits = _head(params, x)
-        loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
+        if cfg.fused_xent and "mask" not in batch:
+            loss = fused_softmax_xent(logits, batch["labels"])
+        else:
+            loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
         return loss + aux, {"xent": loss, "aux": aux}
 
     def prefill(params, batch, *, window: int = 0):
         """Last-position logits and the stacked caches: the attention
-        layers' post-RoPE (k, v), the SSM layers' last state."""
+        layers' post-RoPE (k, v), the cross-attention layers' (k, v) of the
+        image embeddings or the encoder's output (``xkv``), the SSM layers'
+        last state."""
         x, _, caches = _trunk(params, batch, window=window,
                               collect_cache=True)
         logits = _head(params, x[:, -1:])
@@ -107,22 +174,31 @@ def _build_transformer(cfg) -> Model:
     def init_cache(batch_size: int, cache_len: int, *, windowed: bool = False,
                    cross_len: int = 0, device="cpu"):
         """Zero-initialized stacked decode cache: for each kind of the group,
-        ``{"kv": (k, v) (g,B,cache_len,KV,hd)}`` or ``{"ssm": (S
-        (g,B,nh,N,hd) fp32, conv_tail (g,B,W-1,C))}``."""
+        ``"kv"``: (k, v) (g,B,cache_len,KV,hd) for self-attention, ``"xkv"``:
+        (k, v) (g,B,cross_len,KV,hd) for cross-attention (the ``cross``
+        kind, every decoder block of an encoder-decoder) and ``"ssm"``: (S
+        (g,B,nh,N,hd) fp32, conv_tail (g,B,W-1,C))."""
         kinds = tfm.group_kinds(cfg)
         g = cfg.n_layers // len(kinds)
         kv, hd = cfg.n_kv_heads, cfg.head_dim
+
+        def pair(length):
+            return tuple(torch.zeros((g, batch_size, length, kv, hd),
+                                     dtype=dtype, device=device)
+                         for _ in range(2))
+
         entries = []
-        for kind in kinds:               # "self_dense" or "ssm" (build_model)
+        for kind in kinds:
+            c: Dict[str, Any] = {}
+            if kind in ("self_dense", "self_moe"):
+                c["kv"] = pair(cache_len)
             if kind == "ssm":
                 s, ct = ssm_mod.init_ssm_state(cfg, batch_size, dtype, device)
-                entries.append({"ssm": (s.new_zeros((g,) + s.shape),
-                                        ct.new_zeros((g,) + ct.shape))})
-            else:
-                entries.append({"kv": tuple(
-                    torch.zeros((g, batch_size, cache_len, kv, hd),
-                                dtype=dtype, device=device)
-                    for _ in range(2))})
+                c["ssm"] = (s.new_zeros((g,) + s.shape),
+                            ct.new_zeros((g,) + ct.shape))
+            if kind == "cross" or cfg.is_encdec:
+                c["xkv"] = pair(cross_len)
+            entries.append(c)
         return entries
 
     def decode_step(params, caches, token, pos, *, window: int = 0):
@@ -193,8 +269,8 @@ def _build_lstm(cfg) -> Model:
 def build_model(cfg) -> Model:
     if cfg.family == "lstm":
         return _build_lstm(cfg)
-    if cfg.family not in ("ssm", "dense"):
+    if cfg.hybrid:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet (ROADMAP "
-            "Queue 1 item 10)")
+            f"{cfg.name}: the hybrid family is not ported to PyTorch yet "
+            "(ROADMAP Queue 1 item 18)")
     return _build_transformer(cfg)

@@ -4,10 +4,12 @@ The JAX package's ``models/transformer.py``: a repeating *group* of
 ``period`` sub-layers whose parameters are stacked over ``n_groups`` (a
 leading axis on every leaf, so weights cross between the packages 1:1).
 Where the JAX package scans the groups with ``lax.scan``, the port loops
-over them in Python. The port builds the ``"ssm"`` sub-layer (mamba2) and
-the ``"self_dense"`` one (GQA self-attention and an MLP: the dense family);
-the MoE, cross-attention and hybrid kinds come with the rest of the
-transformer families (ROADMAP Queue 1 item 10) and raise until then.
+over them in Python. Sub-layer kinds: ``"ssm"`` (mamba2), ``"self_dense"``
+(GQA self-attention and an MLP), ``"self_moe"`` (self-attention and an MoE
+FFN) and ``"cross"`` (tanh-gated cross-attention to image embeddings, then
+an MLP); an encoder-decoder's decoder blocks also attend to the encoder's
+output (``xattn``, ``ln3``). The ``"hybrid"`` kind (hymba) raises until
+ROADMAP Queue 1 item 18.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Any, Dict, List
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.counting import layer_kinds
 from repro_torch.models.layers import init_mlp, mlp_apply, rms_norm
@@ -25,7 +28,7 @@ from repro_torch.tree import tree_map
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"layer kind {kind!r} is not ported to PyTorch yet (ROADMAP Queue 1 "
-        "item 10: MoE, cross-attention, hybrid)")
+        "item 18: hymba)")
 
 
 def group_period(cfg) -> int:
@@ -57,34 +60,66 @@ def stack_trees(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
-def _init_block(gen, cfg, kind: str, dtype, device):
+def _init_block(gen, cfg, kind: str, dtype, device, *,
+                encdec_dec: bool = False):
     d = cfg.d_model
     p: Dict[str, Any] = {"ln1": torch.ones((d,), dtype=dtype, device=device)}
     if kind == "ssm":
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype, device)
         return p
-    if kind != "self_dense":
+    if kind not in ("self_dense", "self_moe", "cross"):
         raise _not_ported(kind)
     p["ln2"] = torch.ones((d,), dtype=dtype, device=device)
     p["attn"] = attn.init_attention(gen, cfg, dtype, device)
-    d_ff = cfg.dense_d_ff if (cfg.is_moe and cfg.moe_every > 1) else cfg.d_ff
-    p["mlp"] = init_mlp(gen, d, d_ff, cfg.act, dtype, device)
+    if kind == "self_moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
+    else:
+        if kind == "cross":
+            d_ff = cfg.dense_d_ff or cfg.d_ff
+            # tanh(0) = 0: at init the image layers add nothing
+            p["gate"] = torch.zeros((1,), dtype=dtype, device=device)
+        elif cfg.is_moe and cfg.moe_every > 1:
+            d_ff = cfg.dense_d_ff
+        else:
+            d_ff = cfg.d_ff
+        p["mlp"] = init_mlp(gen, d, d_ff, cfg.act, dtype, device)
+    if encdec_dec:
+        p["xattn"] = attn.init_attention(gen, cfg, dtype, device)
+        p["ln3"] = torch.ones((d,), dtype=dtype, device=device)
     return p
 
 
-def init_stack(gen, cfg, dtype, device="cpu") -> List[Dict[str, Any]]:
+def init_stack(gen, cfg, dtype, device="cpu", *,
+               encdec_dec: bool = False) -> List[Dict[str, Any]]:
     """Stacked params: one subtree per position-in-group, leading axis
-    n_groups."""
+    n_groups. Each group is drawn and copied into its slot before the next
+    is drawn, so the device holds one group beside the stack, not two
+    copies of the weights."""
     kinds = group_kinds(cfg)
     n_groups = cfg.n_layers // len(kinds)
-    groups = [[_init_block(gen, cfg, kind, dtype, device) for kind in kinds]
-              for _ in range(n_groups)]
-    return stack_trees(groups)
+    stacked = None
+    for g in range(n_groups):
+        group = [_init_block(gen, cfg, kind, dtype, device,
+                             encdec_dec=encdec_dec) for kind in kinds]
+        if stacked is None:
+            stacked = tree_map(lambda t: t.new_empty((n_groups,) + t.shape),
+                               group)
+        tree_map(lambda dst, src: dst[g].copy_(src), stacked, group)
+    return stacked
+
+
+def _ffn(bp, cfg, kind, x):
+    """The block's second half: x + FFN(ln2(x)). Returns (x, aux_loss)."""
+    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    if kind == "self_moe":
+        out, aux = moe_mod.moe_apply(bp["moe"], h, cfg)
+        return x + out, aux
+    return x + mlp_apply(bp["mlp"], h, cfg.act), None
 
 
 def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
-                 collect_cache: bool):
-    """Returns (x, cache_entry)."""
+                 collect_cache: bool, encdec_dec: bool = False):
+    """Returns (x, aux_loss or None, cache_entry)."""
     cache: Dict[str, Any] = {}
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     if kind == "ssm":
@@ -93,38 +128,58 @@ def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
                                                     return_state=True)
         else:
             out = ssm_mod.ssm_forward(bp["ssm"], h, cfg)
-        return x + out, cache
-    if kind != "self_dense":
+        return x + out, None, cache
+    if kind == "cross":
+        out, kv = attn.cross_attention_full(bp["attn"], h, ctx["cross_src"],
+                                            cfg)
+        if collect_cache:
+            cache["xkv"] = kv
+        x = x + torch.tanh(bp["gate"].to(out.dtype)) * out
+    elif kind in ("self_dense", "self_moe"):
+        out, kv = attn.self_attention(bp["attn"], h, positions, cfg,
+                                      window=window,
+                                      causal=ctx.get("causal", True))
+        if collect_cache:
+            cache["kv"] = kv
+        x = x + out
+    else:
         raise _not_ported(kind)
-    out, kv = attn.self_attention(bp["attn"], h, positions, cfg,
-                                  window=window,
-                                  causal=ctx.get("causal", True))
-    if collect_cache:
-        cache["kv"] = kv
-    x = x + out
-    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(bp["mlp"], h, cfg.act), cache
+    if encdec_dec:
+        h = rms_norm(x, bp["ln3"], cfg.norm_eps)
+        out, xkv = attn.cross_attention_full(bp["xattn"], h,
+                                             ctx["cross_src"], cfg)
+        if collect_cache:
+            cache["xkv"] = xkv
+        x = x + out
+    x, aux = _ffn(bp, cfg, kind, x)
+    return x, aux, cache
 
 
 def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
-                collect_cache: bool = False):
+                collect_cache: bool = False, encdec_dec: bool = False):
     """Run the stacked groups in order (inference: no rematerialisation).
     Returns (x, aux_loss, caches|None); the caches are stacked like the
-    parameters."""
+    parameters. The MoE aux losses are summed as the reference sums them:
+    within each group in order, then over the groups."""
     kinds = group_kinds(cfg)
     n_groups = cfg.n_layers // len(kinds)
     ctx = ctx or {}
-    caches = []
+    caches, group_aux = [], []
     for g in range(n_groups):
         gp = tree_map(lambda t: t[g], params)
         group_caches = []
+        aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(kinds):
-            x, cache = _apply_block(gp[i], cfg, kind, x, positions, ctx,
-                                    window=window,
-                                    collect_cache=collect_cache)
+            x, aux, cache = _apply_block(gp[i], cfg, kind, x, positions, ctx,
+                                         window=window,
+                                         collect_cache=collect_cache,
+                                         encdec_dec=encdec_dec)
+            if aux is not None:
+                aux_tot = aux_tot + aux
             group_caches.append(cache)
         caches.append(group_caches)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        group_aux.append(aux_tot)
+    aux = torch.sum(torch.stack(group_aux))
     return x, aux, (stack_trees(caches) if collect_cache else None)
 
 
@@ -133,14 +188,27 @@ def _decode_block(bp, cfg, kind, x, pos, cache, spec):
     if kind == "ssm":
         out, st = ssm_mod.ssm_decode_step(bp["ssm"], h, cache["ssm"], cfg)
         return x + out, {"ssm": st}
-    if kind != "self_dense":
+    new_cache: Dict[str, Any] = {}
+    if kind == "cross":
+        k, v = cache["xkv"]
+        out = attn.cross_attention_cached(bp["attn"], h, k, v, cfg)
+        new_cache["xkv"] = (k, v)
+        x = x + torch.tanh(bp["gate"].to(out.dtype)) * out
+    elif kind in ("self_dense", "self_moe"):
+        ck, cv = cache["kv"]
+        out, nk, nv = attn.decode_self_attention(bp["attn"], h, ck, cv, pos,
+                                                 cfg, spec)
+        new_cache["kv"] = (nk, nv)
+        x = x + out
+    else:
         raise _not_ported(kind)
-    ck, cv = cache["kv"]
-    out, nk, nv = attn.decode_self_attention(bp["attn"], h, ck, cv, pos, cfg,
-                                             spec)
-    x = x + out
-    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(bp["mlp"], h, cfg.act), {"kv": (nk, nv)}
+    if "xkv" in cache and kind != "cross":          # enc-dec decoder
+        k, v = cache["xkv"]
+        h = rms_norm(x, bp["ln3"], cfg.norm_eps)
+        x = x + attn.cross_attention_cached(bp["xattn"], h, k, v, cfg)
+        new_cache["xkv"] = (k, v)
+    x, _ = _ffn(bp, cfg, kind, x)       # decode drops the MoE aux loss
+    return x, new_cache
 
 
 def decode_stack(params, cfg, x, pos, caches, *, spec: attn.KVCacheSpec):

@@ -167,6 +167,6 @@ def test_synthetic_stream_is_the_reference_stream():
 
 def test_unported_architectures_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("phi3.5-moe-42b-a6.6b")
+        get_arch("hymba-1.5b")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
