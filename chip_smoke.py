@@ -135,16 +135,49 @@ raises and exits non-zero:
             as serve_dense (one fault: with as many KV heads as heads,
             rotating the queries rotates the keys too)
   The slice-6 phases launch none of the seven kernels either.
+  reference_hybrid  reduced hymba (2 layers, window 64, 16 SSM heads of 32,
+            state 16) in float32 with ssm_pallas, card against CPU, same
+            weights, as reference_moe (the SSD kernel launched twice a
+            layer, by logits_fn and loss_fn); on the card the prompt of 96
+            positions replayed over a ring of 64 slots against logits_fn
+            and the prefill's last logits; the SSM half dropped and the mean
+            fusion replaced by a sum must fail the card-vs-CPU check, those
+            and a prefill one token short the prefill-vs-replay check
+  reference_train_families  reduced float32 hymba, qwen2-7b and
+            phi3.5-moe through train_loop (Local AdaAlter, 2 workers, int8
+            H=4, lr 2, 8 steps), the card with the kernels against the CPU
+            with their plain versions: losses to rtol 1e-4, which η 2% off
+            must exceed; schedule and comm bytes equal; launch counts
+  score_hybrid  hymba-1.5b at full width and depth (1,640,820,096 counted
+            parameters, bf16, ssm_pallas): logits_fn and loss_fn over 2 x
+            4096 tokens, 32 SSD calls a forward (50 heads: the last 8-head
+            group holds 2); one forward profiled by layer (self-attention,
+            SSM, SSD kernel, MLP)
+  serve_hybrid  serve_session on it, batch 8, prompt 512, 32 new (the
+            1,024-token window: a 544-slot cache): prefill vs replay as
+            serve_dense (a prefill one token short must exceed it; the SSM
+            half dropped and a sum fusion reported); no SSD launch
+  train_hybrid / train_hybrid_flat  hymba at full width cut to 8 of its
+            32 layers (487,008,624 counted parameters, 487,021,424 in the
+            tree), bf16, 2 workers x 4 sequences of 512 tokens, Local
+            AdaAlter H=4, int8 wire, kernels on, through train_loop: 8
+            steps per leaf (168 update and 84 EF launches over its 21
+            leaves; then 4 steps profiled) and 8 over the flat plane (8 and
+            4), whose losses must equal the per-leaf run's bit for bit
 
 The kernels phase also holds the SSD chunk scan's warp-level 3xTF32
 product helper alone against a float64 product, then the SSD kernels
 against their plain version at the scoring shape (fp32 and bf16 inputs)
 and at a 32k-token sequence, with each of the three kernels' device time
-and launch geometry, and at the CPU tests' shapes of 2 and 4 heads (a part
-of one 8-head group), and counts the TF32 tensor-core instructions in the
-built SSD kernels (cuobjdump -sass). Then the script's wall, the kernels
-summary line, the nvidia-smi line, and the last line
-{"ok": true, "device": {...}}.
+and launch geometry, at the CPU tests' shapes of 2 and 4 heads (a part
+of one 8-head group) and at hymba's scoring shape (50 heads, the last
+group of 2), and counts the TF32 tensor-core instructions in the built
+SSD kernels (cuobjdump -sass). It holds the update and EF kernels (per
+leaf and flat) against their plain versions at train_hybrid's shapes too:
+each distinct stacked leaf of the 8-layer hymba tree in bf16 (B² in fp32)
+and that tree's plane with its bf16 row sidecars. Then the script's wall, the kernels summary
+line (each kernel's launches on its main path, and by phase), the
+nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -181,6 +214,7 @@ CROSS_GATE = 0.7               # the VLM's tanh gate in the checks (0 at init)
 # card: the MoE phases run its first 16 (42.1 GB) at full width
 MOE_LAYERS = 16
 SERVE_PROMPT = 512             # the slice-6 serve phases' prompt length
+HYMBA_TRAIN_LAYERS = 8         # hymba-1.5b trained at full width, 8 of 32
 
 
 def free_card() -> None:
@@ -231,6 +265,11 @@ def max_abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def max_rel(a, b) -> float:
+    """The largest relative difference between two loss curves."""
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
 def update_agrees(y, y_ref, x, rtol) -> bool:
     """y within ``rtol`` (a number, or a tensor that broadcasts) of
     ``y_ref``, measured against the larger of |y_ref| and the update
@@ -242,7 +281,7 @@ def update_agrees(y, y_ref, x, rtol) -> bool:
     return bool(((yf - rf).abs() <= rtol * scale).all())
 
 
-def check_update(gen, shape, dtype):
+def check_update(gen, shape, dtype, timed=True):
     """Fused update kernel vs its plain version on one stacked leaf.
 
     The inputs make the update a quarter of |x| (η = 0.5, g ~ N(0, 1),
@@ -274,30 +313,33 @@ def check_update(gen, shape, dtype):
         require(not update_agrees(y_bad, y_ref, x, rtol),
                 f"the update check accepts a wrong update ({what}, {dtype})")
     del wrong, y_bad
-    n = x.numel()
-    nbytes = n * (3 * x.element_size() + 3 * 4)
-    return dict(
-        dtype=str(dtype).replace("torch.", ""), shape=list(shape),
-        max_abs_err=max_err, rejects_wrong_updates=True,
-        ms=cuda_ms(lambda: au.fused_update(x, g, bs, bl, scalars)),
-        plain_ms=cuda_ms(lambda: au.fused_update_plain(x, g, bs, bl, scalars)),
-        bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+    out = dict(dtype=str(dtype).replace("torch.", ""), shape=list(shape),
+               max_abs_err=max_err, rejects_wrong_updates=True)
+    if timed:
+        nbytes = x.numel() * (3 * x.element_size() + 3 * 4)
+        out.update(
+            ms=cuda_ms(lambda: au.fused_update(x, g, bs, bl, scalars)),
+            plain_ms=cuda_ms(lambda: au.fused_update_plain(x, g, bs, bl,
+                                                           scalars)),
+            bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+    return out
 
 
 def check_ef(gen, shape, dtype, clamp, timed=True):
     """One-pass EF encode kernel vs its plain version on one stacked leaf."""
     import torch
     from repro_torch.kernels import sync_fused as sf
+    stripe = min(4096, math.prod(shape) // 4)   # a quarter of a small leaf
     if clamp:      # accumulator payload: B² around 1, a residual that
         # drives a stripe of it negative so the clamp fires
         x = (1.0 + torch.rand(shape, generator=gen, device="cuda")).to(dtype)
         e = torch.randn(shape, generator=gen, device="cuda") * 1e-3
-        e.view(-1)[:4096] = -4.0
+        e.view(-1)[:stripe] = -4.0
     else:
         x = (torch.randn(shape, generator=gen, device="cuda") * 0.05).to(dtype)
         e = torch.randn(shape, generator=gen, device="cuda") * 1e-4
-    x.view(-1)[4096:4096 + 512] = 0          # two all-zero blocks
-    e.view(-1)[4096:4096 + 512] = 0
+    x.view(-1)[stripe:stripe + 512] = 0      # all-zero blocks
+    e.view(-1)[stripe:stripe + 512] = 0
     w_ref, r_ref = sf.fused_ef_leaf_plain(x, e, batch_ndim=1,
                                           clamp_nonneg=clamp)
     e_k = e.clone()
@@ -323,18 +365,52 @@ def check_ef(gen, shape, dtype, clamp, timed=True):
 
 
 def full_plane(cfg, workers: int):
-    """The FlatSpace of the full-width stacked parameters, from shapes
-    alone (meta tensors: no memory)."""
-    import torch
+    """The FlatSpace of ``cfg``'s stacked parameters, as training builds
+    it, from shapes alone (meta tensors: no memory)."""
     from repro_torch.core.flatspace import FlatSpace
-    from repro_torch.models.lstm import init_lstm
+    from repro_torch.models import build_model
     from repro_torch.tree import tree_map
-    meta = init_lstm(None, cfg, getattr(torch, cfg.param_dtype), "meta")
+    meta = build_model(cfg).init(None, "meta")
     return FlatSpace.build(tree_map(
         lambda x: x[None].expand((workers,) + x.shape), meta), batch_ndim=1)
 
 
-def check_flat_update(gen, fs):
+def check_tree_kernels(gen, cfg, workers: int) -> dict:
+    """Rows 1-4 against their plain versions at the shapes that training
+    ``cfg`` gives them: the fused update and the EF encode at each distinct
+    stacked leaf (the update and the params' wire in the leaf's dtype, B²'s
+    wire in fp32 with its clamp), the flat update and both flat EF halves
+    over the tree's plane with its own row sidecars. Untimed."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    out, seen = {"leaves": []}, set()
+    for m in leaves(build_model(cfg).init(None, "meta")):
+        shape, dtype = (workers,) + tuple(m.shape), m.dtype
+        if (shape, dtype) in seen:
+            continue
+        seen.add((shape, dtype))
+        out["leaves"].append(dict(
+            shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+            update=check_update(gen, shape, dtype, timed=False)[
+                "max_abs_err"],
+            ef_params=check_ef(gen, shape, dtype, False, timed=False)[
+                "max_abs_err"],
+            ef_b2=check_ef(gen, shape, torch.float32, True, timed=False)[
+                "max_abs_err"]))
+        torch.cuda.empty_cache()
+    fs = full_plane(cfg, workers)
+    out["plane"] = {"plane_size": fs.plane_size, "real": fs.n_real,
+                    "slots": fs.n_leaves}
+    out["flat_update"] = check_flat_update(gen, fs, timed=False)
+    torch.cuda.empty_cache()
+    out["flat_ef"] = [check_flat_ef(gen, fs, half, timed=False)
+                      for half in ("params", "b2")]
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_flat_update(gen, fs, timed=True):
     """Flat update kernel vs its plain version on the full-width planes
     (R, P) with the plane's own bf16 row sidecar. The plain version is
     compared one worker row at a time (it is elementwise, and the full
@@ -379,9 +455,11 @@ def check_flat_update(gen, fs):
     torch.cuda.empty_cache()
     nbytes = x.numel() * 6 * 4
     out = dict(shape=list(shape), bf16_rows=float(rows.mean()),
-               max_abs_err=err, rejects_wrong_updates=True,
-               ms=cuda_ms(lambda: au.flat_fused_update(x, g, bs, bl, scalars,
-                                                       rows)))
+               max_abs_err=err, rejects_wrong_updates=True)
+    if not timed:
+        return out
+    out["ms"] = cuda_ms(lambda: au.flat_fused_update(x, g, bs, bl, scalars,
+                                                     rows))
     torch.cuda.empty_cache()
     out.update(plain_ms=cuda_ms(lambda: au.flat_fused_update_plain(
         x, g, bs, bl, scalars, rows), reps=3, warmup=1),
@@ -389,7 +467,7 @@ def check_flat_update(gen, fs):
     return out
 
 
-def check_flat_ef(gen, fs, half):
+def check_flat_ef(gen, fs, half, timed=True):
     """Flat EF kernel vs its plain version on one half of the full-width
     ``[params ‖ B²]`` payload, (R, P) fp32 with that half's sidecars:
     the params half rounds the wire through bf16 on its 16-bit slots and
@@ -433,8 +511,10 @@ def check_flat_ef(gen, fs, half):
     del wire, r
     torch.cuda.empty_cache()
     nbytes = x.numel() * 4 * 4
-    out = dict(half=half, shape=list(shape), max_abs_err=err,
-               ms=cuda_ms(lambda: sf.flat_ef_blocks(x2d, e_k, rnd, low)))
+    out = dict(half=half, shape=list(shape), max_abs_err=err)
+    if not timed:
+        return out
+    out["ms"] = cuda_ms(lambda: sf.flat_ef_blocks(x2d, e_k, rnd, low))
     del e_k
     torch.cuda.empty_cache()
     out.update(plain_ms=cuda_ms(lambda: sf.flat_ef_blocks_plain(
@@ -974,7 +1054,7 @@ def score_model(cfg, params, counters, *, batch, seq, ssd_calls, reps=3,
             losses.append(float(metrics["xent"]))      # synchronises
             aux.append(float(metrics["aux"]))
             loss_ms.append(1e3 * (time.perf_counter() - t0))
-        launches = {k: c.n for k, c in counters.items()}
+        launches = read_counts(counters)
     require(all(abs(x - math.log(cfg.vocab_size)) <= 1.5 for x in losses),
             f"initial xent {losses} vs ln V {math.log(cfg.vocab_size)}")
     fwd_med = statistics.median(fwd_ms)
@@ -1108,21 +1188,23 @@ def serve_model(cfg, params, counters, faults, *, batch, prompt, new,
 
 def profile_decode_step(model, params, out, batch, prompt, new, labels=None):
     """One decode step at position ``prompt`` from a zero cache of the
-    session's geometry (``decode_cache_specs``), under torch.profiler: the
-    mean of 5."""
+    session's geometry (``decode_cache_specs``, and its window), under
+    torch.profiler: the mean of 5."""
     import torch
     from repro_torch.configs import ShapeConfig
-    from repro_torch.launch.serving import decode_cache_specs
+    from repro_torch.launch.serving import cache_geometry, decode_cache_specs
     from repro_torch.tree import tree_map
     shape = ShapeConfig(name="decode_32k", seq_len=prompt + new,
                         global_batch=batch, kind="decode")
+    window = cache_geometry(model.cfg, shape)[1]
     cache = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                            device="cuda"),
                      decode_cache_specs(model.cfg, shape))
     tok = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
     pos = torch.full((batch,), prompt, dtype=torch.int32, device="cuda")
     with torch.inference_mode():
-        return profile_call(lambda: model.decode_step(params, cache, tok, pos),
+        return profile_call(lambda: model.decode_step(params, cache, tok, pos,
+                                                      window=window),
                             out["decode_ms_per_step"], reps=5, labels=labels)
 
 
@@ -1278,7 +1360,7 @@ def reference_dense(counters) -> dict:
                 win_card[:, W:], lg_card[:, W:n_win])}
         require_close(win_card[:, :W], lg_card[:, :W],
                       "reduced qwen2: windowed decode within the window")
-    out["launches"] = _expect_launches(counters)
+    out["launches"] = require_launches(read_counts(counters))
     return out
 
 
@@ -1325,7 +1407,7 @@ def reference_lstm_serve(counters) -> dict:
     errs += [require_close(a, b, "reduced Big LSTM: decode state")
              for a, b in zip(runs[0][1], runs[1][1])]
     out["prefill_decode_max_abs_err"] = max(errs)
-    out["launches"] = _expect_launches(counters)
+    out["launches"] = require_launches(read_counts(counters))
     return out
 
 
@@ -1575,7 +1657,7 @@ def reference_moe(counters) -> dict:
                     case[f"fault_{name}_max_abs_err_reported"] = max_abs_err(
                         bad.cpu(), lg_cpu)
         out["cases"].append(case)
-    out["launches"] = _expect_launches(counters)
+    out["launches"] = require_launches(read_counts(counters))
     return out
 
 
@@ -1662,7 +1744,7 @@ def reference_cross(counters) -> dict:
                 case["fault_encoder_causal_max_abs_err"] = fault_rejected(
                     bad, lg_cpu, f"{what}: encoder run causally")
         out["cases"].append(case)
-    out["launches"] = _expect_launches(counters)
+    out["launches"] = require_launches(read_counts(counters))
     return out
 
 
@@ -1872,11 +1954,17 @@ def resume_matches(cfg, shape, oc, root: Path, tag: str, *, save_at: int,
             "state_leaves_bitwise": len(want), "checkpoint_bytes": ckpt_bytes}
 
 
-def _expect_launches(counters, **want) -> dict:
-    launches = {k: c.n for k, c in counters.items()}
-    full = {k: want.get(k, 0) for k in counters}
+def require_launches(launches, **want) -> dict:
+    """``launches`` (counter name -> count) equal to ``want``, 0 where
+    ``want`` names no count."""
+    full = {k: want.get(k, 0) for k in launches}
     require(launches == full, f"launches {launches}, expected {full}")
     return launches
+
+
+def read_counts(counters) -> dict:
+    """Each kernel wrapper's launch count, by counter name."""
+    return {k: c.n for k, c in counters.items()}
 
 
 def baselines_phase(cfg, shape, small, base, counters, leaf) -> dict:
@@ -1903,9 +1991,6 @@ def baselines_phase(cfg, shape, small, base, counters, leaf) -> dict:
                 f"reduced adaalter on {dev}: rounds at {res.sync_steps}")
         return res.losses
 
-    def max_rel(a, b):
-        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
-
     cuda, cpu = reduced_losses("cuda", 2.0), reduced_losses("cpu", 2.0)
     rel = max_rel(cuda, cpu)
     rel_wrong = max_rel(reduced_losses("cpu", 2.0 * 1.02), cpu)
@@ -1923,7 +2008,7 @@ def baselines_phase(cfg, shape, small, base, counters, leaf) -> dict:
         res = train_loop(cfg, shape, OptimizerConfig(
             name=name, lr=0.5, warmup_steps=100), steps=TRAIN_STEPS,
             log_every=1, device="cuda")
-        launches = _expect_launches(counters)     # plain tensor ops
+        launches = require_launches(read_counts(counters))  # plain ops
         require(res.n_workers == 1 and res.sync_count == TRAIN_STEPS,
                 f"{name}: {res.n_workers} workers, {res.sync_count} rounds")
         require(all(math.isfinite(v) for v in res.losses),
@@ -2038,7 +2123,7 @@ def instrumented_phase(cfg, shape, oc, counters, leaf, leaf_n,
         res = train_loop(cfg, shape, oc, steps=TRAIN_STEPS,
                          n_workers=workers, verbose=False, device="cuda",
                          trace_out=str(t_path), metrics_out=str(m_path))
-        launches = _expect_launches(counters, **leaf_n)
+        launches = require_launches(read_counts(counters), **leaf_n)
         peak = torch.cuda.max_memory_allocated() / 1e9
         require(peak < 80.0, f"instrumented run peak {peak} GB")
         require(res.sync_steps == [3, 7], f"sync steps {res.sync_steps}")
@@ -2091,10 +2176,6 @@ def slice6_phases(counters, smi: str) -> None:
     from repro_torch.data import SyntheticLM, make_train_batch
     from repro_torch.models import build_model
 
-    def expect(launches):
-        require(not any(launches.values()), f"launches {launches}, "
-                "expected none")
-
     t0 = time.perf_counter()
     emit({"phase": "reference_moe", **reference_moe(counters),
           "seconds": time.perf_counter() - t0})
@@ -2110,14 +2191,14 @@ def slice6_phases(counters, smi: str) -> None:
     params = build_model(phi).init(torch.Generator("cuda").manual_seed(0))
     torch.cuda.empty_cache()
     score, n = moe_score_phase(phi, params, counters)
-    expect(n)
+    require_launches(n)
     emit({"phase": "score_moe", "nvidia_smi": smi, "layers": MOE_LAYERS,
           "layers_of_config": get_arch("phi3.5-moe-42b-a6.6b").n_layers,
           **score, "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     serve, n = serve_moe(phi, params, counters, batch=8, prompt=SERVE_PROMPT,
                          new=32)
-    expect(n)
+    require_launches(n)
     emit({"phase": "serve_moe", "nvidia_smi": smi, "layers": MOE_LAYERS,
           **serve, "seconds": time.perf_counter() - t0})
     del params
@@ -2141,7 +2222,7 @@ def slice6_phases(counters, smi: str) -> None:
         score, n = score_model(full, params, counters, batch=2, seq=4096,
                                ssd_calls=0, extra=extra,
                                labels=model_labels())
-        expect(n)
+        require_launches(n)
         emit({"phase": f"score_{phase}", "nvidia_smi": smi,
               "cross_keys": {k: v.shape[1] for k, v in extra.items()},
               **score, "seconds": time.perf_counter() - t0})
@@ -2158,11 +2239,289 @@ def slice6_phases(counters, smi: str) -> None:
         serve, n = serve_model(full, params, counters, faults, batch=8,
                                prompt=SERVE_PROMPT, new=32,
                                reported=reported, labels=model_labels())
-        expect(n)
+        require_launches(n)
         emit({"phase": f"serve_{phase}", "nvidia_smi": smi, **serve,
               "seconds": time.perf_counter() - t0})
         del params, model, faults, reported
         free_card()
+
+
+def hybrid_fault(params, name: str):
+    """Faulty parameters of the hybrid layer, each the exact function of a
+    wrong fusion: ``ssm_dropped`` (norm_ssm at 0: the SSM half adds
+    nothing) and ``sum_fusion`` (norm_attn and norm_ssm doubled: 0.5 ·
+    (2a + 2s) is the sum a + s in place of the mean)."""
+    scale = {"ssm_dropped": {"norm_ssm": 0.0},
+             "sum_fusion": {"norm_attn": 2.0, "norm_ssm": 2.0}}[name]
+    return {**params, "blocks": [
+        {**b, **{k: b[k] * v for k, v in scale.items()}}
+        for b in params["blocks"]]}
+
+
+def hybrid_labels() -> dict:
+    """The hybrid layer's parts for ``profile_call``: its self-attention,
+    the SSM mixer (forward and decode) and, inside it, the SSD kernel's
+    wrapper, and the MLP."""
+    from repro_torch.models import ssm
+    labels = model_labels()
+    return {"self_attention": labels["self_attention"],
+            "ssm": [(ssm, "ssm_forward"), (ssm, "ssm_decode_step")],
+            "ssd_kernel": [(ssm, "ssd_scan")], "mlp": labels["mlp"]}
+
+
+def reference_hybrid(counters) -> dict:
+    """Reduced hymba (2 layers, window 64, 16 SSM heads of 32, state 16) in
+    float32 with ssm_pallas, card against CPU with the same weights (as
+    reference_moe compares them): logits_fn and loss_fn through the SSD
+    kernel on the card (2 calls a layer) and its plain version on the
+    CPU, prefill caches, decode steps after the prefill. On the card, the
+    prompt of 96 positions replayed through decode_step over a ring of 64
+    slots (the window: the ring wraps) against logits_fn at every position
+    (the forward is windowed at 64 too) and against the prefill's last
+    logits. The SSM half dropped and the mean fusion replaced by a sum must
+    fail the card-vs-CPU check; those two and a prefill one token short
+    must fail the prefill-vs-replay check."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(reduced(get_arch("hymba-1.5b")),
+                              param_dtype="float32", ssm_pallas=True)
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(5))
+    card = tree_map(lambda t: t.cuda(), cpu)
+    B, L, n_dec, W = 2, 96, 8, cfg.sliding_window
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(
+        vocab_size=cfg.vocab_size, seq_len=L + n_dec, seed=1).worker_batch(
+            0, 0, B).items()}
+    what = "reduced hymba"
+    out = {"arch": cfg.name, "batch": B, "seq": L, "window": W,
+           "ssm_heads": cfg.n_ssm_heads, "rtol": MODEL_RTOL,
+           "atol": MODEL_ATOL}
+    for c in counters.values():
+        c.reset()
+    with torch.inference_mode():
+        rep, lg_card, lg_cpu = card_vs_cpu(model, card, cpu, batch, L, n_dec,
+                                           what)
+        out.update(rep)
+        out["launches"] = require_launches(read_counts(counters),
+                                           ssd_scan=2 * cfg.n_layers)
+        tokens = batch["tokens"][:, :L].cuda()
+        replay = decode_replay(model, card, tokens, W, window=W)
+        out["replay_vs_logits_fn_max_abs_err"] = require_close(
+            replay, lg_card, f"{what}: replay over a ring of {W} vs "
+            "logits_fn")
+        want = replay[:, -1]
+        out["prefill_vs_replay_max_abs_err"] = require_close(
+            model.prefill(card, {"tokens": tokens})[0][:, 0], want,
+            f"{what}: prefill's last logits vs the replay's")
+        for name in ("ssm_dropped", "sum_fusion"):
+            bad = hybrid_fault(card, name)
+            out[f"fault_{name}_vs_cpu_max_abs_err"] = fault_rejected(
+                model.logits_fn(bad, {"tokens": tokens}), lg_cpu,
+                f"{what}: {name}")
+            out[f"fault_{name}_vs_replay_max_abs_err"] = fault_rejected(
+                model.prefill(bad, {"tokens": tokens})[0][:, 0], want,
+                f"{what}: {name} prefill")
+        out["fault_one_token_short_vs_replay_max_abs_err"] = fault_rejected(
+            model.prefill(card, {"tokens": tokens[:, :-1]})[0][:, 0], want,
+            f"{what}: prefill one token short")
+    return out
+
+
+def reference_train_families(counters) -> dict:
+    """Reduced float32 hymba, qwen2-7b and phi3.5-moe through train_loop:
+    Local AdaAlter, 2 workers, H = 4, int8 wire, 8 steps at lr 2, the card
+    with the kernels against the CPU with their plain versions, same
+    initial weights: losses to rtol 1e-4, which the CPU run with η 2%
+    larger must exceed; sync steps and comm bytes exactly equal; the card's
+    launches of the fused update and the EF encode one per leaf a step and
+    two per leaf a round."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, ShapeConfig, get_arch
+    from repro_torch.configs import reduced
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    rtol, lr = 1e-4, 2.0
+    shape = ShapeConfig("smoke", seq_len=16, global_batch=8, kind="train")
+    out = {"rtol": rtol, "lr": lr, "steps": TRAIN_STEPS, "workers": 2,
+           "runs": {}}
+    for arch in ("hymba-1.5b", "qwen2-7b", "phi3.5-moe-42b-a6.6b"):
+        cfg = dataclasses.replace(reduced(get_arch(arch)),
+                                  param_dtype="float32")
+        model = build_model(cfg)
+        base = model.init(torch.Generator().manual_seed(1))
+        n_leaves = len(leaves(base))
+
+        def run(dev, eta):
+            oc = OptimizerConfig(compression="int8", use_kernels=True, H=4,
+                                 lr=eta, warmup_steps=0)
+            return train_loop(cfg, shape, oc, steps=TRAIN_STEPS, n_workers=2,
+                              verbose=False, device=dev, init_params=base)
+
+        for c in counters.values():
+            c.reset()
+        cuda = run("cuda", lr)
+        launches = require_launches(
+            read_counts(counters), adaalter_update=n_leaves * TRAIN_STEPS,
+            fused_ef=2 * n_leaves * 2)
+        cpu, wrong = run("cpu", lr), run("cpu", lr * 1.02)
+        for key in ("sync_steps", "comm_bytes_total", "comm_bytes_modeled"):
+            require(getattr(cuda, key) == getattr(cpu, key),
+                    f"reduced {arch}: {key} {getattr(cuda, key)} on the "
+                    f"card, {getattr(cpu, key)} on the CPU")
+        require(cuda.sync_steps == [3, 7], f"reduced {arch}: sync steps "
+                f"{cuda.sync_steps}")
+        rel, rel_wrong = (max_rel(cuda.losses, cpu.losses),
+                          max_rel(wrong.losses, cpu.losses))
+        require(all(math.isfinite(x) for x in cuda.losses),
+                f"reduced {arch}: non-finite loss {cuda.losses}")
+        require(rel <= rtol, f"reduced {arch}: losses differ by {rel} "
+                "relative")
+        require(rel_wrong > rtol, f"reduced {arch}: an η 2% off moves the "
+                f"losses by only {rel_wrong}, within the tolerance")
+        out["runs"][cfg.name] = {
+            "leaves": n_leaves, "losses_cuda": cuda.losses,
+            "losses_cpu": cpu.losses, "max_rel_diff": rel,
+            "max_rel_diff_eta_2pct_high": rel_wrong,
+            "sync_steps": cuda.sync_steps,
+            "comm_bytes_total": cuda.comm_bytes_total, "launches": launches}
+    return out
+
+
+def hymba_train_cfg():
+    """hymba-1.5b at full width, cut to 8 of its 32 layers: two workers'
+    parameters, B², EF residuals and gradients of all 32 (1.64 G
+    parameters) would not fit one card."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("hymba-1.5b"),
+                               n_layers=HYMBA_TRAIN_LAYERS)
+
+
+def train_hybrid(cfg, counters, smi, *, steps, flat):
+    """train_loop on ``cfg`` (hymba at full width, cut in depth): bf16, 2
+    workers stacked on the card, 4 sequences of 512 tokens each, Local
+    AdaAlter H = 4, int8 wire, kernels on; every launch count set to 0 just
+    before and read just after. Finite losses, step 0 within 1.5 nats of
+    ln V. Returns (report, launches)."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, ShapeConfig
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.counting import count_params
+    R, batch, seq = 2, 8, 512
+    shape = ShapeConfig("hybrid", seq_len=seq, global_batch=batch,
+                        kind="train")
+    oc = OptimizerConfig(name="local_adaalter", lr=0.5, H=4,
+                         warmup_steps=100, compression="int8",
+                         use_kernels=True, flat=flat)
+    free_card()
+    for c in counters.values():
+        c.reset()
+    res = train_loop(cfg, shape, oc, steps=steps, n_workers=R, log_every=1,
+                     device="cuda")
+    launches = read_counts(counters)
+    require(res.sync_steps == [3, 7][:steps // 4],
+            f"{cfg.name}: sync steps {res.sync_steps} (flat={flat})")
+    require(all(math.isfinite(v) for v in res.losses),
+            f"{cfg.name}: non-finite loss (flat={flat})")
+    require(abs(res.losses[0] - math.log(cfg.vocab_size)) <= 1.5,
+            f"{cfg.name}: step-0 loss {res.losses[0]} vs ln V "
+            f"{math.log(cfg.vocab_size)}")
+    out = {"nvidia_smi": smi, "arch": cfg.name, "layers": cfg.n_layers,
+           "params": count_params(cfg), "workers": R,
+           "global_batch": batch, "seq": seq, "steps": steps, "flat": flat,
+           "losses": res.losses, "sync_steps": res.sync_steps,
+           "launches": launches, **warm_stats(res, batch, seq),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "comm_bytes_total": res.comm_bytes_total}
+    require(out["max_memory_allocated_gb"] < 80.0,
+            f"{cfg.name} training peak {out['max_memory_allocated_gb']} GB")
+    if not flat:       # where a step's time goes: 4 more steps, profiled
+        prof = profile_steps(lambda: train_loop(
+            cfg, shape, oc, steps=4, n_workers=R, verbose=False,
+            device="cuda"))
+        for p in prof:
+            p["device_idle_share_vs_unprofiled_wall"] = 1.0 - p[
+                "device_busy_ms"] / out["sync_step_ms_median" if p[
+                    "step"].endswith("sync") else "local_step_ms_median"]
+        out["profile"] = prof[1:]
+    return out, launches
+
+
+def slice7_phases(counters, smi: str) -> dict:
+    """The hybrid family: reduced card-vs-CPU checks of the model and of
+    training three families; hymba-1.5b scored and served at full width
+    and depth, the SSD kernel on the scoring forward (one call a layer, 50
+    heads) and on no serving path; hymba at full width and 8 of its 32
+    layers trained per leaf and over the flat plane. Returns the launch
+    counts of the full-width runs by phase."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    emit({"phase": "reference_hybrid", **reference_hybrid(counters),
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({"phase": "reference_train_families",
+          **reference_train_families(counters),
+          "seconds": time.perf_counter() - t0})
+    free_card()
+
+    t0 = time.perf_counter()
+    hymba = dataclasses.replace(get_arch("hymba-1.5b"), ssm_pallas=True)
+    model = build_model(hymba)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    score, score_n = score_model(hymba, params, counters, batch=2, seq=4096,
+                                 ssd_calls=hymba.n_layers,
+                                 labels=hybrid_labels())
+    require_launches(score_n, ssd_scan=2 * 3 * hymba.n_layers)
+    emit({"phase": "score_hybrid", "nvidia_smi": smi,
+          "ssm_heads": hymba.n_ssm_heads, **score,
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    serve, serve_n = serve_model(hymba, params, counters, {
+        "one_token_short": lambda p: model.prefill(
+            params, {"tokens": p[:, :-1]})[0]}, batch=8,
+        prompt=SERVE_PROMPT, new=32, reported={
+            name: (lambda p, _n=name: model.prefill(
+                hybrid_fault(params, _n), {"tokens": p})[0])
+            for name in ("ssm_dropped", "sum_fusion")},
+        labels=hybrid_labels())
+    require_launches(serve_n)
+    emit({"phase": "serve_hybrid", "nvidia_smi": smi,
+          "window": hymba.sliding_window, **serve,
+          "seconds": time.perf_counter() - t0})
+    del params, model
+    free_card()
+
+    short = hymba_train_cfg()
+    n_leaves = len(leaves(build_model(short).init(None, "meta")))
+    t0 = time.perf_counter()
+    leaf, leaf_n = train_hybrid(short, counters, smi, steps=TRAIN_STEPS,
+                                flat=False)
+    require_launches(leaf_n, adaalter_update=n_leaves * TRAIN_STEPS,
+                     fused_ef=2 * n_leaves * 2)
+    emit({"phase": "train_hybrid", "layers_of_config": hymba.n_layers,
+          **leaf, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    flat, flat_n = train_hybrid(short, counters, smi, steps=TRAIN_STEPS,
+                                flat=True)
+    # one update launch a step; one EF launch per payload half per round
+    require_launches(flat_n, flat_fused_update=TRAIN_STEPS, flat_ef=2 * 2)
+    # the same weights and batches: the flat run's kernels must leave the
+    # per-leaf run's losses, a sync round's included, bit for bit
+    require(flat["losses"] == leaf["losses"],
+            f"{short.name}: flat losses {flat['losses']} differ from the "
+            f"per-leaf run's {leaf['losses']}")
+    flat["losses_equal_per_leaf"] = True
+    emit({"phase": "train_hybrid_flat", "layers_of_config": hymba.n_layers,
+          **flat, "seconds": time.perf_counter() - t0})
+    free_card()
+    return {"score_hybrid": score_n, "train_hybrid": leaf_n,
+            "train_hybrid_flat": flat_n}
 
 
 def main() -> int:
@@ -2255,6 +2614,16 @@ def main() -> int:
     ssd_partial = [check_ssd(gen, dims, dtype, timed=False)
                    for dims in SSD_PARTIAL_GROUP_SHAPES
                    for dtype in (torch.float32, torch.bfloat16)]
+    # at hymba-1.5b's scoring shape (2 x 4096 tokens: 64 chunks of 64, 50
+    # heads of 64, state 16): the last 8-head group holds 2 heads
+    hy = get_arch("hymba-1.5b")
+    hymba_dims = (2, 4096 // hy.ssm_chunk, hy.ssm_chunk, hy.n_ssm_heads,
+                  hy.ssm_head_dim, hy.ssm_state)
+    ssd_hymba = [check_ssd(gen, hymba_dims, dtype)
+                 for dtype in (torch.float32, torch.bfloat16)]
+    # rows 1-4 at the shapes that train_hybrid gives them: hymba's stacked
+    # leaves and its plane
+    hymba_train = check_tree_kernels(gen, hymba_train_cfg(), R)
     sass = sass_tf32_mma_counts(_build.library_path())
     require(all(sass.get(f"{k}<{t}>", 0) > 0 for k in SSD_KERNELS[::2]
                 for t in ("float", "bf16")),
@@ -2262,7 +2631,8 @@ def main() -> int:
     emit({"phase": "kernels", "nvidia_smi": smi, "update": upd, "ef": ef,
           "flat_update": flat_upd, "flat_ef": flat_ef, "quantize": quant,
           "sync_mean": mean, "mma_selftest": mma, "ssd": ssd_checks,
-          "ssd_partial_head_groups": ssd_partial,
+          "ssd_partial_head_groups": ssd_partial, "ssd_hymba": ssd_hymba,
+          "hymba_train": hymba_train,
           "ssd_sass_tf32_hmma": sass,
           "plane": {"plane_size": fs.plane_size, "real": fs.n_real,
                     "slots": fs.n_leaves, "buckets": fs.bucket_ranges()}})
@@ -2282,9 +2652,6 @@ def main() -> int:
         require(res.sync_steps == [3, 7],
                 f"reduced run {kw} on {dev}: sync steps {res.sync_steps}")
         return res.losses
-
-    def max_rel(a, b):
-        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
     setups = {"per_leaf": {}, "flat": {"flat": True},
               "per_leaf_unfused": {"sync_fused": False},
@@ -2323,7 +2690,7 @@ def main() -> int:
             c.reset()
         res = train_loop(cfg, shape, oc, steps=steps, n_workers=R,
                          log_every=1, device="cuda")
-        launches = {k: c.n for k, c in counters.items()}
+        launches = read_counts(counters)
         require(res.sync_steps == [3, 7][:steps // 4],
                 f"sync steps {res.sync_steps} ({kw})")
         require(all(math.isfinite(v) for v in res.losses),
@@ -2341,21 +2708,18 @@ def main() -> int:
                "comm_bytes_total": res.comm_bytes_total}
         return oc, out, launches
 
-    def expect(launches, **want):
-        full = {k: want.get(k, 0) for k in counters}
-        require(launches == full, f"launches {launches}, expected {full}")
-
     oc_leaf, leaf, leaf_n = train(TRAIN_STEPS)
-    expect(leaf_n, adaalter_update=n_leaves * TRAIN_STEPS,
-           fused_ef=2 * n_leaves * 2)
+    require_launches(leaf_n, adaalter_update=n_leaves * TRAIN_STEPS,
+                     fused_ef=2 * n_leaves * 2)
     emit({"phase": "train", **leaf})
     oc_flat, flat, flat_n = train(TRAIN_STEPS, flat=True)
     # one update launch a step; one EF launch per payload half per round
-    expect(flat_n, flat_fused_update=TRAIN_STEPS, flat_ef=2 * 2)
+    require_launches(flat_n, flat_fused_update=TRAIN_STEPS, flat_ef=2 * 2)
     emit({"phase": "train_flat", **flat})
     _, unfused, unfused_n = train(4, sync_fused=False)
-    expect(unfused_n, adaalter_update=n_leaves * 4,
-           quantize_blocks=2 * n_leaves, dequantize_blocks=2 * n_leaves)
+    require_launches(unfused_n, adaalter_update=n_leaves * 4,
+                     quantize_blocks=2 * n_leaves,
+                     dequantize_blocks=2 * n_leaves)
     emit({"phase": "train_unfused", **unfused})
     require(flat["max_memory_allocated_gb"] < 80.0,
             f"flat run peak {flat['max_memory_allocated_gb']} GB")
@@ -2403,11 +2767,11 @@ def main() -> int:
     params = build_model(m2).init(torch.Generator("cuda").manual_seed(0))
     score, score_n = score_model(m2, params, counters, batch=8, seq=2048,
                                  ssd_calls=m2.n_layers)
-    expect(score_n, ssd_scan=2 * 3 * m2.n_layers)
+    require_launches(score_n, ssd_scan=2 * 3 * m2.n_layers)
     emit({"phase": "score", "nvidia_smi": smi, **score})
     serve, serve_n = serve_mamba2(m2, params, counters, batch=8, prompt=512,
                                   new=32)
-    expect(serve_n)
+    require_launches(serve_n)
     emit({"phase": "serve", "nvidia_smi": smi, **serve})
     del params
     torch.cuda.empty_cache()
@@ -2421,7 +2785,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     score, score_dense_n = score_model(qwen, params, counters, batch=2,
                                        seq=4096, ssd_calls=0)
-    expect(score_dense_n)
+    require_launches(score_dense_n)
     emit({"phase": "score_dense", "nvidia_smi": smi, **score})
     model = build_model(qwen)
     serve, serve_n = serve_model(qwen, params, counters, {
@@ -2431,7 +2795,7 @@ def main() -> int:
             model, params, p)}, batch=8, prompt=512, new=32, reported={
         "scores_scaled_2pct": lambda p: model.prefill(
             scaled_queries(params, 1.02), {"tokens": p})[0]})
-    expect(serve_n)
+    require_launches(serve_n)
     emit({"phase": "serve_dense", "nvidia_smi": smi, **serve})
     del params, model
     torch.cuda.empty_cache()
@@ -2440,13 +2804,16 @@ def main() -> int:
     serve, serve_n = serve_model(cfg, params, counters, {
         "one_token_short": lambda p: model.prefill(
             params, {"tokens": p[:, :-1]})[0]}, batch=8, prompt=512, new=32)
-    expect(serve_n)
+    require_launches(serve_n)
     emit({"phase": "serve_lstm", "nvidia_smi": smi, **serve})
     del params, model
     free_card()
 
     slice6_phases(counters, smi)
+    hybrid_n = slice7_phases(counters, smi)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
+    by_phase = {"train": leaf_n, "train_flat": flat_n,
+                "train_unfused": unfused_n, "score": score_n, **hybrid_n}
 
     def entry(name, source, replaces, n, err, timed, library_ms=None):
         return {"name": name, "route": "cuda",
@@ -2455,19 +2822,27 @@ def main() -> int:
                 "max_abs_err": err, "ms": timed["ms"],
                 "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
                 "bound_by": timed.get("bound_by", "bytes"),
-                "library_ms": library_ms}
+                "library_ms": library_ms,
+                "launches_by_phase": {k: v[name] for k, v in by_phase.items()
+                                      if v[name]}}
 
     emit({"kernels": [
         entry("adaalter_update", "adaalter_update.cu", "adaalter_update.py:55",
               leaf_n["adaalter_update"],
-              max(x["max_abs_err"] for x in upd), upd[0]),
+              max([x["max_abs_err"] for x in upd] + [
+                  x["update"] for x in hymba_train["leaves"]]), upd[0]),
         entry("fused_ef", "sync_fused.cu", "sync_fused.py:81",
-              leaf_n["fused_ef"], max(x["max_abs_err"] for x in ef), ef[0]),
+              leaf_n["fused_ef"],
+              max([x["max_abs_err"] for x in ef] + [
+                  max(x["ef_params"], x["ef_b2"])
+                  for x in hymba_train["leaves"]]), ef[0]),
         entry("flat_fused_update", "adaalter_update.cu",
               "adaalter_update.py:137", flat_n["flat_fused_update"],
-              flat_upd["max_abs_err"], flat_upd),
+              max(flat_upd["max_abs_err"],
+                  hymba_train["flat_update"]["max_abs_err"]), flat_upd),
         entry("flat_ef", "sync_fused.cu", "sync_fused.py:164",
-              flat_n["flat_ef"], max(x["max_abs_err"] for x in flat_ef),
+              flat_n["flat_ef"], max(x["max_abs_err"] for x in
+                                     flat_ef + hymba_train["flat_ef"]),
               flat_ef[0]),
         entry("quantize_blocks", "quantize.cu", "quantize.py:75",
               unfused_n["quantize_blocks"], quant["max_abs_err"]["quantize"],
@@ -2478,7 +2853,8 @@ def main() -> int:
               quant["dequantize"]["library_ms"]),
         # no single PyTorch call computes the SSD chunk scan
         entry("ssd_scan", "ssd_scan.cu", "ssd_scan.py:88",
-              score_n["ssd_scan"], max(x["max_abs_err"] for x in ssd_checks),
+              score_n["ssd_scan"], max(x["max_abs_err"] for x in
+                                       ssd_checks + ssd_hymba),
               ssd_checks[0]),
     ]})
     print(smi, flush=True)

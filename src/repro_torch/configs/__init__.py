@@ -3,10 +3,11 @@
 ``get_arch(name)`` returns a ported architecture's full config,
 ``get_shape(name)`` one of the four assigned input shapes and
 ``reduced(cfg)`` a smoke-test variant. Every architecture of the JAX
-package is ported but two: hymba-1.5b (ROADMAP Queue 1 item 18, the hybrid
-layer) and llama3-405b (item 9: it needs several devices); those raise.
+package is ported but llama3-405b (ROADMAP Queue 1 item 9: it needs
+several devices), which raises.
 """
-from repro_torch.configs import (biglstm, llama4_maverick_400b_a17b,
+from repro_torch.configs import (biglstm, hymba_1_5b,
+                                 llama4_maverick_400b_a17b,
                                  llama_3_2_vision_11b, mamba2_370m,
                                  minitron_4b, phi3_5_moe_42b_a6_6b,
                                  phi4_mini_3_8b, qwen2_7b,
@@ -19,10 +20,10 @@ from repro_torch.configs.shapes import SHAPES, get_shape
 ARCHS = {m.CONFIG.name: m.CONFIG for m in (
     llama4_maverick_400b_a17b, mamba2_370m, seamless_m4t_large_v2, qwen2_7b,
     minitron_4b, phi4_mini_3_8b, llama_3_2_vision_11b, phi3_5_moe_42b_a6_6b,
-    biglstm)}
+    hymba_1_5b, biglstm)}
 
 #: the JAX package's architectures that the port does not build yet.
-NOT_PORTED = ("hymba-1.5b", "llama3-405b")
+NOT_PORTED = ("llama3-405b",)
 
 
 def get_arch(name: str) -> ModelConfig:
@@ -31,8 +32,7 @@ def get_arch(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to PyTorch yet (ROADMAP Queue 1 "
-            "item 18: hymba, the hybrid layer; item 9: llama3-405b, several "
-            f"devices); ported: {sorted(ARCHS)}")
+            f"item 9: it needs several devices); ported: {sorted(ARCHS)}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
 
 

@@ -96,7 +96,8 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     def param_count(self) -> int:
-        """Analytic parameter count (exact for the families the port builds)."""
+        """Analytic parameter count, as the reference counts it (exact but
+        for the hybrid layer's fourth norm, see ``models/counting.py``)."""
         from repro_torch.models.counting import count_params
         return count_params(self)
 

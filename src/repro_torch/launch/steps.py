@@ -1,5 +1,11 @@
 """Train steps, R workers stacked on one device or one synchronous model.
 
+Every family of ``models.build_model`` trains: a worker's loss is the
+model's ``loss_fn`` (the cross-entropy plus the MoE load-balance loss),
+its gradient autograd's. The SSD kernel has no backward, so a model with
+``ssm_pallas`` cannot train; the plain chunked SSD trains, as in the JAX
+package.
+
 With a local optimizer (``local_sgd``, ``local_adaalter``) every parameter
 and accumulator carries a leading worker axis R, as in the JAX package's
 ``launch/steps.py``; replicas diverge between syncs.
@@ -10,8 +16,10 @@ and accumulator carries a leading worker axis R, as in the JAX package's
   device, exactly as the reference stacks them on its worker axis.
 
 Each worker's loss and gradient come from its own slice of the stacked
-tensors, one worker at a time, so peak memory holds one worker's
-activations (at full Big LSTM width, its ~2 GB of float32 logits).
+tensors and of the batch (tokens, labels, and the VLM's image embeddings
+or the encoder-decoder's audio frames), one worker at a time, so peak
+memory holds one worker's activations (at full Big LSTM width, its ~2 GB
+of float32 logits).
 
 With ``OptimizerConfig.use_kernels`` Local AdaAlter's update is the fused
 CUDA kernel, one launch per stacked leaf (``kernels/ops.py``), and an int8
@@ -51,7 +59,7 @@ from repro_torch.core.comm import worker_mean_
 from repro_torch.core.sync_engine import drift_statistic
 from repro_torch.kernels.ref import F32_MIN
 from repro_torch.kernels.tiling import round_through_bf16
-from repro_torch.models import lstm
+from repro_torch.models import build_model
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
 
@@ -88,17 +96,17 @@ def _staleness_stat(grads, anchor) -> torch.Tensor:
     return torch.mean(d2 / (g2 + 1e-12))
 
 
-def worker_grads(params, batch, cfg, grads=None):
-    """Each worker's loss and gradient, one worker at a time. ``grads``
-    (stacked like ``params``, any float dtype, e.g. fp32 views of a flat
-    plane) receives the gradients; new tensors like ``params`` by default.
-    Returns (losses (R,), grads)."""
+def worker_grads(params, batch, model, grads=None):
+    """Each worker's loss (``model.loss_fn``: xent + aux) and gradient, one
+    worker at a time. ``grads`` (stacked like ``params``, any float dtype,
+    e.g. fp32 views of a flat plane) receives the gradients; new tensors
+    like ``params`` by default. Returns (losses (R,), grads)."""
     if grads is None:
         grads = tree_map(torch.empty_like, params)
     losses = []
     for w in range(leaves(params)[0].shape[0]):
         p_w = tree_map(lambda t: t[w].detach().requires_grad_(), params)
-        loss, _ = lstm.loss_fn(p_w, {k: v[w] for k, v in batch.items()}, cfg)
+        loss, _ = model.loss_fn(p_w, {k: v[w] for k, v in batch.items()})
         for dst, g in zip(leaves(grads),
                           torch.autograd.grad(loss, leaves(p_w))):
             dst[w].copy_(g)
@@ -134,10 +142,6 @@ class TrainPrograms:
 
 def build_train_programs(cfg, opt_cfg, *, n_workers: int,
                          device) -> TrainPrograms:
-    if cfg.family != "lstm":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet (ROADMAP "
-            "Queue 1)")
     if opt_cfg.flat and opt_cfg.name != "local_adaalter":
         raise ValueError("OptimizerConfig.flat requires a local Local "
                          f"AdaAlter run (got optimizer={opt_cfg.name!r})")
@@ -153,21 +157,20 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int,
         return _sync_programs(cfg, opt_cfg, opt, torch.device(device))
     R = n_workers
     device = torch.device(device)
-    dtype = getattr(torch, cfg.param_dtype)
+    model = build_model(cfg)
     fused = opt_cfg.use_kernels and opt_cfg.name == "local_adaalter"
     stat = drift_statistic(opt_cfg.sync)
     staleness = stat == "grad_staleness"
     # shapes and dtypes of the stacked parameters, on the meta device
     abstract = tree_map(lambda x: x[None].expand((R,) + x.shape),
-                        lstm.init_lstm(None, cfg, dtype, "meta"))
+                        model.init(None, "meta"))
 
     def base_params(seed: int, base):
         """One worker's parameters: ``base`` (e.g. carried across with
         ``repro_torch.convert``) or fresh weights from a seeded
         ``torch.Generator``."""
         if base is None:
-            gen = torch.Generator(device).manual_seed(seed)
-            base = lstm.init_lstm(gen, cfg, dtype, device)
+            base = model.init(torch.Generator(device).manual_seed(seed))
         return tree_map(lambda x: x.to(device), base)
 
     def init_fn(seed: int, base=None):
@@ -178,7 +181,7 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int,
         return params, opt.init(params, workers=R)
 
     def step(params, opt_state, batch, *, do_sync: bool):
-        loss, grads = worker_grads(params, batch, cfg)
+        loss, grads = worker_grads(params, batch, model)
         if fused:
             # the kernel bypasses opt.local_step, so the grad_clip wrapper
             # never sees these grads: clip per worker here. `grads` stays
@@ -235,7 +238,7 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int,
                                         fsp.unpack_opt_state(fs, st_)))
         if opt_cfg.flat:
             init_fn, local_step, sync_step = _flat_programs(
-                fs, cfg, opt_cfg, opt, abstract, base_params, device)
+                fs, model, opt_cfg, opt, abstract, base_params, device)
     return TrainPrograms(init_fn=init_fn, local_step=local_step,
                          sync_step=sync_step, n_workers=R, H=opt.H,
                          n_payload_leaves=len(leaves(abstract)),
@@ -250,21 +253,20 @@ def _sync_programs(cfg, opt_cfg, opt, device) -> TrainPrograms:
     step functions are the same step (a synchronous optimizer has no round
     to skip; ``train_loop`` runs the sync step every step, as the
     reference's H = 1 schedule does)."""
-    dtype = getattr(torch, cfg.param_dtype)
+    model = build_model(cfg)
     # Alg. 3 folds g∘g into B²; Alg. 1 and plain SGD never read it, and the
     # reference's compiled step drops it as dead code
     wants_sq = opt_cfg.name == "adaalter"
 
     def init_fn(seed: int, base=None):
         if base is None:
-            gen = torch.Generator(device).manual_seed(seed)
-            base = lstm.init_lstm(gen, cfg, dtype, device)
+            base = model.init(torch.Generator(device).manual_seed(seed))
         params = tree_map(lambda x: x.to(device), base)
         return params, opt.init(params)
 
     def step(params, opt_state, batch):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, _ = lstm.loss_fn(p, batch, cfg)
+        loss, _ = model.loss_fn(p, batch)
         grads = unflatten_like(params, list(
             torch.autograd.grad(loss, leaves(p))))
         sq = (tree_map(lambda g: torch.square(g.float()), grads)
@@ -275,7 +277,7 @@ def _sync_programs(cfg, opt_cfg, opt, device) -> TrainPrograms:
             metrics["grad_norm"] = opt_lib.global_norm(grads)
         return new_params, new_state, metrics
 
-    n_leaves = len(leaves(lstm.init_lstm(None, cfg, dtype, "meta")))
+    n_leaves = len(leaves(model.init(None, "meta")))
     return TrainPrograms(init_fn=init_fn, local_step=step, sync_step=step,
                          n_workers=1, H=1, is_local=False,
                          n_payload_leaves=n_leaves)
@@ -299,7 +301,7 @@ def _bf16_ef(x, e, lower: float, round16=()):
     return w, e
 
 
-def _flat_programs(fs, cfg, opt_cfg, opt, abstract, base_params, device):
+def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device):
     """Local AdaAlter over FlatSpace planes: the update is ONE launch over
     the parameter plane, and the sync round one EF encode of each half of
     the ``[params ‖ B²]`` payload and one mean of each (the halves are
@@ -385,7 +387,7 @@ def _flat_programs(fs, cfg, opt_cfg, opt, abstract, base_params, device):
 
     def step(plane, fstate, batch, *, do_sync: bool):
         g_plane = torch.zeros_like(plane)
-        loss, _ = worker_grads(fs.unpack(plane), batch, cfg,
+        loss, _ = worker_grads(fs.unpack(plane), batch, model,
                                grads=fs.unpack(g_plane, dtype=torch.float32))
         a_plane = g_plane             # raw gradients stay for the statistics
         if opt_cfg.grad_clip > 0:     # clip the per-leaf grads, then pack

@@ -1,7 +1,10 @@
 """Training driver of the port: the paper's optimizers on the synthetic
 non-IID stream.
 
-The counterpart of the JAX package's ``launch/train.py`` for Big LSTM:
+The counterpart of the JAX package's ``launch/train.py`` for every
+architecture the port builds (``--arch``; the Big LSTM by default, the
+transformer families through their ``loss_fn``, full width or
+``--reduced``):
 
 * the local optimizers (``local_sgd``, ``local_adaalter``) with R workers
   stacked on one device, per-leaf or over the flat parameter plane
@@ -25,6 +28,9 @@ Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
   python -m repro_torch.launch.train --device cpu --arch biglstm --reduced \\
       --optimizer adaalter --steps 8 --checkpoint-dir ck --checkpoint-every 4 \\
       --trace t.json --metrics m.jsonl
+  python -m repro_torch.launch.train --device cpu --arch hymba-1.5b \\
+      --reduced --use-kernels --compress int8 --workers 2 --batch 8 \\
+      --seq 16 --steps 8
 """
 from __future__ import annotations
 
@@ -376,7 +382,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="biglstm", help=f"one of {sorted(ARCHS)}")
     ap.add_argument("--reduced", action="store_true",
-                    help="train the smoke-sized family member")
+                    help="train the smoke-sized family member (2 layers, "
+                         "d_model 256, --vocab tokens)")
     ap.add_argument("--optimizer", default="local_adaalter",
                     choices=["sgd", "adagrad", "adaalter", "local_sgd",
                              "local_adaalter"])

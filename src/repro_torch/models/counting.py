@@ -1,9 +1,11 @@
-"""Analytic parameter counts; they match the port's parameter dicts exactly.
+"""Analytic parameter counts; they match the port's parameter dicts exactly
+but for the hybrid layer.
 
 The JAX package's ``models/counting.py``: the same terms for every family,
 so each count equals the reference's. The hybrid term is counted as the
-reference counts it, though the port does not build hymba yet (ROADMAP
-Queue 1 item 18).
+reference counts it, with 3 norms of d_model, though the layer holds four
+(ln1, ln2, norm_attn, norm_ssm): hymba's tree has n_layers * d_model
+parameters more than its count.
 """
 from __future__ import annotations
 

@@ -94,19 +94,3 @@ def lstm_decode_step(params, token: torch.Tensor, state, cfg):
     h, new_state = lstm_hidden_step(params, token, state, cfg)
     logits = h @ params["head_w"] + params["head_b"]
     return logits[:, None], new_state
-
-
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy in fp32. logits: (B, S, V), labels: (B, S)."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(logz - gold)
-
-
-def loss_fn(params, batch, cfg):
-    """(loss, metrics) of one worker's batch; dropout is off, as on the
-    reference's training path."""
-    loss = softmax_xent(lstm_logits(params, batch["tokens"], cfg),
-                        batch["labels"])
-    return loss, {"xent": loss, "aux": torch.zeros((), device=loss.device)}

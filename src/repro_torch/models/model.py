@@ -3,13 +3,14 @@
 The JAX package's ``models/model.py``. Families:
 
   dense / moe / ssm : decoder-only LM over tokens
+  hybrid            : decoder-only LM, attention and SSM heads in parallel
   vlm               : decoder LM + cross-attention to (stubbed) image embeds
   audio             : encoder-decoder over (stubbed) audio frame embeds
   lstm              : the paper's Big LSTM
 
-The hybrid family (hymba) raises until ROADMAP Queue 1 item 18. Parameters,
-batches and caches are nested dicts, lists and tuples of tensors laid out
-like the JAX pytrees; every function runs on the device its inputs lie on.
+Parameters, batches and caches are nested dicts, lists and tuples of
+tensors laid out like the JAX pytrees; every function runs on the device
+its inputs lie on.
 """
 from __future__ import annotations
 
@@ -75,7 +76,7 @@ def fused_softmax_xent(logits, labels):
 @dataclasses.dataclass
 class Model:
     cfg: Any
-    init: Callable[..., Dict]            # (gen: torch.Generator) -> params
+    init: Callable[..., Dict]            # (gen, device=None) -> params
     loss_fn: Callable[..., Any]          # (params, batch, rng=None) -> (loss, metrics)
     logits_fn: Callable[..., Any]        # (params, batch) -> logits
     prefill: Callable[..., Any]          # (params, batch) -> (logits, cache)
@@ -92,12 +93,13 @@ def _encoder_cfg(cfg):
 def _build_transformer(cfg) -> Model:
     dtype = getattr(torch, cfg.param_dtype)
 
-    def init(gen: torch.Generator):
+    def init(gen, device=None):
         """Fresh parameters on ``gen``'s device, the JAX package's
         initialisation distribution drawn from ``gen`` (the two frameworks'
         generators give other numbers; tests carry weights across with
-        ``repro_torch.convert``)."""
-        dev = gen.device
+        ``repro_torch.convert``). ``init(None, "meta")``: the shapes and
+        dtypes alone."""
+        dev = gen.device if device is None else torch.device(device)
         embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                             dtype=torch.float32, device=dev)
         params = {
@@ -174,10 +176,12 @@ def _build_transformer(cfg) -> Model:
     def init_cache(batch_size: int, cache_len: int, *, windowed: bool = False,
                    cross_len: int = 0, device="cpu"):
         """Zero-initialized stacked decode cache: for each kind of the group,
-        ``"kv"``: (k, v) (g,B,cache_len,KV,hd) for self-attention, ``"xkv"``:
+        ``"kv"``: (k, v) (g,B,cache_len,KV,hd) for self-attention (the
+        hybrid kind too), ``"xkv"``:
         (k, v) (g,B,cross_len,KV,hd) for cross-attention (the ``cross``
         kind, every decoder block of an encoder-decoder) and ``"ssm"``: (S
-        (g,B,nh,N,hd) fp32, conv_tail (g,B,W-1,C))."""
+        (g,B,nh,N,hd) fp32, conv_tail (g,B,W-1,C)) for the ssm and hybrid
+        kinds."""
         kinds = tfm.group_kinds(cfg)
         g = cfg.n_layers // len(kinds)
         kv, hd = cfg.n_kv_heads, cfg.head_dim
@@ -190,9 +194,9 @@ def _build_transformer(cfg) -> Model:
         entries = []
         for kind in kinds:
             c: Dict[str, Any] = {}
-            if kind in ("self_dense", "self_moe"):
+            if kind in ("self_dense", "self_moe", "hybrid"):
                 c["kv"] = pair(cache_len)
-            if kind == "ssm":
+            if kind in ("ssm", "hybrid"):
                 s, ct = ssm_mod.init_ssm_state(cfg, batch_size, dtype, device)
                 c["ssm"] = (s.new_zeros((g,) + s.shape),
                             ct.new_zeros((g,) + ct.shape))
@@ -220,9 +224,11 @@ def _build_transformer(cfg) -> Model:
 def _build_lstm(cfg) -> Model:
     dtype = getattr(torch, cfg.param_dtype)
 
-    def init(gen: torch.Generator):
-        """Fresh parameters on ``gen``'s device (``lstm.init_lstm``)."""
-        return lstm_mod.init_lstm(gen, cfg, dtype, gen.device)
+    def init(gen, device=None):
+        """Fresh parameters on ``gen``'s device (``lstm.init_lstm``);
+        ``init(None, "meta")``: the shapes and dtypes alone."""
+        return lstm_mod.init_lstm(gen, cfg, dtype,
+                                  gen.device if device is None else device)
 
     def logits_fn(params, batch):
         return lstm_mod.lstm_logits(params, batch["tokens"], cfg)
@@ -269,8 +275,4 @@ def _build_lstm(cfg) -> Model:
 def build_model(cfg) -> Model:
     if cfg.family == "lstm":
         return _build_lstm(cfg)
-    if cfg.hybrid:
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family is not ported to PyTorch yet "
-            "(ROADMAP Queue 1 item 18)")
     return _build_transformer(cfg)

@@ -6,10 +6,11 @@ leading axis on every leaf, so weights cross between the packages 1:1).
 Where the JAX package scans the groups with ``lax.scan``, the port loops
 over them in Python. Sub-layer kinds: ``"ssm"`` (mamba2), ``"self_dense"``
 (GQA self-attention and an MLP), ``"self_moe"`` (self-attention and an MoE
-FFN) and ``"cross"`` (tanh-gated cross-attention to image embeddings, then
-an MLP); an encoder-decoder's decoder blocks also attend to the encoder's
-output (``xattn``, ``ln3``). The ``"hybrid"`` kind (hymba) raises until
-ROADMAP Queue 1 item 18.
+FFN), ``"cross"`` (tanh-gated cross-attention to image embeddings, then
+an MLP) and ``"hybrid"`` (hymba: windowed self-attention and the SSM mixer
+on the same input, each RMS-normed and mean-fused, then an MLP); an
+encoder-decoder's decoder blocks also attend to the encoder's output
+(``xattn``, ``ln3``).
 """
 from __future__ import annotations
 
@@ -23,12 +24,6 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.counting import layer_kinds
 from repro_torch.models.layers import init_mlp, mlp_apply, rms_norm
 from repro_torch.tree import tree_map
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"layer kind {kind!r} is not ported to PyTorch yet (ROADMAP Queue 1 "
-        "item 18: hymba)")
 
 
 def group_period(cfg) -> int:
@@ -67,11 +62,16 @@ def _init_block(gen, cfg, kind: str, dtype, device, *,
     if kind == "ssm":
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype, device)
         return p
-    if kind not in ("self_dense", "self_moe", "cross"):
-        raise _not_ported(kind)
+    if kind not in ("self_dense", "self_moe", "cross", "hybrid"):
+        raise ValueError(f"unknown layer kind {kind!r}")
     p["ln2"] = torch.ones((d,), dtype=dtype, device=device)
     p["attn"] = attn.init_attention(gen, cfg, dtype, device)
-    if kind == "self_moe":
+    if kind == "hybrid":
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype, device)
+        p["norm_attn"] = torch.ones((d,), dtype=dtype, device=device)
+        p["norm_ssm"] = torch.ones((d,), dtype=dtype, device=device)
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, device)
+    elif kind == "self_moe":
         p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
     else:
         if kind == "cross":
@@ -117,6 +117,13 @@ def _ffn(bp, cfg, kind, x):
     return x + mlp_apply(bp["mlp"], h, cfg.act), None
 
 
+def _mean_fusion(bp, cfg, a_out, s_out):
+    """The hybrid layer's update: the mean of its RMS-normed attention and
+    SSM outputs."""
+    return 0.5 * (rms_norm(a_out, bp["norm_attn"], cfg.norm_eps)
+                  + rms_norm(s_out, bp["norm_ssm"], cfg.norm_eps))
+
+
 def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
                  collect_cache: bool, encdec_dec: bool = False):
     """Returns (x, aux_loss or None, cache_entry)."""
@@ -135,15 +142,24 @@ def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
         if collect_cache:
             cache["xkv"] = kv
         x = x + torch.tanh(bp["gate"].to(out.dtype)) * out
-    elif kind in ("self_dense", "self_moe"):
+    elif kind == "hybrid":
+        # windowed even when scoring and training, as the reference is
+        a_out, kv = attn.self_attention(bp["attn"], h, positions, cfg,
+                                        window=window or cfg.sliding_window)
+        # the SSD kernel (ssm_pallas) runs where no state is collected
+        s_out = ssm_mod.ssm_forward(bp["ssm"], h, cfg,
+                                    return_state=collect_cache)
+        if collect_cache:
+            s_out, cache["ssm"] = s_out
+            cache["kv"] = kv
+        x = x + _mean_fusion(bp, cfg, a_out, s_out)
+    else:                                       # self_dense / self_moe
         out, kv = attn.self_attention(bp["attn"], h, positions, cfg,
                                       window=window,
                                       causal=ctx.get("causal", True))
         if collect_cache:
             cache["kv"] = kv
         x = x + out
-    else:
-        raise _not_ported(kind)
     if encdec_dec:
         h = rms_norm(x, bp["ln3"], cfg.norm_eps)
         out, xkv = attn.cross_attention_full(bp["xattn"], h,
@@ -194,14 +210,20 @@ def _decode_block(bp, cfg, kind, x, pos, cache, spec):
         out = attn.cross_attention_cached(bp["attn"], h, k, v, cfg)
         new_cache["xkv"] = (k, v)
         x = x + torch.tanh(bp["gate"].to(out.dtype)) * out
-    elif kind in ("self_dense", "self_moe"):
+    elif kind == "hybrid":
+        ck, cv = cache["kv"]
+        a_out, nk, nv = attn.decode_self_attention(bp["attn"], h, ck, cv,
+                                                   pos, cfg, spec)
+        s_out, new_cache["ssm"] = ssm_mod.ssm_decode_step(
+            bp["ssm"], h, cache["ssm"], cfg)
+        new_cache["kv"] = (nk, nv)
+        x = x + _mean_fusion(bp, cfg, a_out, s_out)
+    else:                                       # self_dense / self_moe
         ck, cv = cache["kv"]
         out, nk, nv = attn.decode_self_attention(bp["attn"], h, ck, cv, pos,
                                                  cfg, spec)
         new_cache["kv"] = (nk, nv)
         x = x + out
-    else:
-        raise _not_ported(kind)
     if "xkv" in cache and kind != "cross":          # enc-dec decoder
         k, v = cache["xkv"]
         h = rms_norm(x, bp["ln3"], cfg.norm_eps)

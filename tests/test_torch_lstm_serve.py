@@ -40,8 +40,9 @@ from repro_torch.configs import ShapeConfig, get_arch, reduced
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import serving
 from repro_torch.launch.serve import serve_session
+from repro_torch.launch.steps import worker_grads
 from repro_torch.models import build_model, lstm
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -90,10 +91,12 @@ def test_logits_and_loss_without_rng_match_jax_and_the_training_path():
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
     want = jax.jit(jm.logits_fn)(jp, jb)
     jloss, _ = jax.jit(jm.loss_fn)(jp, jb)
+    # the training path's: one stacked worker through worker_grads
+    train_loss = worker_grads(tree_map(lambda t: t[None], tp),
+                              {k: v[None] for k, v in tb.items()}, tm)[0][0]
     with torch.no_grad():
         got = tm.logits_fn(tp, tb)
         loss, metrics = tm.loss_fn(tp, tb)
-        train_loss, _ = lstm.loss_fn(tp, tb, tcfg)     # the training path's
     _close(got, want)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     assert float(loss) == float(train_loss)

@@ -281,11 +281,20 @@ def test_fresh_init_is_seeded_and_has_reference_structure():
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
-        build_model(dataclasses.replace(get_arch("mamba2-370m"),
-                                        family="hybrid", hybrid=True))
+    """The hybrid family is ported: mamba2's mixer beside attention builds
+    (hymba-1.5b too); llama3-405b still raises, an unknown arch is a
+    KeyError."""
+    hybrid = dataclasses.replace(reduced(get_arch("mamba2-370m")),
+                                 family="hybrid", hybrid=True, n_heads=8,
+                                 n_kv_heads=2, head_dim=32, d_ff=64)
+    params = build_model(hybrid).init(torch.Generator().manual_seed(0))
+    assert sorted(params["blocks"][0]) == [
+        "attn", "ln1", "ln2", "mlp", "norm_attn", "norm_ssm", "ssm"]
+    assert get_arch("hymba-1.5b").hybrid
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("hymba-1.5b")
+        get_arch("llama3-405b")
+    with pytest.raises(KeyError):
+        get_arch("no-such-arch")
 
 
 # --------------------------------------------------------------------------- #
