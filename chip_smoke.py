@@ -74,9 +74,13 @@ raises and exits non-zero:
             48 SSD calls a forward (the SSD counter counts wrapper calls,
             three kernel launches each); one warm forward under
             torch.profiler
-  serve     full-width serve_session: batch 8, prompt 512, 32 new tokens;
-            prefill and decode take the chunked and recurrent paths, so no
-            SSD launch
+  serve     full-width serve_session: batch 8, 32 new tokens, the prompt
+            it replays through decode_step cut to 192 positions
+            (SERVE_REPLAY, three SSD chunks of 64; every serve phase: a
+            replay of 512 took ~540 decode steps a phase), the serving numbers timed at prompt 512 (the prefill of
+            8 x 512 and 8 decode steps from position 512 over the session's
+            544-slot cache); prefill and decode take the chunked and
+            recurrent paths, so no SSD launch
   reference_dense  reduced qwen2-7b in float32 (2 layers, 8 heads over 2 KV
             heads of 32, QKV bias, vocab 512), card against CPU, same
             weights: logits_fn over 2 x 2560 tokens (the blockwise path, its
@@ -91,8 +95,9 @@ raises and exits non-zero:
   score_dense  full-width qwen2-7b (7,615,616,512 parameters, bf16):
             logits_fn and loss_fn over 2 x 4096 tokens, 3 times, losses
             within 1.5 nats of ln V; one warm forward under torch.profiler
-  serve_dense  full-width qwen2-7b serve_session, batch 8, prompt 512, 32
-            new tokens: the prefill's last logits against their replay
+  serve_dense  full-width qwen2-7b serve_session as serve (batch 8, 32
+            new tokens; numbers at prompt 512, the session's replay over 192
+            positions): the prefill's last logits against their replay
             through decode_step, to a relative L2 of 5e-2 that a prefill one
             token short and one with queries rotated a position ahead must
             exceed; one decode step under torch.profiler
@@ -164,6 +169,26 @@ raises and exits non-zero:
             steps per leaf (168 update and 84 EF launches over its 21
             leaves; then 4 steps profiled) and 8 over the flat plane (8 and
             4), whose losses must equal the per-leaf run's bit for bit
+  train_ranks  the train phase's runs with one worker a rank: torchrun
+            --nproc-per-node 2 -m repro_torch.launch.train --dist-backend
+            gloo (two ranks time-sharing the one card, the wire staged
+            through host memory), per leaf and flat, 8 steps each: losses,
+            schedule, comm bytes and a digest of the final state (params,
+            both B², both residuals) equal to the stacked train /
+            train_flat runs bit for bit, which a stacked run with η 2% off
+            must fail; per rank the update and EF launches of the stacked
+            run and the dequantize launches of the wire (one a 2^26-element
+            chunk of every rank's row of each leaf or plane half, a round),
+            round_collectives collectives a round per leaf and 1 flat, the
+            int8 wire bytes a round beside the accounting's (one block's
+            padding a leaf; the plane's slot padding), step walls,
+            peak memory and the round's parts (encode, device to host,
+            gloo, host to device, dequantize + sum); the card's used memory
+            (nvidia-smi) under 80 GB. Then the synchronous AdaAlter on two
+            ranks (32 x 20 each) against one model over 64 x 20, float32
+            parameters, lr 2 without warm-up, 8 steps, to rtol 1e-4, which
+            an η 2% larger must exceed, with the gradient mean's bytes a
+            step
 
 The kernels phase also holds the SSD chunk scan's warp-level 3xTF32
 product helper alone against a float64 product, then the SSD kernels
@@ -213,7 +238,12 @@ CROSS_GATE = 0.7               # the VLM's tanh gate in the checks (0 at init)
 # phi3.5-moe's 32 layers hold 83.75 GB of bf16 weights, more than one 80 GB
 # card: the MoE phases run its first 16 (42.1 GB) at full width
 MOE_LAYERS = 16
-SERVE_PROMPT = 512             # the slice-6 serve phases' prompt length
+SERVE_PROMPT = 512             # the serve phases' prompt length
+# the prompt each serve phase's serve_session replays through decode_step
+# (the serving numbers are timed at SERVE_PROMPT): three of mamba2's and
+# hymba's 64-token SSD chunks, so hymba's prefill-vs-replay check crosses
+# the chunked prefill's state hand-offs
+SERVE_REPLAY = 192
 HYMBA_TRAIN_LAYERS = 8         # hymba-1.5b trained at full width, 8 of 32
 
 
@@ -326,7 +356,9 @@ def check_update(gen, shape, dtype, timed=True):
 
 
 def check_ef(gen, shape, dtype, clamp, timed=True):
-    """One-pass EF encode kernel vs its plain version on one stacked leaf."""
+    """One-pass EF encode kernel vs its plain version on one stacked leaf:
+    wire and residual, and the int8 codes and scales it writes beside the
+    wire for a run with one worker a rank, bitwise."""
     import torch
     from repro_torch.kernels import sync_fused as sf
     stripe = min(4096, math.prod(shape) // 4)   # a quarter of a small leaf
@@ -340,18 +372,23 @@ def check_ef(gen, shape, dtype, clamp, timed=True):
         e = torch.randn(shape, generator=gen, device="cuda") * 1e-4
     x.view(-1)[stripe:stripe + 512] = 0      # all-zero blocks
     e.view(-1)[stripe:stripe + 512] = 0
-    w_ref, r_ref = sf.fused_ef_leaf_plain(x, e, batch_ndim=1,
-                                          clamp_nonneg=clamp)
+    w_ref, r_ref, (q_ref, s_ref) = sf.fused_ef_leaf_plain(
+        x, e, batch_ndim=1, clamp_nonneg=clamp, codes=True)
     e_k = e.clone()
-    w, r = sf.fused_ef_leaf(x, e_k, batch_ndim=1, clamp_nonneg=clamp)
+    w, r, (q, sc) = sf.fused_ef_leaf(x, e_k, batch_ndim=1,
+                                     clamp_nonneg=clamp, codes=True)
     torch.cuda.synchronize()
     require(r.data_ptr() == e_k.data_ptr(), "EF residual not written in place")
     require(bitwise_equal(w, w_ref), f"EF wire not bitwise ({dtype}, {clamp})")
     require(bitwise_equal(r, r_ref), f"EF residual not bitwise ({dtype}, {clamp})")
+    require(bitwise_equal(q, q_ref) and bitwise_equal(sc, s_ref),
+            f"EF codes or scales not bitwise ({dtype}, {clamp})")
     out = dict(dtype=str(dtype).replace("torch.", ""), shape=list(shape),
                clamp_nonneg=clamp,
                max_abs_err=max(float((w.float() - w_ref.float()).abs().max()),
-                               float((r - r_ref).abs().max())))
+                               float((r - r_ref).abs().max()),
+                               float((sc - s_ref).abs().max())))
+    del q, sc, q_ref, s_ref
     if timed:
         del w_ref, r_ref
         nbytes = x.numel() * (2 * x.element_size() + 2 * 4)
@@ -360,7 +397,12 @@ def check_ef(gen, shape, dtype, clamp, timed=True):
                                                 clamp_nonneg=clamp)),
             plain_ms=cuda_ms(lambda: sf.fused_ef_leaf_plain(
                 x, e, batch_ndim=1, clamp_nonneg=clamp)),
-            bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+            bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+            # with the codes and scales written (a rank's wire)
+            ms_with_codes=cuda_ms(lambda: sf.fused_ef_leaf(
+                x, e_k, batch_ndim=1, clamp_nonneg=clamp, codes=True)),
+            bound_ms_with_codes=1e3 * (nbytes + x.numel() * (1 + 4 / 256))
+            / HBM_BYTES_PER_S)
     return out
 
 
@@ -494,21 +536,25 @@ def check_flat_ef(gen, fs, half, timed=True):
     e.view(-1)[4096:4096 + 512] = 0
     x2d, e2d = x.view(-1, sf.BLOCK), e.view(-1, sf.BLOCK)
     e_k = e2d.clone()
-    wire, r = sf.flat_ef_blocks(x2d, e_k, rnd, low)
+    wire, r, (q, sc) = sf.flat_ef_blocks(x2d, e_k, rnd, low, codes=True)
     torch.cuda.synchronize()
     require(r.data_ptr() == e_k.data_ptr(), "flat EF residual not in place")
     err = 0.0
     for w in range(shape[0]):
         rows = slice(w * nb_row, (w + 1) * nb_row)
-        w_ref, r_ref = sf.flat_ef_blocks_plain(x2d[rows], e2d[rows], rnd, low)
+        w_ref, r_ref, (q_ref, s_ref) = sf.flat_ef_blocks_plain(
+            x2d[rows], e2d[rows], rnd, low, codes=True)
         require(bitwise_equal(wire[rows], w_ref),
                 f"flat EF wire not bitwise ({half}, worker {w})")
         require(bitwise_equal(r[rows], r_ref),
                 f"flat EF residual not bitwise ({half}, worker {w})")
+        require(bitwise_equal(q[rows], q_ref)
+                and bitwise_equal(sc[rows], s_ref),
+                f"flat EF codes or scales not bitwise ({half}, worker {w})")
         err = max(err, max_abs_err(wire[rows], w_ref),
-                  max_abs_err(r[rows], r_ref))
-        del w_ref, r_ref
-    del wire, r
+                  max_abs_err(r[rows], r_ref), max_abs_err(sc[rows], s_ref))
+        del w_ref, r_ref, q_ref, s_ref
+    del wire, r, q, sc
     torch.cuda.empty_cache()
     nbytes = x.numel() * 4 * 4
     out = dict(half=half, shape=list(shape), max_abs_err=err)
@@ -1074,8 +1120,12 @@ def score_model(cfg, params, counters, *, batch, seq, ssd_calls, reps=3,
 
 
 def serve_run(cfg, params, counters, *, batch, prompt, new):
-    """serve_session on the card with every launch count set to 0 just
-    before and read just after. Returns (report, launches, stats)."""
+    """serve_session on the card, its prompt cut to SERVE_REPLAY positions
+    (the session replays its prompt through decode_step, one step a
+    position: at 512 those replays took most of the script's wall), with
+    every launch count set to 0 just before and read after both parts;
+    then the serving numbers at ``prompt`` (time_serving). Returns
+    (report, launches, stats): the session's stats, at SERVE_REPLAY."""
     import torch
     from repro_torch.launch.serve import serve_session
     torch.cuda.empty_cache()
@@ -1083,23 +1133,84 @@ def serve_run(cfg, params, counters, *, batch, prompt, new):
     for c in counters.values():
         c.reset()
     stats = {}
-    gen, tps = serve_session(cfg, batch=batch, prompt_len=prompt,
+    gen, tps = serve_session(cfg, batch=batch, prompt_len=SERVE_REPLAY,
                              new_tokens=new, seed=0, device="cuda",
                              params=params, verbose=False, stats=stats)
-    launches = {name: c.n for name, c in counters.items()}
     require(gen.shape == (batch, new)
             and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
             f"generated tokens {gen.shape} outside the vocabulary")
     require(stats["logits_finite"], "serving produced a non-finite logit")
+    timed = time_serving(cfg, params, batch=batch, prompt=prompt, new=new)
+    launches = {name: c.n for name, c in counters.items()}
     out = {"arch": cfg.name, "batch": batch, "prompt_len": prompt,
-           "new_tokens": new, "launches": launches,
-           "prefill_ms": 1e3 * stats["prefill_s"],
-           "decode_steps": stats["decode_steps"],
-           "decode_ms_per_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
-           "tokens_per_s": tps,
+           "new_tokens": new, "launches": launches, **timed,
+           "session": {
+               "prompt_len": SERVE_REPLAY, "new_tokens": new,
+               "prefill_ms": 1e3 * stats["prefill_s"],
+               "decode_steps": stats["decode_steps"],
+               "decode_ms_per_step":
+                   1e3 * stats["decode_s"] / stats["decode_steps"],
+               "tokens_per_s": tps},
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "sample": gen[0, :8].tolist()}
     return out, launches, stats
+
+
+def time_serving(cfg, params, *, batch, prompt, new, steps=8) -> dict:
+    """The serving numbers at a prompt of ``prompt``, through the programs
+    serve_session runs: the prefill of batch x prompt tokens (the second of
+    two calls), and ``steps`` decode steps at positions prompt, prompt + 1,
+    ... over a zero cache of the session's geometry (prompt + new slots),
+    each synchronised (median). decode_tokens_per_s: batch tokens a
+    decode step."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.serving import (build_serve_programs,
+                                            decode_cache_specs,
+                                            serve_batch_specs)
+    from repro_torch.tree import tree_map
+    shape = ShapeConfig(name="decode_32k", seq_len=prompt + new,
+                        global_batch=batch, kind="decode")
+    programs = build_serve_programs(cfg, shape)
+    prompts = torch.from_numpy(SyntheticLM(
+        vocab_size=cfg.vocab_size, seq_len=prompt, seed=0).worker_batch(
+            0, 0, batch)["tokens"]).cuda()
+    pre = {"tokens": prompts}
+    for k, v in serve_batch_specs(cfg, ShapeConfig(
+            name="prefill", seq_len=prompt, global_batch=batch,
+            kind="prefill"))["prefill"].items():
+        if k != "tokens":
+            pre[k] = torch.zeros(v.shape, dtype=v.dtype, device="cuda")
+    walls = []
+    with torch.inference_mode():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = programs.prefill(params, pre)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        require(bool(torch.isfinite(logits).all()),
+                f"{cfg.name}: non-finite prefill logit at prompt {prompt}")
+        del logits
+        cache = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype,
+                                                device="cuda"),
+                         decode_cache_specs(cfg, shape))
+        tok = prompts[:, -1:]
+        decode = []
+        for i in range(steps):
+            pos = torch.full((batch,), prompt + i, dtype=torch.int32,
+                             device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = programs.decode_step(params, cache, tok, pos)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                torch.int32)
+            torch.cuda.synchronize()
+            decode.append(time.perf_counter() - t0)
+    ms = 1e3 * statistics.median(decode)
+    return {"prefill_ms": 1e3 * walls[1], "decode_ms_per_step": ms,
+            "decode_steps_timed": steps, "decode_tokens_per_s": batch * 1e3 / ms}
 
 
 def serve_mamba2(cfg, params, counters, *, batch, prompt, new, k=64):
@@ -1163,13 +1274,14 @@ def serve_model(cfg, params, counters, faults, *, batch, prompt, new,
     out, launches, stats = serve_run(cfg, params, counters, batch=batch,
                                      prompt=prompt, new=new)
     model = build_model(cfg)
+    # the session's prompts: its prefill and its replay are compared
     prompts = torch.from_numpy(SyntheticLM(
-        vocab_size=cfg.vocab_size, seq_len=prompt, seed=0).worker_batch(
+        vocab_size=cfg.vocab_size, seq_len=SERVE_REPLAY, seed=0).worker_batch(
             0, 0, batch)["tokens"]).cuda()
     want = stats["replay_logits"]
     err = rel_l2(stats["prefill_logits"], want)
     out["prefill_vs_replay"] = {
-        "position": prompt - 1, "rel_l2": err, "tol": SERVE_REL_L2,
+        "position": SERVE_REPLAY - 1, "rel_l2": err, "tol": SERVE_REL_L2,
         "max_abs_diff": max_abs_err(stats["prefill_logits"], want),
         "logit_max_abs": float(want.float().abs().max())}
     require(err <= SERVE_REL_L2, f"{cfg.name}: prefill's last logits off "
@@ -1795,7 +1907,7 @@ def serve_moe(cfg, params, counters, *, batch, prompt, new) -> dict:
         vocab_size=cfg.vocab_size, seq_len=prompt, seed=0).worker_batch(
             0, 0, batch)["tokens"]).cuda()
     out["prefill_vs_replay_capacity_bound"] = {
-        "position": prompt - 1,
+        "position": SERVE_REPLAY - 1,
         "rel_l2": rel_l2(stats["prefill_logits"], stats["replay_logits"])}
     unbounded = dataclasses.replace(
         cfg, capacity_factor=cfg.n_experts / cfg.top_k)
@@ -2524,6 +2636,226 @@ def slice7_phases(counters, smi: str) -> dict:
             "train_hybrid_flat": flat_n}
 
 
+def torchrun_train(root: Path, args, *, timeout: float = 420.0):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+    repro_torch.launch.train --dist-backend gloo <args>``: two ranks on the
+    one card, as a subprocess in a session of its own (killed with every
+    process it started past ``timeout``), the card's used memory sampled
+    from nvidia-smi twice a second. Returns (TrainResult as a dict, wall
+    seconds, peak MiB used on the card)."""
+    import os
+    import signal
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out, log_path = Path(tmp) / "result.json", Path(tmp) / "log.txt"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+               "--dist-backend", "gloo", "--out", str(out),
+               *args]
+        # two processes share the card: segments that grow in place keep
+        # each allocator's cache from holding freed blocks the other needs
+        env = {**os.environ, "PYTHONPATH": str(root / "src"),
+               "OMP_NUM_THREADS": "4",
+               "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+        t0 = time.perf_counter()
+        peak = 0
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=log,
+                                    stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+            try:
+                while proc.poll() is None:
+                    if time.perf_counter() - t0 > timeout:
+                        raise RuntimeError(f"chip_smoke: torchrun {args} ran "
+                                           f"past {timeout} s")
+                    used = subprocess.run(
+                        ["nvidia-smi", "--query-gpu=memory.used",
+                         "--format=csv,noheader,nounits"], capture_output=True,
+                        text=True, timeout=30).stdout.split()
+                    peak = max([peak] + [int(v) for v in used[:1]])
+                    time.sleep(0.5)
+            finally:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        text = log_path.read_text()
+        require(proc.returncode == 0, f"torchrun {args} exited "
+                f"{proc.returncode}:\n{text[-4000:]}")
+        return json.loads(out.read_text()), wall, peak
+
+
+def same_run(a: dict, b: dict) -> bool:
+    """Two training runs equal bit for bit: losses, schedule, comm bytes
+    and the final state's digest."""
+    return all(a[k] == b[k] for k in ("losses", "sync_steps",
+                                      "comm_bytes_total", "state_digest"))
+
+
+def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
+    """Local AdaAlter with one worker a rank: two gloo ranks on the one
+    card through torchrun, at the train phase's configuration, per leaf
+    and over the flat plane, each equal to the stacked run (losses,
+    schedule, comm bytes, state digest) bit for bit, which a stacked run
+    with η 2% off must fail; per rank the kernels' launches, collectives
+    and wire bytes per round against the accounting, step walls, peak
+    memory and the round's parts; the card's peak used memory under 80
+    GB. Then the synchronous AdaAlter on two ranks (32 x 20 each, the
+    gradients averaged) against one model over 64 x 20, float32, at lr 2
+    without warm-up, to rtol 1e-4, which an η 2% larger must exceed. Returns
+    (report, launches by phase: rank 0's)."""
+    import torch
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.core import comm
+    from repro_torch.core.flatspace import FlatSpace
+    from repro_torch.core.sync_engine import make_sync_engine
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    from repro_torch.models.counting import count_params
+    from repro_torch.tree import leaves
+    R, steps = 2, TRAIN_STEPS
+    n_params = count_params(cfg)
+    abstract = build_model(cfg).init(None, "meta")
+    n_leaves = len(leaves(abstract))
+    common = ["--arch", cfg.name, "--optimizer", "local_adaalter", "--H",
+              "4", "--lr", "0.5", "--warmup", "100", "--compress", "int8",
+              "--use-kernels", "--workers", str(R), "--batch",
+              str(shape.global_batch), "--seq", str(shape.seq_len),
+              "--steps", str(steps)]
+    oc = OptimizerConfig(name="local_adaalter", lr=0.5, H=4,
+                         warmup_steps=100, compression="int8",
+                         use_kernels=True)
+    engine = make_sync_engine(oc, H=4)
+    round_b = engine.round_bytes(n_params)
+    plane = FlatSpace.build(abstract, batch_ndim=0, eps=oc.eps).plane_size
+    report, by_phase = {"nvidia_smi": smi, "workers": R, "backend": "gloo",
+                        "runs": {}}, {}
+    for name, extra, stacked in (("per_leaf", [], leaf),
+                                 ("flat", ["--flat"], flat)):
+        res, wall, peak_mib = torchrun_train(root, common + extra)
+        require(same_run(res, stacked), f"train_ranks {name}: the ranks' run "
+                f"differs from the stacked one: losses {res['losses']} vs "
+                f"{stacked['losses']}, digest {res['state_digest']} vs "
+                f"{stacked['state_digest']}")
+        rounds = len(res["sync_steps"])
+        # a rank decodes every rank's row of each leaf (plane half) a
+        # MEAN_CHUNK of elements at a time: one dequantize launch a chunk
+        if name == "per_leaf":
+            chunks = sum(-(-t.numel() // comm.MEAN_CHUNK) for t in
+                         leaves(abstract))
+            want_n = dict(adaalter_update=n_leaves * steps,
+                          fused_ef=2 * n_leaves * rounds,
+                          dequantize_blocks=2 * chunks * rounds * R)
+            want_coll = engine.round_collectives(n_leaves)
+        else:
+            chunks = -(-plane // comm.MEAN_CHUNK)
+            want_n = dict(flat_fused_update=steps, flat_ef=2 * rounds,
+                          dequantize_blocks=2 * chunks * rounds * R)
+            want_coll = 1
+        ranks = []
+        for rep in res["ranks"]:
+            require_launches(rep["launches"], **want_n)
+            require(rep["collectives"] == want_coll * rounds,
+                    f"train_ranks {name}: {rep['collectives']} collectives "
+                    f"in {rounds} rounds, want {want_coll} a round")
+            per_round = rep["wire_bytes"] / rounds
+            if name == "per_leaf":   # under one block's padding a leaf
+                ok = 0 <= per_round - round_b < 2 * n_leaves * (256 + 4)
+            else:                    # the plane's slot padding, exactly
+                ok = per_round == round_b + 2 * (plane - n_params) * (
+                    1 + 4 / 256)
+            require(ok, f"train_ranks {name}: {per_round} wire bytes a "
+                    f"round against {round_b} accounted")
+            warm = [i for i in range(1, steps)]
+            local = [1e3 * rep["step_s"][i] for i in warm
+                     if i not in res["sync_steps"]]
+            sync = [1e3 * rep["step_s"][i] for i in warm
+                    if i in res["sync_steps"]]
+            ranks.append({
+                "rank": rep["rank"], "route": rep["route"],
+                "launches": rep["launches"],
+                "collectives_per_round": rep["collectives"] / rounds,
+                "wire_bytes_per_round": per_round,
+                "round_bytes_accounted": round_b,
+                "local_step_ms_median": statistics.median(local),
+                "sync_step_ms_median": statistics.median(sync),
+                "step_ms": [1e3 * t for t in rep["step_s"]],
+                "round_ms": {k: 1e3 * v / rounds
+                             for k, v in rep["round_s"].items()},
+                "max_memory_allocated_gb": rep["max_memory_allocated"] / 1e9,
+                "max_memory_reserved_gb": rep["max_memory_reserved"] / 1e9})
+        card_gb = peak_mib * 2**20 / 1e9
+        by_rank = [(r["max_memory_allocated_gb"], r["max_memory_reserved_gb"])
+                   for r in ranks]
+        require(card_gb < 80.0, f"train_ranks {name}: the card used "
+                f"{card_gb} GB; by rank (GB allocated, reserved): {by_rank}")
+        report["runs"][name] = {
+            "losses": res["losses"], "sync_steps": res["sync_steps"],
+            "equal_to_stacked": True, "ranks": ranks,
+            "card_memory_used_peak_gb": card_gb, "torchrun_wall_s": wall}
+        by_phase["train_ranks" if name == "per_leaf"
+                 else "train_ranks_flat"] = res["ranks"][0]["launches"]
+    free_card()
+    # the comparison must reject a stacked run with η 2% off
+    off = train_loop(cfg, shape, dataclasses.replace(oc, lr=0.5 * 1.02),
+                     steps=steps, n_workers=R, verbose=False, device="cuda",
+                     digest=True)
+    off = {"losses": off.losses, "sync_steps": off.sync_steps,
+           "comm_bytes_total": off.comm_bytes_total,
+           "state_digest": off.state_digest}
+    require(not same_run(off, leaf), "train_ranks: a stacked run with η 2% "
+            "off passes the bitwise comparison")
+    report["eta_2pct_high_rejected"] = True
+    free_card()
+
+    # the synchronous baseline over two ranks against one model, float32:
+    # in bf16 the halves' gradients round apart before their mean, and at
+    # lr 2 the runs drift past the tolerance (4.5e-4 relative in 8 steps
+    # on an H100); float32 holds the comparison to the mean's own
+    # arithmetic
+    base_steps = TRAIN_STEPS
+    res, wall, peak_mib = torchrun_train(root, [
+        "--arch", cfg.name, "--param-dtype", "float32", "--optimizer",
+        "adaalter", "--lr", "2", "--warmup", "0", "--batch",
+        str(shape.global_batch), "--seq", str(shape.seq_len), "--steps",
+        str(base_steps)])
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    one = {}
+    for lr in (2.0, 2.0 * 1.02):
+        one[lr] = train_loop(cfg32, shape, OptimizerConfig(
+            name="adaalter", lr=lr, warmup_steps=0), steps=base_steps,
+            verbose=False, device="cuda").losses
+        free_card()
+    rel = max_rel(res["losses"], one[2.0])
+    rel_wrong = max_rel(one[2.0 * 1.02], one[2.0])
+    require(rel <= 1e-4, f"train_ranks: two-rank AdaAlter off one model by "
+            f"{rel} relative")
+    require(rel_wrong > 1e-4, f"train_ranks: η 2% off moves the baseline's "
+            f"losses by only {rel_wrong}")
+    require(all(rep["wire_bytes"] == base_steps * 4 * n_params
+                for rep in res["ranks"]),
+            "train_ranks: the gradient mean moved other than 4 P bytes a step")
+    report["baseline_adaalter"] = {
+        "param_dtype": "float32", "lr": 2.0, "warmup_steps": 0,
+        "steps": base_steps,
+        "batch_per_rank": shape.global_batch // R,
+        "losses_two_ranks": res["losses"], "losses_one_model": one[2.0],
+        "max_rel_diff": rel, "max_rel_diff_eta_2pct_high": rel_wrong,
+        "rtol": 1e-4,
+        "grad_allreduce_bytes_per_step": res["ranks"][0]["wire_bytes"]
+        / base_steps,
+        "step_ms_by_rank": [[1e3 * t for t in rep["step_s"]]
+                            for rep in res["ranks"]],
+        "round_ms_by_rank": [{k: 1e3 * v / base_steps
+                              for k, v in rep["round_s"].items()}
+                             for rep in res["ranks"]],
+        "max_memory_allocated_gb_by_rank": [
+            rep["max_memory_allocated"] / 1e9 for rep in res["ranks"]],
+        "card_memory_used_peak_gb": peak_mib * 2**20 / 1e9,
+        "torchrun_wall_s": wall}
+    return report, by_phase
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2689,7 +3021,7 @@ def main() -> int:
         for c in counters.values():
             c.reset()
         res = train_loop(cfg, shape, oc, steps=steps, n_workers=R,
-                         log_every=1, device="cuda")
+                         log_every=1, device="cuda", digest=True)
         launches = read_counts(counters)
         require(res.sync_steps == [3, 7][:steps // 4],
                 f"sync steps {res.sync_steps} ({kw})")
@@ -2705,7 +3037,8 @@ def main() -> int:
                **warm_stats(res, batch, seq),
                "max_memory_allocated_gb":
                    torch.cuda.max_memory_allocated() / 1e9,
-               "comm_bytes_total": res.comm_bytes_total}
+               "comm_bytes_total": res.comm_bytes_total,
+               "state_digest": res.state_digest}
         return oc, out, launches
 
     oc_leaf, leaf, leaf_n = train(TRAIN_STEPS)
@@ -2811,9 +3144,14 @@ def main() -> int:
 
     slice6_phases(counters, smi)
     hybrid_n = slice7_phases(counters, smi)
+    t0 = time.perf_counter()
+    ranks, ranks_n = train_ranks_phase(root, cfg, shape, smi, leaf, flat)
+    emit({"phase": "train_ranks", **ranks,
+          "seconds": time.perf_counter() - t0})
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     by_phase = {"train": leaf_n, "train_flat": flat_n,
-                "train_unfused": unfused_n, "score": score_n, **hybrid_n}
+                "train_unfused": unfused_n, "score": score_n, **hybrid_n,
+                **ranks_n}
 
     def entry(name, source, replaces, n, err, timed, library_ms=None):
         return {"name": name, "route": "cuda",

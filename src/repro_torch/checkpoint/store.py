@@ -16,7 +16,10 @@ checkpoint written by either package restores in the other:
   ``"treedef"`` is informational: nothing reads it, and the port writes its
   own description of the tree there;
 * a checkpoint is written to ``step_<n>.tmp`` and renamed, so a crash
-  mid-write never leaves a partial ``step_<n>``.
+  mid-write never leaves a partial ``step_<n>``;
+* the npz is written with fixed zip timestamps, so the same state gives
+  the same bytes: a run with one worker a rank writes the files of the
+  stacked run of as many workers.
 
 Leaves are tensors (restored with the template's dtype, on its device, or
 on the CPU for a ``meta`` template) or NumPy arrays (the ``SyncState``
@@ -29,6 +32,7 @@ import json
 import os
 import re
 import shutil
+import zipfile
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -123,6 +127,19 @@ def _manifest(directory: str, step: Optional[int]) -> Dict[str, Any]:
         return json.load(f)
 
 
+def _write_npz(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """``np.savez`` with a fixed timestamp on every member (np.load and
+    the JAX package read it as any npz)."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in arrays.items():
+            info = zipfile.ZipInfo(key + ".npy",
+                                   date_time=(1980, 1, 1, 0, 0, 0))
+            with zf.open(info, "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(arr),
+                                          allow_pickle=False)
+
+
 def save_checkpoint(directory: str, step: int, state: Any) -> str:
     """Write ``state`` (a tree of tensors and NumPy arrays) as checkpoint
     ``step``, replacing one of the same step. Returns its path."""
@@ -133,7 +150,7 @@ def save_checkpoint(directory: str, step: int, state: Any) -> str:
     path = os.path.join(directory, f"step_{step}")
     tmp = path + _TMP
     os.makedirs(tmp, exist_ok=True)
-    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    _write_npz(os.path.join(tmp, "arrays.npz"), arrays)
     manifest = {
         "step": step,
         "treedef": "repro_torch " + _describe(state),

@@ -13,7 +13,8 @@ from repro_torch.configs import (biglstm, hymba_1_5b,
                                  phi4_mini_3_8b, qwen2_7b,
                                  seamless_m4t_large_v2)
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
-                                      ShapeConfig, SyncConfig, reduced)
+                                      ParallelismPlan, ShapeConfig,
+                                      SyncConfig, reduced)
 from repro_torch.configs.shapes import SHAPES, get_shape
 
 #: architectures the port can build.
@@ -37,4 +38,5 @@ def get_arch(name: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "SHAPES", "ModelConfig", "OptimizerConfig",
-           "ShapeConfig", "SyncConfig", "get_arch", "get_shape", "reduced"]
+           "ParallelismPlan", "ShapeConfig", "SyncConfig", "get_arch",
+           "get_shape", "reduced"]

@@ -10,6 +10,7 @@ the one-pass error-feedback encode), ``False`` the plain per-worker
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Tuple
 
 Family = str  # 'dense' | 'moe' | 'ssm' | 'audio' | 'vlm' | 'hybrid' | 'lstm'
 
@@ -210,6 +211,41 @@ class OptimizerConfig:
         are the non-sync fields (``name``, ``lr``, ``H``, ...)."""
         return cls(**{alias: getattr(sync, k)
                       for k, alias in cls._SYNC_ALIASES.items()}, **kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelismPlan:
+    """How the mesh axes are used for a given (arch, shape).
+
+    local_axes : mesh axes enumerating local-SGD workers (replicas diverge
+                 between syncs; synced every H steps by Local AdaAlter).
+    grad_axes  : mesh axes over which gradients are pmean'd EVERY step
+                 (classic data parallelism inside a worker).
+    fsdp_axes  : mesh axes over which each worker's params/optimizer state
+                 are sharded (ZeRO-3); must be a subset of grad_axes.
+    tp_axis    : tensor-parallel axis name.
+
+    In the port a mesh axis of workers is a process group of ranks
+    (``launch/mesh.py``); ``n_workers`` takes the axes' sizes. A run with
+    ranks is built from ``local_axes`` (its workers) and ``grad_axes``
+    (its gradient mean); ``fsdp_axes`` is never set, and ``tp_axis``,
+    ``weight_gather_serving`` and ``remat`` are the reference's fields,
+    kept so the two packages' plans compare field for field: they decide
+    nothing in the port yet (the shard axis, ROADMAP Queue 1 item 9).
+    """
+
+    local_axes: Tuple[str, ...] = ("data",)
+    grad_axes: Tuple[str, ...] = ()
+    fsdp_axes: Tuple[str, ...] = ()
+    tp_axis: str = "model"
+    weight_gather_serving: bool = False
+    remat: str = "none"                    # 'none' | 'full' | 'dots'
+
+    def n_workers(self, mesh_shape: Dict[str, int]) -> int:
+        n = 1
+        for ax in self.local_axes:
+            n *= mesh_shape[ax]
+        return n
 
 
 def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,

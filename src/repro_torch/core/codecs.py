@@ -33,9 +33,16 @@ class WireCodec:
                                  bytes on the wire for ``n_values`` values
     lossless                     decode(encode(x)) == x bitwise, so error
                                  feedback is a no-op
+    decode_range                 optional ``(payload, start, stop)`` ->
+                                 elements start:stop of one worker row's
+                                 decoded fp32 values, from that row's
+                                 payload (int8: its codes and scales, as
+                                 they travel between ranks)
     ef_roundtrip                 optional one-pass error-feedback encode
-                                 ``(x, residual, batch_ndim, clamp_nonneg)
-                                 -> (wire, new_residual)``
+                                 ``(x, residual, batch_ndim, clamp_nonneg,
+                                 codes=False) -> (wire, new_residual)``,
+                                 with ``codes`` also the wire's encoded
+                                 payload (what ``decode`` takes)
     """
 
     name: str
@@ -45,6 +52,7 @@ class WireCodec:
     wire_bytes: Callable[[int, int], float]
     ef_roundtrip: Optional[Callable[[Any, Any, int, bool],
                                     Tuple[Any, Any]]] = None
+    decode_range: Optional[Callable[[Any, int, int], Any]] = None
 
     def roundtrip(self, x, batch_ndim: int = 0):
         """decode(encode(x)) — the value the sync mean actually averages."""
@@ -83,19 +91,25 @@ def _int8_codec(block: int, use_kernels: bool, fused: bool) -> WireCodec:
                           batch_ndim=min(bnd, len(shape)),
                           use_kernels=use_kernels)
 
-    def ef_roundtrip(x, e, bnd, clamp_nonneg):
+    def decode_range(payload, start, stop):
+        from repro_torch.kernels.quantize import dequantize_range
+        return dequantize_range(*payload, start, stop, block=block,
+                                use_kernels=use_kernels)
+
+    def ef_roundtrip(x, e, bnd, clamp_nonneg, codes=False):
         from repro_torch.kernels.sync_fused import (fused_ef_leaf,
                                                     fused_ef_leaf_plain)
         if use_kernels:
             return fused_ef_leaf(x, e, block=block, batch_ndim=bnd,
-                                 clamp_nonneg=clamp_nonneg)
+                                 clamp_nonneg=clamp_nonneg, codes=codes)
         return fused_ef_leaf_plain(x, e, block=block, batch_ndim=bnd,
-                                   clamp_nonneg=clamp_nonneg)
+                                   clamp_nonneg=clamp_nonneg, codes=codes)
 
     return WireCodec(
         name="int8", lossless=False, encode=encode, decode=decode,
         wire_bytes=lambda n, dtype_bytes=4: n * (1.0 + 4.0 / block),
-        ef_roundtrip=ef_roundtrip if fused else None)
+        ef_roundtrip=ef_roundtrip if fused else None,
+        decode_range=decode_range)
 
 
 def get_codec(name, *, block: int = 256, use_kernels: bool = False,

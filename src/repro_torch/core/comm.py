@@ -1,5 +1,6 @@
-"""Communication: the sync mean's arithmetic, the bytes each round moves,
-and the alpha-beta time model of a round.
+"""Communication: the sync mean's arithmetic, the collectives of a run with
+one worker a rank, the bytes each round moves, and the alpha-beta time
+model of a round.
 
 The byte accounting and the alpha-beta model of the JAX package's
 ``core/comm.py``. :class:`FabricModel` keeps the reference's field names
@@ -8,7 +9,11 @@ each package reads the other's), with the H100 SXM's links as defaults.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,8 +28,8 @@ class FabricModel:
     ``dcn_bw``   the inter-node link: one NDR InfiniBand port, 400 Gb/s =
                  50 GB/s per GPU (NVIDIA data sheet);
     ``latency``  launch and rendezvous of one collective: an assumption
-                 (10 µs), not a measurement. It waits for the port's
-                 multi-card workers (ROADMAP Queue 1 item 9) to be measured.
+                 (10 µs), not a measurement. Measuring it needs ranks on
+                 several cards over NCCL (ROADMAP Queue 1 item 9).
     """
     ici_bw: float = 450e9
     dcn_bw: float = 50e9
@@ -59,27 +64,245 @@ def collective_time(n_bytes: float, n_collectives: int, n_workers: int,
                                   cross_pod)
 
 
-def worker_mean_(x: torch.Tensor, round16=()) -> torch.Tensor:
-    """Replace every row of ``x``'s leading (worker) axis by the mean over
-    that axis, in place, as the reference's jitted ``jnp.mean`` computes it:
-    the R rows summed in float32 one after another (row 0 + row 1, then
-    + row 2, ...), times ``f32(1/R)``, cast back to ``x``'s dtype. The sum
-    is spelled out as a loop because a reduction kernel may add a short
-    axis in another order. ``round16`` lists ``(start, stop)`` ranges of the
-    last axis whose mean is rounded through bfloat16 (a flat plane's 16-bit
-    slots). Returns ``x``."""
-    workers = x.shape[0]
-    if workers == 1:              # the sum of one row, times f32(1): x
-        return x
-    acc = x[0].float() + x[1]
-    for r in range(2, workers):
-        acc.add_(x[r])
-    acc.mul_(torch.as_tensor(np.float32(1.0) / np.float32(workers),
-                             device=x.device))
+def ordered_mean(n: int, row: Callable[[int], torch.Tensor],
+                 round16=()) -> torch.Tensor:
+    """The mean of ``n`` rows as the reference's jitted ``jnp.mean``
+    computes it, in float32: ``row(0) + row(1)``, then ``+ row(2)``, ...,
+    times ``f32(1/n)``. ``row(r)`` gives row r (any float dtype, all of one
+    shape); it is called once a row, in order, so a caller may decode rows
+    one at a time. ``round16`` lists ``(start, stop)`` ranges of the last
+    axis whose mean is rounded through bfloat16 (a flat plane's 16-bit
+    slots). Returns a new float32 tensor (``n`` >= 2)."""
+    acc = row(0).float() + row(1)
+    for r in range(2, n):
+        acc.add_(row(r))
+    acc.mul_(torch.as_tensor(np.float32(1.0) / np.float32(n),
+                             device=acc.device))
     for start, stop in round16:
         seg = acc[..., start:stop]
         seg.copy_(seg.to(torch.bfloat16))
+    return acc
+
+
+def worker_mean_(x: torch.Tensor, round16=()) -> torch.Tensor:
+    """Replace every row of ``x``'s leading (worker) axis by the mean over
+    that axis, in place: :func:`ordered_mean` of the rows, cast back to
+    ``x``'s dtype. The sum is spelled out as a loop because a reduction
+    kernel may add a short axis in another order. Returns ``x``."""
+    workers = x.shape[0]
+    if workers == 1:              # the sum of one row, times f32(1): x
+        return x
+    acc = ordered_mean(workers, x.__getitem__, round16)
     return x.copy_(acc.expand_as(x))      # the copy rounds to x's dtype
+
+
+# --------------------------------------------------------------------------- #
+# one worker a rank: the sync round's collectives over torch.distributed
+# --------------------------------------------------------------------------- #
+#: the parts of a sync round a staged (gloo, CUDA tensors) rank times
+ROUND_PARTS = ("encode", "d2h", "wire", "h2d", "decode_sum")
+#: elements of a row a rank's mean decodes and sums at a time (a multiple
+#: of every quantization block): 256 MB of each fp32 temporary
+MEAN_CHUNK = 1 << 26
+
+
+class CollectiveCount:
+    """Collectives one rank issued, the bytes it contributed to them, and
+    the host seconds of the round's parts (:data:`ROUND_PARTS`) where the
+    rank times them."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.n = 0
+        self.bytes = 0
+        self.seconds = dict.fromkeys(ROUND_PARTS, 0.0)
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"n": self.n, "bytes": self.bytes,
+                "seconds": dict(self.seconds)}
+
+
+#: the sync rounds' collectives, and the synchronous path's gradient mean:
+#: what ``TrainResult.comm_bytes_total`` accounts for
+wire = CollectiveCount()
+#: every other gather (the per-step statistics, checkpoints, health probes)
+side = CollectiveCount()
+
+
+def nccl_shares_a_card(backend: str, local_world: int,
+                       device_count: int) -> bool:
+    """Whether ``local_world`` ranks on one host would put two NCCL ranks on
+    one card (NCCL refuses them: "Duplicate GPU detected")."""
+    return backend == "nccl" and local_world > device_count
+
+
+class RankGroup:
+    """The ranks of a run, one worker each, over a ``torch.distributed``
+    process group.
+
+    Every collective is an all-gather of one contiguous byte buffer, into
+    which the caller's parts (tensors of any dtype) are packed: a sync
+    round's wire is one collective per payload leaf, or one for a whole
+    flat plane. Under gloo with CUDA tensors the buffer is staged through
+    host memory explicitly, here and nowhere else: copied to the host,
+    gathered there, copied back to the card. Under NCCL it stays on the
+    card. ``timed`` (gloo, or a CPU run) times the round's parts, with the
+    device synchronised around each."""
+
+    def __init__(self, device, group=None) -> None:
+        import torch.distributed as dist
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.backend = str(dist.get_backend(group))
+        self.device = torch.device(device)
+        self.staged = self.backend == "gloo" and self.device.type == "cuda"
+        if self.backend == "gloo" and self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"gloo ranks run on cpu or cuda, not {device}")
+        if self.backend == "nccl" and self.device.type != "cuda":
+            raise ValueError("NCCL moves CUDA tensors: a CPU run takes "
+                             "--dist-backend gloo")
+        self.timed = self.backend == "gloo"
+        self._round_t0: Optional[float] = None
+
+    @property
+    def route(self) -> str:
+        if self.backend == "nccl":
+            return f"nccl on {self.device}"
+        if self.staged:
+            return (f"gloo from {self.device}: the wire is staged through "
+                    "host memory")
+        return f"gloo on {self.device}"
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    @contextlib.contextmanager
+    def part(self, name: str, count: Optional["CollectiveCount"] = wire):
+        """Time the block as part ``name`` of a round (where ``timed``),
+        into ``count`` (None: not timed)."""
+        if not self.timed or count is None:
+            yield
+            return
+        t0 = self._now()
+        yield
+        count.seconds[name] += self._now() - t0
+
+    @contextlib.contextmanager
+    def round_(self):
+        """A sync round: where ``timed``, the seconds from its start to its
+        first collective (the wire's encode) go to part ``encode``."""
+        self._round_t0 = self._now() if self.timed else None
+        try:
+            yield
+        finally:
+            self._round_t0 = None
+
+    def all_gather(self, parts: Sequence[torch.Tensor],
+                   count: Optional[CollectiveCount] = wire,
+                   to_device: bool = True) -> List[torch.Tensor]:
+        """One all-gather of every rank's ``parts``, packed into one byte
+        buffer (each part's bytes at an offset aligned to its element
+        size). Returns, per part, a tensor of shape (world, *part.shape)
+        whose row r is rank r's part, contiguous, on this rank's device
+        (on the host with ``to_device=False``). ``count`` (None: not
+        counted) gets one collective and the buffer's bytes."""
+        import torch.distributed as dist
+        if self._round_t0 is not None and count is wire:
+            wire.seconds["encode"] += self._now() - self._round_t0
+            self._round_t0 = None
+        order = sorted(range(len(parts)),
+                       key=lambda i: -parts[i].element_size())
+        offsets, total = {}, 0
+        for i in order:          # larger elements first: offsets aligned
+            offsets[i] = total
+            total += parts[i].numel() * parts[i].element_size()
+        align = max(p.element_size() for p in parts)
+        total += (-total) % align     # rows of the gathered buffer aligned
+        host = self.staged or (self.device.type == "cpu")
+        with self.part("d2h", count if self.staged else None):
+            buf = torch.empty(total, dtype=torch.uint8,
+                              device="cpu" if host else self.device,
+                              pin_memory=self.staged)
+            for i, p in enumerate(parts):
+                n = p.numel() * p.element_size()
+                buf[offsets[i]:offsets[i] + n].copy_(
+                    p.detach().contiguous().reshape(-1).view(torch.uint8))
+        out = torch.empty((self.world, total), dtype=torch.uint8,
+                          device=buf.device, pin_memory=self.staged)
+        with self.part("wire", count):
+            dist.all_gather(list(out.unbind(0)), buf, group=self.group)
+        if count is not None:
+            count.n += 1
+            count.bytes += total
+        if self.staged and to_device:
+            with self.part("h2d", count):
+                out = out.to(self.device)
+        got = []
+        for i, p in enumerate(parts):
+            n = p.numel() * p.element_size()
+            got.append(out[:, offsets[i]:offsets[i] + n].view(p.dtype)
+                       .reshape((self.world,) + tuple(p.shape)))
+        return got
+
+    def mean_(self, x: torch.Tensor,
+              row: Callable[[int, int, int], torch.Tensor], round16=(),
+              chunk: Optional[int] = None) -> torch.Tensor:
+        """Write the :func:`ordered_mean` of the world's rows over ``x``
+        (contiguous), cast to its dtype, ``chunk`` (default
+        :data:`MEAN_CHUNK`) elements at a time:
+        ``row(r, start, stop)`` gives elements start:stop of rank r's row,
+        ``x`` flattened (any float dtype), so decoding a row holds one
+        chunk of each temporary, not a whole plane. ``round16``: ranges of
+        ``x``'s last axis, as :func:`ordered_mean` takes them (``x`` is
+        then taken whole unless it is one row). Returns ``x``."""
+        flat = x.view(-1)
+        n = flat.numel()
+        chunk = chunk or MEAN_CHUNK
+        if round16 and math.prod(x.shape[:-1]) > 1:   # not one plane row
+            chunk = max(n, 1)
+        with self.part("decode_sum"):
+            if chunk >= n and round16:
+                return x.copy_(ordered_mean(
+                    self.world, lambda r: row(r, 0, n).view(x.shape),
+                    round16))
+            for a in range(0, n, chunk):
+                b = min(n, a + chunk)
+                r16 = [(max(lo, a) - a, min(hi, b) - a)
+                       for lo, hi in round16 if lo < b and hi > a]
+                flat[a:b].copy_(ordered_mean(
+                    self.world, lambda r: row(r, a, b), r16))
+        return x
+
+    def gather_stacked(self, tree, *, to_device: bool,
+                       count: Optional[CollectiveCount] = side):
+        """Every rank's rows of ``tree`` (tensors whose leading axis is
+        this rank's one worker) stacked on that axis in rank order, one
+        collective a leaf: the stacked run's tensors (on this rank's device
+        with ``to_device``; else, staged, left on the host)."""
+        from repro_torch.tree import tree_map
+        return tree_map(lambda t: self.all_gather(
+            [t], count, to_device=to_device)[0].reshape(
+                (self.world * t.shape[0],) + tuple(t.shape[1:])), tree)
+
+
+def gather_mean_(x: torch.Tensor, group: RankGroup, round16=(),
+                 wire_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The sync mean over ranks, one collective: every rank's ``x`` (this
+    rank's row of a worker-stacked tensor, or any tensor of one shape on
+    every rank) all-gathered, summed in float32 in rank order, times
+    ``f32(1/R)``, cast back to ``x``'s dtype and written over ``x``:
+    :func:`worker_mean_`'s arithmetic, so R ranks give the stacked mean of
+    R workers bit for bit. The wire carries ``x`` in ``wire_dtype`` (its
+    own by default; values must be exact in it). ``all_reduce(SUM)`` is not
+    used: NCCL and gloo add in their own order. Returns ``x``."""
+    sent = x if wire_dtype in (None, x.dtype) else x.to(wire_dtype)
+    (rows,) = group.all_gather([sent])
+    return group.mean_(x, lambda r, a, b: rows[r].view(-1)[a:b], round16)
 
 
 def payload_bytes(n_values: int, dtype_bytes: int = 4, compression="",

@@ -26,6 +26,7 @@ Accumulators are fp32 regardless of the parameter dtype.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Callable, NamedTuple, Tuple
 
 import numpy as np
@@ -71,13 +72,23 @@ def local_scalars(lr: float, eps: float, warmup_steps: int, step: int,
             np.float32(tprime) * np.float32(eps * eps))
 
 
+def worker_sums(t: torch.Tensor) -> torch.Tensor:
+    """(R,): the sum of each row of ``t``'s leading (worker) axis, each row
+    reduced on its own, so a worker's sum has the same bits whether its
+    row is stacked with others or alone on a rank (a reduction over the
+    trailing axes of an (R, ...) tensor adds in an order that depends on
+    R)."""
+    return torch.stack([torch.sum(row) for row in t])
+
+
 def global_norm(tree: Tree, batch_ndim: int = 0) -> torch.Tensor:
     """fp32 L2 norm over all leaves; with ``batch_ndim=1`` one norm per row
-    of the leading (worker) axis, shape (R,)."""
-    sq = [torch.sum(torch.square(g.float()),
-                    dim=tuple(range(batch_ndim, g.ndim)))
-          for g in leaves(tree)]
-    return torch.sqrt(sum(sq))
+    of the leading (worker) axis, shape (R,) (:func:`worker_sums`)."""
+    if batch_ndim not in (0, 1):
+        raise ValueError(f"batch_ndim must be 0 or 1, got {batch_ndim}")
+    reduce = worker_sums if batch_ndim else torch.sum
+    return torch.sqrt(sum(reduce(torch.square(g.float()))
+                          for g in leaves(tree)))
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float, batch_ndim: int = 0):
@@ -318,9 +329,17 @@ def compressed_sync(base: LocalOptimizer, compression="int8", *,
     ``res_params`` and ``res_b2`` tensors it is given (at full Big LSTM
     width this saves ~13 GB per round), and ``mean_fn`` gets the fresh wire
     tensors.
+
+    ``sync``'s ``payload_mean(wires, payloads, decode)``, given (a run with
+    one worker a rank, ``launch/steps.py::RankMean.of_payloads``), takes
+    the round's means from the wire as it travels between ranks, each
+    leaf's encoded payload (the int8 codes and scales), and writes them
+    over the wire tensors; ``decode(payload, like, start, stop)``
+    (``core.sync_engine.ef_decode_range``) turns a range of a rank's
+    payload into its wire values. The base sync then takes no mean.
     """
     from repro_torch.core.codecs import get_codec
-    from repro_torch.core.sync_engine import ef_apply
+    from repro_torch.core.sync_engine import ef_apply, ef_decode_range
 
     codec = get_codec(compression, block=block, use_kernels=use_kernels,
                       fused=fused)
@@ -342,17 +361,26 @@ def compressed_sync(base: LocalOptimizer, compression="int8", *,
                 new_inner[k] = state[k]
         return new_params, new_inner
 
-    def sync(params, state, mean_fn=_identity):
+    def sync(params, state, mean_fn=_identity, payload_mean=None):
         inner = {k: v for k, v in state.items() if k not in _RESIDUAL_KEYS}
         # stacked state (counters of shape (R,)): quantization blocks never
         # straddle workers, each of whom sends its own payload
         bnd = 1 if state["step"].ndim > 0 else 0
-        wire_p, res_p = ef_apply(params, state["res_params"], codec, bnd)
+        codes = payload_mean is not None
+        wire_p, res_p, *pay_p = ef_apply(
+            params, state["res_params"], codec, bnd, codes=codes)
         res_b2 = None
         if "res_b2" in state:
-            wire_b2, res_b2 = ef_apply(inner["b2_local"], state["res_b2"],
-                                       codec, bnd, clamp_nonneg=True)
+            wire_b2, res_b2, *pay_b2 = ef_apply(
+                inner["b2_local"], state["res_b2"], codec, bnd,
+                clamp_nonneg=True, codes=codes)
             inner = {**inner, "b2_local": wire_b2}
+        if codes:     # the base sync's means, taken from the payloads
+            payload_mean(wire_p, pay_p[0], partial(ef_decode_range, codec))
+            if res_b2 is not None:
+                payload_mean(wire_b2, pay_b2[0], partial(
+                    ef_decode_range, codec, clamp_nonneg=True))
+            mean_fn = _identity
         new_params, new_inner = base.sync(wire_p, inner, mean_fn)
         new_inner["res_params"] = res_p
         if res_b2 is not None:

@@ -13,7 +13,7 @@ drives, and answers the accounting queries ``TrainResult`` reports. Its
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -56,7 +56,7 @@ class SyncState:
 
 
 def ef_apply(tree: Tree, residual: Tree, codec: WireCodec, batch_ndim: int,
-             *, clamp_nonneg: bool = False) -> Tuple[Tree, Tree]:
+             *, clamp_nonneg: bool = False, codes: bool = False):
     """-> (wire values cast like ``tree``, new residual), per leaf:
 
         v     = x + e                       # fp32
@@ -67,26 +67,54 @@ def ef_apply(tree: Tree, residual: Tree, codec: WireCodec, batch_ndim: int,
     ``lower`` is 0 for accumulator payloads (they feed rsqrt) and
     float32-min otherwise. A codec with a one-pass ``ef_roundtrip`` (int8)
     runs the whole chain in one pass per leaf. Blocked codecs never let a
-    block straddle the leading ``batch_ndim`` (per-worker) axes.
+    block straddle the leading ``batch_ndim`` (per-worker) axes. With
+    ``codes`` a third element lists each leaf's encoded payload
+    (``codec.encode(v)``; :func:`ef_decode` of it gives the leaf's wire).
     """
     flat_x = leaves(tree)
     flat_e = leaves(residual)
     if codec.ef_roundtrip is not None:
-        pairs = [codec.ef_roundtrip(x, e, min(batch_ndim, x.ndim),
-                                    clamp_nonneg)
-                 for x, e in zip(flat_x, flat_e)]
-        return (unflatten_like(tree, [w for w, _ in pairs]),
-                unflatten_like(tree, [r for _, r in pairs]))
-    wires, residuals = [], []
+        outs = [codec.ef_roundtrip(x, e, min(batch_ndim, x.ndim),
+                                   clamp_nonneg, codes=codes)
+                for x, e in zip(flat_x, flat_e)]
+        out = (unflatten_like(tree, [o[0] for o in outs]),
+               unflatten_like(tree, [o[1] for o in outs]))
+        return (*out, [o[2] for o in outs]) if codes else out
+    wires, residuals, payloads = [], [], []
     for x, e in zip(flat_x, flat_e):
         v = x.float() + e
-        vq = codec.roundtrip(v, min(batch_ndim, v.ndim))
-        lower = torch.as_tensor(0.0 if clamp_nonneg else F32_MIN,
-                                dtype=torch.float32, device=v.device)
-        w = torch.maximum(vq, lower).to(x.dtype)
+        bnd = min(batch_ndim, v.ndim)
+        payload = codec.encode(v, bnd)
+        w = ef_decode(codec, payload, x, bnd, clamp_nonneg)
         wires.append(w)
         residuals.append(v - w.float())
-    return unflatten_like(tree, wires), unflatten_like(tree, residuals)
+        if codes:                 # else each leaf's payload is freed here
+            payloads.append(payload)
+    out = unflatten_like(tree, wires), unflatten_like(tree, residuals)
+    return (*out, payloads) if codes else out
+
+
+def ef_decode(codec: WireCodec, payload, like, batch_ndim: int,
+              clamp_nonneg: bool = False):
+    """The wire values of one leaf from its encoded payload: decoded,
+    clamped below as :func:`ef_apply` clamps them, cast like ``like``."""
+    return _clamp_cast(codec.decode(payload, like.shape, batch_ndim),
+                       like.dtype, clamp_nonneg)
+
+
+def ef_decode_range(codec: WireCodec, payload, like, start: int, stop: int,
+                    clamp_nonneg: bool = False):
+    """Elements ``start:stop`` of one worker row's wire values (``like``
+    that row) from the row's encoded payload, as it travels between ranks:
+    ``codec.decode_range``, clamped and cast as :func:`ef_decode`."""
+    return _clamp_cast(codec.decode_range(payload, start, stop), like.dtype,
+                       clamp_nonneg)
+
+
+def _clamp_cast(vq, dtype, clamp_nonneg: bool):
+    lower = torch.as_tensor(0.0 if clamp_nonneg else F32_MIN,
+                            dtype=torch.float32, device=vq.device)
+    return torch.maximum(vq, lower).to(dtype)
 
 
 class SyncEngine:

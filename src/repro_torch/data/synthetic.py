@@ -23,7 +23,7 @@ a fixed pseudo-random permutation, mixed with Zipf-distributed unigram noise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -112,12 +112,24 @@ class SyntheticLM:
 
 
 def make_train_batch(cfg, shape_cfg, dataset: SyntheticLM, step: int,
-                     *, n_workers: int = 0) -> Dict[str, np.ndarray]:
-    """Full train batch for an architecture: tokens/labels + modality stubs."""
+                     *, n_workers: int = 0,
+                     rank: Optional[Tuple[int, int]] = None
+                     ) -> Dict[str, np.ndarray]:
+    """Full train batch for an architecture: tokens/labels + modality stubs.
+
+    ``rank=(r, world)`` gives rank r's part of it, the rows that rank
+    trains on: with ``n_workers`` (= world, one worker a rank) worker r's
+    (1, B/R, ...) rows, drawn alone; without, rows r·B/R to (r+1)·B/R of
+    the global (B, ...) batch (the synchronous plan's data parallelism).
+    Either is bit for bit the same slice of the whole batch."""
     if n_workers:
-        batch = dataset.global_batch(step, shape_cfg.global_batch,
-                                     with_worker_axis=True)
         lead = (n_workers, shape_cfg.global_batch // n_workers)
+        if rank is None:
+            batch = dataset.global_batch(step, shape_cfg.global_batch,
+                                         with_worker_axis=True)
+        else:
+            batch = {k: v[None] for k, v in dataset.worker_batch(
+                rank[0], step, lead[1]).items()}
     else:
         batch = dataset.global_batch(step, shape_cfg.global_batch,
                                      with_worker_axis=False)
@@ -129,4 +141,12 @@ def make_train_batch(cfg, shape_cfg, dataset: SyntheticLM, step: int,
     if getattr(cfg, "is_encdec", False):
         batch["audio_frames"] = (rng.standard_normal(
             lead + (shape_cfg.seq_len, cfg.d_model)) * 0.02).astype(np.float32)
+    if rank is not None:
+        r, world = rank
+        for k in ("image_embeds", "audio_frames"):
+            if k in batch:
+                batch[k] = batch[k][r:r + 1] if n_workers else batch[k]
+        if not n_workers:
+            per = shape_cfg.global_batch // world
+            batch = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
     return batch

@@ -23,7 +23,11 @@
 //
 // Bound on the H100: device-memory bytes. Per element they read x and e and
 // write wire and e': 12 bytes for a bf16 payload, 16 for fp32 (and for every
-// flat plane). The int8 codes and the scales never leave registers.
+// flat plane). With `codes` and `scales` null the int8 codes and the scales
+// never leave registers; a run with one worker a rank passes both, and each
+// block's 256 codes (0 past the end of a row) and its scale are written
+// beside the wire (1 + 4/256 bytes more per element): they are what the
+// rank puts on the wire, and a peer's dequantize of them gives its v^.
 //
 // Design: one warp per quantization block, 8 elements per lane (numerics.cuh).
 // Lane l holds elements l, l+32, ..., l+224 of its block, so each of the eight
@@ -53,6 +57,7 @@ namespace {
 
 template <typename T, bool kClampNonneg>
 __global__ void fused_ef_kernel(const T* __restrict__ x, float* e, T* __restrict__ wire,
+                                int8_t* __restrict__ codes, float* __restrict__ scales,
                                 int64_t lead, int64_t body, int64_t blocks_per_row,
                                 float inv127) {
   const int lane = threadIdx.x & 31;
@@ -75,11 +80,14 @@ __global__ void fused_ef_kernel(const T* __restrict__ x, float* e, T* __restrict
     }
     const float scale = block_scale(warp_max(amax), inv127);
     const float inv = block_inv(scale);
+    if (scales != nullptr && lane == 0) scales[b] = scale;
 #pragma unroll
     for (int j = 0; j < kPerLane; ++j) {
       const int64_t c = col0 + j * 32 + lane;
+      const int q = quant_code(v[j], inv);
+      if (codes != nullptr) codes[b * kBlock + j * 32 + lane] = static_cast<int8_t>(q);
       if (c < body) {
-        const float vhat = fmaxf(dequant(quant_code(v[j], inv), scale), lower);
+        const float vhat = fmaxf(dequant(q, scale), lower);
         const T w = from_f32<T>(vhat);
         wire[base + c] = w;
         e[base + c] = __fsub_rn(v[j], to_f32(w));
@@ -89,6 +97,7 @@ __global__ void fused_ef_kernel(const T* __restrict__ x, float* e, T* __restrict
 }
 
 __global__ void flat_ef_kernel(const float* __restrict__ x, float* e, float* __restrict__ wire,
+                               int8_t* __restrict__ codes, float* __restrict__ scales,
                                const float* __restrict__ rnd, const float* __restrict__ low,
                                int64_t total, int64_t blocks_per_row, float inv127) {
   const int lane = threadIdx.x & 31;
@@ -109,10 +118,13 @@ __global__ void flat_ef_kernel(const float* __restrict__ x, float* e, float* __r
     }
     const float scale = block_scale(warp_max(amax), inv127);
     const float inv = block_inv(scale);
+    if (scales != nullptr && lane == 0) scales[b] = scale;
 #pragma unroll
     for (int j = 0; j < kPerLane; ++j) {
       const int64_t i = base + j * 32 + lane;
-      const float vhat = fmaxf(dequant(quant_code(v[j], inv), scale), lower);
+      const int q = quant_code(v[j], inv);
+      if (codes != nullptr) codes[i] = static_cast<int8_t>(q);
+      const float vhat = fmaxf(dequant(q, scale), lower);
       const float w = r16 ? round_bf16(vhat) : vhat;
       wire[i] = w;
       e[i] = __fsub_rn(v[j], w);
@@ -132,32 +144,36 @@ int grid_for(int64_t n_blocks) {
 }
 
 template <typename T, bool kClampNonneg>
-void launch(const void* x, void* e, void* wire, int64_t lead, int64_t body, float inv127,
-            cudaStream_t stream) {
+void launch(const void* x, void* e, void* wire, void* codes, void* scales, int64_t lead,
+            int64_t body, float inv127, cudaStream_t stream) {
   const int64_t blocks_per_row = (body + kBlock - 1) / kBlock;
   fused_ef_kernel<T, kClampNonneg><<<grid_for(lead * blocks_per_row), 256, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<float*>(e), static_cast<T*>(wire), lead, body,
-      blocks_per_row, inv127);
+      static_cast<const T*>(x), static_cast<float*>(e), static_cast<T*>(wire),
+      static_cast<int8_t*>(codes), static_cast<float*>(scales), lead, body, blocks_per_row,
+      inv127);
 }
 
 }  // namespace
 
 // x: (lead, body) payload in `dtype` (0 = float32, 1 = bfloat16); e: the fp32
 // residual of the same geometry, overwritten with the new residual; wire: the
-// output in x's dtype. inv127 is f32(1/127). Returns the CUDA error code of
-// the launch (0 on success).
-extern "C" int fused_ef(const void* x, void* e, void* wire, long long lead, long long body,
-                        int dtype, int clamp_nonneg, float inv127, void* stream) {
+// output in x's dtype; codes (int8, lead * ceil(body / 256) * 256) and scales
+// (fp32, one a block), both null or both set: the wire's int8 form, each
+// row's blocks zero-padded. inv127 is f32(1/127). Returns the CUDA error
+// code of the launch (0 on success).
+extern "C" int fused_ef(const void* x, void* e, void* wire, void* codes, void* scales,
+                        long long lead, long long body, int dtype, int clamp_nonneg,
+                        float inv127, void* stream) {
   if (lead <= 0 || body <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && clamp_nonneg) {
-    launch<float, true>(x, e, wire, lead, body, inv127, s);
+    launch<float, true>(x, e, wire, codes, scales, lead, body, inv127, s);
   } else if (dtype == 0) {
-    launch<float, false>(x, e, wire, lead, body, inv127, s);
+    launch<float, false>(x, e, wire, codes, scales, lead, body, inv127, s);
   } else if (dtype == 1 && clamp_nonneg) {
-    launch<__nv_bfloat16, true>(x, e, wire, lead, body, inv127, s);
+    launch<__nv_bfloat16, true>(x, e, wire, codes, scales, lead, body, inv127, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16, false>(x, e, wire, lead, body, inv127, s);
+    launch<__nv_bfloat16, false>(x, e, wire, codes, scales, lead, body, inv127, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -165,19 +181,20 @@ extern "C" int fused_ef(const void* x, void* e, void* wire, long long lead, long
 }
 
 // x, e, wire: n_blocks contiguous fp32 blocks of 256 (a flat plane, all its
-// worker rows); e is overwritten with the new residual. rnd, low: fp32
-// sidecars of `blocks_per_row` blocks (one plane row), which divides n_blocks.
-// Returns the CUDA error code of the launch (0 on success).
-extern "C" int flat_ef(const void* x, void* e, void* wire, const void* rnd, const void* low,
-                       long long n_blocks, long long blocks_per_row, float inv127,
-                       void* stream) {
+// worker rows); e is overwritten with the new residual. codes, scales: null,
+// or the wire's int8 codes (n_blocks * 256) and fp32 scales (n_blocks). rnd,
+// low: fp32 sidecars of `blocks_per_row` blocks (one plane row), which
+// divides n_blocks. Returns the CUDA error code of the launch (0 on success).
+extern "C" int flat_ef(const void* x, void* e, void* wire, void* codes, void* scales,
+                       const void* rnd, const void* low, long long n_blocks,
+                       long long blocks_per_row, float inv127, void* stream) {
   if (n_blocks <= 0) return 0;
   if (blocks_per_row <= 0 || n_blocks % blocks_per_row) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   flat_ef_kernel<<<grid_for(n_blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(e), static_cast<float*>(wire),
-      static_cast<const float*>(rnd), static_cast<const float*>(low), n_blocks,
-      blocks_per_row, inv127);
+      static_cast<int8_t*>(codes), static_cast<float*>(scales), static_cast<const float*>(rnd),
+      static_cast<const float*>(low), n_blocks, blocks_per_row, inv127);
   return static_cast<int>(cudaGetLastError());
 }

@@ -124,6 +124,20 @@ def dequantize(q, scales, shape, *, block: int = BLOCK, batch_ndim: int = 0,
     return from_blocks(y2d, shape, batch_ndim)
 
 
+def dequantize_range(q, scales, start: int, stop: int, *,
+                     block: int = BLOCK, use_kernels: bool = True):
+    """Elements ``start:stop`` of one worker row's dequantized values, from
+    the row's (nblocks, block) codes and (nblocks, 1) scales (its blocks
+    zero-padded past the row's end); ``start`` a multiple of ``block``.
+    Returns fp32 (stop - start,)."""
+    _check_block(block, use_kernels)
+    if start % block:
+        raise ValueError(f"start {start} is not a multiple of {block}")
+    b0, b1 = start // block, -(-stop // block)
+    fn = dequantize_blocks if use_kernels else dequantize_blocks_ref
+    return fn(q[b0:b1], scales[b0:b1]).view(-1)[:stop - start]
+
+
 def fake_quantize(x, *, block: int = BLOCK, batch_ndim: int = 0,
                   use_kernels: bool = True):
     """dequantize(quantize(x)): the fp32 value a receiver reconstructs."""

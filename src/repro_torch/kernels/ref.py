@@ -58,17 +58,18 @@ def dequantize_blocks_ref(q2d, scales):
 
 
 def fused_ef_blocks_ref(x2d, e2d, *, clamp_nonneg: bool = False,
-                        out_dtype=None):
+                        out_dtype=None, codes: bool = False):
     """The error-feedback sync encode of a (nblocks, block) view:
     v = x + e; v̂ = max(dequantize(quantize(v)), lower) with lower 0 for
     accumulator payloads and float32-min otherwise; wire = v̂ cast to the
-    payload dtype; residual' = v − wire. Returns (wire, residual')."""
+    payload dtype; residual' = v − wire. Returns (wire, residual'), and
+    with ``codes`` also the int8 codes and scales of v."""
     v = x2d.float() + e2d
     q, s = quantize_blocks_ref(v)
     vhat = torch.maximum(dequantize_blocks_ref(q, s),
                          f32(0.0 if clamp_nonneg else F32_MIN, v))
     w = vhat.to(out_dtype or x2d.dtype)
-    return w, v - w.float()
+    return (w, v - w.float(), q, s) if codes else (w, v - w.float())
 
 
 def flat_fused_update_ref(plane, g_plane, bs_plane, bl_plane, eta, extra,
@@ -85,16 +86,16 @@ def flat_fused_update_ref(plane, g_plane, bs_plane, bl_plane, eta, extra,
     return torch.where(rnd16, y16, y32), bl_plane + torch.square(g_plane)
 
 
-def flat_ef_blocks_ref(x2d, e2d, rnd, low):
+def flat_ef_blocks_ref(x2d, e2d, rnd, low, codes: bool = False):
     """The flat EF sync encode of (nblocks, block) fp32 views: the int8
     roundtrip with a per-block lower clamp ``low`` and bf16 wire rounding
     where ``rnd`` > 0 (both (nblocks, 1) fp32). Returns (wire, residual'),
-    both fp32."""
+    both fp32, and with ``codes`` also the int8 codes and scales of v."""
     v = x2d + e2d
     q, s = quantize_blocks_ref(v)
     vhat = torch.maximum(dequantize_blocks_ref(q, s), low)
     w = torch.where(rnd > 0, round_through_bf16(vhat), vhat)
-    return w, v - w
+    return (w, v - w, q, s) if codes else (w, v - w)
 
 
 def _chunk_cumsum(dA):

@@ -15,6 +15,19 @@ and accumulator carries a leading worker axis R, as in the JAX package's
   11-12): here a mean over axis 0, since the workers are stacked on one
   device, exactly as the reference stacks them on its worker axis.
 
+With a ``group`` (``core.comm.RankGroup``: one worker a rank, the ranks of
+a ``torchrun`` launch) each rank holds its own worker, a leading axis of 1,
+so every kernel wrapper, ``FlatSpace`` and the checkpoint format keep their
+shapes' meaning. The sync round's mean is then a collective
+(:class:`RankMean`): every rank's wire all-gathered and summed in rank
+order, the stacked mean's arithmetic, so R ranks give the stacked run of R
+workers bit for bit. The int8 wire carries the codes and scales the EF
+kernel writes beside its output, one collective per payload leaf (one per
+round over the flat plane), and each rank dequantizes every contribution.
+The per-step statistics (loss, drift, gradient norm) are reduced to one
+scalar per worker first, then gathered and averaged, so every rank takes
+the same schedule decisions.
+
 Each worker's loss and gradient come from its own slice of the stacked
 tensors and of the batch (tokens, labels, and the VLM's image embeddings
 or the encoder-decoder's audio frames), one worker at a time, so peak
@@ -39,7 +52,9 @@ global batch and ``opt.update(grads, g∘g, ...)`` applies the gradient every
 step, as the reference's non-local branch does: plain tensor ops, no
 kernel (no Pallas kernel is reachable from that branch either). On one
 device there is no all-reduce; ``train_loop`` charges the bytes it would
-move.
+move. With a ``group`` each rank takes its share of the global batch and
+the gradients are averaged over the ranks (:func:`core.comm.gather_mean_`,
+fp32 on the wire) before the update: the reference's ``grad_axes`` mean.
 
 With ``OptimizerConfig.obs_metrics`` every step also returns
 ``metrics['grad_norm']``: the L2 norm of the raw (pre-clip) gradients, one
@@ -47,18 +62,21 @@ per worker on the local paths, a scalar on the synchronous one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from functools import partial
 from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.core import flatspace as fsp
 from repro_torch.core import optimizers as opt_lib
-from repro_torch.core.comm import worker_mean_
+from repro_torch.core.comm import gather_mean_, worker_mean_
 from repro_torch.core.sync_engine import drift_statistic
 from repro_torch.kernels.ref import F32_MIN
 from repro_torch.kernels.tiling import round_through_bf16
+from repro_torch.launch.mesh import resolve_plan
 from repro_torch.models import build_model
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
@@ -73,27 +91,76 @@ def mean_over_workers(tree):
     return tree_map(worker_mean_, tree)
 
 
+class RankMean:
+    """The sync mean of a run with one worker a rank: a ``mean_fn`` of
+    ``LocalOptimizer.sync`` over a :class:`core.comm.RankGroup`.
+
+    Called on a tree, every leaf is :func:`core.comm.gather_mean_`'d with
+    ``wire_dtype`` on the wire (fp32 for the lossless wire, bf16 for the
+    bf16 codec, whose wire values are bf16 numbers). The int8 wire goes
+    through :meth:`of_payloads`, ``compressed_sync``'s ``payload_mean``."""
+
+    def __init__(self, group, wire_dtype: torch.dtype) -> None:
+        self.group = group
+        self.wire_dtype = wire_dtype
+
+    def __call__(self, tree):
+        return tree_map(lambda x: gather_mean_(
+            x, self.group, wire_dtype=self.wire_dtype), tree)
+
+    def of_payloads(self, wires, payloads, decode) -> None:
+        """Per leaf of ``wires``: its payload's parts (int8 codes, fp32
+        scales) packed into one collective, every rank's decoded by
+        ``decode(parts, like, start, stop)`` into wire values a chunk at a
+        time, the ordered mean written over the leaf."""
+        for x, parts in zip(leaves(wires), payloads):
+            got = self.group.all_gather(parts)
+            self.group.mean_(x, lambda r, a, b, x=x, got=got: decode(
+                tuple(g[r] for g in got), x, a, b))
+
+
 def _sq_norms(pairs) -> torch.Tensor:
     """Per-worker Σ over the given stacked tensors of their squared norms,
-    leaf by leaf (no whole-tree temporary)."""
-    return sum(torch.sum(torch.square(d), dim=tuple(range(1, d.ndim)))
-               for d in pairs)
+    leaf by leaf (no whole-tree temporary), each worker's row reduced on
+    its own (``core.optimizers.worker_sums``)."""
+    return sum(opt_lib.worker_sums(torch.square(d)) for d in pairs)
 
 
-def _drift_stat(new_params, params) -> torch.Tensor:
-    """mean over workers of ||x_i' − x_i|| / (||x_i|| + tiny)."""
+def _drift_per_worker(new_params, params) -> torch.Tensor:
+    """(rows,): ||x_i' − x_i|| / (||x_i|| + tiny) of each worker."""
     d = torch.sqrt(_sq_norms(n.float() - p.float() for n, p in
                              zip(leaves(new_params), leaves(params))))
     p = torch.sqrt(_sq_norms(p.float() for p in leaves(params)))
-    return torch.mean(d / (p + 1e-12))
+    return d / (p + 1e-12)
 
 
-def _staleness_stat(grads, anchor) -> torch.Tensor:
-    """mean over workers of ‖g_i,t − g_i,last_sync‖² / (‖g_i,t‖² + tiny)."""
+def _staleness_per_worker(grads, anchor) -> torch.Tensor:
+    """(rows,): ‖g_i,t − g_i,last_sync‖² / (‖g_i,t‖² + tiny) of each
+    worker."""
     d2 = _sq_norms(g.float() - a for g, a in zip(leaves(grads),
                                                  leaves(anchor)))
     g2 = _sq_norms(g.float() for g in leaves(grads))
-    return torch.mean(d2 / (g2 + 1e-12))
+    return d2 / (g2 + 1e-12)
+
+
+def worker_metrics(per_worker: dict, group=None) -> dict:
+    """A step's metrics from per-worker values ((rows,) each): ``loss``
+    and ``drift`` the mean over all workers, ``grad_norm`` the (R,)
+    vector. With a ``group`` the ranks' values are gathered first, one
+    collective for all of them, so each mean is the stacked run's
+    ``torch.mean`` over the same (R,) values and every rank holds the
+    same bits (the sync engine decides on each rank)."""
+    if group is not None:
+        keys = list(per_worker)
+        (got,) = group.all_gather(
+            [torch.stack([per_worker[k].reshape(()).float() for k in keys])],
+            count=comm.side)
+        per_worker = {k: got[:, i].contiguous() for i, k in enumerate(keys)}
+    out = {k: torch.mean(v) for k, v in per_worker.items()
+           if k in ("loss", "drift")}
+    if "grad_norm" in per_worker:
+        out["grad_norm"] = per_worker["grad_norm"]
+    return out
 
 
 def worker_grads(params, batch, model, grads=None):
@@ -125,7 +192,7 @@ class TrainPrograms:
     init_fn: Callable[..., Any]  # (seed, base=None) -> (params, opt_state)
     local_step: Callable[..., Any]  # (params, opt_state, batch) -> (params, opt_state, metrics)
     sync_step: Callable[..., Any]   # same signature; ends with the sync round
-    n_workers: int
+    n_workers: int               # the run's workers (over all ranks)
     H: int
     is_local: bool = True        # False: a synchronous optimizer, R = 1
     n_payload_leaves: int = 0    # param leaves a sync round touches
@@ -138,15 +205,33 @@ class TrainPrograms:
     flat_abstract: Any = None
     to_flat: Any = None          # per-leaf (params, opt_state) -> planes
     to_legacy: Any = None        # planes -> per-leaf (params, opt_state)
+    group: Any = None            # core.comm.RankGroup: one worker a rank
 
 
-def build_train_programs(cfg, opt_cfg, *, n_workers: int,
-                         device) -> TrainPrograms:
+def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
+                         group=None) -> TrainPrograms:
+    """The step functions of a run of ``n_workers`` workers stacked on
+    ``device``, or with a ``group`` one worker on each of its ranks
+    (``n_workers`` must then be the group's world size; a synchronous
+    optimizer's one model spreads its batch over the ranks). The ranks'
+    plan (``launch.mesh.resolve_plan``) decides between the two: workers
+    along ``local_axes``, or one model whose gradient is averaged along
+    ``grad_axes``."""
     if opt_cfg.flat and opt_cfg.name != "local_adaalter":
         raise ValueError("OptimizerConfig.flat requires a local Local "
                          f"AdaAlter run (got optimizer={opt_cfg.name!r})")
     opt = opt_lib.make_optimizer(opt_cfg)
-    if not opt_lib.is_local(opt):
+    local = opt_lib.is_local(opt)
+    if group is not None:
+        plan = resolve_plan(cfg, group.world, optimizer=opt_cfg.name)
+        if bool(plan.local_axes) != local:
+            raise ValueError(f"the plan {plan} does not fit {opt_cfg.name!r}"
+                             f" ({'a local' if local else 'a synchronous'} "
+                             "optimizer)")
+        if local and n_workers != plan.n_workers({"data": group.world}):
+            raise ValueError(f"{n_workers} workers on {group.world} ranks:"
+                             " a run with ranks holds one worker a rank")
+    if not local:
         if n_workers != 1:
             raise ValueError(
                 f"{opt_cfg.name!r} is a synchronous optimizer: one model "
@@ -154,9 +239,16 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int,
                 f"one worker, not {n_workers}. The reference runs a local "
                 "optimizer on its synchronous branch only for models over "
                 "100 B parameters, which the port does not build")
-        return _sync_programs(cfg, opt_cfg, opt, torch.device(device))
-    R = n_workers
+        return _sync_programs(cfg, opt_cfg, opt, torch.device(device), group)
+    R = 1 if group is not None else n_workers     # workers on this device
     device = torch.device(device)
+    mean_fn = mean_over_workers
+    sync_kw = {}
+    if group is not None:
+        mean_fn = RankMean(group, torch.bfloat16 if opt_cfg.sync.compression
+                           == "bf16" else torch.float32)
+        if opt_cfg.sync.compression == "int8":
+            sync_kw = {"payload_mean": mean_fn.of_payloads}
     model = build_model(cfg)
     fused = opt_cfg.use_kernels and opt_cfg.name == "local_adaalter"
     stat = drift_statistic(opt_cfg.sync)
@@ -182,6 +274,12 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int,
 
     def step(params, opt_state, batch, *, do_sync: bool):
         loss, grads = worker_grads(params, batch, model)
+        stats = {"loss": loss}
+        if opt_cfg.obs_metrics:
+            stats["grad_norm"] = opt_lib.global_norm(grads, batch_ndim=1)
+        if staleness:
+            stats["drift"] = _staleness_per_worker(grads,
+                                                   opt_state["g_anchor"])
         if fused:
             # the kernel bypasses opt.local_step, so the grad_clip wrapper
             # never sees these grads: clip per worker here. `grads` stays
@@ -204,16 +302,14 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int,
                          "b2_local": new_b2}
         else:
             new_params, new_state = opt.local_step(grads, opt_state, params)
-        metrics = {"loss": torch.mean(loss)}
-        if opt_cfg.obs_metrics:
-            metrics["grad_norm"] = opt_lib.global_norm(grads, batch_ndim=1)
-        if staleness:
-            metrics["drift"] = _staleness_stat(grads, opt_state["g_anchor"])
-        elif stat is not None:
-            metrics["drift"] = _drift_stat(new_params, params)
+        if stat is not None and not staleness:
+            stats["drift"] = _drift_per_worker(new_params, params)
+        metrics = worker_metrics(stats, group)
         if do_sync:
-            new_params, new_state = opt.sync(new_params, new_state,
-                                             mean_over_workers)
+            with (contextlib.nullcontext() if group is None
+                  else group.round_()):
+                new_params, new_state = opt.sync(new_params, new_state,
+                                                 mean_fn, **sync_kw)
             if staleness:
                 new_state = {**new_state,
                              "g_anchor": tree_map(lambda g: g.float(), grads)}
@@ -238,21 +334,24 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int,
                                         fsp.unpack_opt_state(fs, st_)))
         if opt_cfg.flat:
             init_fn, local_step, sync_step = _flat_programs(
-                fs, model, opt_cfg, opt, abstract, base_params, device)
+                fs, model, opt_cfg, opt, abstract, base_params, device,
+                group)
     return TrainPrograms(init_fn=init_fn, local_step=local_step,
-                         sync_step=sync_step, n_workers=R, H=opt.H,
+                         sync_step=sync_step, n_workers=n_workers, H=opt.H,
                          n_payload_leaves=len(leaves(abstract)),
-                         is_flat=opt_cfg.flat, **flat_fields)
+                         is_flat=opt_cfg.flat, group=group, **flat_fields)
 
 
 # --------------------------------------------------------------------------- #
 # synchronous steps (sgd, adagrad, adaalter: the paper's baselines)
 # --------------------------------------------------------------------------- #
-def _sync_programs(cfg, opt_cfg, opt, device) -> TrainPrograms:
+def _sync_programs(cfg, opt_cfg, opt, device, group=None) -> TrainPrograms:
     """One model over the global batch; ``opt.update`` every step. Both
     step functions are the same step (a synchronous optimizer has no round
     to skip; ``train_loop`` runs the sync step every step, as the
-    reference's H = 1 schedule does)."""
+    reference's H = 1 schedule does). With a ``group`` each rank holds the
+    model and its share of the batch; the gradients are averaged over the
+    ranks, fp32 on the wire, and the loss is the mean of the ranks'."""
     model = build_model(cfg)
     # Alg. 3 folds g∘g into B²; Alg. 1 and plain SGD never read it, and the
     # reference's compiled step drops it as dead code
@@ -269,10 +368,15 @@ def _sync_programs(cfg, opt_cfg, opt, device) -> TrainPrograms:
         loss, _ = model.loss_fn(p, batch)
         grads = unflatten_like(params, list(
             torch.autograd.grad(loss, leaves(p))))
+        loss = loss.detach()
+        if group is not None:     # the grad_axes mean, and the loss's
+            grads = tree_map(lambda g: gather_mean_(
+                g, group, wire_dtype=torch.float32), grads)
+            loss = worker_metrics({"loss": loss}, group)["loss"]
         sq = (tree_map(lambda g: torch.square(g.float()), grads)
               if wants_sq else None)
         new_params, new_state = opt.update(grads, sq, opt_state, params)
-        metrics = {"loss": loss.detach()}
+        metrics = {"loss": loss}
         if opt_cfg.obs_metrics:
             metrics["grad_norm"] = opt_lib.global_norm(grads)
         return new_params, new_state, metrics
@@ -280,7 +384,7 @@ def _sync_programs(cfg, opt_cfg, opt, device) -> TrainPrograms:
     n_leaves = len(leaves(model.init(None, "meta")))
     return TrainPrograms(init_fn=init_fn, local_step=step, sync_step=step,
                          n_workers=1, H=1, is_local=False,
-                         n_payload_leaves=n_leaves)
+                         n_payload_leaves=n_leaves, group=group)
 
 
 # --------------------------------------------------------------------------- #
@@ -301,12 +405,15 @@ def _bf16_ef(x, e, lower: float, round16=()):
     return w, e
 
 
-def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device):
+def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
+                   group=None):
     """Local AdaAlter over FlatSpace planes: the update is ONE launch over
     the parameter plane, and the sync round one EF encode of each half of
     the ``[params ‖ B²]`` payload and one mean of each (the halves are
     encoded in place rather than concatenated: at full Big LSTM width the
-    concatenation and its wire would take ~27 GB more). Given the same
+    concatenation and its wire would take ~27 GB more). With a ``group``
+    the round is ONE collective over the packed ``[params ‖ B²]`` wire, as
+    the reference's flat sync is one all-reduce. Given the same
     schedule the state is bitwise equal to the per-leaf path's, with the
     kernels (the same device expressions) and without them (the plain
     versions mirror each other's cast orders). The loss and the drift
@@ -321,8 +428,9 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device):
     from repro_torch.kernels.adaalter_update import (LANES,
                                                      flat_fused_update,
                                                      update_scalars)
+    from repro_torch.core.codecs import get_codec
     from repro_torch.kernels.ref import flat_fused_update_ref
-    from repro_torch.kernels.sync_fused import flat_ef_plane
+    from repro_torch.kernels.sync_fused import flat_ef_plane, flat_wire
 
     sync_cfg = opt_cfg.sync
     psize = fs.plane_size
@@ -363,25 +471,61 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device):
                                             stacked))
         return fs.pack(stacked), state
 
+    codec = get_codec(compression, block=block,
+                      use_kernels=opt_cfg.use_kernels)
+
+    def rank_means(wire_p, wire_b, codes):
+        """The two halves' means over the ranks, one collective: the
+        packed ``[params ‖ B²]`` wire (the int8 codes and scales, or the
+        values in the wire's dtype) of every rank, decoded row by row."""
+        if compression == "int8":
+            (qp, sp), (qb, sb) = codes
+            got = group.all_gather([qp, sp, qb, sb])
+
+            def row(half, r, a, b):
+                blocks = slice(a // block, b // block)
+                rnd, low = (enc_rnd, enc_low) if half == 0 else (enc_zero,
+                                                                enc_zero)
+                # the decoded chunk is flat_wire's argument alone, so it is
+                # freed as flat_wire rebinds it (one fp32 chunk less)
+                return flat_wire(codec.decode_range(
+                    (got[2 * half][r], got[2 * half + 1][r]), a, b).view(
+                        -1, block), rnd[blocks], low[blocks]).view(-1)
+        else:
+            dt = torch.bfloat16 if compression == "bf16" else torch.float32
+            got = group.all_gather([wire_p.to(dt), wire_b.to(dt)])
+
+            def row(half, r, a, b):
+                return got[half][r].view(-1)[a:b]
+        group.mean_(wire_p, partial(row, 0), round16)
+        group.mean_(wire_b, partial(row, 1))
+
     def flat_sync(plane, state):
         """Alg. 4 lines 11-12 over the packed payload, half by half."""
         b2 = state["b2_local"]
         out = {**state, "tprime": torch.zeros_like(state["tprime"])}
-        if compression == "fp32":
-            wire_p, wire_b = plane, b2
-        elif compression == "int8":
-            kw = dict(block=block, use_kernels=opt_cfg.use_kernels,
-                      fused=sync_cfg.fused)
-            wire_p, out["res_params"] = flat_ef_plane(
-                plane, state["res_params"], enc_rnd, enc_low, **kw)
-            wire_b, out["res_b2"] = flat_ef_plane(
-                b2, state["res_b2"], enc_zero, enc_zero, **kw)
-        else:                         # bf16 wire: elementwise EF roundtrip
-            wire_p, out["res_params"] = _bf16_ef(
-                plane, state["res_params"], F32_MIN, round16)
-            wire_b, out["res_b2"] = _bf16_ef(b2, state["res_b2"], 0.0)
-        fsp.mean_planes(wire_p, round16)
-        fsp.mean_planes(wire_b)
+        codes = []
+        with (contextlib.nullcontext() if group is None
+              else group.round_()):
+            if compression == "fp32":
+                wire_p, wire_b = plane, b2
+            elif compression == "int8":
+                kw = dict(block=block, use_kernels=opt_cfg.use_kernels,
+                          fused=sync_cfg.fused, codes=group is not None)
+                wire_p, out["res_params"], *codes = flat_ef_plane(
+                    plane, state["res_params"], enc_rnd, enc_low, **kw)
+                wire_b, out["res_b2"], *codes_b = flat_ef_plane(
+                    b2, state["res_b2"], enc_zero, enc_zero, **kw)
+                codes += codes_b
+            else:                     # bf16 wire: elementwise EF roundtrip
+                wire_p, out["res_params"] = _bf16_ef(
+                    plane, state["res_params"], F32_MIN, round16)
+                wire_b, out["res_b2"] = _bf16_ef(b2, state["res_b2"], 0.0)
+            if group is None:
+                fsp.mean_planes(wire_p, round16)
+                fsp.mean_planes(wire_b)
+            else:
+                rank_means(wire_p, wire_b, codes)
         out["b2_sync"] = out["b2_local"] = wire_b
         return wire_p, out
 
@@ -411,18 +555,20 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device):
         del a_plane
         new_state = {**fstate, "step": step_no, "tprime": tprime,
                      "b2_local": new_b2}
-        metrics = {"loss": torch.mean(loss)}
+        stats = {"loss": loss}
         if opt_cfg.obs_metrics:       # over the per-leaf views, leaf by leaf
-            metrics["grad_norm"] = opt_lib.global_norm(
+            stats["grad_norm"] = opt_lib.global_norm(
                 fs.unpack(g_plane, dtype=torch.float32), batch_ndim=1)
+        rows = opt_lib.worker_sums
         if staleness:
-            d2 = torch.sum(torch.square(g_plane - fstate["g_anchor"]), -1)
-            g2 = torch.sum(torch.square(g_plane), -1)
-            metrics["drift"] = torch.mean(d2 / (g2 + 1e-12))
+            d2 = rows(torch.square(g_plane - fstate["g_anchor"]))
+            g2 = rows(torch.square(g_plane))
+            stats["drift"] = d2 / (g2 + 1e-12)
         elif stat is not None:
-            d = torch.sqrt(torch.sum(torch.square(new_plane - plane), -1))
-            pn = torch.sqrt(torch.sum(torch.square(plane), -1))
-            metrics["drift"] = torch.mean(d / (pn + 1e-12))
+            d = torch.sqrt(rows(torch.square(new_plane - plane)))
+            pn = torch.sqrt(rows(torch.square(plane)))
+            stats["drift"] = d / (pn + 1e-12)
+        metrics = worker_metrics(stats, group)
         if not staleness:
             del g_plane               # freed before the sync round's wires
         if do_sync:

@@ -19,6 +19,11 @@ transformer families through their ``loss_fn``, full width or
 * ``--trace`` (a span timeline, ``repro_torch.trace``) and ``--metrics``
   (a JSONL health stream and a Prometheus textfile, ``repro_torch.obs``).
 
+Under ``torchrun`` (``WORLD_SIZE`` > 1) each rank is one worker and the
+sync round is a collective (``launch/mesh.py``, ``core/comm.py``); rank 0
+alone writes ``--out``, ``--trace``, ``--metrics`` and checkpoints, and
+every rank returns the same ``TrainResult``, equal to the stacked run's.
+
 ``TrainResult`` carries the measured sync schedule and the bytes it moved.
 Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
 
@@ -31,6 +36,9 @@ Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
   python -m repro_torch.launch.train --device cpu --arch hymba-1.5b \\
       --reduced --use-kernels --compress int8 --workers 2 --batch 8 \\
       --seq 16 --steps 8
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
+      --device cpu --dist-backend gloo --workers 2 --arch biglstm \\
+      --reduced --use-kernels --compress int8 --batch 8 --seq 16 --steps 8
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import dataclasses
 import json
 import math
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -53,6 +61,7 @@ from repro_torch.core.sync_policy import POLICY_NAMES
 from repro_torch.data import SyntheticLM, make_train_batch
 from repro_torch.launch.steps import build_train_programs
 from repro_torch.models.counting import count_params
+from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import tree_map
 
 
@@ -77,6 +86,14 @@ class TrainResult:
     probe_s: List[float] = dataclasses.field(default_factory=list)
                                            # host seconds of each step's
                                            # health probe (instrumented runs)
+    state_digest: Dict[str, List[int]] = dataclasses.field(
+        default_factory=dict)              # digest=True: state_digest()
+    ranks: List[dict] = dataclasses.field(default_factory=list)
+                                           # a run with ranks: each rank's
+                                           # device, step walls, collectives,
+                                           # wire bytes, round parts' seconds,
+                                           # kernel launches and peak memory;
+                                           # the walls above are rank 0's
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -97,11 +114,20 @@ def _place(tree, dev):
                     else t.cpu(), tree)
 
 
+def _stacked_like(tree, workers: int):
+    """``tree``'s tensors, one worker a rank, as ``meta`` templates of the
+    stacked state of ``workers`` workers."""
+    return tree_map(lambda t: torch.empty(
+        (workers,) + tuple(t.shape[1:]), dtype=t.dtype, device="meta"), tree)
+
+
 def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
              verbose):
     """(params, opt_state, SyncState or None, step) from the latest
     checkpoint, written in either layout (per-leaf or flat plane), a flat
-    plane under any worker count, with or without the SyncState."""
+    plane under any worker count, with or without the SyncState. A rank of
+    a run with one worker a rank restores the stacked state of all the
+    run's workers and keeps its own row."""
     from repro_torch.checkpoint import (checkpoint_keys, disk_like,
                                         restore_checkpoint)
     from repro_torch.core.flatspace import (adapt_flat_state,
@@ -120,6 +146,9 @@ def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
         like = programs.flat_abstract
     else:
         like = programs.legacy_abstract
+    ranked = programs.group is not None and programs.is_local
+    if ranked:
+        like = _stacked_like(like, programs.n_workers)
     if not no_ss:
         like = (*like, engine.export_state())
     if disk_flat:       # the plane may come from another worker count
@@ -139,6 +168,10 @@ def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
                 workers=want[0], plane_size=want[1])
             params = torch.from_numpy(plane)
             opt_state = {k: torch.from_numpy(v) for k, v in fstate.items()}
+    if ranked:                       # this rank's worker
+        r = programs.group.rank
+        params, opt_state = tree_map(lambda t: t[r:r + 1],
+                                     (params, opt_state))
     params, opt_state = _place((params, opt_state), dev)
     if disk_flat and not programs.is_flat:
         params, opt_state = _place(programs.to_legacy(params, opt_state),
@@ -153,17 +186,93 @@ def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
     return params, opt_state, sync_state, step
 
 
+def state_digest(params, opt_state, *, worker_axis: bool) -> Dict[str,
+                                                                List[int]]:
+    """A digest of a train state: for the params and each float entry of
+    the optimizer state, one integer per worker (with ``worker_axis``; else
+    one), the sum of its elements' bit patterns read as integers. Equal
+    states give equal digests; any one changed element changes it."""
+    from repro_torch.core.flatspace import SCALAR_STATE_KEYS
+    out = {}
+    entries = [("params", params)] + sorted(
+        (k, v) for k, v in opt_state.items() if k not in SCALAR_STATE_KEYS)
+    for key, tree in entries:
+        total = None
+        for t in tree_leaves(tree):
+            if not t.is_floating_point():
+                continue
+            bits = t.view(torch.int16 if t.element_size() == 2
+                          else torch.int32)
+            rows = bits if worker_axis else bits[None]
+            s = torch.stack([torch.sum(r, dtype=torch.int64) for r in rows])
+            total = s if total is None else total + s
+        if total is not None:
+            out[key] = [int(v) for v in total.tolist()]
+    return out
+
+
+def _launch_counts() -> dict:
+    """Each kernel wrapper's launch count so far, by kernel."""
+    from repro_torch.kernels import adaalter_update, quantize, ssd_scan
+    from repro_torch.kernels import sync_fused
+    return {"adaalter_update": adaalter_update.launches.n,
+            "flat_fused_update": adaalter_update.flat_launches.n,
+            "fused_ef": sync_fused.launches.n,
+            "flat_ef": sync_fused.flat_launches.n,
+            "quantize_blocks": quantize.quantize_launches.n,
+            "dequantize_blocks": quantize.dequantize_launches.n,
+            "ssd_scan": ssd_scan.launches.n}
+
+
+def _rank_report(group, dev, since: dict, step_s, probe_s, wall: float,
+                 digest: dict) -> dict:
+    """This rank's share of a run with ranks: its device, walls, the
+    collectives it issued and the bytes it contributed (the sync rounds'
+    and the rest), the round parts' seconds, its kernel launches and peak
+    device memory, all counted from ``since``."""
+    from repro_torch.core import comm
+    wire, side = comm.wire.snapshot(), comm.side.snapshot()
+    launches = _launch_counts()
+    return {
+        "rank": group.rank, "device": str(dev), "route": group.route,
+        "step_s": list(step_s), "probe_s": list(probe_s), "wall_s": wall,
+        "collectives": wire["n"] - since["wire"]["n"],
+        "wire_bytes": wire["bytes"] - since["wire"]["bytes"],
+        "round_s": {k: v - since["wire"]["seconds"][k]
+                    for k, v in wire["seconds"].items()},
+        "side_collectives": side["n"] - since["side"]["n"],
+        "side_bytes": side["bytes"] - since["side"]["bytes"],
+        "launches": {k: v - since["launches"][k]
+                     for k, v in launches.items()},
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                 if dev.type == "cuda" else None),
+        "max_memory_reserved": (torch.cuda.max_memory_reserved(dev)
+                                if dev.type == "cuda" else None),
+        "state_digest": digest}
+
+
 def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
                steps: int = 100, seed: int = 0, log_every: int = 10,
                n_workers: int = 1, non_iid: bool = True,
                checkpoint_dir: str = "", checkpoint_every: int = 0,
                verbose: bool = True, device: Optional[str] = None,
                init_params=None, trace_out: str = "",
-               metrics_out: str = "") -> TrainResult:
+               metrics_out: str = "", group=None,
+               digest: bool = False) -> TrainResult:
     """Train up to step ``steps`` with ``n_workers`` workers stacked on
     ``device`` (a synchronous optimizer takes one). ``init_params`` (one
     worker's parameter dict) replaces the seeded initialisation, e.g. with
     weights carried across from the JAX package by ``repro_torch.convert``.
+
+    With a ``group`` (``core.comm.RankGroup``, from
+    ``launch.mesh.init_ranks``) this process is one rank of a run with one
+    worker a rank: ``n_workers`` must be the group's world size (a
+    synchronous optimizer keeps one model and spreads the global batch over
+    the ranks), ``device`` this rank's. Every rank initialises from the
+    same seed or ``init_params``, draws its own worker's batches, and
+    returns the same ``TrainResult``: the stacked run's, bit for bit.
+    Rank 0 alone writes the checkpoints, the trace and the metrics, from
+    the ranks' values gathered to it.
 
     ``checkpoint_dir`` resumes from its latest checkpoint (``start_step``)
     and, with ``checkpoint_every``, saves ``(params, opt_state,
@@ -176,12 +285,24 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
     (``repro_torch.obs``) and writes a Prometheus textfile beside it
     (``<base>.prom``). Both share one ``SyncHealthProbe``, so the spans and
     the rows report the same numbers; the probe runs after the step's span.
-    All host times share ``time.perf_counter``."""
+    All host times share ``time.perf_counter``. ``digest`` puts
+    :func:`state_digest` of the final state into the result (every
+    worker's, in a run with ranks)."""
+    from repro_torch.core import comm
     if trace_out or metrics_out:
         opt_cfg = dataclasses.replace(opt_cfg, obs_metrics=True)
     dev = resolve_device(device)
+    if group is not None and shape.global_batch % group.world:
+        raise ValueError(f"global batch {shape.global_batch} does not "
+                         f"split over {group.world} ranks")
+    since = {"wire": comm.wire.snapshot(), "side": comm.side.snapshot(),
+             "launches": _launch_counts()}
     programs = build_train_programs(cfg, opt_cfg, n_workers=n_workers,
-                                    device=dev)
+                                    device=dev, group=group)
+    lead = group is None or group.rank == 0   # writes the run's files
+    verbose = verbose and lead
+    # a worker axis spread over ranks: the state is gathered to rank 0
+    ranked = group is not None and programs.is_local
     R = programs.n_workers
     batch_workers = R if programs.is_local else 0
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
@@ -204,7 +325,7 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
     # ---- obs: metrics registry + the shared sync-health probe ---------- #
     from repro_torch.obs import NULL_REGISTRY, SyncHealthProbe
     registry = NULL_REGISTRY
-    if metrics_out:
+    if metrics_out and lead:
         from repro_torch.obs import MetricsRegistry
         registry = MetricsRegistry(labels={
             "arch": cfg.name, "algorithm": opt_cfg.name,
@@ -212,25 +333,24 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
             "codec": opt_cfg.sync.compression or "fp32", "workers": R})
         registry.open_jsonl(metrics_out)
     probe = None
-    if registry or trace_out:
+    if metrics_out or trace_out:      # on every rank: each joins the gathers
         probe = SyncHealthProbe.build(engine, programs, n_params)
         if registry:
             registry.set_many(probe.static_summary())
 
     # ---- trace recorder: spans + modeled round costs ------------------- #
     recorder = None
-    if trace_out:
-        from repro_torch.core import comm
+    if trace_out and lead:
         from repro_torch.hardware import H100
         from repro_torch.trace import TraceRecorder
         n_coll = engine.round_collectives(programs.n_payload_leaves,
                                           flat=programs.is_flat)
         round_b = engine.round_bytes(n_params)
-        # modeled device-side encode and wire time of ONE sync round (the
-        # workers share one card: no bytes cross a link)
+        # modeled device-side encode and wire time of ONE sync round, as
+        # the replay prices it (FabricModel: the link, not this host)
         enc_bytes = engine.modeled_encode_hbm_bytes(n_params)
         enc_t = enc_bytes / H100.hbm_bw
-        # one device: no sharded plane (ROADMAP Queue 1 item 9)
+        # no sharded plane yet (ROADMAP Queue 1 item 9, shard axis)
         n_shards = 1
         shard_b = engine.round_bytes_per_shard(n_params, n_shards)
         wire_t = comm.collective_time(shard_b, n_coll, R)
@@ -259,12 +379,24 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
     def now() -> float:
         return recorder.now() if recorder is not None else time.perf_counter()
 
+    def probe_state(synced: bool):
+        """The opt-state entries the probe reads, all workers stacked:
+        gathered to rank 0 in a run with ranks (None on the others)."""
+        if not ranked:
+            return opt_state
+        keys = ["b2_local"] + (["res_params", "res_b2"] if synced else [])
+        got = group.gather_stacked(
+            {k: opt_state[k] for k in keys if k in opt_state}, to_device=lead)
+        return got if lead else None
+
     losses, ppls, step_s, probe_s = [], [], [], []
+    rank = (group.rank, group.world) if group is not None else None
     t0 = time.perf_counter()
     for step in range(start_step, steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in
                  make_train_batch(cfg, shape, ds, step,
-                                  n_workers=batch_workers).items()}
+                                  n_workers=batch_workers,
+                                  rank=rank).items()}
         do_sync = engine.want_sync(step)
         t_step = now()
         fn = programs.sync_step if do_sync else programs.local_step
@@ -286,7 +418,11 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
         summary = {}
         if probe is not None:   # one summary feeds both exports
             t_probe = time.perf_counter()
-            summary = probe.step_summary(opt_state, metrics, synced=do_sync)
+            state_view = probe_state(do_sync)
+            if lead:
+                summary = probe.step_summary(state_view, metrics,
+                                             synced=do_sync)
+            del state_view
             probe_s.append(time.perf_counter() - t_probe)
         if recorder is not None:
             from repro_torch.trace.events import health_span_args
@@ -330,8 +466,13 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
                 (step + 1) % checkpoint_every == 0:
             from repro_torch.checkpoint import save_checkpoint
             t_ck = now()
-            save_checkpoint(checkpoint_dir, step + 1,
-                            (params, opt_state, engine.export_state()))
+            state = (params, opt_state)
+            if ranked:                # every worker's rows, stacked
+                state = group.gather_stacked(state, to_device=False)
+            if lead:
+                save_checkpoint(checkpoint_dir, step + 1,
+                                (*state, engine.export_state()))
+            del state
             if recorder is not None:
                 recorder.add("ckpt", step=step, t0=t_ck, dur=now() - t_ck,
                              dir=checkpoint_dir)
@@ -367,6 +508,20 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
             print(f"wrote trace {trace_out} ({len(recorder.spans)} spans; "
                   f"python -m repro_torch.trace.chrome {trace_out} to view, "
                   "python -m repro_torch.trace.replay for what-ifs)")
+    digests = (state_digest(params, opt_state,
+                            worker_axis=programs.is_local) if digest else {})
+    ranks = []
+    if group is not None:     # every rank's report; rank 0's walls for all
+        import torch.distributed as dist
+        ranks = [None] * group.world
+        dist.all_gather_object(ranks, _rank_report(
+            group, dev, since, step_s, probe_s, wall, digests),
+            group=group.group)
+        wall, step_s, probe_s = (ranks[0][k]
+                                 for k in ("wall_s", "step_s", "probe_s"))
+        if ranked:            # each rank holds its own worker's digest
+            digests = {k: [v for rep in ranks for v in rep["state_digest"][k]]
+                       for k in digests}
     return TrainResult(losses=losses, ppl=ppls, steps=executed, n_workers=R,
                        comm_bytes_per_step=total / executed if executed
                        else 0.0,
@@ -375,7 +530,7 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
                        sync_steps=list(engine.sync_steps),
                        comm_bytes_total=total, comm_bytes_modeled=modeled,
                        sync_policy=engine.name, step_s=step_s,
-                       probe_s=probe_s)
+                       probe_s=probe_s, state_digest=digests, ranks=ranks)
 
 
 def main(argv=None) -> None:
@@ -394,6 +549,9 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--vocab", type=int, default=512)
+    ap.add_argument("--param-dtype", default="",
+                    choices=["", "bfloat16", "float32"],
+                    help="the parameters' dtype (default: the config's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compress", nargs="?", const="int8", default="",
                     choices=["", *CODEC_NAMES], metavar="SCHEME",
@@ -411,11 +569,22 @@ def main(argv=None) -> None:
                          "encode through the hand-written CUDA kernels (their "
                          "plain versions on CPU tensors)")
     ap.add_argument("--workers", type=int, default=0, metavar="N",
-                    help="workers stacked on the one device (0 -> 1)")
+                    help="workers stacked on the one device (0 -> 1); under "
+                         "torchrun one worker a rank, so N must be the world "
+                         "size (a synchronous optimizer keeps one model and "
+                         "spreads --batch over the ranks)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="under torchrun: nccl (the default on the cards, "
+                         "one card a rank) or gloo (the default with --device "
+                         "cpu; on the cards it stages the wire through host "
+                         "memory, and ranks may share a card)")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--iid", action="store_true", help="disable non-IID workers")
-    ap.add_argument("--out", default="", help="write the TrainResult JSON here")
+    ap.add_argument("--out", default="",
+                    help="write the TrainResult JSON here, with a digest of "
+                         "the final state (each worker's params, B² and EF "
+                         "residuals: train_loop's state_digest)")
     ap.add_argument("--unfused-sync", action="store_true",
                     help="compose the sync encode from three passes (EF add "
                          "/ quantize / dequantize + residual) instead of the "
@@ -450,6 +619,8 @@ def main(argv=None) -> None:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg, vocab=args.vocab)
+    if args.param_dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
     shape = ShapeConfig(name="cli", seq_len=args.seq, global_batch=args.batch,
                         kind="train")
     opt_cfg = OptimizerConfig.from_sync(
@@ -467,16 +638,40 @@ def main(argv=None) -> None:
                  "(R = 1); the reference runs local optimizers on that "
                  "path only for models over 100 B parameters, which the "
                  "port does not build")
-    print(f"training {cfg.name} ({count_params(cfg):,} params) with "
-          f"{args.optimizer} H={args.H}"
-          f"{' +' + args.compress + ' sync' if args.compress else ''}"
-          f"{' (flat plane)' if args.flat else ''}, "
-          f"{R} stacked worker(s) on {resolve_device(args.device)}")
-    res = train_loop(cfg, shape, opt_cfg, steps=args.steps, seed=args.seed,
-                     n_workers=R, non_iid=not args.iid, device=args.device,
-                     checkpoint_dir=args.checkpoint_dir,
-                     checkpoint_every=args.checkpoint_every,
-                     trace_out=args.trace, metrics_out=args.metrics)
+    from repro_torch.launch import mesh
+    world = mesh.world_size()
+    if world > 1:
+        if args.optimizer not in SYNC_OPTIMIZERS and R != world:
+            ap.error(f"--workers {args.workers} on {world} ranks: each rank "
+                     f"is one worker, so pass --workers {world}")
+    elif args.dist_backend:
+        ap.error("--dist-backend needs a launch with ranks (torchrun)")
+    group, device = None, args.device
+    if world > 1:
+        group, dev = mesh.init_ranks(args.dist_backend, args.device)
+        device = str(dev)
+    lead = group is None or group.rank == 0
+    try:
+        where = (f"{R} stacked worker(s) on {resolve_device(device)}"
+                 if group is None else
+                 f"{world} ranks, {'one worker each' if R > 1 else 'data-parallel'}"
+                 f"; rank 0: {group.route}")
+        if lead:
+            print(f"training {cfg.name} ({count_params(cfg):,} params) with "
+                  f"{args.optimizer} H={args.H}"
+                  f"{' +' + args.compress + ' sync' if args.compress else ''}"
+                  f"{' (flat plane)' if args.flat else ''}, {where}",
+                  flush=True)
+        res = train_loop(cfg, shape, opt_cfg, steps=args.steps,
+                         seed=args.seed, n_workers=R, non_iid=not args.iid,
+                         device=device, checkpoint_dir=args.checkpoint_dir,
+                         checkpoint_every=args.checkpoint_every,
+                         trace_out=args.trace, metrics_out=args.metrics,
+                         group=group, digest=bool(args.out))
+    finally:
+        mesh.close_ranks()
+    if not lead:
+        return
     print(f"done in {res.wall_s:.1f}s; final loss {res.final_loss:.4f}; "
           f"{res.sync_count} syncs in {res.steps} steps; measured comm/step "
           f"{res.comm_bytes_per_step / 1e6:.1f} MB (modeled "
