@@ -189,6 +189,27 @@ raises and exits non-zero:
             parameters, lr 2 without warm-up, 8 steps, to rtol 1e-4, which
             an η 2% larger must exceed, with the gradient mean's bytes a
             step
+  train_hybrid_remat  train_hybrid's configuration for 4 steps with the
+            plan's remat="full" (each layer group recomputed in the
+            backward) and 4 without: losses and final-state digest bit for
+            bit (else losses to rtol 1e-5, reported), 84 update and 42 EF
+            launches, the runs' peaks and walls; one worker's forward and
+            backward allocation under remat none, full and dots, which
+            full must lower; the layers of hymba's 32 that would fit one
+            card at the run's peak bytes a parameter (derived, not run)
+  train_sharded  full-width Big LSTM with its flat plane split in two: 1
+            worker x 2 shards, two gloo ranks on the card through torchrun
+            (--workers 1 --flat on 2 ranks), 32 x 20 tokens, H=2, int8, 3
+            steps (one round): equal to the stacked 1-worker flat run bit
+            for bit, which the stacked run with η 2% off must fail; per
+            rank rows 2, 4 and 6 launched 3, 2 and 2 x ceil((P/2)/2^26)
+            times,
+            one collective a round moving its sub-plane halves' codes and
+            scales (round_bytes_per_shard and its padding), one params
+            gather a step (its bytes and parts' ms), step walls, peak memory
+  sharded_grid  reduced Big LSTM as 2 workers x 2 shards, four gloo ranks
+            (the worker sub-groups' means run), int8 one-pass and
+            three-pass, the same checks
 
 The kernels phase also holds the SSD chunk scan's warp-level 3xTF32
 product helper alone against a float64 product, then the SSD kernels
@@ -200,7 +221,9 @@ group of 2), and counts the TF32 tensor-core instructions in the built
 SSD kernels (cuobjdump -sass). It holds the update and EF kernels (per
 leaf and flat) against their plain versions at train_hybrid's shapes too:
 each distinct stacked leaf of the 8-layer hymba tree in bf16 (B² in fp32)
-and that tree's plane with its bf16 row sidecars. Then the script's wall, the kernels summary
+and that tree's plane with its bf16 row sidecars, and the flat update and
+both flat EF halves on each sub-plane of train_sharded's 2-shard plane
+with its shard's sidecar rows. Then the script's wall, the kernels summary
 line (each kernel's launches on its main path, and by phase), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 """
@@ -245,6 +268,10 @@ SERVE_PROMPT = 512             # the serve phases' prompt length
 # the chunked prefill's state hand-offs
 SERVE_REPLAY = 192
 HYMBA_TRAIN_LAYERS = 8         # hymba-1.5b trained at full width, 8 of 32
+# train_sharded / sharded_grid: H = 2, one round (step 1) and a warm local
+# step after it (two rounds took the whole script past 650 s)
+SHARDED_STEPS = 3
+SHARDED_H = 2
 
 
 def free_card() -> None:
@@ -406,15 +433,17 @@ def check_ef(gen, shape, dtype, clamp, timed=True):
     return out
 
 
-def full_plane(cfg, workers: int):
+def full_plane(cfg, workers: int, shards: int = 1):
     """The FlatSpace of ``cfg``'s stacked parameters, as training builds
-    it, from shapes alone (meta tensors: no memory)."""
+    it (split into ``shards`` sub-planes), from shapes alone (meta tensors:
+    no memory)."""
     from repro_torch.core.flatspace import FlatSpace
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
     meta = build_model(cfg).init(None, "meta")
     return FlatSpace.build(tree_map(
-        lambda x: x[None].expand((workers,) + x.shape), meta), batch_ndim=1)
+        lambda x: x[None].expand((workers,) + x.shape), meta), batch_ndim=1,
+        shards=shards)
 
 
 def check_tree_kernels(gen, cfg, workers: int) -> dict:
@@ -452,16 +481,20 @@ def check_tree_kernels(gen, cfg, workers: int) -> dict:
     return out
 
 
-def check_flat_update(gen, fs, timed=True):
+def check_flat_update(gen, fs, timed=True, shard=None):
     """Flat update kernel vs its plain version on the full-width planes
-    (R, P) with the plane's own bf16 row sidecar. The plain version is
-    compared one worker row at a time (it is elementwise, and the full
-    planes' temporaries would not fit beside the kernel's); the same check
-    must reject the two wrong updates of :func:`check_update`."""
+    (R, P) with the plane's own bf16 row sidecar, or on one rank's
+    sub-plane ``shard`` (1, P / S) with its shard's rows (a sharded run).
+    The plain version is compared one worker row at a time (it is
+    elementwise, and the full planes' temporaries would not fit beside the
+    kernel's); the same check must reject the two wrong updates of
+    :func:`check_update`."""
     import torch
     from repro_torch.kernels import adaalter_update as au
     shape = fs.batch_shape + (fs.plane_size,)
-    rows = torch.from_numpy(fs.round16_rows(au.LANES)).cuda()
+    if shard is not None:
+        shape = (1, fs.shard_size)
+    rows = torch.from_numpy(fs.round16_rows(au.LANES, shard)).cuda()
     x = torch.randn(shape, generator=gen, device="cuda")
     g = torch.randn(shape, generator=gen, device="cuda")
     bs = 1.0 + torch.rand(shape, generator=gen, device="cuda")
@@ -496,7 +529,7 @@ def check_flat_update(gen, fs, timed=True):
     del y, b2
     torch.cuda.empty_cache()
     nbytes = x.numel() * 6 * 4
-    out = dict(shape=list(shape), bf16_rows=float(rows.mean()),
+    out = dict(shape=list(shape), shard=shard, bf16_rows=float(rows.mean()),
                max_abs_err=err, rejects_wrong_updates=True)
     if not timed:
         return out
@@ -509,19 +542,22 @@ def check_flat_update(gen, fs, timed=True):
     return out
 
 
-def check_flat_ef(gen, fs, half, timed=True):
+def check_flat_ef(gen, fs, half, timed=True, shard=None):
     """Flat EF kernel vs its plain version on one half of the full-width
-    ``[params ‖ B²]`` payload, (R, P) fp32 with that half's sidecars:
-    the params half rounds the wire through bf16 on its 16-bit slots and
-    clamps at float32-min; the B² half clamps at 0 and does not round.
-    Wire and residual bitwise, compared one worker row at a time."""
+    ``[params ‖ B²]`` payload, (R, P) fp32 with that half's sidecars, or on
+    one rank's sub-plane ``shard`` (1, P / S) with its shard's: the params
+    half rounds the wire through bf16 on its 16-bit slots and clamps at
+    float32-min; the B² half clamps at 0 and does not round. Wire and
+    residual bitwise, compared one worker row at a time."""
     import torch
     from repro_torch.kernels import sync_fused as sf
     from repro_torch.kernels.ref import F32_MIN
     shape = fs.batch_shape + (fs.plane_size,)
-    nb_row = fs.plane_size // sf.BLOCK
+    if shard is not None:
+        shape = (1, fs.shard_size)
+    nb_row = shape[-1] // sf.BLOCK
     if half == "params":
-        rnd = torch.from_numpy(fs.round16_rows(sf.BLOCK)).cuda()
+        rnd = torch.from_numpy(fs.round16_rows(sf.BLOCK, shard)).cuda()
         low = torch.full_like(rnd, F32_MIN)
         x = (torch.randn(shape, generator=gen, device="cuda") * 0.05).to(
             torch.bfloat16).float()               # bf16 values, as trained
@@ -557,7 +593,7 @@ def check_flat_ef(gen, fs, half, timed=True):
     del wire, r, q, sc
     torch.cuda.empty_cache()
     nbytes = x.numel() * 4 * 4
-    out = dict(half=half, shape=list(shape), max_abs_err=err)
+    out = dict(half=half, shape=list(shape), shard=shard, max_abs_err=err)
     if not timed:
         return out
     out["ms"] = cuda_ms(lambda: sf.flat_ef_blocks(x2d, e_k, rnd, low))
@@ -613,6 +649,52 @@ def check_quantize(gen, shape):
                         plain_ms=cuda_ms(lambda: dequantize_blocks_ref(q, s)),
                         bytes=dbytes, bound_ms=1e3 * dbytes / HBM_BYTES_PER_S,
                         library_ms=cuda_ms(lambda: torch.mul(q, s))))
+
+
+def check_subplane_codes(gen, n: int) -> dict:
+    """Rows 5 and 6 as a sharded run gives them one sub-plane half of ``n``
+    elements: the three-pass encode's quantize and dequantize of the whole
+    (n / 256, 256) half, and the sync mean's decode of a rank's codes a
+    ``MEAN_CHUNK`` at a time through ``quantize.dequantize_range`` (a
+    shorter last chunk included), each bitwise against its plain version.
+    Untimed."""
+    import torch
+    from repro_torch.core.comm import MEAN_CHUNK
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels.ref import (dequantize_blocks_ref,
+                                         quantize_blocks_ref)
+    x = torch.randn((n // qz.BLOCK, qz.BLOCK), generator=gen,
+                    device="cuda") * 0.05
+    flat = x.view(-1)
+    flat[4096:4096 + 256] = 0                      # an all-zero block
+    flat[8192:8192 + 8] = -0.0
+    flat[8200:8200 + 8] = -1e-9                    # codes that round to -0
+    q, s = qz.quantize_blocks(x)
+    q_ref, s_ref = quantize_blocks_ref(x)
+    require(bitwise_equal(q, q_ref) and bitwise_equal(s, s_ref),
+            f"quantize not bitwise on a {n}-element sub-plane half")
+    err = dict(quantize=max(max_abs_err(q, q_ref), max_abs_err(s, s_ref)))
+    del x, flat, q_ref, s_ref
+    y, y_ref = qz.dequantize_blocks(q, s), dequantize_blocks_ref(q, s)
+    require(bitwise_equal(y, y_ref),
+            f"dequantize not bitwise on a {n}-element sub-plane half")
+    err["dequantize"] = max_abs_err(y, y_ref)
+    del y, y_ref
+    chunks = []
+    for a in range(0, n, MEAN_CHUNK):
+        b = min(n, a + MEAN_CHUNK)
+        y = qz.dequantize_range(q, s, a, b)
+        y_ref = dequantize_blocks_ref(q[a // qz.BLOCK:b // qz.BLOCK],
+                                      s[a // qz.BLOCK:b // qz.BLOCK])
+        require(bitwise_equal(y, y_ref.view(-1)),
+                f"dequantize of elements {a}:{b} of {n} not bitwise")
+        err["dequantize"] = max(err["dequantize"],
+                                max_abs_err(y, y_ref.view(-1)))
+        chunks.append(b - a)
+        del y, y_ref
+    del q, s
+    torch.cuda.empty_cache()
+    return dict(elements=n, decode_chunks=chunks, max_abs_err=err)
 
 
 def time_sync_mean(gen, cfg, fs):
@@ -2632,24 +2714,30 @@ def slice7_phases(counters, smi: str) -> dict:
     emit({"phase": "train_hybrid_flat", "layers_of_config": hymba.n_layers,
           **flat, "seconds": time.perf_counter() - t0})
     free_card()
+    t0 = time.perf_counter()
+    remat, remat_n = train_hybrid_remat(short, counters, smi, leaf, n_leaves)
+    emit({"phase": "train_hybrid_remat", "layers_of_config": hymba.n_layers,
+          **remat, "seconds": time.perf_counter() - t0})
+    free_card()
     return {"score_hybrid": score_n, "train_hybrid": leaf_n,
-            "train_hybrid_flat": flat_n}
+            "train_hybrid_flat": flat_n, "train_hybrid_remat": remat_n}
 
 
-def torchrun_train(root: Path, args, *, timeout: float = 420.0):
-    """``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
-    repro_torch.launch.train --dist-backend gloo <args>``: two ranks on the
-    one card, as a subprocess in a session of its own (killed with every
-    process it started past ``timeout``), the card's used memory sampled
-    from nvidia-smi twice a second. Returns (TrainResult as a dict, wall
-    seconds, peak MiB used on the card)."""
+def torchrun_train(root: Path, args, *, nproc: int = 2,
+                   timeout: float = 420.0):
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    <nproc> -m repro_torch.launch.train --dist-backend gloo <args>``:
+    ``nproc`` ranks on the one card, as a subprocess in a session of its
+    own (killed with every process it started past ``timeout``), the
+    card's used memory sampled from nvidia-smi twice a second. Returns
+    (TrainResult as a dict, wall seconds, peak MiB used on the card)."""
     import os
     import signal
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         out, log_path = Path(tmp) / "result.json", Path(tmp) / "log.txt"
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+               "--nproc-per-node", str(nproc), "-m", "repro_torch.launch.train",
                "--dist-backend", "gloo", "--out", str(out),
                *args]
         # two processes share the card: segments that grow in place keep
@@ -2690,6 +2778,15 @@ def same_run(a: dict, b: dict) -> bool:
     and the final state's digest."""
     return all(a[k] == b[k] for k in ("losses", "sync_steps",
                                       "comm_bytes_total", "state_digest"))
+
+
+def rank_walls(rep: dict, sync_steps, steps: int) -> dict:
+    """A rank's warm local and sync step medians (step 0 left out), ms."""
+    warm = range(1, steps)
+    local = [1e3 * rep["step_s"][i] for i in warm if i not in sync_steps]
+    sync = [1e3 * rep["step_s"][i] for i in warm if i in sync_steps]
+    return {"local_step_ms_median": statistics.median(local),
+            "sync_step_ms_median": statistics.median(sync)}
 
 
 def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
@@ -2766,19 +2863,13 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
                     1 + 4 / 256)
             require(ok, f"train_ranks {name}: {per_round} wire bytes a "
                     f"round against {round_b} accounted")
-            warm = [i for i in range(1, steps)]
-            local = [1e3 * rep["step_s"][i] for i in warm
-                     if i not in res["sync_steps"]]
-            sync = [1e3 * rep["step_s"][i] for i in warm
-                    if i in res["sync_steps"]]
             ranks.append({
                 "rank": rep["rank"], "route": rep["route"],
                 "launches": rep["launches"],
                 "collectives_per_round": rep["collectives"] / rounds,
                 "wire_bytes_per_round": per_round,
                 "round_bytes_accounted": round_b,
-                "local_step_ms_median": statistics.median(local),
-                "sync_step_ms_median": statistics.median(sync),
+                **rank_walls(rep, res["sync_steps"], steps),
                 "step_ms": [1e3 * t for t in rep["step_s"]],
                 "round_ms": {k: 1e3 * v / rounds
                              for k, v in rep["round_s"].items()},
@@ -2854,6 +2945,347 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
         "card_memory_used_peak_gb": peak_mib * 2**20 / 1e9,
         "torchrun_wall_s": wall}
     return report, by_phase
+
+
+def sharded_run(root: Path, cfg, shape, oc, *, workers: int, shards: int,
+                cli, what: str):
+    """One sharded flat run as ``workers`` x ``shards`` gloo ranks on the
+    card through torchrun (``cli``: its arguments), against the stacked
+    flat run of ``workers`` workers in this process (the same weights and
+    batches): equal bit for bit (``same_run``), which the stacked run with
+    η 2% off must fail. Per rank: rows 2, 4 (or 5) and 6 launched as the
+    path should (the update a step, the EF encode per half a round, a
+    dequantize per 2^26-element chunk of each worker-sub-group rank's row
+    per half a round), one collective a round moving its sub-plane halves'
+    codes and scales (``round_bytes_per_shard`` plus its share of the
+    padding), one params gather a step. Returns (report, rank 0's
+    launches)."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.core.sync_engine import make_sync_engine
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.counting import count_params
+    steps = SHARDED_STEPS
+
+    def stacked(lr):
+        free_card()
+        r = train_loop(cfg, shape, dataclasses.replace(oc, lr=lr),
+                       steps=steps, n_workers=workers, verbose=False,
+                       device="cuda", digest=True)
+        return {"losses": r.losses, "sync_steps": r.sync_steps,
+                "comm_bytes_total": r.comm_bytes_total,
+                "state_digest": r.state_digest, "step_s": r.step_s,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9}
+    want = stacked(oc.lr)
+    off = stacked(oc.lr * 1.02)
+    require(not same_run(off, want), f"{what}: a stacked run with η 2% off "
+            "passes the bitwise comparison")
+    free_card()
+    res, wall, peak_mib = torchrun_train(root, cli, nproc=workers * shards)
+    require(same_run(res, want), f"{what}: the {workers} x {shards} grid's "
+            f"run differs from the stacked one: losses {res['losses']} vs "
+            f"{want['losses']}, digest {res['state_digest']} vs "
+            f"{want['state_digest']}")
+    rounds = len(res["sync_steps"])
+    require(rounds >= 1 and res["sync_steps"] == want["sync_steps"],
+            f"{what}: sync steps {res['sync_steps']}")
+    fs = full_plane(cfg, 1, shards=shards)
+    chunks = -(-fs.shard_size // comm.MEAN_CHUNK)
+    decode = 2 * chunks * rounds * workers
+    if oc.sync.fused:
+        want_n = dict(flat_fused_update=steps, flat_ef=2 * rounds,
+                      dequantize_blocks=decode)
+    else:            # the three-pass encode's own pair, a half a round
+        want_n = dict(flat_fused_update=steps, quantize_blocks=2 * rounds,
+                      dequantize_blocks=2 * rounds + decode)
+    engine = make_sync_engine(oc, H=oc.H)
+    n_params = count_params(cfg)
+    shard_b = engine.round_bytes_per_shard(n_params, shards)
+    ranks = []
+    for rep in res["ranks"]:
+        require_launches(rep["launches"], **want_n)
+        per_round = rep["wire_bytes"] / rounds
+        require(rep["collectives"] == rounds
+                and per_round == 2 * fs.shard_size * (1 + 4 / 256),
+                f"{what}: rank {rep['rank']} moved {per_round} bytes in "
+                f"{rep['collectives'] / rounds} collectives a round; "
+                f"accounted {shard_b} a shard")
+        require(rep["shard_gathers"] == steps,
+                f"{what}: rank {rep['rank']}: {rep['shard_gathers']} params "
+                f"gathers in {steps} steps")
+        ranks.append({
+            "rank": rep["rank"], "worker": rep["worker"],
+            "shard": rep["shard"], "route": rep["route"],
+            "launches": rep["launches"],
+            "collectives_per_round": rep["collectives"] / rounds,
+            "wire_bytes_per_round": per_round,
+            "round_bytes_per_shard_accounted": shard_b,
+            "shard_gather_bytes_per_step": rep["shard_gather_bytes"] / steps,
+            "shard_gather_ms_per_step": {
+                k: 1e3 * v / steps
+                for k, v in rep["shard_gather_s"].items() if v},
+            **rank_walls(rep, res["sync_steps"], steps),
+            "step_ms": [1e3 * t for t in rep["step_s"]],
+            "round_ms": {k: 1e3 * v / rounds
+                         for k, v in rep["round_s"].items()},
+            "max_memory_allocated_gb": rep["max_memory_allocated"] / 1e9,
+            "max_memory_reserved_gb": rep["max_memory_reserved"] / 1e9})
+    card_gb = peak_mib * 2**20 / 1e9
+    require(card_gb < 80.0, f"{what}: the card used {card_gb} GB")
+    report = {"workers": workers, "shards": shards, "steps": steps,
+              "H": oc.H, "global_batch": shape.global_batch,
+              "seq": shape.seq_len, "params": n_params,
+              "plane_size": fs.plane_size, "shard_size": fs.shard_size,
+              "losses": res["losses"], "sync_steps": res["sync_steps"],
+              "equal_to_stacked": True, "eta_2pct_high_rejected": True,
+              "stacked": {"max_memory_allocated_gb":
+                          want["max_memory_allocated_gb"],
+                          **rank_walls(want, want["sync_steps"], steps)},
+              "ranks": ranks, "card_memory_used_peak_gb": card_gb,
+              "torchrun_wall_s": wall}
+    return report, res["ranks"][0]["launches"]
+
+
+def sharded_phases(root: Path, cfg, smi) -> dict:
+    """The sharded flat plane on the card. ``train_sharded``: full-width
+    Big LSTM as 1 worker x 2 shards, two gloo ranks sharing the card (four
+    ranks of a 2 x 2 grid at full width would need ~4 x 25 GB), 32 x 20
+    tokens, H = 2, int8 one-pass with the kernels, 3 steps (one round).
+    ``sharded_grid``: reduced Big LSTM as 2 workers x 2 shards, four gloo
+    ranks, where the worker sub-group's mean runs, one-pass and
+    three-pass. Each equal to its stacked run bit for bit. Returns the
+    launches by phase (rank 0's)."""
+    from repro_torch.configs import OptimizerConfig, ShapeConfig, reduced
+    by_phase = {}
+    common = ["--optimizer", "local_adaalter", "--H", str(SHARDED_H),
+              "--compress", "int8", "--use-kernels", "--flat", "--steps",
+              str(SHARDED_STEPS)]
+    t0 = time.perf_counter()
+    shape = ShapeConfig("sharded", seq_len=20, global_batch=32, kind="train")
+    oc = OptimizerConfig(name="local_adaalter", lr=0.5, H=SHARDED_H,
+                         warmup_steps=100, compression="int8",
+                         use_kernels=True, flat=True)
+    full, by_phase["train_sharded"] = sharded_run(
+        root, cfg, shape, oc, workers=1, shards=2, what="train_sharded",
+        cli=["--arch", cfg.name, "--lr", "0.5", "--warmup", "100",
+             "--workers", "1", "--batch", "32", "--seq", "20", *common])
+    emit({"phase": "train_sharded", "nvidia_smi": smi, **full,
+          "seconds": time.perf_counter() - t0})
+    free_card()
+
+    t0 = time.perf_counter()
+    small = reduced(cfg)
+    shape = ShapeConfig("grid", seq_len=16, global_batch=8, kind="train")
+    grid = {}
+    for name, fused in (("one_pass", True), ("three_pass", False)):
+        oc = OptimizerConfig(name="local_adaalter", lr=0.5, H=SHARDED_H,
+                             warmup_steps=0, compression="int8",
+                             use_kernels=True, flat=True, sync_fused=fused)
+        grid[name], launches = sharded_run(
+            root, small, shape, oc, workers=2, shards=2,
+            what=f"sharded_grid {name}",
+            cli=["--arch", cfg.name, "--reduced", "--lr", "0.5", "--warmup",
+                 "0", "--workers", "2", "--batch", "8", "--seq", "16",
+                 *common, *([] if fused else ["--unfused-sync"])])
+        by_phase["sharded_grid" if fused
+                 else "sharded_grid_three_pass"] = launches
+    emit({"phase": "sharded_grid", "nvidia_smi": smi, "arch": small.name,
+          **grid, "seconds": time.perf_counter() - t0})
+    free_card()
+    return by_phase
+
+
+def backward_peak_gb(cfg, params, batch, remat: str) -> float:
+    """GB one worker's forward and backward (``loss_fn`` and its gradient,
+    as a training step takes them) allocate above what is already held:
+    the saved activations, the gradients and their temporaries."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, unflatten_like
+    free_card()
+    base = torch.cuda.memory_allocated()
+    p = [t.detach().requires_grad_() for t in leaves(params)]
+    loss, _ = build_model(cfg).loss_fn(unflatten_like(params, p), batch,
+                                       remat=remat)
+    grads = torch.autograd.grad(loss, p)
+    torch.cuda.synchronize()
+    del loss, grads, p
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def _port_frames(frames) -> list:
+    """The frames of the port (and of this script) in an allocation's
+    stack, innermost first, as ``path:line function``."""
+    out = []
+    for f in frames:
+        name = f.get("filename", "")
+        if "repro_torch" in name or name.endswith("chip_smoke.py"):
+            short = (name.split("src/")[-1] if "repro_torch" in name
+                     else "chip_smoke.py")
+            out.append(f"{short}:{f['line']} {f['name']}")
+    return out
+
+
+def memory_peak_sites(run, top: int = 8) -> dict:
+    """Run ``run()`` under the CUDA caching allocator's history (Python
+    stacks) and say what set the peak of the bytes it allocated: the peak
+    above what was held before, the port's frames of the allocation that
+    reached it, and the blocks live at that moment grouped by the
+    innermost port frame that allocated them (the autograd engine's
+    device thread allocates with no Python frame). Returns also what
+    ``run()`` returned."""
+    import collections
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    limit = 4_000_000
+    torch.cuda.memory._record_memory_history(max_entries=limit,
+                                             stacks="python")
+    try:
+        result = run()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    events = snap["device_traces"][torch.cuda.current_device()]
+    require(len(events) < limit, "the allocator's history overflowed")
+    cur = peak = 0
+    at = -1
+    for i, e in enumerate(events):
+        if e["action"] == "alloc":
+            cur += e["size"]
+            if cur > peak:
+                peak, at = cur, i
+        elif e["action"] == "free_requested":
+            cur -= e["size"]
+    live = {}
+    for e in events[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_requested":
+            live.pop(e["addr"], None)
+    sites = collections.Counter()
+    for e in live.values():
+        port = _port_frames(e.get("frames", []))
+        sites[port[0] if port else "no Python frame (autograd engine)"] += (
+            e["size"])
+    return {"held_before_gb": base / 1e9, "peak_above_gb": peak / 1e9,
+            "peak_gb": (base + peak) / 1e9, "events": len(events),
+            "peak_event_frames": _port_frames(events[at].get("frames", []))
+            if at >= 0 else [],
+            "live_at_peak_gb_by_site": {k: v / 1e9 for k, v in
+                                        sites.most_common(top)},
+            "live_at_peak_gb_other_sites": sum(
+                v for _, v in sites.most_common()[top:]) / 1e9}, result
+
+
+def train_hybrid_remat(cfg, counters, smi, leaf, n_leaves: int):
+    """``train_hybrid``'s configuration (hymba at full width, 8 of 32
+    layers, 2 workers x 4 x 512, H = 4, int8, rows 1 and 3 per leaf) for
+    4 steps with the plan's ``remat="full"`` (each layer group recomputed
+    in the backward), against the same 4 steps without: losses and the
+    final state's digest bit for bit where they are, else the losses to
+    rtol 1e-5 (said which); launches counted; the runs' peaks and walls,
+    and one worker's forward-and-backward allocation with each policy
+    ("none", "full", "dots"), which remat must lower. What sets the peaks
+    (:func:`memory_peak_sites`): each policy's run again for its 3 local
+    steps, whose peak remat must lower, and for 4 (a sync round at step
+    3, where the run's peak is). How many of hymba's 32 layers would fit
+    one card (not run), from the run's peak bytes a parameter: the sync
+    round's, the same with and without remat."""
+    import torch
+    from repro_torch.configs import (OptimizerConfig, ParallelismPlan,
+                                     ShapeConfig)
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    R, batch, seq, steps = 2, 8, 512, 4
+    shape = ShapeConfig("hybrid", seq_len=seq, global_batch=batch,
+                        kind="train")
+    oc = OptimizerConfig(name="local_adaalter", lr=0.5, H=4,
+                         warmup_steps=100, compression="int8",
+                         use_kernels=True)
+    runs = {}
+    for remat in ("none", "full"):
+        free_card()
+        for c in counters.values():
+            c.reset()
+        res = train_loop(cfg, shape, oc, steps=steps, n_workers=R,
+                         verbose=False, device="cuda", digest=True,
+                         plan=ParallelismPlan(remat=remat))
+        runs[remat] = {"losses": res.losses, "sync_steps": res.sync_steps,
+                       "state_digest": res.state_digest,
+                       "launches": read_counts(counters),
+                       **warm_stats(res, batch, seq),
+                       "max_memory_allocated_gb":
+                           torch.cuda.max_memory_allocated() / 1e9}
+    free_card()
+    plain, remat = runs["none"], runs["full"]
+    require(plain["losses"] == leaf["losses"][:steps],
+            "train_hybrid_remat: the 4-step run without remat left "
+            "train_hybrid's losses")
+    require_launches(remat["launches"], adaalter_update=n_leaves * steps,
+                     fused_ef=2 * n_leaves)
+    bitwise = (remat["losses"] == plain["losses"]
+               and remat["state_digest"] == plain["state_digest"])
+    rel = max_rel(remat["losses"], plain["losses"])
+    require(bitwise or rel <= 1e-5, f"train_hybrid_remat: losses off the "
+            f"run without remat by {rel} relative")
+    # one worker's forward and backward on a batch of the run's shape
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    gen = torch.Generator("cuda").manual_seed(1)
+    one = {k: torch.randint(0, cfg.vocab_size, (batch // R, seq),
+                            generator=gen, device="cuda")
+           for k in ("tokens", "labels")}
+    backward = {r: backward_peak_gb(cfg, params, one, r)
+                for r in ("none", "full", "dots")}
+    del params
+    free_card()
+    require(backward["full"] < backward["none"],
+            f"train_hybrid_remat: a worker's forward and backward take "
+            f"{backward} GB by policy: full remat saved nothing")
+    peaks = {}
+    for policy in ("none", "full"):
+        for n, span in ((3, "local_steps"), (4, "with_sync_round")):
+            free_card()
+            peaks[f"{policy}_{span}"], _ = memory_peak_sites(
+                lambda: train_loop(cfg, shape, oc, steps=n, n_workers=R,
+                                   verbose=False, device="cuda",
+                                   plan=ParallelismPlan(remat=policy)))
+            peaks[f"{policy}_{span}"]["max_memory_allocated_gb"] = (
+                torch.cuda.max_memory_allocated() / 1e9)
+    free_card()
+    local = {p: peaks[f"{p}_local_steps"]["max_memory_allocated_gb"]
+             for p in ("none", "full")}
+    require(local["full"] < local["none"],
+            f"train_hybrid_remat: the local steps peak at {local} GB by "
+            "policy: full remat saved nothing")
+    # hymba's 32 layers at the run's peak bytes a parameter
+    tree = build_model(cfg).init(None, "meta")
+    total = sum(t.numel() for t in leaves(tree))
+    layer = sum(t.numel() for t in leaves(tree["blocks"])) // cfg.n_layers
+    per_param = remat["max_memory_allocated_gb"] * 1e9 / total
+    fit = int((80e9 / per_param - (total - layer * cfg.n_layers)) // layer)
+    return {"nvidia_smi": smi, "arch": cfg.name, "layers": cfg.n_layers,
+            "workers": R, "global_batch": batch, "seq": seq, "steps": steps,
+            "remat": "full", "losses": remat["losses"],
+            "losses_without": plain["losses"],
+            "bitwise_equal_without": bitwise, "max_rel_diff": rel,
+            "launches": remat["launches"],
+            "with": {k: remat[k] for k in remat if k not in (
+                "losses", "state_digest", "launches")},
+            "without": {k: plain[k] for k in plain if k not in (
+                "losses", "state_digest", "launches")},
+            "train_hybrid_peak_gb": leaf["max_memory_allocated_gb"],
+            "worker_forward_backward_gb": backward,
+            "memory_peaks": peaks,
+            "peak_set_by": peaks["full_with_sync_round"][
+                "peak_event_frames"][:1],
+            "tree_params": total, "layer_params": layer,
+            "peak_bytes_per_param": per_param,
+            "layers_that_fit_80gb_derived": fit}, remat["launches"]
 
 
 def main() -> int:
@@ -2956,6 +3388,27 @@ def main() -> int:
     # rows 1-4 at the shapes that train_hybrid gives them: hymba's stacked
     # leaves and its plane
     hymba_train = check_tree_kernels(gen, hymba_train_cfg(), R)
+    # rows 2 and 4 on each rank's sub-plane of train_sharded (1 worker x 2
+    # shards), with its shard's sidecar rows, then rows 5 and 6
+    fs2 = full_plane(cfg, 1, shards=2)
+    sharded = {"update": [check_flat_update(gen, fs2, timed=False, shard=s)
+                          for s in range(fs2.shards)]}
+    torch.cuda.empty_cache()
+    sharded["ef"] = [check_flat_ef(gen, fs2, half, timed=False, shard=s)
+                     for s in range(fs2.shards) for half in ("params", "b2")]
+    torch.cuda.empty_cache()
+    # rows 5 and 6 on its sub-plane halves: the mean's decode a 2^26-element
+    # chunk at a time, the shorter last chunk included
+    sharded["codes"] = [check_subplane_codes(gen, fs2.shard_size)]
+    # rows 2, 4, 5 and 6 at sharded_grid's sub-planes (reduced, 2 x 2)
+    fsg = full_plane(reduced(cfg), 1, shards=2)
+    sharded["grid_update"] = [check_flat_update(gen, fsg, timed=False,
+                                                shard=s)
+                              for s in range(fsg.shards)]
+    sharded["grid_ef"] = [check_flat_ef(gen, fsg, half, timed=False, shard=s)
+                          for s in range(fsg.shards)
+                          for half in ("params", "b2")]
+    sharded["grid_codes"] = [check_subplane_codes(gen, fsg.shard_size)]
     sass = sass_tf32_mma_counts(_build.library_path())
     require(all(sass.get(f"{k}<{t}>", 0) > 0 for k in SSD_KERNELS[::2]
                 for t in ("float", "bf16")),
@@ -2964,7 +3417,7 @@ def main() -> int:
           "flat_update": flat_upd, "flat_ef": flat_ef, "quantize": quant,
           "sync_mean": mean, "mma_selftest": mma, "ssd": ssd_checks,
           "ssd_partial_head_groups": ssd_partial, "ssd_hymba": ssd_hymba,
-          "hymba_train": hymba_train,
+          "hymba_train": hymba_train, "sharded_subplanes": sharded,
           "ssd_sass_tf32_hmma": sass,
           "plane": {"plane_size": fs.plane_size, "real": fs.n_real,
                     "slots": fs.n_leaves, "buckets": fs.bucket_ranges()}})
@@ -3148,10 +3601,11 @@ def main() -> int:
     ranks, ranks_n = train_ranks_phase(root, cfg, shape, smi, leaf, flat)
     emit({"phase": "train_ranks", **ranks,
           "seconds": time.perf_counter() - t0})
+    sharded_n = sharded_phases(root, cfg, smi)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     by_phase = {"train": leaf_n, "train_flat": flat_n,
                 "train_unfused": unfused_n, "score": score_n, **hybrid_n,
-                **ranks_n}
+                **ranks_n, **sharded_n}
 
     def entry(name, source, replaces, n, err, timed, library_ms=None):
         return {"name": name, "route": "cuda",
@@ -3176,19 +3630,26 @@ def main() -> int:
                   for x in hymba_train["leaves"]]), ef[0]),
         entry("flat_fused_update", "adaalter_update.cu",
               "adaalter_update.py:137", flat_n["flat_fused_update"],
-              max(flat_upd["max_abs_err"],
-                  hymba_train["flat_update"]["max_abs_err"]), flat_upd),
+              max([flat_upd["max_abs_err"],
+                   hymba_train["flat_update"]["max_abs_err"]]
+                  + [x["max_abs_err"] for x in sharded["update"]
+                     + sharded["grid_update"]]),
+              flat_upd),
         entry("flat_ef", "sync_fused.cu", "sync_fused.py:164",
               flat_n["flat_ef"], max(x["max_abs_err"] for x in
-                                     flat_ef + hymba_train["flat_ef"]),
+                                     flat_ef + hymba_train["flat_ef"]
+                                     + sharded["ef"] + sharded["grid_ef"]),
               flat_ef[0]),
         entry("quantize_blocks", "quantize.cu", "quantize.py:75",
-              unfused_n["quantize_blocks"], quant["max_abs_err"]["quantize"],
+              unfused_n["quantize_blocks"],
+              max(x["max_abs_err"]["quantize"] for x in [quant]
+                  + sharded["codes"] + sharded["grid_codes"]),
               quant["quantize"]),
         entry("dequantize_blocks", "quantize.cu", "quantize.py:96",
               unfused_n["dequantize_blocks"],
-              quant["max_abs_err"]["dequantize"], quant["dequantize"],
-              quant["dequantize"]["library_ms"]),
+              max(x["max_abs_err"]["dequantize"] for x in [quant]
+                  + sharded["codes"] + sharded["grid_codes"]),
+              quant["dequantize"], quant["dequantize"]["library_ms"]),
         # no single PyTorch call computes the SSD chunk scan
         entry("ssd_scan", "ssd_scan.cu", "ssd_scan.py:88",
               score_n["ssd_scan"], max(x["max_abs_err"] for x in

@@ -3,7 +3,7 @@
 ``get_arch(name)`` returns a ported architecture's full config,
 ``get_shape(name)`` one of the four assigned input shapes and
 ``reduced(cfg)`` a smoke-test variant. Every architecture of the JAX
-package is ported but llama3-405b (ROADMAP Queue 1 item 9: it needs
+package is ported but llama3-405b (ROADMAP Queue 1 item 9c: it needs
 several devices), which raises.
 """
 from repro_torch.configs import (biglstm, hymba_1_5b,
@@ -33,7 +33,7 @@ def get_arch(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to PyTorch yet (ROADMAP Queue 1 "
-            f"item 9: it needs several devices); ported: {sorted(ARCHS)}")
+            f"item 9c: it needs several devices); ported: {sorted(ARCHS)}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
 
 

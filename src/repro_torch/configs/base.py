@@ -225,13 +225,19 @@ class ParallelismPlan:
                  are sharded (ZeRO-3); must be a subset of grad_axes.
     tp_axis    : tensor-parallel axis name.
 
-    In the port a mesh axis of workers is a process group of ranks
-    (``launch/mesh.py``); ``n_workers`` takes the axes' sizes. A run with
-    ranks is built from ``local_axes`` (its workers) and ``grad_axes``
-    (its gradient mean); ``fsdp_axes`` is never set, and ``tp_axis``,
-    ``weight_gather_serving`` and ``remat`` are the reference's fields,
-    kept so the two packages' plans compare field for field: they decide
-    nothing in the port yet (the shard axis, ROADMAP Queue 1 item 9).
+    In the port the mesh is a grid of ranks (``launch/mesh.py``): its
+    ``data`` axis the workers, its ``model`` axis the shards of a worker;
+    ``n_workers`` takes the axes' sizes. What decides something in the
+    port: ``local_axes`` (the workers) and ``grad_axes`` (the synchronous
+    gradient mean) of a run with ranks; ``tp_axis``, down which a flat
+    plane splits into sub-planes, one a rank
+    (``sharding.partition.plane_shard_axes``); and ``remat``, the
+    rematerialisation of the transformer groups in training
+    (``models/transformer.py::apply_stack``). A run with ranks refuses a
+    plan with ``fsdp_axes`` (FSDP, ROADMAP Queue 1 item 9b);
+    ``weight_gather_serving`` is the reference's field, kept so the two
+    packages' plans compare field for field, and decides nothing yet
+    (item 9c).
     """
 
     local_axes: Tuple[str, ...] = ("data",)

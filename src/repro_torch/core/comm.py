@@ -18,6 +18,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.sharding.specs import GridLayout
+
 
 @dataclasses.dataclass(frozen=True)
 class FabricModel:
@@ -29,7 +31,7 @@ class FabricModel:
                  50 GB/s per GPU (NVIDIA data sheet);
     ``latency``  launch and rendezvous of one collective: an assumption
                  (10 µs), not a measurement. Measuring it needs ranks on
-                 several cards over NCCL (ROADMAP Queue 1 item 9).
+                 several cards over NCCL (ROADMAP Queue 1 item 9c).
     """
     ici_bw: float = 450e9
     dcn_bw: float = 50e9
@@ -72,12 +74,16 @@ def ordered_mean(n: int, row: Callable[[int], torch.Tensor],
     shape); it is called once a row, in order, so a caller may decode rows
     one at a time. ``round16`` lists ``(start, stop)`` ranges of the last
     axis whose mean is rounded through bfloat16 (a flat plane's 16-bit
-    slots). Returns a new float32 tensor (``n`` >= 2)."""
-    acc = row(0).float() + row(1)
-    for r in range(2, n):
-        acc.add_(row(r))
-    acc.mul_(torch.as_tensor(np.float32(1.0) / np.float32(n),
-                             device=acc.device))
+    slots). Returns a float32 tensor: a new one for ``n`` >= 2; for ``n``
+    == 1 (a worker sub-group of one rank) ``row(0)`` in float32, whose sum
+    of one row times ``f32(1)`` is itself."""
+    acc = row(0).float()
+    if n > 1:
+        acc = acc + row(1)
+        for r in range(2, n):
+            acc.add_(row(r))
+        acc.mul_(torch.as_tensor(np.float32(1.0) / np.float32(n),
+                                 device=acc.device))
     for start, stop in round16:
         seg = acc[..., start:stop]
         seg.copy_(seg.to(torch.bfloat16))
@@ -129,6 +135,9 @@ class CollectiveCount:
 wire = CollectiveCount()
 #: every other gather (the per-step statistics, checkpoints, health probes)
 side = CollectiveCount()
+#: a sharded flat run's params gather before each forward (its parts d2h,
+#: wire, h2d, as a round's)
+shard_gather = CollectiveCount()
 
 
 def nccl_shares_a_card(backend: str, local_world: int,
@@ -157,6 +166,10 @@ class RankGroup:
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.backend = str(dist.get_backend(group))
+        # one worker a rank until split() lays the ranks out as a grid
+        self.layout = GridLayout(self.world, 1)
+        self.workers: "RankGroup" = self
+        self.shards: Optional["RankGroup"] = None
         self.device = torch.device(device)
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         if self.backend == "gloo" and self.device.type not in ("cpu", "cuda"):
@@ -166,6 +179,51 @@ class RankGroup:
                              "--dist-backend gloo")
         self.timed = self.backend == "gloo"
         self._round_t0: Optional[float] = None
+
+    @property
+    def grid(self) -> Dict[str, int]:
+        """The grid's shape as the reference's mesh shape: ``{"data":
+        workers, "model": shards}``."""
+        return {"data": self.layout.workers, "model": self.layout.shards}
+
+    @property
+    def worker(self) -> int:
+        return self.layout.coords(self.rank)[0]
+
+    @property
+    def shard(self) -> int:
+        return self.layout.coords(self.rank)[1]
+
+    def split(self, layout) -> "RankGroup":
+        """Lay the ranks out as ``layout`` (a
+        ``sharding.specs.GridLayout``: rank r is worker r // S, shard r % S)
+        and open its sub-groups: :attr:`workers`, the ranks of this rank's
+        shard index (the sync mean's), and :attr:`shards`, the ranks of this
+        rank's worker (the params gather's). Every rank creates every
+        sub-group, in one order (the shard sub-groups by worker, then the
+        worker sub-groups by shard index), as ``dist.new_group`` requires of
+        all ranks; a rank that did otherwise would hang its peers. With one
+        shard a worker the worker sub-group is this group. Returns
+        ``self``."""
+        import torch.distributed as dist
+        if layout.world != self.world:
+            raise ValueError(f"a {layout.workers} x {layout.shards} grid on "
+                             f"{self.world} ranks")
+        self.layout = layout
+        if layout.shards == 1:
+            self.workers, self.shards = self, None
+            return self
+
+        def sub(ranks):
+            pg = dist.new_group(ranks, backend=self.backend)
+            if self.rank not in ranks:
+                return None
+            return RankGroup(self.device, pg)
+        by_worker = [sub(r) for r in layout.shard_groups()]
+        by_shard = [sub(r) for r in layout.worker_groups()]
+        self.shards = by_worker[self.worker]
+        self.workers = by_shard[self.shard]
+        return self
 
     @property
     def route(self) -> str:
@@ -202,33 +260,40 @@ class RankGroup:
         finally:
             self._round_t0 = None
 
-    def all_gather(self, parts: Sequence[torch.Tensor],
-                   count: Optional[CollectiveCount] = wire,
-                   to_device: bool = True) -> List[torch.Tensor]:
-        """One all-gather of every rank's ``parts``, packed into one byte
-        buffer (each part's bytes at an offset aligned to its element
-        size). Returns, per part, a tensor of shape (world, *part.shape)
-        whose row r is rank r's part, contiguous, on this rank's device
-        (on the host with ``to_device=False``). ``count`` (None: not
-        counted) gets one collective and the buffer's bytes."""
+    @staticmethod
+    def _packing(parts: Sequence[torch.Tensor]):
+        """Byte offsets of ``parts`` packed into one buffer (larger
+        elements first, so each offset is aligned to its element size), the
+        packed size, and the largest element size."""
+        order = sorted(range(len(parts)),
+                       key=lambda i: -parts[i].element_size())
+        offsets, total = {}, 0
+        for i in order:
+            offsets[i] = total
+            total += parts[i].numel() * parts[i].element_size()
+        return offsets, total, max(p.element_size() for p in parts)
+
+    def _gather_packed(self, sent: Sequence[torch.Tensor], packings,
+                       count: Optional[CollectiveCount]) -> torch.Tensor:
+        """One all-gather of every rank's parts, rank r's packed as
+        ``packings[r]`` (:meth:`_packing`; ``sent`` is this rank's) into a
+        buffer padded to the largest rank's and aligned to the largest
+        element. Returns the (world, bytes) uint8 rows: on the host where
+        the wire is staged (pinned), else on the device. ``count`` (None:
+        not counted) gets one collective and the buffer's bytes."""
         import torch.distributed as dist
         if self._round_t0 is not None and count is wire:
             wire.seconds["encode"] += self._now() - self._round_t0
             self._round_t0 = None
-        order = sorted(range(len(parts)),
-                       key=lambda i: -parts[i].element_size())
-        offsets, total = {}, 0
-        for i in order:          # larger elements first: offsets aligned
-            offsets[i] = total
-            total += parts[i].numel() * parts[i].element_size()
-        align = max(p.element_size() for p in parts)
-        total += (-total) % align     # rows of the gathered buffer aligned
+        total = max(t for _, t, _ in packings)
+        total += (-total) % max(a for _, _, a in packings)
         host = self.staged or (self.device.type == "cpu")
+        offsets = packings[self.rank][0]
         with self.part("d2h", count if self.staged else None):
             buf = torch.empty(total, dtype=torch.uint8,
                               device="cpu" if host else self.device,
                               pin_memory=self.staged)
-            for i, p in enumerate(parts):
+            for i, p in enumerate(sent):
                 n = p.numel() * p.element_size()
                 buf[offsets[i]:offsets[i] + n].copy_(
                     p.detach().contiguous().reshape(-1).view(torch.uint8))
@@ -239,9 +304,22 @@ class RankGroup:
         if count is not None:
             count.n += 1
             count.bytes += total
+        return out
+
+    def all_gather(self, parts: Sequence[torch.Tensor],
+                   count: Optional[CollectiveCount] = wire,
+                   to_device: bool = True) -> List[torch.Tensor]:
+        """One all-gather of every rank's ``parts``, packed into one byte
+        buffer. Returns, per part, a tensor of shape (world, *part.shape)
+        whose row r is rank r's part, contiguous, on this rank's device
+        (on the host with ``to_device=False``). ``count`` (None: not
+        counted) gets one collective and the buffer's bytes."""
+        packing = self._packing(parts)
+        out = self._gather_packed(parts, [packing] * self.world, count)
         if self.staged and to_device:
             with self.part("h2d", count):
                 out = out.to(self.device)
+        offsets = packing[0]
         got = []
         for i, p in enumerate(parts):
             n = p.numel() * p.element_size()
@@ -277,6 +355,25 @@ class RankGroup:
                 flat[a:b].copy_(ordered_mean(
                     self.world, lambda r: row(r, a, b), r16))
         return x
+
+    def gather_into(self, sent: Sequence[torch.Tensor],
+                    dests: Sequence[Sequence[torch.Tensor]],
+                    count: Optional[CollectiveCount] = shard_gather) -> None:
+        """:meth:`all_gather` with parts that differ from rank to rank:
+        rank r sends parts shaped and typed as ``dests[r]`` (``sent`` is
+        this rank's, like ``dests[self.rank]``), and each rank's parts land
+        in ``dests[r]`` (contiguous tensors, e.g. views of the leaves a
+        forward reads): every rank's bytes cross the wire once and are
+        copied once, into their destinations (from host memory straight to
+        the card where the wire is staged)."""
+        packings = [self._packing(d) for d in dests]
+        out = self._gather_packed(sent, packings, count)
+        with self.part("h2d", count if self.staged else None):
+            for r, (offsets, _, _) in enumerate(packings):
+                for i, d in enumerate(dests[r]):
+                    n = d.numel() * d.element_size()
+                    d.view(-1).copy_(out[r, offsets[i]:offsets[i] + n]
+                                     .view(d.dtype), non_blocking=self.staged)
 
     def gather_stacked(self, tree, *, to_device: bool,
                        count: Optional[CollectiveCount] = side):

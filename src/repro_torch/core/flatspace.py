@@ -171,21 +171,91 @@ class FlatSpace:
         return unflatten_like(self.template, flat)
 
     # ------------------------------------------------------------------ #
+    # shard views: each of the ``shards`` contiguous sub-planes
+    # ------------------------------------------------------------------ #
+    def shard_range(self, shard: int) -> Tuple[int, int]:
+        """(start, stop) of sub-plane ``shard`` in plane elements."""
+        if not 0 <= shard < self.shards:
+            raise ValueError(f"shard {shard} of {self.shards}")
+        return shard * self.shard_size, (shard + 1) * self.shard_size
+
+    def shard_of(self, plane: torch.Tensor, shard: int) -> torch.Tensor:
+        """Sub-plane ``shard`` of ``plane`` (its last axis), a new
+        contiguous tensor (the rest of the plane can be freed)."""
+        a, b = self.shard_range(shard)
+        return plane[..., a:b].clone()
+
+    def bucket_parts(self, shard: int) -> List[Tuple[str, int, int]]:
+        """Where sub-plane ``shard`` meets the dtype buckets: (dtype_name,
+        start, stop) plane ranges, in plane order. The tail past the last
+        slot belongs to no bucket and is left out."""
+        a, b = self.shard_range(shard)
+        return [(name, max(a, lo), min(b, hi))
+                for name, lo, hi in self.bucket_ranges()
+                if lo < b and hi > a]
+
+    def bucket_buffers(self, device) -> Dict[str, torch.Tensor]:
+        """One uninitialised 1-D tensor a dtype bucket, in that dtype, for
+        :meth:`unpack_buckets` (one batch row: a gathered worker)."""
+        return {name: torch.empty(hi - lo, dtype=getattr(torch, name),
+                                  device=device)
+                for name, lo, hi in self.bucket_ranges()}
+
+    def bucket_views(self, bufs: Dict[str, torch.Tensor],
+                     shard: int) -> List[torch.Tensor]:
+        """The parts of ``bufs`` that sub-plane ``shard`` fills, in the
+        order of :meth:`bucket_parts`."""
+        starts = {name: lo for name, lo, _ in self.bucket_ranges()}
+        return [bufs[name][lo - starts[name]:hi - starts[name]]
+                for name, lo, hi in self.bucket_parts(shard)]
+
+    def shard_parts(self, sub: torch.Tensor,
+                    shard: int) -> List[torch.Tensor]:
+        """Sub-plane ``shard`` (``(plane_shard,)`` or one batch row) cut
+        at the buckets and cast to each bucket's dtype: what it sends to
+        fill :meth:`bucket_views`. Exact: a 16-bit slot of a params plane
+        holds 16-bit values, and padding is zero."""
+        a, _ = self.shard_range(shard)
+        row = sub.reshape(-1)
+        return [row[lo - a:hi - a].to(getattr(torch, name))
+                for name, lo, hi in self.bucket_parts(shard)]
+
+    def unpack_buckets(self, bufs: Dict[str, torch.Tensor]):
+        """The params tree of one batch row as views of the bucket buffers
+        (``bucket_buffers``, filled): what :meth:`unpack` of the whole plane
+        gives, without a whole fp32 plane."""
+        starts = {name: lo for name, lo, _ in self.bucket_ranges()}
+        flat: List[Any] = [None] * len(self.slots)
+        for slot in self.slots:
+            name = dtype_name(slot.dtype)
+            lo = slot.offset - starts[name]
+            flat[slot.index] = bufs[name][lo:lo + slot.size].reshape(
+                (1,) + slot.shape)
+        return unflatten_like(self.template, flat)
+
+    # ------------------------------------------------------------------ #
     # sidecars for the flat kernels (numpy, built once)
     # ------------------------------------------------------------------ #
     def _is16(self, slot: LeafSlot) -> bool:
         return slot.dtype.itemsize == 2
 
-    def round16_elems(self) -> np.ndarray:
+    def round16_elems(self, shard: Optional[int] = None) -> np.ndarray:
         """(plane_size,) bool: True where the slot's dtype is 16-bit — the
-        elements whose parameter and wire writes round through bfloat16."""
+        elements whose parameter and wire writes round through bfloat16.
+        With ``shard``: sub-plane ``shard``'s (plane_shard,) part."""
         mask = np.zeros(self.plane_size, np.bool_)
         for a, b in self.round16_ranges():
             mask[a:b] = True
-        return mask
+        if shard is None:
+            return mask
+        a, b = self.shard_range(shard)
+        return mask[a:b].copy()
 
-    def round16_ranges(self) -> List[Tuple[int, int]]:
-        """The (start, stop) ranges of :meth:`round16_elems`, merged."""
+    def round16_ranges(self, shard: Optional[int] = None
+                       ) -> List[Tuple[int, int]]:
+        """The (start, stop) ranges of :meth:`round16_elems`, merged; with
+        ``shard``, those inside sub-plane ``shard``, relative to its
+        start."""
         out: List[Tuple[int, int]] = []
         for slot in self.slots:
             if not self._is16(slot):
@@ -194,18 +264,27 @@ class FlatSpace:
                 out[-1] = (out[-1][0], slot.offset + slot.padded)
             else:
                 out.append((slot.offset, slot.offset + slot.padded))
-        return out
+        if shard is None:
+            return out
+        a, b = self.shard_range(shard)
+        return [(max(lo, a) - a, min(hi, b) - a) for lo, hi in out
+                if lo < b and hi > a]
 
-    def round16_rows(self, row: int) -> np.ndarray:
+    def round16_rows(self, row: int, shard: Optional[int] = None
+                     ) -> np.ndarray:
         """``rows_sidecar(round16_elems(), row)`` built from the slots,
-        without the plane-sized mask."""
+        without the plane-sized mask; with ``shard``, sub-plane
+        ``shard``'s rows (its kernels' sidecar)."""
         if self.align % row:
             raise ValueError(f"row {row} must divide the alignment "
                              f"{self.align}")
         side = np.zeros((self.plane_size // row, 1), np.float32)
         for a, b in self.round16_ranges():
             side[a // row:b // row] = 1.0
-        return side
+        if shard is None:
+            return side
+        a, b = self.shard_range(shard)
+        return side[a // row:b // row].copy()
 
     @staticmethod
     def rows_sidecar(elems: np.ndarray, row: int) -> np.ndarray:

@@ -3,31 +3,37 @@
 
 In the JAX package the local-SGD workers are the ``data`` axis of a device
 mesh, and GSPMD turns the worker-axis mean into an all-reduce. In the port
-they are the ranks of a ``torch.distributed`` process group, one worker a
-rank, started by ``torchrun`` (``python -m torch.distributed.run``):
+they are the ranks of a ``torch.distributed`` process group, started by
+``torchrun`` (``python -m torch.distributed.run``):
 
-  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
-      --workers 2 --dist-backend gloo ...
+  torchrun --standalone --nproc-per-node R·S -m repro_torch.launch.train \\
+      --workers R --flat --dist-backend gloo ...
+
+The ranks form an (R, S) grid, the reference's ``("data", "model")`` mesh:
+rank r is worker ``r // S`` and shard ``r % S``. With S = 1 every rank is
+one worker; with S > 1 each worker's flat plane is split into S
+sub-planes, one a rank (the paper-style plan shards it down ``tp_axis``).
 
 :func:`init_ranks` reads the launcher's environment (``WORLD_SIZE``,
 ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` /
 ``MASTER_PORT``), gives rank r the card ``LOCAL_RANK % device_count`` (or
-the CPU), refuses NCCL where two ranks would share a card, and opens the
-group with a bounded timeout, so a rank that dies fails its peers instead
-of hanging them. :func:`resolve_plan` chooses the plan with the
-reference's thresholds; ``launch/steps.py::build_train_programs`` builds
-the run's steps from it.
+the CPU), refuses NCCL where two ranks would share a card, opens the group
+with a bounded timeout, so a rank that dies fails its peers instead of
+hanging them, and lays the ranks out as the grid. :func:`resolve_plan`
+chooses the plan with the reference's thresholds;
+``launch/steps.py::build_train_programs`` builds the run's steps from it.
 """
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelismPlan
 from repro_torch.core.comm import RankGroup, nccl_shares_a_card
+from repro_torch.sharding.specs import GridLayout
 
 # Parameter-count thresholds steering worker granularity (the reference's)
 _POD_WORKER_THRESHOLD = 20e9       # > 20B params: one local-SGD worker per pod
@@ -36,8 +42,10 @@ _SYNC_ONLY_THRESHOLD = 100e9       # > 100B: no local workers (AdaAlter, global 
 #: seconds a collective may wait for a peer before the group fails
 DEFAULT_TIMEOUT_S = 60.0
 
-_SHARD_AXIS = ("the shard axis (per-rank sub-planes, FSDP over fsdp_axes) "
-               "is not ported yet: ROADMAP Queue 1 item 9, shard axis")
+_FSDP = ("FSDP over fsdp_axes is not ported yet: ROADMAP Queue 1 item 9b")
+_TP = ("a per-leaf run with shards is the reference's tensor parallelism, "
+       "not ported yet (ROADMAP Queue 1 item 9c); shard the flat plane "
+       "instead: --flat")
 
 
 def world_size() -> int:
@@ -45,33 +53,69 @@ def world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def resolve_plan(cfg: ModelConfig, world: int, *,
+def grid_of(world: int, workers: int) -> Dict[str, int]:
+    """The (workers × shards) grid of ``world`` ranks: ``{"data": workers,
+    "model": world // workers}``. Raises ValueError, naming the worker
+    counts that fit, where ``workers`` does not divide ``world``."""
+    if workers < 1 or world % workers:
+        fit = [n for n in range(1, world + 1) if world % n == 0]
+        raise ValueError(
+            f"--workers {workers} on {world} ranks: the ranks form a grid "
+            f"of workers x shards, so the workers must divide {world}; "
+            "valid: " + ", ".join(f"--workers {n}" for n in fit))
+    return {"data": workers, "model": world // workers}
+
+
+def resolve_plan(cfg: ModelConfig, grid: Union[Dict[str, int], int], *,
                  optimizer: str = "local_adaalter") -> ParallelismPlan:
-    """The reference's plan for ``cfg`` on ``world`` ranks along ``data``
-    (the port's only axis): the paper-style plan (every rank a worker,
-    ``local_axes=("data",)``) for a local optimizer, and the fully
-    synchronous plan (``grad_axes=("data",)``, one model whose gradient is
-    averaged every step) for the baselines. ``launch/steps.py`` builds a
-    run with ranks from it. The reference also shards the synchronous
-    plan's state over ``data`` (FSDP); the port keeps it replicated. The
-    >20 B "workers = pods" plan raises NotImplementedError."""
+    """The reference's plan for ``cfg`` on ``grid`` (the reference's mesh
+    shape, ``{"data": R, "model": S}``; an int n is ``{"data": n, "model":
+    1}``), with its thresholds: the paper-style plan (workers along
+    ``local_axes=("data",)``, the flat plane split down
+    ``tp_axis="model"``) for a local optimizer up to 20 B parameters; the
+    fully synchronous plan (``grad_axes=("data",)``, one model whose
+    gradient is averaged every step) for the baselines and above 100 B;
+    between them, workers as pods with ZeRO over ``data``. Every plan takes
+    ``remat="full"`` above 1e9 parameters. The reference also shards the
+    synchronous plan's state over ``data`` (FSDP) at any size; the port
+    keeps it replicated up to 20 B. :func:`check_plan` refuses, for a run
+    with ranks, the plans with FSDP (item 9b)."""
+    if isinstance(grid, int):
+        grid = {"data": grid, "model": 1}
     n_params = cfg.param_count()
     local = optimizer in ("local_adaalter", "local_sgd")
+    remat = "full" if n_params > 1e9 else "none"
+    big = n_params > _POD_WORKER_THRESHOLD
     if n_params > _SYNC_ONLY_THRESHOLD or not local:
-        if n_params > _POD_WORKER_THRESHOLD:
-            raise NotImplementedError(
-                f"{cfg.name} ({n_params:,} parameters): the reference "
-                "shards its synchronous state over data (FSDP); "
-                + _SHARD_AXIS)
         return ParallelismPlan(local_axes=(), grad_axes=("data",),
-                               fsdp_axes=(),
-                               remat="full" if n_params > 1e9 else "none")
-    if n_params > _POD_WORKER_THRESHOLD:
-        raise NotImplementedError(
-            f"{cfg.name} ({n_params:,} parameters): the reference makes "
-            "each pod a worker with ZeRO over data inside it; " + _SHARD_AXIS)
+                               fsdp_axes=("data",) if big else (),
+                               remat=remat, weight_gather_serving=big)
+    if big:        # workers = pods (no pod axis here); ZeRO over "data"
+        return ParallelismPlan(local_axes=(), grad_axes=("data",),
+                               fsdp_axes=("data",), remat="full",
+                               weight_gather_serving=True)
     return ParallelismPlan(local_axes=("data",), grad_axes=(), fsdp_axes=(),
-                           remat="full" if n_params > 1e9 else "none")
+                           remat=remat)
+
+
+def check_plan(plan: ParallelismPlan, grid: Dict[str, int], *,
+               flat: bool) -> None:
+    """Refuse, for a run with ranks, what the port cannot build yet: FSDP
+    over ``fsdp_axes`` (the >20 B plans; item 9b), and shards of a per-leaf
+    or synchronous run (tensor parallelism, item 9c); and a grid whose
+    shard axis the plan leaves unused (ranks that would hold the same
+    sub-plane)."""
+    from repro_torch.sharding.specs import plane_shard_count
+    if plan.fsdp_axes:
+        raise NotImplementedError(
+            f"the plan {plan} shards the state over {plan.fsdp_axes} (the "
+            "reference's plan above 20 B parameters); " + _FSDP)
+    shards = plane_shard_count(grid, plan)
+    if shards > 1 and not (flat and plan.local_axes):
+        raise NotImplementedError(f"{shards} shards a worker: " + _TP)
+    if shards != grid.get("model", 1):
+        raise ValueError(f"the plan {plan} splits a plane into {shards} "
+                         f"shards on a grid of {grid['model']}")
 
 
 def rank_device(device: Optional[str], local_rank: int) -> torch.device:
@@ -106,9 +150,11 @@ def check_backend(backend: str, local_world: int, device_count: int) -> None:
 
 
 def init_ranks(backend: Optional[str] = None, device: Optional[str] = None,
-               timeout_s: float = DEFAULT_TIMEOUT_S
+               timeout_s: float = DEFAULT_TIMEOUT_S,
+               grid: Optional[Dict[str, int]] = None
                ) -> Tuple[RankGroup, torch.device]:
-    """Open the process group of this ``torchrun`` launch. Returns the
+    """Open the process group of this ``torchrun`` launch, laid out as
+    ``grid`` (default: one worker a rank). Returns the
     :class:`~repro_torch.core.comm.RankGroup` and this rank's device."""
     import torch.distributed as dist
     backend = backend or default_backend(device)
@@ -125,7 +171,10 @@ def init_ranks(backend: Optional[str] = None, device: Optional[str] = None,
     kw = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(backend, timeout=datetime.timedelta(
         seconds=timeout_s), **kw)
-    return RankGroup(dev), dev
+    group = RankGroup(dev)
+    if grid is not None:
+        group.split(GridLayout(grid["data"], grid["model"]))
+    return group, dev
 
 
 def close_ranks() -> None:

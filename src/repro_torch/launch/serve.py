@@ -128,7 +128,7 @@ def main() -> None:
         description=__doc__,
         epilog="phi3.5-moe-42b-a6.6b holds 83.75 GB of bf16 weights and "
                "llama4-maverick-400b-a17b 807 GB: more than one 80 GB card. "
-               "They need several cards (ROADMAP Queue 1 item 9) and run "
+               "They need several cards (ROADMAP Queue 1 item 9c) and run "
                "only --reduced on one.")
     ap.add_argument("--arch", default="qwen2-7b",
                     help=f"one of {sorted(ARCHS)}")

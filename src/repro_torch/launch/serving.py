@@ -12,7 +12,7 @@ ring buffers (g, B, cache_len, KV, hd) for attention layers, the SSM state
 for mamba2, and the Big LSTM's list of (h_proj, c) pairs.
 
 The JAX package's meshes, shardings and ``serve_plan`` /
-``cache_shardings`` wait for more than one device (ROADMAP Queue 1 item 9);
+``cache_shardings`` wait for more than one device (ROADMAP Queue 1 item 9c);
 the programs here run eagerly under ``torch.inference_mode()``.
 """
 from __future__ import annotations

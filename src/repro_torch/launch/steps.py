@@ -163,9 +163,10 @@ def worker_metrics(per_worker: dict, group=None) -> dict:
     return out
 
 
-def worker_grads(params, batch, model, grads=None):
+def worker_grads(params, batch, model, grads=None, remat: str = "none"):
     """Each worker's loss (``model.loss_fn``: xent + aux) and gradient, one
-    worker at a time. ``grads`` (stacked like ``params``, any float dtype,
+    worker at a time, the transformer groups rematerialised as ``remat``
+    says (the plan's). ``grads`` (stacked like ``params``, any float dtype,
     e.g. fp32 views of a flat plane) receives the gradients; new tensors
     like ``params`` by default. Returns (losses (R,), grads)."""
     if grads is None:
@@ -173,7 +174,8 @@ def worker_grads(params, batch, model, grads=None):
     losses = []
     for w in range(leaves(params)[0].shape[0]):
         p_w = tree_map(lambda t: t[w].detach().requires_grad_(), params)
-        loss, _ = model.loss_fn(p_w, {k: v[w] for k, v in batch.items()})
+        loss, _ = model.loss_fn(p_w, {k: v[w] for k, v in batch.items()},
+                                remat=remat)
         for dst, g in zip(leaves(grads),
                           torch.autograd.grad(loss, leaves(p_w))):
             dst[w].copy_(g)
@@ -205,32 +207,59 @@ class TrainPrograms:
     flat_abstract: Any = None
     to_flat: Any = None          # per-leaf (params, opt_state) -> planes
     to_legacy: Any = None        # planes -> per-leaf (params, opt_state)
-    group: Any = None            # core.comm.RankGroup: one worker a rank
+    group: Any = None            # core.comm.RankGroup: the run's ranks
+    plan: Any = None             # configs.ParallelismPlan it was built from
+    n_shards: int = 1            # sub-planes a worker's flat plane splits
+                                 # into, one a rank (sharded flat runs)
+    shard: int = 0               # this rank's sub-plane
+
+
+def shard_state(fs, shard: int, plane, state):
+    """This rank's sub-plane of a flat ``plane`` and of every plane of
+    ``state`` (the counters pass through): new contiguous tensors."""
+    return fs.shard_of(plane, shard), {
+        k: (v if k in fsp.SCALAR_STATE_KEYS else fs.shard_of(v, shard))
+        for k, v in state.items()}
 
 
 def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
-                         group=None) -> TrainPrograms:
+                         group=None, plan=None) -> TrainPrograms:
     """The step functions of a run of ``n_workers`` workers stacked on
-    ``device``, or with a ``group`` one worker on each of its ranks
-    (``n_workers`` must then be the group's world size; a synchronous
-    optimizer's one model spreads its batch over the ranks). The ranks'
-    plan (``launch.mesh.resolve_plan``) decides between the two: workers
-    along ``local_axes``, or one model whose gradient is averaged along
-    ``grad_axes``."""
+    ``device``, or with a ``group`` spread over its ranks, laid out as its
+    (workers × shards) grid: one worker a rank, or with shards each
+    worker's flat plane split into sub-planes, one a rank (a synchronous
+    optimizer's one model spreads its batch over the ranks). ``plan``
+    (default: ``launch.mesh.resolve_plan`` on the grid, a stacked run's
+    grid being its workers along ``data``, as the reference's
+    ``train_loop`` resolves it) decides between workers along
+    ``local_axes`` and one model whose gradient is averaged along
+    ``grad_axes``, how many shards a flat plane takes (``tp_axis``), and
+    the rematerialisation of the transformer groups (``remat``)."""
+    from repro_torch.launch.mesh import check_plan
+    from repro_torch.sharding.specs import plane_shardings
     if opt_cfg.flat and opt_cfg.name != "local_adaalter":
         raise ValueError("OptimizerConfig.flat requires a local Local "
                          f"AdaAlter run (got optimizer={opt_cfg.name!r})")
     opt = opt_lib.make_optimizer(opt_cfg)
     local = opt_lib.is_local(opt)
+    grid = group.grid if group is not None else {"data": n_workers,
+                                                 "model": 1}
+    plan = plan or resolve_plan(cfg, grid, optimizer=opt_cfg.name)
+    layout, _ = plane_shardings(grid, plan)
+    # a stacked run holds whole planes, whatever shard axes its plan has
+    n_shards = group.layout.shards if (group is not None
+                                       and opt_cfg.flat) else 1
     if group is not None:
-        plan = resolve_plan(cfg, group.world, optimizer=opt_cfg.name)
+        check_plan(plan, grid, flat=opt_cfg.flat)
         if bool(plan.local_axes) != local:
             raise ValueError(f"the plan {plan} does not fit {opt_cfg.name!r}"
                              f" ({'a local' if local else 'a synchronous'} "
                              "optimizer)")
-        if local and n_workers != plan.n_workers({"data": group.world}):
-            raise ValueError(f"{n_workers} workers on {group.world} ranks:"
-                             " a run with ranks holds one worker a rank")
+        if local and n_workers != layout.workers:
+            raise ValueError(f"{n_workers} workers on a {grid['data']} x "
+                             f"{grid['model']} grid of ranks: a run with "
+                             "ranks holds one worker a rank, or a row of "
+                             "ranks a worker")
     if not local:
         if n_workers != 1:
             raise ValueError(
@@ -239,14 +268,16 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
                 f"one worker, not {n_workers}. The reference runs a local "
                 "optimizer on its synchronous branch only for models over "
                 "100 B parameters, which the port does not build")
-        return _sync_programs(cfg, opt_cfg, opt, torch.device(device), group)
+        return _sync_programs(cfg, opt_cfg, opt, torch.device(device), group,
+                              plan)
     R = 1 if group is not None else n_workers     # workers on this device
     device = torch.device(device)
     mean_fn = mean_over_workers
     sync_kw = {}
     if group is not None:
-        mean_fn = RankMean(group, torch.bfloat16 if opt_cfg.sync.compression
-                           == "bf16" else torch.float32)
+        mean_fn = RankMean(group.workers, torch.bfloat16 if
+                           opt_cfg.sync.compression == "bf16"
+                           else torch.float32)
         if opt_cfg.sync.compression == "int8":
             sync_kw = {"payload_mean": mean_fn.of_payloads}
     model = build_model(cfg)
@@ -273,7 +304,7 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
         return params, opt.init(params, workers=R)
 
     def step(params, opt_state, batch, *, do_sync: bool):
-        loss, grads = worker_grads(params, batch, model)
+        loss, grads = worker_grads(params, batch, model, remat=plan.remat)
         stats = {"loss": loss}
         if opt_cfg.obs_metrics:
             stats["grad_norm"] = opt_lib.global_norm(grads, batch_ndim=1)
@@ -307,7 +338,7 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
         metrics = worker_metrics(stats, group)
         if do_sync:
             with (contextlib.nullcontext() if group is None
-                  else group.round_()):
+                  else group.workers.round_()):
                 new_params, new_state = opt.sync(new_params, new_state,
                                                  mean_fn, **sync_kw)
             if staleness:
@@ -319,7 +350,7 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
     sync_step = partial(step, do_sync=True)
     flat_fields = {}
     if opt_cfg.name == "local_adaalter":
-        fs = fsp.FlatSpace.build(abstract, batch_ndim=1,
+        fs = fsp.FlatSpace.build(abstract, batch_ndim=1, shards=n_shards,
                                  eps=opt_cfg.eps if opt_cfg.flat else None)
         state_abs = opt.init(abstract, workers=R)
         plane_abs = torch.empty((R, fs.plane_size), dtype=torch.float32,
@@ -335,17 +366,20 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
         if opt_cfg.flat:
             init_fn, local_step, sync_step = _flat_programs(
                 fs, model, opt_cfg, opt, abstract, base_params, device,
-                group)
+                group, plan.remat)
     return TrainPrograms(init_fn=init_fn, local_step=local_step,
                          sync_step=sync_step, n_workers=n_workers, H=opt.H,
                          n_payload_leaves=len(leaves(abstract)),
-                         is_flat=opt_cfg.flat, group=group, **flat_fields)
+                         is_flat=opt_cfg.flat, group=group, plan=plan,
+                         n_shards=n_shards,
+                         shard=group.shard if n_shards > 1 else 0,
+                         **flat_fields)
 
 
 # --------------------------------------------------------------------------- #
 # synchronous steps (sgd, adagrad, adaalter: the paper's baselines)
 # --------------------------------------------------------------------------- #
-def _sync_programs(cfg, opt_cfg, opt, device, group=None) -> TrainPrograms:
+def _sync_programs(cfg, opt_cfg, opt, device, group, plan) -> TrainPrograms:
     """One model over the global batch; ``opt.update`` every step. Both
     step functions are the same step (a synchronous optimizer has no round
     to skip; ``train_loop`` runs the sync step every step, as the
@@ -365,7 +399,7 @@ def _sync_programs(cfg, opt_cfg, opt, device, group=None) -> TrainPrograms:
 
     def step(params, opt_state, batch):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, _ = model.loss_fn(p, batch)
+        loss, _ = model.loss_fn(p, batch, remat=plan.remat)
         grads = unflatten_like(params, list(
             torch.autograd.grad(loss, leaves(p))))
         loss = loss.detach()
@@ -384,7 +418,7 @@ def _sync_programs(cfg, opt_cfg, opt, device, group=None) -> TrainPrograms:
     n_leaves = len(leaves(model.init(None, "meta")))
     return TrainPrograms(init_fn=init_fn, local_step=step, sync_step=step,
                          n_workers=1, H=1, is_local=False,
-                         n_payload_leaves=n_leaves, group=group)
+                         n_payload_leaves=n_leaves, group=group, plan=plan)
 
 
 # --------------------------------------------------------------------------- #
@@ -406,7 +440,7 @@ def _bf16_ef(x, e, lower: float, round16=()):
 
 
 def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
-                   group=None):
+                   group=None, remat: str = "none"):
     """Local AdaAlter over FlatSpace planes: the update is ONE launch over
     the parameter plane, and the sync round one EF encode of each half of
     the ``[params ‖ B²]`` payload and one mean of each (the halves are
@@ -420,11 +454,26 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
     statistic, summed over the plane rather than leaf by leaf, may differ
     in the last bits.
 
+    With ``fs.shards`` = S > 1 (a sharded flat run: ``group`` a grid of
+    workers × S) each rank holds sub-plane ``group.shard`` of its worker's
+    planes, the reference's ``shard_map`` branch. A step gathers the
+    worker's params sub-planes over the shard sub-group into the leaves
+    the forward reads (each bucket in its dtype: the bf16 slots move as
+    bf16), runs the forward and backward whole, keeps its slice of the
+    fp32 gradient plane, and runs the update and the EF encode on its
+    sub-planes with its shard's sidecar rows (shard boundaries are tile and
+    block boundaries, so every tile and block holds the elements the
+    replicated plane's would). The sync mean runs over the worker
+    sub-group only. The drift statistics are per-shard partial sums added
+    over the shard sub-group in shard order. The state equals the
+    replicated run's bit for bit; the drift, summed in another order, may
+    differ in its last bits, as in the reference.
+
     The update writes the new b2_local over the old one unless b2_sync
     shares its tensor (right after a sync), and the new parameters over the
     old plane unless the update-norm drift statistic still needs it.
     Returns ``(init_fn, local_step, sync_step)``; the state is
-    (plane, {counters + per-state planes})."""
+    (plane, {counters + per-state planes}), sub-planes when sharded."""
     from repro_torch.kernels.adaalter_update import (LANES,
                                                      flat_fused_update,
                                                      update_scalars)
@@ -439,20 +488,29 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
     if psize % block or fs.align % block:
         raise ValueError(f"sync block {block} must divide the FlatSpace "
                          f"alignment {fs.align}")
+    S = fs.shards
+    shard = group.shard if S > 1 else 0
+    mean_group = None if group is None else group.workers
     compression = sync_cfg.compression or "fp32"
-    round16 = fs.round16_ranges()
-    # sidecars of one plane row, on the device once: the update's per-row
-    # bf16 flags, and the params half's per-block wire rounding and clamp
-    upd_rnd = torch.from_numpy(fs.round16_rows(LANES)).to(device)
-    enc_rnd = torch.from_numpy(fs.round16_rows(block)).to(device)
+    round16 = fs.round16_ranges(shard)
+    # sidecars of this rank's (sub-)plane row, on the device once: the
+    # update's per-row bf16 flags, and the params half's per-block wire
+    # rounding and clamp
+    upd_rnd = torch.from_numpy(fs.round16_rows(LANES, shard)).to(device)
+    enc_rnd = torch.from_numpy(fs.round16_rows(block, shard)).to(device)
     enc_low = torch.full_like(enc_rnd, F32_MIN)
     enc_zero = torch.zeros_like(enc_rnd)
     rnd16 = None
     if not opt_cfg.use_kernels:           # the plain update's element mask
-        rnd16 = torch.from_numpy(fs.round16_elems()).to(device)
+        rnd16 = torch.from_numpy(fs.round16_elems(shard)).to(device)
     stat = drift_statistic(sync_cfg)
     staleness = stat == "grad_staleness"
     state_keys = list(opt.init(abstract, workers=R))
+
+    def mine(plane):
+        """This rank's sub-plane of a whole plane (the plane itself
+        unsharded)."""
+        return plane if S == 1 else fs.shard_of(plane, shard)
 
     def init_fn(seed: int, base=None):
         """The planes, built directly from one worker's parameters: no
@@ -467,20 +525,46 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
             else:       # accumulators start at b0², residuals, anchors at 0
                 fill = torch.tensor(opt_cfg.b0 * opt_cfg.b0 if k in (
                     "b2_sync", "b2_local") else 0.0, device=device)
-                state[k] = fs.pack(tree_map(lambda x: fill.expand(x.shape),
-                                            stacked))
-        return fs.pack(stacked), state
+                state[k] = mine(fs.pack(tree_map(
+                    lambda x: fill.expand(x.shape), stacked)))
+        return mine(fs.pack(stacked)), state
+
+    def leaf_params(plane):
+        """The params tree the forward reads: views of the plane, or with
+        shards the worker's sub-planes gathered over the shard sub-group
+        into per-bucket leaves (``RankGroup.gather_into``)."""
+        if S == 1:
+            return fs.unpack(plane)
+        bufs = fs.bucket_buffers(device)
+        group.shards.gather_into(
+            fs.shard_parts(plane, shard),
+            [fs.bucket_views(bufs, s) for s in range(S)])
+        return fs.unpack_buckets(bufs)
+
+    def shard_sums(*parts):
+        """Per-worker partial sums of this rank's sub-planes ((R,) each)
+        added over the shard sub-group in shard order: the worker's sums
+        over its whole plane (the parts themselves unsharded)."""
+        if S == 1:
+            return parts
+        (got,) = group.shards.all_gather([torch.stack(parts)],
+                                         count=comm.side)
+        acc = got[0].clone()
+        for r in range(1, S):
+            acc = acc + got[r]
+        return tuple(acc)
 
     codec = get_codec(compression, block=block,
                       use_kernels=opt_cfg.use_kernels)
 
     def rank_means(wire_p, wire_b, codes):
-        """The two halves' means over the ranks, one collective: the
-        packed ``[params ‖ B²]`` wire (the int8 codes and scales, or the
-        values in the wire's dtype) of every rank, decoded row by row."""
+        """The two halves' means over the worker sub-group, one
+        collective: the packed ``[params ‖ B²]`` wire (the int8 codes and
+        scales, or the values in the wire's dtype) of every rank, decoded
+        row by row."""
         if compression == "int8":
             (qp, sp), (qb, sb) = codes
-            got = group.all_gather([qp, sp, qb, sb])
+            got = mean_group.all_gather([qp, sp, qb, sb])
 
             def row(half, r, a, b):
                 blocks = slice(a // block, b // block)
@@ -493,12 +577,12 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
                         -1, block), rnd[blocks], low[blocks]).view(-1)
         else:
             dt = torch.bfloat16 if compression == "bf16" else torch.float32
-            got = group.all_gather([wire_p.to(dt), wire_b.to(dt)])
+            got = mean_group.all_gather([wire_p.to(dt), wire_b.to(dt)])
 
             def row(half, r, a, b):
                 return got[half][r].view(-1)[a:b]
-        group.mean_(wire_p, partial(row, 0), round16)
-        group.mean_(wire_b, partial(row, 1))
+        mean_group.mean_(wire_p, partial(row, 0), round16)
+        mean_group.mean_(wire_b, partial(row, 1))
 
     def flat_sync(plane, state):
         """Alg. 4 lines 11-12 over the packed payload, half by half."""
@@ -506,7 +590,7 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
         out = {**state, "tprime": torch.zeros_like(state["tprime"])}
         codes = []
         with (contextlib.nullcontext() if group is None
-              else group.round_()):
+              else mean_group.round_()):
             if compression == "fp32":
                 wire_p, wire_b = plane, b2
             elif compression == "int8":
@@ -530,14 +614,24 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
         return wire_p, out
 
     def step(plane, fstate, batch, *, do_sync: bool):
-        g_plane = torch.zeros_like(plane)
-        loss, _ = worker_grads(fs.unpack(plane), batch, model,
-                               grads=fs.unpack(g_plane, dtype=torch.float32))
-        a_plane = g_plane             # raw gradients stay for the statistics
+        # the whole fp32 gradient plane, then this rank's slice of it
+        g_full = torch.zeros(fs.batch_shape + (psize,), dtype=torch.float32,
+                             device=plane.device)
+        loss, _ = worker_grads(leaf_params(plane), batch, model,
+                               grads=fs.unpack(g_full, dtype=torch.float32),
+                               remat=remat)
+        stats = {"loss": loss}
+        if opt_cfg.obs_metrics:       # over the per-leaf views, leaf by leaf
+            stats["grad_norm"] = opt_lib.global_norm(
+                fs.unpack(g_full, dtype=torch.float32), batch_ndim=1)
+        a_full = g_full               # raw gradients stay for the statistics
         if opt_cfg.grad_clip > 0:     # clip the per-leaf grads, then pack
             applied, _ = opt_lib.clip_by_global_norm(
-                fs.unpack(g_plane), opt_cfg.grad_clip, batch_ndim=1)
-            a_plane = fs.pack(applied)
+                fs.unpack(g_full), opt_cfg.grad_clip, batch_ndim=1)
+            a_full = fs.pack(applied)
+        g_plane = mine(g_full)
+        a_plane = g_plane if a_full is g_full else mine(a_full)
+        del g_full, a_full
         step_no = fstate["step"] + 1
         tprime = fstate["tprime"] + 1
         eta, extra = opt_lib.local_scalars(
@@ -555,20 +649,17 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
         del a_plane
         new_state = {**fstate, "step": step_no, "tprime": tprime,
                      "b2_local": new_b2}
-        stats = {"loss": loss}
-        if opt_cfg.obs_metrics:       # over the per-leaf views, leaf by leaf
-            stats["grad_norm"] = opt_lib.global_norm(
-                fs.unpack(g_plane, dtype=torch.float32), batch_ndim=1)
         rows = opt_lib.worker_sums
         if staleness:
-            d2 = rows(torch.square(g_plane - fstate["g_anchor"]))
-            g2 = rows(torch.square(g_plane))
+            d2, g2 = shard_sums(rows(torch.square(g_plane
+                                                  - fstate["g_anchor"])),
+                                rows(torch.square(g_plane)))
             stats["drift"] = d2 / (g2 + 1e-12)
         elif stat is not None:
-            d = torch.sqrt(rows(torch.square(new_plane - plane)))
-            pn = torch.sqrt(rows(torch.square(plane)))
-            stats["drift"] = d / (pn + 1e-12)
-        metrics = worker_metrics(stats, group)
+            d2, p2 = shard_sums(rows(torch.square(new_plane - plane)),
+                                rows(torch.square(plane)))
+            stats["drift"] = torch.sqrt(d2) / (torch.sqrt(p2) + 1e-12)
+        metrics = worker_metrics(stats, mean_group)
         if not staleness:
             del g_plane               # freed before the sync round's wires
         if do_sync:

@@ -19,10 +19,14 @@ transformer families through their ``loss_fn``, full width or
 * ``--trace`` (a span timeline, ``repro_torch.trace``) and ``--metrics``
   (a JSONL health stream and a Prometheus textfile, ``repro_torch.obs``).
 
-Under ``torchrun`` (``WORLD_SIZE`` > 1) each rank is one worker and the
-sync round is a collective (``launch/mesh.py``, ``core/comm.py``); rank 0
-alone writes ``--out``, ``--trace``, ``--metrics`` and checkpoints, and
-every rank returns the same ``TrainResult``, equal to the stacked run's.
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the ranks form a grid of
+``--workers`` R × S = world / R (``launch/mesh.py``): rank r is worker
+r // S; with S > 1 (``--flat`` only) it holds shard r % S of its worker's
+flat planes, gathers the params over its worker's ranks before each
+forward, and syncs its sub-planes with the ranks of its shard index. The
+sync round is a collective (``core/comm.py``); rank 0 alone writes
+``--out``, ``--trace``, ``--metrics`` and checkpoints, and every rank
+returns the same ``TrainResult``, equal to the stacked run's.
 
 ``TrainResult`` carries the measured sync schedule and the bytes it moved.
 Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
@@ -39,6 +43,9 @@ Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
       --device cpu --dist-backend gloo --workers 2 --arch biglstm \\
       --reduced --use-kernels --compress int8 --batch 8 --seq 16 --steps 8
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+      --device cpu --dist-backend gloo --workers 2 --flat --arch biglstm \\
+      --reduced --use-kernels --compress int8 --batch 8 --seq 16 --steps 8
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ import dataclasses
 import json
 import math
 import time
+from functools import partial
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -59,7 +67,7 @@ from repro_torch.core.optimizers import SYNC_OPTIMIZERS
 from repro_torch.core.sync_engine import DRIFT_METRICS, make_sync_engine
 from repro_torch.core.sync_policy import POLICY_NAMES
 from repro_torch.data import SyntheticLM, make_train_batch
-from repro_torch.launch.steps import build_train_programs
+from repro_torch.launch.steps import build_train_programs, shard_state
 from repro_torch.models.counting import count_params
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import tree_map
@@ -121,6 +129,20 @@ def _stacked_like(tree, workers: int):
         (workers,) + tuple(t.shape[1:]), dtype=t.dtype, device="meta"), tree)
 
 
+def gather_workers(programs, tree, *, to_device: bool):
+    """Every worker's rows of ``tree`` (this rank's rows of the train state:
+    planes, sub-planes, per-leaf tensors and counters) stacked in worker
+    order, as the stacked run holds them: one gather over all ranks, in
+    rank order, i.e. workers then shards, the sub-planes of a worker laid
+    end to end."""
+    got = programs.group.gather_stacked(tree, to_device=to_device)
+    S, R = programs.n_shards, programs.n_workers
+    if S == 1:
+        return got
+    return tree_map(lambda t: t[::S] if t.ndim == 1 else t.reshape(R, -1),
+                    got)
+
+
 def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
              verbose):
     """(params, opt_state, SyncState or None, step) from the latest
@@ -169,9 +191,12 @@ def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
             params = torch.from_numpy(plane)
             opt_state = {k: torch.from_numpy(v) for k, v in fstate.items()}
     if ranked:                       # this rank's worker
-        r = programs.group.rank
-        params, opt_state = tree_map(lambda t: t[r:r + 1],
+        w = programs.group.worker
+        params, opt_state = tree_map(lambda t: t[w:w + 1],
                                      (params, opt_state))
+    shard = partial(shard_state, programs.flatspace, programs.shard)
+    if disk_flat and programs.n_shards > 1:     # and this rank's sub-planes
+        params, opt_state = shard(params, opt_state)
     params, opt_state = _place((params, opt_state), dev)
     if disk_flat and not programs.is_flat:
         params, opt_state = _place(programs.to_legacy(params, opt_state),
@@ -179,6 +204,8 @@ def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
         notes += " (flat -> per-leaf)"
     elif programs.is_flat and not disk_flat:
         params, opt_state = programs.to_flat(params, opt_state)
+        if programs.n_shards > 1:
+            params, opt_state = shard(params, opt_state)
         notes += " (per-leaf -> flat)"
     if verbose:
         print(f"restored checkpoint at step {step}"
@@ -226,12 +253,14 @@ def _launch_counts() -> dict:
 
 def _rank_report(group, dev, since: dict, step_s, probe_s, wall: float,
                  digest: dict) -> dict:
-    """This rank's share of a run with ranks: its device, walls, the
-    collectives it issued and the bytes it contributed (the sync rounds'
-    and the rest), the round parts' seconds, its kernel launches and peak
-    device memory, all counted from ``since``."""
+    """This rank's share of a run with ranks: its device and place in the
+    grid, walls, the collectives it issued and the bytes it contributed
+    (the sync rounds', the params gathers of a sharded run, and the rest),
+    the round parts' and the gathers' seconds, its kernel launches and
+    peak device memory, all counted from ``since``."""
     from repro_torch.core import comm
     wire, side = comm.wire.snapshot(), comm.side.snapshot()
+    gather = comm.shard_gather.snapshot()
     launches = _launch_counts()
     return {
         "rank": group.rank, "device": str(dev), "route": group.route,
@@ -242,6 +271,11 @@ def _rank_report(group, dev, since: dict, step_s, probe_s, wall: float,
                     for k, v in wire["seconds"].items()},
         "side_collectives": side["n"] - since["side"]["n"],
         "side_bytes": side["bytes"] - since["side"]["bytes"],
+        "worker": group.worker, "shard": group.shard,
+        "shard_gathers": gather["n"] - since["shard_gather"]["n"],
+        "shard_gather_bytes": gather["bytes"] - since["shard_gather"]["bytes"],
+        "shard_gather_s": {k: v - since["shard_gather"]["seconds"][k]
+                           for k, v in gather["seconds"].items()},
         "launches": {k: v - since["launches"][k]
                      for k, v in launches.items()},
         "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
@@ -258,18 +292,23 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
                verbose: bool = True, device: Optional[str] = None,
                init_params=None, trace_out: str = "",
                metrics_out: str = "", group=None,
-               digest: bool = False) -> TrainResult:
+               digest: bool = False, plan=None) -> TrainResult:
     """Train up to step ``steps`` with ``n_workers`` workers stacked on
     ``device`` (a synchronous optimizer takes one). ``init_params`` (one
     worker's parameter dict) replaces the seeded initialisation, e.g. with
     weights carried across from the JAX package by ``repro_torch.convert``.
 
+    ``plan`` (a ``configs.ParallelismPlan``) overrides the plan
+    ``launch.mesh.resolve_plan`` gives the run's grid, as the reference's
+    ``plan=`` does: e.g. its ``remat``.
+
     With a ``group`` (``core.comm.RankGroup``, from
-    ``launch.mesh.init_ranks``) this process is one rank of a run with one
-    worker a rank: ``n_workers`` must be the group's world size (a
-    synchronous optimizer keeps one model and spreads the global batch over
-    the ranks), ``device`` this rank's. Every rank initialises from the
-    same seed or ``init_params``, draws its own worker's batches, and
+    ``launch.mesh.init_ranks``) this process is one rank of a grid of
+    ``n_workers`` workers × S shards: one worker a rank (S = 1), or shard
+    ``r % S`` of worker ``r // S``'s flat planes (a sharded ``flat`` run).
+    A synchronous optimizer keeps one model and spreads the global batch
+    over the ranks. ``device`` is this rank's. Every rank initialises from
+    the same seed or ``init_params``, draws its worker's batches, and
     returns the same ``TrainResult``: the stacked run's, bit for bit.
     Rank 0 alone writes the checkpoints, the trace and the metrics, from
     the ranks' values gathered to it.
@@ -292,13 +331,15 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
     if trace_out or metrics_out:
         opt_cfg = dataclasses.replace(opt_cfg, obs_metrics=True)
     dev = resolve_device(device)
-    if group is not None and shape.global_batch % group.world:
-        raise ValueError(f"global batch {shape.global_batch} does not "
-                         f"split over {group.world} ranks")
     since = {"wire": comm.wire.snapshot(), "side": comm.side.snapshot(),
+             "shard_gather": comm.shard_gather.snapshot(),
              "launches": _launch_counts()}
     programs = build_train_programs(cfg, opt_cfg, n_workers=n_workers,
-                                    device=dev, group=group)
+                                    device=dev, group=group, plan=plan)
+    if (group is not None and not programs.is_local
+            and shape.global_batch % group.world):
+        raise ValueError(f"global batch {shape.global_batch} does not "
+                         f"split over {group.world} ranks")
     lead = group is None or group.rank == 0   # writes the run's files
     verbose = verbose and lead
     # a worker axis spread over ranks: the state is gathered to rank 0
@@ -350,8 +391,8 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
         # the replay prices it (FabricModel: the link, not this host)
         enc_bytes = engine.modeled_encode_hbm_bytes(n_params)
         enc_t = enc_bytes / H100.hbm_bw
-        # no sharded plane yet (ROADMAP Queue 1 item 9, shard axis)
-        n_shards = 1
+        # a sharded plane's worker-sub-group collective moves a sub-plane
+        n_shards = programs.n_shards
         shard_b = engine.round_bytes_per_shard(n_params, n_shards)
         wire_t = comm.collective_time(shard_b, n_coll, R)
         st0 = engine.export_state()
@@ -385,12 +426,18 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
         if not ranked:
             return opt_state
         keys = ["b2_local"] + (["res_params", "res_b2"] if synced else [])
-        got = group.gather_stacked(
-            {k: opt_state[k] for k in keys if k in opt_state}, to_device=lead)
+        got = gather_workers(
+            programs, {k: opt_state[k] for k in keys if k in opt_state},
+            to_device=lead)
         return got if lead else None
 
     losses, ppls, step_s, probe_s = [], [], [], []
-    rank = (group.rank, group.world) if group is not None else None
+    # a rank draws its worker's batches (every shard of a worker the same),
+    # or its share of the synchronous run's global batch
+    rank = None
+    if group is not None:
+        rank = ((group.worker, R) if programs.is_local
+                else (group.rank, group.world))
     t0 = time.perf_counter()
     for step in range(start_step, steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in
@@ -468,7 +515,7 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
             t_ck = now()
             state = (params, opt_state)
             if ranked:                # every worker's rows, stacked
-                state = group.gather_stacked(state, to_device=False)
+                state = gather_workers(programs, state, to_device=False)
             if lead:
                 save_checkpoint(checkpoint_dir, step + 1,
                                 (*state, engine.export_state()))
@@ -519,9 +566,11 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
             group=group.group)
         wall, step_s, probe_s = (ranks[0][k]
                                  for k in ("wall_s", "step_s", "probe_s"))
-        if ranked:            # each rank holds its own worker's digest
-            digests = {k: [v for rep in ranks for v in rep["state_digest"][k]]
-                       for k in digests}
+        if ranked:            # a rank holds (a shard of) one worker: the
+            S = programs.n_shards     # digest sums add over the shards
+            digests = {k: [sum(rep["state_digest"][k][0]
+                               for rep in ranks[w * S:(w + 1) * S])
+                           for w in range(R)] for k in digests}
     return TrainResult(losses=losses, ppl=ppls, steps=executed, n_workers=R,
                        comm_bytes_per_step=total / executed if executed
                        else 0.0,
@@ -570,9 +619,12 @@ def main(argv=None) -> None:
                          "plain versions on CPU tensors)")
     ap.add_argument("--workers", type=int, default=0, metavar="N",
                     help="workers stacked on the one device (0 -> 1); under "
-                         "torchrun one worker a rank, so N must be the world "
-                         "size (a synchronous optimizer keeps one model and "
-                         "spreads --batch over the ranks)")
+                         "torchrun the ranks form an N x (world / N) grid: "
+                         "rank r is worker r // S and holds shard r %% S of "
+                         "its flat plane (S > 1 needs --flat), so N must "
+                         "divide the world size (a synchronous optimizer "
+                         "keeps one model and spreads --batch over the "
+                         "ranks)")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="under torchrun: nccl (the default on the cards, "
                          "one card a rank) or gloo (the default with --device "
@@ -640,22 +692,30 @@ def main(argv=None) -> None:
                  "port does not build")
     from repro_torch.launch import mesh
     world = mesh.world_size()
+    grid = None
     if world > 1:
-        if args.optimizer not in SYNC_OPTIMIZERS and R != world:
-            ap.error(f"--workers {args.workers} on {world} ranks: each rank "
-                     f"is one worker, so pass --workers {world}")
+        grid = {"data": world, "model": 1}   # synchronous: one model
+        if args.optimizer not in SYNC_OPTIMIZERS:
+            try:
+                grid = mesh.grid_of(world, R)
+            except ValueError as e:
+                ap.error(str(e))
     elif args.dist_backend:
         ap.error("--dist-backend needs a launch with ranks (torchrun)")
     group, device = None, args.device
     if world > 1:
-        group, dev = mesh.init_ranks(args.dist_backend, args.device)
+        group, dev = mesh.init_ranks(args.dist_backend, args.device,
+                                     grid=grid)
         device = str(dev)
     lead = group is None or group.rank == 0
     try:
         where = (f"{R} stacked worker(s) on {resolve_device(device)}"
                  if group is None else
-                 f"{world} ranks, {'one worker each' if R > 1 else 'data-parallel'}"
-                 f"; rank 0: {group.route}")
+                 f"{world} ranks, " + (
+                     "data-parallel" if args.optimizer in SYNC_OPTIMIZERS
+                     else "one worker each" if grid["model"] == 1 else
+                     f"{R} workers x {grid['model']} shards")
+                 + f"; rank 0: {group.route}")
         if lead:
             print(f"training {cfg.name} ({count_params(cfg):,} params) with "
                   f"{args.optimizer} H={args.H}"

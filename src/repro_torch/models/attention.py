@@ -7,17 +7,21 @@ the (S, S) scores; shorter sequences and decode (Sq == 1) take the direct
 path. The numerics follow the reference: an additive float32 mask of
 -1e30, float32 scores of q and k cast to float32, the direct path scaling
 the scores after the product and the blockwise path scaling q before it,
-by the scale rounded to q's dtype. No library attention: it would differ
+by the scale rounded to q's dtype. With ``cfg.attn_remat`` a training
+forward keeps no attention intermediate: the backward recomputes it. No
+library attention: it would differ
 at the masked edges and in precision. Cross-attention (the VLM's image
 layers, the audio decoder's attention to the encoder) is non-causal, at
 position 0 on both sides, without RoPE. The tensor-parallel head padding
-waits for more than one device (ROADMAP Queue 1 item 9).
+waits for tensor parallelism (ROADMAP Queue 1 item 9c).
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models.layers import apply_rope, init_dense
 
@@ -140,9 +144,15 @@ def self_attention(params, x, positions, cfg, *, window: int = 0,
     q, k, v = _project_qkv(params, x, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = blockwise_attention(q, k, v, positions, positions, causal=causal,
-                              window=window, kv_block=kv_block,
-                              bf16_probs=cfg.attn_bf16_probs)
+    attend = partial(blockwise_attention, causal=causal, window=window,
+                     kv_block=kv_block, bf16_probs=cfg.attn_bf16_probs)
+    if cfg.attn_remat and torch.is_grad_enabled():
+        # the backward recomputes the per-block scores instead of keeping
+        # every block's probabilities, as the reference's jax.checkpoint
+        out = torch.utils.checkpoint.checkpoint(
+            attend, q, k, v, positions, positions, use_reentrant=False)
+    else:
+        out = attend(q, k, v, positions, positions)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ params["wo"]
     return out, (k, v)
 

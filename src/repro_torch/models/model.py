@@ -135,14 +135,16 @@ def _build_transformer(cfg) -> Model:
             return {"cross_src": batch["image_embeds"].to(dtype)}
         return {}
 
-    def _trunk(params, batch, *, window=0, collect_cache=False):
+    def _trunk(params, batch, *, window=0, collect_cache=False,
+               remat="none"):
         tokens = batch["tokens"]
         x = params["embed"][tokens.long()].to(dtype)
         pos = torch.arange(tokens.shape[1],
                            device=tokens.device).expand(tokens.shape)
         x, aux, caches = tfm.apply_stack(
             params["blocks"], cfg, x, pos, _ctx(params, batch), window=window,
-            collect_cache=collect_cache, encdec_dec=cfg.is_encdec)
+            collect_cache=collect_cache, encdec_dec=cfg.is_encdec,
+            remat=remat)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, aux, caches
 
@@ -154,8 +156,11 @@ def _build_transformer(cfg) -> Model:
         x, _, _ = _trunk(params, batch)
         return _head(params, x)
 
-    def loss_fn(params, batch, rng=None):
-        x, aux, _ = _trunk(params, batch)
+    def loss_fn(params, batch, rng=None, remat: str = "none"):
+        """The training loss; ``remat`` rematerialises the decoder's groups
+        in the backward (``transformer.apply_stack``), not the encoder's,
+        as in the reference."""
+        x, aux, _ = _trunk(params, batch, remat=remat)
         logits = _head(params, x)
         if cfg.fused_xent and "mask" not in batch:
             loss = fused_softmax_xent(logits, batch["labels"])
@@ -233,9 +238,10 @@ def _build_lstm(cfg) -> Model:
     def logits_fn(params, batch):
         return lstm_mod.lstm_logits(params, batch["tokens"], cfg)
 
-    def loss_fn(params, batch, rng=None):
+    def loss_fn(params, batch, rng=None, remat: str = "none"):
         """Dropout 0.1 when ``rng`` (a ``torch.Generator``) is given; the
-        training path passes none, as the reference's does."""
+        training path passes none, as the reference's does. ``remat`` is
+        accepted and ignored, as the reference's LSTM ignores it."""
         logits = lstm_mod.lstm_logits(
             params, batch["tokens"], cfg, rng=rng,
             dropout_rate=0.1 if rng is not None else 0.0)

@@ -14,6 +14,7 @@ encoder-decoder's decoder blocks also attend to the encoder's output
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, List
 
 import torch
@@ -171,18 +172,58 @@ def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
     return x, aux, cache
 
 
+#: the reference's ``remat`` policies that train here (``"save_tp"`` keeps
+#: the tensor-parallel outputs, which wait for tensor parallelism)
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def _saves_matmuls(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy, ``checkpoint_dots_with_no_batch_dims``: keep
+    the outputs of 2-D matrix products (an activation times a weight),
+    recompute the rest (the batched products of attention and the SSD
+    included)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rematerialised(fn, remat: str):
+    """``fn`` under the reference's ``jax.checkpoint`` of a group:
+    non-reentrant ``torch.utils.checkpoint`` (``"full"``: the group's input
+    alone is kept for the backward), with a selective policy for
+    ``"dots"``; ``fn`` itself for ``"none"``."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r}: one of {REMAT_POLICIES} (the "
+                         "reference's 'save_tp' goes with tensor "
+                         "parallelism, ROADMAP Queue 1 item 9c)")
+    if remat == "none":
+        return fn
+    import torch.utils.checkpoint as ckpt
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = partial(ckpt.create_selective_checkpoint_contexts,
+                                   _saves_matmuls)
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
 def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
-                collect_cache: bool = False, encdec_dec: bool = False):
-    """Run the stacked groups in order (inference: no rematerialisation).
-    Returns (x, aux_loss, caches|None); the caches are stacked like the
-    parameters. The MoE aux losses are summed as the reference sums them:
-    within each group in order, then over the groups."""
+                collect_cache: bool = False, encdec_dec: bool = False,
+                remat: str = "none"):
+    """Run the stacked groups in order. Returns (x, aux_loss, caches|None);
+    the caches are stacked like the parameters. The MoE aux losses are
+    summed as the reference sums them: within each group in order, then
+    over the groups. ``remat`` (``"none"``, ``"full"``, ``"dots"``)
+    rematerialises each group in the backward, as the reference's
+    ``jax.checkpoint`` of its scanned group does; it applies where autograd
+    records the forward and no cache is collected."""
     kinds = group_kinds(cfg)
     n_groups = cfg.n_layers // len(kinds)
     ctx = ctx or {}
-    caches, group_aux = [], []
-    for g in range(n_groups):
-        gp = tree_map(lambda t: t[g], params)
+    if collect_cache or not torch.is_grad_enabled():
+        remat = "none"
+
+    def group_fn(x, gp):
         group_caches = []
         aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(kinds):
@@ -193,7 +234,17 @@ def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
             if aux is not None:
                 aux_tot = aux_tot + aux
             group_caches.append(cache)
-        caches.append(group_caches)
+        return x, aux_tot, group_caches
+
+    run = _rematerialised(lambda x, gp: group_fn(x, gp)[:2], remat)
+    caches, group_aux = [], []
+    for g in range(n_groups):
+        gp = tree_map(lambda t: t[g], params)
+        if remat == "none":
+            x, aux_tot, group_caches = group_fn(x, gp)
+            caches.append(group_caches)
+        else:
+            x, aux_tot = run(x, gp)
         group_aux.append(aux_tot)
     aux = torch.sum(torch.stack(group_aux))
     return x, aux, (stack_trees(caches) if collect_cache else None)

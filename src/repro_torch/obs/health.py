@@ -142,11 +142,12 @@ class SyncHealthProbe:
 
     def __init__(self, *, is_flat: bool, flatspace: Any,
                  leaf_dtypes: Sequence[str], engine: Any,
-                 n_params: int) -> None:
+                 n_params: int, n_shards: int = 1) -> None:
         self.is_flat = bool(is_flat)
         self.fs = flatspace
         self.engine = engine
         self.n_params = int(n_params)
+        self.n_shards = int(n_shards)
         self._leaf_dtypes = list(leaf_dtypes)
 
     @staticmethod
@@ -159,18 +160,26 @@ class SyncHealthProbe:
                       for t in leaves(programs.legacy_abstract[0])]
         return SyncHealthProbe(
             is_flat=programs.is_flat, flatspace=programs.flatspace,
-            leaf_dtypes=dtypes, engine=engine, n_params=n_params)
+            leaf_dtypes=dtypes, engine=engine, n_params=n_params,
+            n_shards=programs.n_shards)
 
     def static_summary(self) -> Dict[str, float]:
         """Run-constant facts: wire bytes and compression ratio of one
-        sync round under the engine's codec."""
+        sync round under the engine's codec; with a sharded flat plane also
+        the shard count and the wire bytes of one shard's round (what a
+        rank's collective moves)."""
         n = self.n_params
         round_b = float(self.engine.round_bytes(n))
         fp32_b = float(comm.sync_payload_bytes(self.engine.algorithm, n))
-        return {
+        out = {
             "round_wire_bytes": round_b,
             "wire_compression_ratio": fp32_b / round_b if round_b else 1.0,
         }
+        if self.n_shards > 1:
+            out["n_shards"] = float(self.n_shards)
+            out["round_wire_bytes_per_shard"] = float(
+                self.engine.round_bytes_per_shard(n, self.n_shards))
+        return out
 
     def _buckets(self, entry) -> List[Tuple[str, List[torch.Tensor]]]:
         """``(bucket name, [float32 pieces])`` of one opt-state entry (a

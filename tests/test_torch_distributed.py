@@ -23,7 +23,8 @@ R-device Auto-axis mesh. What must hold:
   * a stacked checkpoint resumed by ranks, and the ranks' metrics rows and
     trace spans, equal the stacked run's;
   * NCCL refuses two ranks on one card, and the CLI refuses a worker
-    count other than the world size.
+    count that does not divide the world size (one that does makes a
+    workers x shards grid).
 
 Every spawned group runs under a subprocess timeout and opens its process
 group with a 60 s timeout, so a hung rank fails its fixture, not the suite.
@@ -586,39 +587,87 @@ def test_nccl_refuses_two_ranks_on_one_card(backend, local_world, cards,
 
 def test_resolve_plan():
     import dataclasses
+    from repro_torch.sharding import GridLayout, plane_shard_count
     lstm = get_arch("biglstm")
-    assert mesh.resolve_plan(lstm, 2) == ParallelismPlan(
-        local_axes=("data",), grad_axes=(), fsdp_axes=())
+    grid22 = {"data": 2, "model": 2}
+    for grid in (2, {"data": 2, "model": 1}, grid22):
+        assert mesh.resolve_plan(lstm, grid) == ParallelismPlan(
+            local_axes=("data",), grad_axes=(), fsdp_axes=())
     sync = mesh.resolve_plan(lstm, 2, optimizer="adaalter")
     assert sync.local_axes == () and sync.grad_axes == ("data",)
     assert sync.fsdp_axes == ()
+    # the paper-style plan splits the flat plane down "model"; a per-leaf
+    # or synchronous run with shards is tensor parallelism (item 9c)
+    assert plane_shard_count(grid22, mesh.resolve_plan(lstm, grid22)) == 2
+    mesh.check_plan(mesh.resolve_plan(lstm, grid22), grid22, flat=True)
+    with pytest.raises(NotImplementedError, match="--flat"):
+        mesh.check_plan(mesh.resolve_plan(lstm, grid22), grid22, flat=False)
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        mesh.check_plan(sync, grid22, flat=False)
     big = dataclasses.replace(get_arch("qwen2-7b"), n_layers=100)
     assert big.param_count() > 20e9
     for opt in ("local_adaalter", "adaalter"):
+        plan = mesh.resolve_plan(big, 2, optimizer=opt)
+        assert plan.fsdp_axes == ("data",) and plan.remat == "full"
         with pytest.raises(NotImplementedError, match="item 9"):
-            mesh.resolve_plan(big, 2, optimizer=opt)
+            mesh.check_plan(plan, {"data": 2, "model": 1}, flat=True)
     # a run with ranks is built from the plan: workers along local_axes, or
-    # one model along grad_axes; the worker count must be the plan's
+    # one model along grad_axes; the worker count must be the plan's, and
+    # a flat plane splits into the grid's shards
     from types import SimpleNamespace
     from repro_torch.launch.steps import build_train_programs
-    small, ranks = reduced(lstm, vocab=64), SimpleNamespace(world=2)
+    small = reduced(lstm, vocab=64)
+    ranks = SimpleNamespace(world=2, grid={"data": 2, "model": 1},
+                            layout=GridLayout(2, 1), shard=0, workers=None)
     for opt, workers in (("local_adaalter", 2), ("adaalter", 1)):
         progs = build_train_programs(small, OptimizerConfig(name=opt),
                                      n_workers=workers, device="cpu",
                                      group=ranks)
         plan = mesh.resolve_plan(small, 2, optimizer=opt)
         assert progs.is_local == bool(plan.local_axes)
+        assert progs.plan == plan and progs.n_shards == 1
     with pytest.raises(ValueError, match="one worker a rank"):
         build_train_programs(small, OptimizerConfig(), n_workers=3,
                              device="cpu", group=ranks)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        build_train_programs(big, OptimizerConfig(), n_workers=2,
+                             device="cpu", group=ranks)
+    grid = SimpleNamespace(world=4, grid=grid22, layout=GridLayout(2, 2),
+                           shard=1, workers=None, shards=None)
+    progs = build_train_programs(small, OptimizerConfig(flat=True),
+                                 n_workers=2, device="cpu", group=grid)
+    fs = progs.flatspace
+    assert progs.n_shards == fs.shards == 2 and progs.shard == 1
+    assert fs.plane_size % (2 * fs.align) == 0
+    with pytest.raises(ValueError, match="one worker a rank"):
+        build_train_programs(small, OptimizerConfig(flat=True), n_workers=4,
+                             device="cpu", group=grid)
 
 
-def test_cli_refuses_workers_other_than_world(monkeypatch, capsys):
+@pytest.mark.parametrize("world,workers,grid", [
+    (2, 3, None), (4, 2, {"data": 2, "model": 2})])
+def test_cli_refuses_workers_other_than_world(monkeypatch, capsys, world,
+                                              workers, grid):
+    """--workers must divide the world: 3 on 2 ranks is refused, naming
+    the counts that fit; 2 on 4 ranks is a 2 x 2 grid."""
     from repro_torch.launch.train import main
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit):
-        main(["--device", "cpu", "--reduced", "--workers", "3"])
-    assert "--workers 2" in capsys.readouterr().err
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    argv = ["--device", "cpu", "--reduced", "--flat", "--workers",
+            str(workers)]
+    if grid is None:
+        with pytest.raises(SystemExit):
+            main(argv)
+        assert "--workers 2" in capsys.readouterr().err
+        return
+    seen = {}
+
+    def opened(backend, device, grid=None, **kw):
+        seen["grid"] = grid
+        raise RuntimeError("no process group in this test")
+    monkeypatch.setattr(mesh, "init_ranks", opened)
+    with pytest.raises(RuntimeError, match="no process group"):
+        main(argv)
+    assert seen["grid"] == grid
 
 
 @pytest.mark.parametrize("workers", [2, 3])
