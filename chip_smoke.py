@@ -75,9 +75,10 @@ raises and exits non-zero:
             three kernel launches each); one warm forward under
             torch.profiler
   serve     full-width serve_session: batch 8, 32 new tokens, the prompt
-            it replays through decode_step cut to 192 positions
-            (SERVE_REPLAY, three SSD chunks of 64; every serve phase: a
-            replay of 512 took ~540 decode steps a phase), the serving numbers timed at prompt 512 (the prefill of
+            it replays through decode_step cut to 128 positions
+            (SERVE_REPLAY, two SSD chunks of 64; serve_hybrid 192, three;
+            every serve phase: a replay of 512 took ~540 decode steps a
+            phase), the serving numbers timed at prompt 512 (the prefill of
             8 x 512 and 8 decode steps from position 512 over the session's
             544-slot cache); prefill and decode take the chunked and
             recurrent paths, so no SSD launch
@@ -96,7 +97,7 @@ raises and exits non-zero:
             logits_fn and loss_fn over 2 x 4096 tokens, 3 times, losses
             within 1.5 nats of ln V; one warm forward under torch.profiler
   serve_dense  full-width qwen2-7b serve_session as serve (batch 8, 32
-            new tokens; numbers at prompt 512, the session's replay over 192
+            new tokens; numbers at prompt 512, the session's replay over 128
             positions): the prefill's last logits against their replay
             through decode_step, to a relative L2 of 5e-2 that a prefill one
             token short and one with queries rotated a position ahead must
@@ -160,8 +161,10 @@ raises and exits non-zero:
             SSM, SSD kernel, MLP)
   serve_hybrid  serve_session on it, batch 8, prompt 512, 32 new (the
             1,024-token window: a 544-slot cache): prefill vs replay as
-            serve_dense (a prefill one token short must exceed it; the SSM
-            half dropped and a sum fusion reported); no SSD launch
+            serve_dense over 192 replayed positions (three SSD chunks, so
+            the check crosses two state hand-offs; a prefill one token
+            short must exceed it; the SSM half dropped and a sum fusion
+            reported); no SSD launch
   train_hybrid / train_hybrid_flat  hymba at full width cut to 8 of its
             32 layers (487,008,624 counted parameters, 487,021,424 in the
             tree), bf16, 2 workers x 4 sequences of 512 tokens, Local
@@ -185,10 +188,10 @@ raises and exits non-zero:
             peak memory and the round's parts (encode, device to host,
             gloo, host to device, dequantize + sum); the card's used memory
             (nvidia-smi) under 80 GB. Then the synchronous AdaAlter on two
-            ranks (32 x 20 each) against one model over 64 x 20, float32
-            parameters, lr 2 without warm-up, 8 steps, to rtol 1e-4, which
-            an η 2% larger must exceed, with the gradient mean's bytes a
-            step
+            ranks (32 x 20 each; its plan splits every leaf over the two,
+            FSDP) against one model over 64 x 20, float32 parameters, lr 2
+            without warm-up, 6 steps, to rtol 1e-4, which an η 2% larger
+            must exceed, with the gradient mean's bytes a step
   train_hybrid_remat  train_hybrid's configuration for 4 steps with the
             plan's remat="full" (each layer group recomputed in the
             backward) and 4 without: losses and final-state digest bit for
@@ -209,7 +212,35 @@ raises and exits non-zero:
             gather a step (its bytes and parts' ms), step walls, peak memory
   sharded_grid  reduced Big LSTM as 2 workers x 2 shards, four gloo ranks
             (the worker sub-groups' means run), int8 one-pass and
-            three-pass, the same checks
+            three-pass in one launch (train_loop a run), the same checks
+  train_fsdp  train_ranks' synchronous AdaAlter run (the CLI; each leaf
+            and its B² split over the two data ranks, FSDP) against the
+            same run under the replicated plan (fsdp_axes=()) through
+            train_loop(plan=...) on two gloo ranks: bit for bit; per rank
+            its state bytes equal to Σ part numel x 4 from the specs, 4 P
+            wire bytes a step (fsdp_step_bytes), less allocated than the
+            replicated rank; step walls, the params gather's and the slice
+            mean's ms, allocated and reserved GB. Its replicated run,
+            train_fsdp_local's three runs and train_fsdp_moe's two share
+            one torchrun launch
+  train_fsdp_local  full-width Big LSTM in bf16 under the plan
+            resolve_plan gives phi3.5-moe on 2 x 1 ranks (no worker axes,
+            FSDP over data, remat full): one-model Local AdaAlter, int8
+            wire with the kernels, H=2, 2 steps (each syncs), 64 x 20, two
+            gloo ranks: bit for bit the replicated plan's run, which the
+            FSDP run with η 2% off must fail; per rank row 3 launched 2 x 11
+            times a step and nothing else, state bytes from the specs,
+            fsdp_step_bytes a step (bf16 parts of the params)
+  train_fsdp_moe  phi3.5-moe at full width cut to 1 of its 32 layers
+            (1,562,980,352 parameters, bf16), synchronous AdaAlter under
+            its own plan (FSDP over data, remat full), 2 steps over 8 x
+            1024 tokens on two gloo ranks, the batch's rows routed as one
+            batch: bit for bit the same run under remat none (each
+            recomputed group routes as the forward did, though autograd
+            runs the backward on a thread of its own); per rank and
+            policy the step walls, the gather's and slice mean's ms,
+            allocated and reserved GB; state and wire bytes from the
+            specs; no kernel launched
 
 The kernels phase also holds the SSD chunk scan's warp-level 3xTF32
 product helper alone against a float64 product, then the SSD kernels
@@ -221,9 +252,11 @@ group of 2), and counts the TF32 tensor-core instructions in the built
 SSD kernels (cuobjdump -sass). It holds the update and EF kernels (per
 leaf and flat) against their plain versions at train_hybrid's shapes too:
 each distinct stacked leaf of the 8-layer hymba tree in bf16 (B² in fp32)
-and that tree's plane with its bf16 row sidecars, and the flat update and
+and that tree's plane with its bf16 row sidecars, the flat update and
 both flat EF halves on each sub-plane of train_sharded's 2-shard plane
-with its shard's sidecar rows. Then the script's wall, the kernels summary
+with its shard's sidecar rows, and row 3 on every part shape a rank of
+train_fsdp_local encodes (unstacked, bf16 params and fp32 B²), the
+largest timed. Then the script's wall, the kernels summary
 line (each kernel's launches on its main path, and by phase), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 """
@@ -243,6 +276,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 TRAIN_STEPS = 8
+# the synchronous AdaAlter on two ranks (train_ranks) and its FSDP
+# comparison (train_fsdp): at full width an η 2% larger moves the losses
+# 3.2e-4 by step 5 (under 1e-4 before it; an H100), so 6 steps keep the
+# η check
+RANKS_BASELINE_STEPS = 6
 SSD_TOL = 1e-4                 # SSD kernel vs plain, fp32 and bf16 inputs
 MMA_TOL = 1e-5                 # 3xTF32 product helper vs float64, of Σ|a||b|
 SSD_KERNELS = ("ssd_chunk_states", "ssd_state_pass", "ssd_chunk_output")
@@ -263,10 +301,11 @@ CROSS_GATE = 0.7               # the VLM's tanh gate in the checks (0 at init)
 MOE_LAYERS = 16
 SERVE_PROMPT = 512             # the serve phases' prompt length
 # the prompt each serve phase's serve_session replays through decode_step
-# (the serving numbers are timed at SERVE_PROMPT): three of mamba2's and
-# hymba's 64-token SSD chunks, so hymba's prefill-vs-replay check crosses
-# the chunked prefill's state hand-offs
-SERVE_REPLAY = 192
+# (the serving numbers are timed at SERVE_PROMPT): two of mamba2's 64-token
+# SSD chunks; hymba's, whose prefill-vs-replay check must cross the
+# chunked prefill's state hand-offs, three (two hand-offs)
+SERVE_REPLAY = 128
+HYBRID_SERVE_REPLAY = 192
 HYMBA_TRAIN_LAYERS = 8         # hymba-1.5b trained at full width, 8 of 32
 # train_sharded / sharded_grid: H = 2, one round (step 1) and a warm local
 # step after it (two rounds took the whole script past 650 s)
@@ -283,7 +322,14 @@ def free_card() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gives the seconds since the
+    script started (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -382,10 +428,11 @@ def check_update(gen, shape, dtype, timed=True):
     return out
 
 
-def check_ef(gen, shape, dtype, clamp, timed=True):
-    """One-pass EF encode kernel vs its plain version on one stacked leaf:
-    wire and residual, and the int8 codes and scales it writes beside the
-    wire for a run with one worker a rank, bitwise."""
+def check_ef(gen, shape, dtype, clamp, timed=True, batch_ndim=1):
+    """One-pass EF encode kernel vs its plain version on one stacked leaf
+    (``batch_ndim`` 0: an unstacked leaf, or a rank's part of one, encoded
+    whole): wire and residual, and the int8 codes and scales it writes
+    beside the wire for a run with one worker a rank, bitwise."""
     import torch
     from repro_torch.kernels import sync_fused as sf
     stripe = min(4096, math.prod(shape) // 4)   # a quarter of a small leaf
@@ -400,9 +447,9 @@ def check_ef(gen, shape, dtype, clamp, timed=True):
     x.view(-1)[stripe:stripe + 512] = 0      # all-zero blocks
     e.view(-1)[stripe:stripe + 512] = 0
     w_ref, r_ref, (q_ref, s_ref) = sf.fused_ef_leaf_plain(
-        x, e, batch_ndim=1, clamp_nonneg=clamp, codes=True)
+        x, e, batch_ndim=batch_ndim, clamp_nonneg=clamp, codes=True)
     e_k = e.clone()
-    w, r, (q, sc) = sf.fused_ef_leaf(x, e_k, batch_ndim=1,
+    w, r, (q, sc) = sf.fused_ef_leaf(x, e_k, batch_ndim=batch_ndim,
                                      clamp_nonneg=clamp, codes=True)
     torch.cuda.synchronize()
     require(r.data_ptr() == e_k.data_ptr(), "EF residual not written in place")
@@ -411,7 +458,7 @@ def check_ef(gen, shape, dtype, clamp, timed=True):
     require(bitwise_equal(q, q_ref) and bitwise_equal(sc, s_ref),
             f"EF codes or scales not bitwise ({dtype}, {clamp})")
     out = dict(dtype=str(dtype).replace("torch.", ""), shape=list(shape),
-               clamp_nonneg=clamp,
+               clamp_nonneg=clamp, batch_ndim=batch_ndim,
                max_abs_err=max(float((w.float() - w_ref.float()).abs().max()),
                                float((r - r_ref).abs().max()),
                                float((sc - s_ref).abs().max())))
@@ -420,14 +467,15 @@ def check_ef(gen, shape, dtype, clamp, timed=True):
         del w_ref, r_ref
         nbytes = x.numel() * (2 * x.element_size() + 2 * 4)
         out.update(
-            ms=cuda_ms(lambda: sf.fused_ef_leaf(x, e_k, batch_ndim=1,
+            ms=cuda_ms(lambda: sf.fused_ef_leaf(x, e_k, batch_ndim=batch_ndim,
                                                 clamp_nonneg=clamp)),
             plain_ms=cuda_ms(lambda: sf.fused_ef_leaf_plain(
-                x, e, batch_ndim=1, clamp_nonneg=clamp)),
+                x, e, batch_ndim=batch_ndim, clamp_nonneg=clamp)),
             bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
             # with the codes and scales written (a rank's wire)
             ms_with_codes=cuda_ms(lambda: sf.fused_ef_leaf(
-                x, e_k, batch_ndim=1, clamp_nonneg=clamp, codes=True)),
+                x, e_k, batch_ndim=batch_ndim, clamp_nonneg=clamp,
+                codes=True)),
             bound_ms_with_codes=1e3 * (nbytes + x.numel() * (1 + 4 / 256))
             / HBM_BYTES_PER_S)
     return out
@@ -1201,13 +1249,14 @@ def score_model(cfg, params, counters, *, batch, seq, ssd_calls, reps=3,
     return out, launches
 
 
-def serve_run(cfg, params, counters, *, batch, prompt, new):
-    """serve_session on the card, its prompt cut to SERVE_REPLAY positions
+def serve_run(cfg, params, counters, *, batch, prompt, new,
+              replay=SERVE_REPLAY):
+    """serve_session on the card, its prompt cut to ``replay`` positions
     (the session replays its prompt through decode_step, one step a
     position: at 512 those replays took most of the script's wall), with
     every launch count set to 0 just before and read after both parts;
     then the serving numbers at ``prompt`` (time_serving). Returns
-    (report, launches, stats): the session's stats, at SERVE_REPLAY."""
+    (report, launches, stats): the session's stats, at ``replay``."""
     import torch
     from repro_torch.launch.serve import serve_session
     torch.cuda.empty_cache()
@@ -1215,7 +1264,7 @@ def serve_run(cfg, params, counters, *, batch, prompt, new):
     for c in counters.values():
         c.reset()
     stats = {}
-    gen, tps = serve_session(cfg, batch=batch, prompt_len=SERVE_REPLAY,
+    gen, tps = serve_session(cfg, batch=batch, prompt_len=replay,
                              new_tokens=new, seed=0, device="cuda",
                              params=params, verbose=False, stats=stats)
     require(gen.shape == (batch, new)
@@ -1227,7 +1276,7 @@ def serve_run(cfg, params, counters, *, batch, prompt, new):
     out = {"arch": cfg.name, "batch": batch, "prompt_len": prompt,
            "new_tokens": new, "launches": launches, **timed,
            "session": {
-               "prompt_len": SERVE_REPLAY, "new_tokens": new,
+               "prompt_len": replay, "new_tokens": new,
                "prefill_ms": 1e3 * stats["prefill_s"],
                "decode_steps": stats["decode_steps"],
                "decode_ms_per_step":
@@ -1341,7 +1390,7 @@ def rel_l2(a, b) -> float:
 
 
 def serve_model(cfg, params, counters, faults, *, batch, prompt, new,
-                reported=None, labels=None):
+                reported=None, labels=None, replay=SERVE_REPLAY):
     """serve_run on a dense or LSTM model (no kernel of the port's reaches
     either), then: the prefill's logits for the prompt's last position
     against its replay through decode_step, to SERVE_REL_L2 (relative L2
@@ -1354,16 +1403,16 @@ def serve_model(cfg, params, counters, faults, *, batch, prompt, new,
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
     out, launches, stats = serve_run(cfg, params, counters, batch=batch,
-                                     prompt=prompt, new=new)
+                                     prompt=prompt, new=new, replay=replay)
     model = build_model(cfg)
     # the session's prompts: its prefill and its replay are compared
     prompts = torch.from_numpy(SyntheticLM(
-        vocab_size=cfg.vocab_size, seq_len=SERVE_REPLAY, seed=0).worker_batch(
+        vocab_size=cfg.vocab_size, seq_len=replay, seed=0).worker_batch(
             0, 0, batch)["tokens"]).cuda()
     want = stats["replay_logits"]
     err = rel_l2(stats["prefill_logits"], want)
     out["prefill_vs_replay"] = {
-        "position": SERVE_REPLAY - 1, "rel_l2": err, "tol": SERVE_REL_L2,
+        "position": replay - 1, "rel_l2": err, "tol": SERVE_REL_L2,
         "max_abs_diff": max_abs_err(stats["prefill_logits"], want),
         "logit_max_abs": float(want.float().abs().max())}
     require(err <= SERVE_REL_L2, f"{cfg.name}: prefill's last logits off "
@@ -1615,11 +1664,11 @@ def moe_fault(name: str):
     from repro_torch.models import moe
     real_router, real_capacity = moe._router, moe._capacity
 
-    def raw_gates(params, xt, cfg):
-        gate_vals, gate_idx, probs, pos, keep, cap = real_router(params, xt,
-                                                                 cfg)
+    def raw_gates(params, xt, cfg, group=None):
+        gate_vals, gate_idx, probs, slot, keep, size = real_router(
+            params, xt, cfg, group)
         raw = torch.gather(probs, 1, gate_idx) * keep
-        return raw, gate_idx, probs, pos, keep, cap
+        return raw, gate_idx, probs, slot, keep, size
 
     if name == "gates_not_renormalised":
         moe._router = raw_gates
@@ -1641,8 +1690,8 @@ def recorded_routing(log: list):
     from repro_torch.models import moe
     real = moe._router
 
-    def rec(params, xt, cfg):
-        out = real(params, xt, cfg)
+    def rec(params, xt, cfg, group=None):
+        out = real(params, xt, cfg, group)
         log.append((out[1].clone(), out[4].clone()))
         return out
     moe._router = rec
@@ -2683,7 +2732,7 @@ def slice7_phases(counters, smi: str) -> dict:
             name: (lambda p, _n=name: model.prefill(
                 hybrid_fault(params, _n), {"tokens": p})[0])
             for name in ("ssm_dropped", "sum_fusion")},
-        labels=hybrid_labels())
+        labels=hybrid_labels(), replay=HYBRID_SERVE_REPLAY)
     require_launches(serve_n)
     emit({"phase": "serve_hybrid", "nvidia_smi": smi,
           "window": hymba.sliding_window, **serve,
@@ -2723,23 +2772,73 @@ def slice7_phases(counters, smi: str) -> dict:
             "train_hybrid_flat": flat_n, "train_hybrid_remat": remat_n}
 
 
+# train_loop runs as gloo ranks on the card, one process group (one launch)
+# for all: a run's plan may be given (the CLI has no --plan); rank 0 writes
+# the results
+RANK_LOOPS = r"""
+import dataclasses, gc, json, sys
+import torch
+from repro_torch.configs import (OptimizerConfig, ParallelismPlan,
+                                 ShapeConfig, get_arch, reduced)
+from repro_torch.launch import mesh
+from repro_torch.launch.train import train_loop
+
+spec = json.load(open(sys.argv[1]))
+group, dev = mesh.init_ranks("gloo", None, grid=spec["grid"])
+res = []
+for run in spec["runs"]:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_arch(run["arch"])
+    cfg = reduced(cfg) if run.get("reduced") else cfg
+    if run.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+    if run.get("dtype"):
+        cfg = dataclasses.replace(cfg, param_dtype=run["dtype"])
+    shape = ShapeConfig("ranks", seq_len=run["seq"],
+                        global_batch=run["batch"], kind="train")
+    plan = ParallelismPlan(**run["plan"]) if run.get("plan") else None
+    r = train_loop(cfg, shape, OptimizerConfig(**run["opt"]),
+                   steps=run["steps"], seed=0, verbose=False, group=group,
+                   n_workers=run.get("workers", 1), device=str(dev),
+                   digest=True, plan=plan)
+    res.append(dataclasses.asdict(r))
+mesh.close_ranks()
+if group.rank == 0:
+    json.dump(res, open(sys.argv[2], "w"))
+"""
+
+
 def torchrun_train(root: Path, args, *, nproc: int = 2,
-                   timeout: float = 420.0):
+                   timeout: float = 420.0, runs=None, grid=None):
     """``python -m torch.distributed.run --standalone --nproc-per-node
     <nproc> -m repro_torch.launch.train --dist-backend gloo <args>``:
     ``nproc`` ranks on the one card, as a subprocess in a session of its
     own (killed with every process it started past ``timeout``), the
     card's used memory sampled from nvidia-smi twice a second. Returns
-    (TrainResult as a dict, wall seconds, peak MiB used on the card)."""
+    (TrainResult as a dict, wall seconds, peak MiB used on the card). With
+    ``runs`` (dicts of arch, reduced, dtype, workers, opt, plan, steps,
+    batch, seq, and a depth cut: layers) the ranks run :data:`RANK_LOOPS`
+    instead, laid out as
+    ``grid`` (default: ``nproc`` along data), a ``train_loop`` a run, and
+    the result is the list of TrainResults."""
     import os
     import signal
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         out, log_path = Path(tmp) / "result.json", Path(tmp) / "log.txt"
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(nproc), "-m", "repro_torch.launch.train",
-               "--dist-backend", "gloo", "--out", str(out),
-               *args]
+               "--nproc-per-node", str(nproc)]
+        if runs is None:
+            cmd += ["-m", "repro_torch.launch.train", "--dist-backend", "gloo",
+                    "--out", str(out), *args]
+        else:
+            script, spec = Path(tmp) / "ranks.py", Path(tmp) / "runs.json"
+            script.write_text(RANK_LOOPS)
+            spec.write_text(json.dumps({"grid": grid or {
+                "data": nproc, "model": 1}, "runs": runs}))
+            cmd += [str(script), str(spec), str(out)]
         # two processes share the card: segments that grow in place keep
         # each allocator's cache from holding freed blocks the other needs
         env = {**os.environ, "PYTHONPATH": str(root / "src"),
@@ -2768,7 +2867,7 @@ def torchrun_train(root: Path, args, *, nproc: int = 2,
                     proc.wait()
         wall = time.perf_counter() - t0
         text = log_path.read_text()
-        require(proc.returncode == 0, f"torchrun {args} exited "
+        require(proc.returncode == 0, f"torchrun {args or runs} exited "
                 f"{proc.returncode}:\n{text[-4000:]}")
         return json.loads(out.read_text()), wall, peak
 
@@ -2799,8 +2898,9 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
     memory and the round's parts; the card's peak used memory under 80
     GB. Then the synchronous AdaAlter on two ranks (32 x 20 each, the
     gradients averaged) against one model over 64 x 20, float32, at lr 2
-    without warm-up, to rtol 1e-4, which an η 2% larger must exceed. Returns
-    (report, launches by phase: rank 0's)."""
+    without warm-up, 6 steps, to rtol 1e-4, which an η 2% larger must
+    exceed. Returns (report, launches by phase: rank 0's, the two-rank
+    synchronous run's result)."""
     import torch
     from repro_torch.configs import OptimizerConfig
     from repro_torch.core import comm
@@ -2904,7 +3004,7 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
     # lr 2 the runs drift past the tolerance (4.5e-4 relative in 8 steps
     # on an H100); float32 holds the comparison to the mean's own
     # arithmetic
-    base_steps = TRAIN_STEPS
+    base_steps = RANKS_BASELINE_STEPS
     res, wall, peak_mib = torchrun_train(root, [
         "--arch", cfg.name, "--param-dtype", "float32", "--optimizer",
         "adaalter", "--lr", "2", "--warmup", "0", "--batch",
@@ -2944,13 +3044,14 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
             rep["max_memory_allocated"] / 1e9 for rep in res["ranks"]],
         "card_memory_used_peak_gb": peak_mib * 2**20 / 1e9,
         "torchrun_wall_s": wall}
-    return report, by_phase
+    return report, by_phase, res
 
 
 def sharded_run(root: Path, cfg, shape, oc, *, workers: int, shards: int,
-                cli, what: str):
+                cli, what: str, launched=None):
     """One sharded flat run as ``workers`` x ``shards`` gloo ranks on the
-    card through torchrun (``cli``: its arguments), against the stacked
+    card through torchrun (``cli``: its arguments; or ``launched``, the
+    (result, wall, peak MiB) of a launch that ran it), against the stacked
     flat run of ``workers`` workers in this process (the same weights and
     batches): equal bit for bit (``same_run``), which the stacked run with
     η 2% off must fail. Per rank: rows 2, 4 (or 5) and 6 launched as the
@@ -2982,7 +3083,8 @@ def sharded_run(root: Path, cfg, shape, oc, *, workers: int, shards: int,
     require(not same_run(off, want), f"{what}: a stacked run with η 2% off "
             "passes the bitwise comparison")
     free_card()
-    res, wall, peak_mib = torchrun_train(root, cli, nproc=workers * shards)
+    res, wall, peak_mib = launched or torchrun_train(root, cli,
+                                                     nproc=workers * shards)
     require(same_run(res, want), f"{what}: the {workers} x {shards} grid's "
             f"run differs from the stacked one: losses {res['losses']} vs "
             f"{want['losses']}, digest {res['state_digest']} vs "
@@ -3054,8 +3156,8 @@ def sharded_phases(root: Path, cfg, smi) -> dict:
     tokens, H = 2, int8 one-pass with the kernels, 3 steps (one round).
     ``sharded_grid``: reduced Big LSTM as 2 workers x 2 shards, four gloo
     ranks, where the worker sub-group's mean runs, one-pass and
-    three-pass. Each equal to its stacked run bit for bit. Returns the
-    launches by phase (rank 0's)."""
+    three-pass, both in one launch. Each equal to its stacked run bit for
+    bit. Returns the launches by phase (rank 0's)."""
     from repro_torch.configs import OptimizerConfig, ShapeConfig, reduced
     by_phase = {}
     common = ["--optimizer", "local_adaalter", "--H", str(SHARDED_H),
@@ -3078,22 +3180,315 @@ def sharded_phases(root: Path, cfg, smi) -> dict:
     small = reduced(cfg)
     shape = ShapeConfig("grid", seq_len=16, global_batch=8, kind="train")
     grid = {}
-    for name, fused in (("one_pass", True), ("three_pass", False)):
-        oc = OptimizerConfig(name="local_adaalter", lr=0.5, H=SHARDED_H,
-                             warmup_steps=0, compression="int8",
-                             use_kernels=True, flat=True, sync_fused=fused)
+    ocs = {name: dict(name="local_adaalter", lr=0.5, H=SHARDED_H,
+                      warmup_steps=0, compression="int8", use_kernels=True,
+                      flat=True, sync_fused=fused)
+           for name, fused in (("one_pass", True), ("three_pass", False))}
+    # both encodes in one launch of four ranks
+    got, wall, peak_mib = torchrun_train(
+        root, None, nproc=4, grid={"data": 2, "model": 2}, runs=[
+            dict(arch=cfg.name, reduced=True, workers=2, opt=opt,
+                 steps=SHARDED_STEPS, batch=8, seq=16)
+            for opt in ocs.values()])
+    for (name, opt), res in zip(ocs.items(), got):
         grid[name], launches = sharded_run(
-            root, small, shape, oc, workers=2, shards=2,
-            what=f"sharded_grid {name}",
-            cli=["--arch", cfg.name, "--reduced", "--lr", "0.5", "--warmup",
-                 "0", "--workers", "2", "--batch", "8", "--seq", "16",
-                 *common, *([] if fused else ["--unfused-sync"])])
-        by_phase["sharded_grid" if fused
+            root, small, shape, OptimizerConfig(**opt), workers=2, shards=2,
+            what=f"sharded_grid {name}", cli=None,
+            launched=(res, wall, peak_mib))
+        by_phase["sharded_grid" if opt["sync_fused"]
                  else "sharded_grid_three_pass"] = launches
     emit({"phase": "sharded_grid", "nvidia_smi": smi, "arch": small.name,
           **grid, "seconds": time.perf_counter() - t0})
     free_card()
     return by_phase
+
+
+FSDP_GRID = {"data": 2, "model": 1}
+# every step of a one-model run syncs: 2 rounds
+FSDP_LOCAL_STEPS = 2
+# train_fsdp_moe: phi3.5-moe at full width, 1 of its 32 layers
+# (1,562,980,352 parameters), synchronous AdaAlter in bf16 under its own
+# plan, 8 x 1024 tokens, 2 steps (the second warm)
+MOE_RANKS = dict(arch="phi3.5-moe-42b-a6.6b", layers=1, dtype="bfloat16",
+                 steps=2, batch=8, seq=1024,
+                 opt=dict(name="adaalter", lr=0.5, warmup_steps=100))
+
+
+def fsdp_splits(cfg, plan, grid=FSDP_GRID):
+    """Every rank's ``LeafSplit`` of each leaf of ``cfg`` under ``plan``
+    (``sharding.specs``): [rank][leaf]."""
+    from repro_torch.sharding import ShardingRules, leaf_split, param_shardings
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    tree = build_model(cfg).init(None, "meta")
+    specs = param_shardings(ShardingRules(grid, plan), tree)
+    return [[leaf_split(t.shape, sp, grid, {"data": r, "model": 0})
+             for t, sp in zip(leaves(tree), specs)]
+            for r in range(grid["data"])]
+
+
+def fsdp_local_plan(grid=FSDP_GRID):
+    """The plan resolve_plan gives phi3.5-moe (41.9 B parameters) on
+    ``grid``: no worker axes, FSDP over data, remat full."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import resolve_plan
+    plan = resolve_plan(get_arch("phi3.5-moe-42b-a6.6b"), grid,
+                        optimizer="local_adaalter")
+    require(not plan.local_axes and plan.fsdp_axes == ("data",),
+            f"phi3.5-moe's plan on {grid}: {plan}")
+    return plan
+
+
+def moe_ranks_runs(remats=("full", "none")) -> tuple:
+    """train_fsdp_moe's runs (:data:`MOE_RANKS`) for :func:`torchrun_train`,
+    one a remat policy, under the plan resolve_plan gives phi3.5-moe on
+    :data:`FSDP_GRID` for AdaAlter (FSDP over data, remat full): (plan,
+    the cut config, runs)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import resolve_plan
+    phi = get_arch(MOE_RANKS["arch"])
+    plan = resolve_plan(phi, FSDP_GRID, optimizer="adaalter")
+    require(plan.fsdp_axes == ("data",) and plan.remat == "full",
+            f"phi3.5-moe's synchronous plan on {FSDP_GRID}: {plan}")
+    cut = dataclasses.replace(phi, n_layers=MOE_RANKS["layers"],
+                              param_dtype=MOE_RANKS["dtype"])
+    return plan, cut, [dict(MOE_RANKS, plan=dataclasses.asdict(
+        dataclasses.replace(plan, remat=r))) for r in remats]
+
+
+def moe_ranks_report(results, remats=("full", "none")) -> dict:
+    """Per remat policy, each rank's warm step, params gather and slice
+    mean in ms, and its allocated and reserved peak GB."""
+    steps = MOE_RANKS["steps"]
+    return {r: {"losses": res["losses"], "ranks": [{
+        "rank": rep["rank"],
+        "step_ms": [1e3 * t for t in rep["step_s"]],
+        "warm_step_ms": 1e3 * rep["step_s"][-1],
+        "gather_ms_per_step": 1e3 * rep["round_s"]["gather"] / steps,
+        "slice_mean_ms_per_step": 1e3 * sum(
+            rep["round_s"][k] for k in ("d2h", "wire", "h2d", "decode_sum"))
+        / steps,
+        "max_memory_allocated_gb": rep["max_memory_allocated"] / 1e9,
+        "max_memory_reserved_gb": rep["max_memory_reserved"] / 1e9}
+        for rep in res["ranks"]]} for r, res in zip(remats, results)}
+
+
+def check_fsdp_parts(gen, cfg) -> list:
+    """Row 3 (the one-pass EF encode) on each distinct part shape a rank
+    of train_fsdp_local encodes, unstacked (batch_ndim 0): the bf16
+    params' and the fp32 B²'s, bitwise against its plain version; the
+    largest part timed beside its bound."""
+    import torch
+    bf16 = dataclasses.replace(cfg, param_dtype="bfloat16")
+    shapes = sorted({s.part_shape for part in fsdp_splits(
+        bf16, fsdp_local_plan()) for s in part}, key=math.prod,
+        reverse=True)
+    out = []
+    for i, shape in enumerate(shapes):
+        out.append(check_ef(gen, shape, torch.bfloat16, False,
+                            timed=i == 0, batch_ndim=0))
+        out.append(check_ef(gen, shape, torch.float32, True, timed=i == 0,
+                            batch_ndim=0))
+        torch.cuda.empty_cache()
+    return out
+
+
+def leaf_itemsizes(cfg) -> list:
+    """Each parameter leaf's bytes an element (``tree.leaves`` order):
+    the param dtype's, a float32 leaf's (the MoE router) 4."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    return [t.element_size() for t in leaves(build_model(cfg).init(
+        None, "meta"))]
+
+
+def split_bytes(splits, itemsizes) -> int:
+    """The split leaves' bytes (``comm.fsdp_step_bytes``' split_bytes)."""
+    return sum(math.prod(s.shape) * b for s, b in zip(splits, itemsizes)
+               if s.split)
+
+
+def fsdp_rank(rep: dict, steps: int, splits, entries: int,
+              itemsizes) -> dict:
+    """One FSDP rank's report: its walls, collectives and wire bytes a
+    step, a step's params gather and slice mean (device to host, gloo, host
+    to device, ordered sum) in ms, its state bytes beside Σ part numel ×
+    (the leaf's itemsize + 4 a float32 state entry) from the specs, and its
+    peak allocated and reserved GB."""
+    r = rep["round_s"]
+    state = sum(s.part_numel * (b + 4 * entries)
+                for s, b in zip(splits, itemsizes))
+    return {
+        "rank": rep["rank"], "route": rep["route"],
+        "step_ms": [1e3 * t for t in rep["step_s"]],
+        "warm_step_ms_median": statistics.median(
+            1e3 * t for t in rep["step_s"][1:]),
+        "collectives_per_step": rep["collectives"] / steps,
+        "wire_bytes_per_step": rep["wire_bytes"] / steps,
+        "gather_ms_per_step": 1e3 * r["gather"] / steps,
+        "slice_mean_ms_per_step": 1e3 * sum(
+            r[k] for k in ("d2h", "wire", "h2d", "decode_sum")) / steps,
+        "round_ms_per_step": {k: 1e3 * v / steps for k, v in r.items()},
+        "state_bytes": rep["state_bytes"],
+        "state_bytes_from_specs": state,
+        "launches": rep["launches"],
+        "max_memory_allocated_gb": rep["max_memory_allocated"] / 1e9,
+        "max_memory_reserved_gb": rep["max_memory_reserved"] / 1e9}
+
+
+def fsdp_phases(root: Path, cfg, smi, fsdp_cli: dict, base_steps: int):
+    """FSDP over the two data ranks on the card, both phases' comparison
+    runs in one torchrun launch (train_loop(plan=...) a run). ``train_fsdp``:
+    the synchronous AdaAlter run of train_ranks (the CLI, full-width Big
+    LSTM, float32, 64 x 20, lr 2), whose plan now shards every leaf over
+    data, against the same run under the replicated plan (fsdp_axes=()):
+    bit for bit (same_run); each rank's state bytes from the specs,
+    fsdp_step_bytes (4 P) a step, its allocation under the replicated
+    run's. ``train_fsdp_local``: Local AdaAlter on full-width Big LSTM in
+    bf16 under phi3.5-moe's plan (one model, FSDP over data, remat full),
+    int8 wire with the kernels, 2 steps, 64 x 20: bit for bit the
+    replicated plan's run, which the FSDP run with η 2% off must fail; row
+    3 launched 2 x 11 times a step (every step syncs) on each rank,
+    nothing else. ``train_fsdp_moe``: phi3.5-moe at full width, cut to 1
+    layer, synchronous AdaAlter in bf16 under its own plan (FSDP over data,
+    remat full), 2 steps over 8 x 1024 tokens: bit for bit the same run
+    under remat none, state and wire bytes from the specs, no kernel
+    launched. Returns the launches by phase (rank 0's)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import comm
+    from repro_torch.launch.mesh import resolve_plan
+    from repro_torch.models.counting import count_params
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    bf16 = dataclasses.replace(cfg, param_dtype="bfloat16")
+    sync_plan = resolve_plan(cfg32, FSDP_GRID, optimizer="adaalter")
+    require(sync_plan.fsdp_axes == ("data",),
+            f"the synchronous plan {sync_plan}")
+    local_plan = fsdp_local_plan()
+    replicated = lambda plan: dataclasses.asdict(dataclasses.replace(
+        plan, fsdp_axes=()))
+    local = dict(arch=cfg.name, dtype="bfloat16", steps=FSDP_LOCAL_STEPS,
+                 batch=64, seq=20, plan=dataclasses.asdict(local_plan),
+                 opt=dict(name="local_adaalter", lr=0.5, H=2,
+                          warmup_steps=100, compression="int8",
+                          use_kernels=True))
+    moe_plan, moe_cfg, moe_runs = moe_ranks_runs()
+    (want, got_l, want_l, wrong_l, *moe_res), wall, peak_mib = torchrun_train(
+        root, None, timeout=900.0, runs=[
+            dict(arch=cfg.name, dtype="float32", plan=replicated(sync_plan),
+                 steps=base_steps, batch=64, seq=20,
+                 opt=dict(name="adaalter", lr=2.0, warmup_steps=0)),
+            local, dict(local, plan=replicated(local_plan)),
+            dict(local, opt=dict(local["opt"], lr=0.5 * 1.02)), *moe_runs])
+    card_gb = peak_mib * 2**20 / 1e9
+    require(card_gb < 80.0, f"fsdp phases: the card used {card_gb} GB")
+    shared = {"comparison_runs_torchrun_wall_s": wall,
+              "comparison_runs_card_memory_used_peak_gb": card_gb}
+
+    n_params = count_params(cfg32)
+    splits = fsdp_splits(cfg32, sync_plan)
+    n_split = sum(math.prod(s.shape) for s in splits[0] if s.split)
+    require(same_run(fsdp_cli, want), "train_fsdp: the FSDP run differs from "
+            f"the replicated one: losses {fsdp_cli['losses']} vs "
+            f"{want['losses']}, digest {fsdp_cli['state_digest']} vs "
+            f"{want['state_digest']}")
+    step_b = comm.fsdp_step_bytes(n_params, n_split, 2)
+    require(step_b == 4 * n_params, f"fsdp_step_bytes {step_b} != 4 P")
+    ranks = []
+    isz = leaf_itemsizes(cfg32)
+    for rep, rep_r, sp in zip(fsdp_cli["ranks"], want["ranks"], splits):
+        one = fsdp_rank(rep, base_steps, sp, 1, isz)
+        require(one["state_bytes"] == one["state_bytes_from_specs"]
+                and rep["wire_bytes"] == base_steps * step_b,
+                f"train_fsdp: rank {rep['rank']}: {one}")
+        require(rep["max_memory_allocated"] < rep_r["max_memory_allocated"],
+                f"train_fsdp: rank {rep['rank']} allocated "
+                f"{rep['max_memory_allocated']} B, the replicated run "
+                f"{rep_r['max_memory_allocated']}")
+        require_launches(rep["launches"])
+        one["replicated"] = fsdp_rank(rep_r, base_steps, [
+            dataclasses.replace(s, dim=None, parts=1) for s in sp], 1, isz)
+        ranks.append(one)
+    emit({"phase": "train_fsdp", "nvidia_smi": smi, "params": n_params,
+          "param_dtype": "float32", "optimizer": "adaalter", "lr": 2.0,
+          "steps": base_steps, "global_batch": 64, "seq": 20,
+          "plan": dataclasses.asdict(sync_plan), "split_values": n_split,
+          "losses": fsdp_cli["losses"], "equal_to_replicated": True,
+          "fsdp_step_bytes": step_b, "ranks": ranks, **shared})
+
+    splits = fsdp_splits(bf16, local_plan)
+    n_split = sum(math.prod(s.shape) for s in splits[0] if s.split)
+    n_leaves = len(splits[0])
+    steps = FSDP_LOCAL_STEPS
+    require(same_run(got_l, want_l), "train_fsdp_local: the FSDP run "
+            f"differs from the replicated one: losses {got_l['losses']} vs "
+            f"{want_l['losses']}, digest {got_l['state_digest']} vs "
+            f"{want_l['state_digest']}")
+    require(not same_run(wrong_l, want_l), "train_fsdp_local: a run with η "
+            "2% off passes the bitwise comparison")
+    rounds = len(got_l["sync_steps"])
+    require(got_l["sync_steps"] == list(range(steps)),
+            f"train_fsdp_local: sync steps {got_l['sync_steps']}")
+    step_b = comm.fsdp_step_bytes(count_params(bf16), n_split, 2, 2)
+    ranks = []
+    isz = leaf_itemsizes(bf16)
+    for rep, rep_r, sp in zip(got_l["ranks"], want_l["ranks"], splits):
+        require_launches(rep["launches"], fused_ef=2 * n_leaves * rounds)
+        require_launches(rep_r["launches"], fused_ef=2 * n_leaves * rounds)
+        one = fsdp_rank(rep, steps, sp, 4, isz)
+        require(one["state_bytes"] == one["state_bytes_from_specs"]
+                and rep["wire_bytes"] == steps * step_b,
+                f"train_fsdp_local: rank {rep['rank']}: {one}")
+        one["replicated"] = fsdp_rank(rep_r, steps, [
+            dataclasses.replace(s, dim=None, parts=1) for s in sp], 4, isz)
+        ranks.append(one)
+    emit({"phase": "train_fsdp_local", "nvidia_smi": smi,
+          "params": count_params(bf16), "param_dtype": "bfloat16",
+          "plan": dataclasses.asdict(local_plan), "steps": steps, "H": 2,
+          "global_batch": 64, "seq": 20, "split_values": n_split,
+          "losses": got_l["losses"], "sync_steps": got_l["sync_steps"],
+          "equal_to_replicated": True, "eta_2pct_high_rejected": True,
+          "fsdp_step_bytes": step_b, "fused_ef_launches_per_round":
+          2 * n_leaves, "ranks": ranks, **shared,
+          "seconds": time.perf_counter() - t0})
+
+    # the MoE on ranks under remat: each recomputed group routes the
+    # rank's rows with the other rank's as one batch again
+    full, none = moe_res
+    require(same_run(full, none), "train_fsdp_moe: remat full differs from "
+            f"remat none: losses {full['losses']} vs {none['losses']}, "
+            f"digest {full['state_digest']} vs {none['state_digest']}")
+    require(all(math.isfinite(v) for v in full["losses"]),
+            f"train_fsdp_moe: losses {full['losses']}")
+    splits = fsdp_splits(moe_cfg, moe_plan)
+    n_split = sum(math.prod(s.shape) for s in splits[0] if s.split)
+    # a bf16 model whose router is float32: the gather moves its bytes
+    isz = leaf_itemsizes(moe_cfg)
+    step_b = comm.fsdp_step_bytes(count_params(moe_cfg), n_split, 2,
+                                  split_bytes=split_bytes(splits[0], isz))
+    steps = MOE_RANKS["steps"]
+    state = []
+    for rep, sp in zip(full["ranks"], splits):
+        require_launches(rep["launches"])
+        one = fsdp_rank(rep, steps, sp, 1, isz)
+        require(one["state_bytes"] == one["state_bytes_from_specs"]
+                and rep["wire_bytes"] == steps * step_b,
+                f"train_fsdp_moe: rank {rep['rank']}: {one}")
+        state.append(one["state_bytes"])
+    emit({"phase": "train_fsdp_moe", "nvidia_smi": smi,
+          "arch": moe_cfg.name, "layers": moe_cfg.n_layers,
+          "layers_of_config": get_arch(moe_cfg.name).n_layers,
+          "params": count_params(moe_cfg), "param_dtype": moe_cfg.param_dtype,
+          "plan": dataclasses.asdict(moe_plan), "steps": steps,
+          "global_batch": MOE_RANKS["batch"], "seq": MOE_RANKS["seq"],
+          "optimizer": MOE_RANKS["opt"], "split_values": n_split,
+          "remat_full_equals_none": True, "fsdp_step_bytes": step_b,
+          "state_bytes_by_rank": state, "remat": moe_ranks_report(moe_res),
+          **shared})
+    free_card()
+    return {"train_fsdp": fsdp_cli["ranks"][0]["launches"],
+            "train_fsdp_local": got_l["ranks"][0]["launches"],
+            "train_fsdp_moe": full["ranks"][0]["launches"]}
 
 
 def backward_peak_gb(cfg, params, batch, remat: str) -> float:
@@ -3409,6 +3804,9 @@ def main() -> int:
                           for s in range(fsg.shards)
                           for half in ("params", "b2")]
     sharded["grid_codes"] = [check_subplane_codes(gen, fsg.shard_size)]
+    torch.cuda.empty_cache()
+    # row 3 on every part shape train_fsdp_local's ranks encode whole
+    fsdp_parts = check_fsdp_parts(gen, cfg)
     sass = sass_tf32_mma_counts(_build.library_path())
     require(all(sass.get(f"{k}<{t}>", 0) > 0 for k in SSD_KERNELS[::2]
                 for t in ("float", "bf16")),
@@ -3418,6 +3816,7 @@ def main() -> int:
           "sync_mean": mean, "mma_selftest": mma, "ssd": ssd_checks,
           "ssd_partial_head_groups": ssd_partial, "ssd_hymba": ssd_hymba,
           "hymba_train": hymba_train, "sharded_subplanes": sharded,
+          "fsdp_parts": fsdp_parts,
           "ssd_sass_tf32_hmma": sass,
           "plane": {"plane_size": fs.plane_size, "real": fs.n_real,
                     "slots": fs.n_leaves, "buckets": fs.bucket_ranges()}})
@@ -3598,14 +3997,17 @@ def main() -> int:
     slice6_phases(counters, smi)
     hybrid_n = slice7_phases(counters, smi)
     t0 = time.perf_counter()
-    ranks, ranks_n = train_ranks_phase(root, cfg, shape, smi, leaf, flat)
+    ranks, ranks_n, fsdp_cli = train_ranks_phase(root, cfg, shape, smi,
+                                                 leaf, flat)
     emit({"phase": "train_ranks", **ranks,
           "seconds": time.perf_counter() - t0})
     sharded_n = sharded_phases(root, cfg, smi)
+    fsdp_n = fsdp_phases(root, cfg, smi, fsdp_cli,
+                         ranks["baseline_adaalter"]["steps"])
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     by_phase = {"train": leaf_n, "train_flat": flat_n,
                 "train_unfused": unfused_n, "score": score_n, **hybrid_n,
-                **ranks_n, **sharded_n}
+                **ranks_n, **sharded_n, **fsdp_n}
 
     def entry(name, source, replaces, n, err, timed, library_ms=None):
         return {"name": name, "route": "cuda",
@@ -3625,7 +4027,7 @@ def main() -> int:
                   x["update"] for x in hymba_train["leaves"]]), upd[0]),
         entry("fused_ef", "sync_fused.cu", "sync_fused.py:81",
               leaf_n["fused_ef"],
-              max([x["max_abs_err"] for x in ef] + [
+              max([x["max_abs_err"] for x in ef + fsdp_parts] + [
                   max(x["ef_params"], x["ef_b2"])
                   for x in hymba_train["leaves"]]), ef[0]),
         entry("flat_fused_update", "adaalter_update.cu",

@@ -3,10 +3,11 @@
 ``get_arch(name)`` returns a ported architecture's full config,
 ``get_shape(name)`` one of the four assigned input shapes and
 ``reduced(cfg)`` a smoke-test variant. Every architecture of the JAX
-package is ported but llama3-405b (ROADMAP Queue 1 item 9c: it needs
-several devices), which raises.
+package is registered; llama3-405b (405.9 B parameters) builds on the
+``meta`` device and resolves its plan, and training it waits for several
+cards (ROADMAP Queue 1 item 9c).
 """
-from repro_torch.configs import (biglstm, hymba_1_5b,
+from repro_torch.configs import (biglstm, hymba_1_5b, llama3_405b,
                                  llama4_maverick_400b_a17b,
                                  llama_3_2_vision_11b, mamba2_370m,
                                  minitron_4b, phi3_5_moe_42b_a6_6b,
@@ -21,10 +22,10 @@ from repro_torch.configs.shapes import SHAPES, get_shape
 ARCHS = {m.CONFIG.name: m.CONFIG for m in (
     llama4_maverick_400b_a17b, mamba2_370m, seamless_m4t_large_v2, qwen2_7b,
     minitron_4b, phi4_mini_3_8b, llama_3_2_vision_11b, phi3_5_moe_42b_a6_6b,
-    hymba_1_5b, biglstm)}
+    hymba_1_5b, biglstm, llama3_405b)}
 
 #: the JAX package's architectures that the port does not build yet.
-NOT_PORTED = ("llama3-405b",)
+NOT_PORTED = ()
 
 
 def get_arch(name: str) -> ModelConfig:
@@ -32,8 +33,8 @@ def get_arch(name: str) -> ModelConfig:
         return ARCHS[name]
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet (ROADMAP Queue 1 "
-            f"item 9c: it needs several devices); ported: {sorted(ARCHS)}")
+            f"arch {name!r} is not ported to PyTorch yet; ported: "
+            f"{sorted(ARCHS)}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
 
 

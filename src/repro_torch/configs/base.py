@@ -233,9 +233,10 @@ class ParallelismPlan:
     plane splits into sub-planes, one a rank
     (``sharding.partition.plane_shard_axes``); and ``remat``, the
     rematerialisation of the transformer groups in training
-    (``models/transformer.py::apply_stack``). A run with ranks refuses a
-    plan with ``fsdp_axes`` (FSDP, ROADMAP Queue 1 item 9b);
-    ``weight_gather_serving`` is the reference's field, kept so the two
+    (``models/transformer.py::apply_stack``); ``fsdp_axes``, over which a
+    one-model run splits each leaf and its state (FSDP,
+    ``launch/steps.py::_leaf_programs``, leaf by leaf as
+    ``sharding.specs.param_shardings`` says); ``weight_gather_serving`` is the reference's field, kept so the two
     packages' plans compare field for field, and decides nothing yet
     (item 9c).
     """

@@ -13,7 +13,7 @@ import contextlib
 import dataclasses
 import math
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,8 +105,9 @@ def worker_mean_(x: torch.Tensor, round16=()) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # one worker a rank: the sync round's collectives over torch.distributed
 # --------------------------------------------------------------------------- #
-#: the parts of a sync round a staged (gloo, CUDA tensors) rank times
-ROUND_PARTS = ("encode", "d2h", "wire", "h2d", "decode_sum")
+#: the parts of a sync round a staged (gloo, CUDA tensors) rank times; an
+#: FSDP step's params gather is timed whole, as ``gather``
+ROUND_PARTS = ("encode", "d2h", "wire", "h2d", "decode_sum", "gather")
 #: elements of a row a rank's mean decodes and sums at a time (a multiple
 #: of every quantization block): 256 MB of each fp32 temporary
 MEAN_CHUNK = 1 << 26
@@ -130,8 +131,9 @@ class CollectiveCount:
                 "seconds": dict(self.seconds)}
 
 
-#: the sync rounds' collectives, and the synchronous path's gradient mean:
-#: what ``TrainResult.comm_bytes_total`` accounts for
+#: the sync rounds' collectives, and the synchronous path's gradient mean
+#: and FSDP params gather: what ``TrainResult.comm_bytes_total`` accounts
+#: for
 wire = CollectiveCount()
 #: every other gather (the per-step statistics, checkpoints, health probes)
 side = CollectiveCount()
@@ -154,11 +156,12 @@ class RankGroup:
     Every collective is an all-gather of one contiguous byte buffer, into
     which the caller's parts (tensors of any dtype) are packed: a sync
     round's wire is one collective per payload leaf, or one for a whole
-    flat plane. Under gloo with CUDA tensors the buffer is staged through
-    host memory explicitly, here and nowhere else: copied to the host,
-    gathered there, copied back to the card. Under NCCL it stays on the
-    card. ``timed`` (gloo, or a CPU run) times the round's parts, with the
-    device synchronised around each."""
+    flat plane; but an FSDP gradient mean's, an all-to-all of a leaf's
+    float32 slices (:meth:`mean_slices`). Under gloo with CUDA tensors the
+    buffers are staged through host memory explicitly, here and nowhere
+    else: copied to the host, exchanged there, copied back to the card.
+    Under NCCL they stay on the card. ``timed`` (gloo, or a CPU run) times
+    the round's parts, with the device synchronised around each."""
 
     def __init__(self, device, group=None) -> None:
         import torch.distributed as dist
@@ -170,6 +173,8 @@ class RankGroup:
         self.layout = GridLayout(self.world, 1)
         self.workers: "RankGroup" = self
         self.shards: Optional["RankGroup"] = None
+        # sub-groups by the grid axes their ranks differ along
+        self._along: Dict[Tuple[str, ...], "RankGroup"] = {}
         self.device = torch.device(device)
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         if self.backend == "gloo" and self.device.type not in ("cpu", "cuda"):
@@ -194,36 +199,63 @@ class RankGroup:
     def shard(self) -> int:
         return self.layout.coords(self.rank)[1]
 
-    def split(self, layout) -> "RankGroup":
+    def split(self, layout, fsdp_axes: Sequence[str] = ()) -> "RankGroup":
         """Lay the ranks out as ``layout`` (a
         ``sharding.specs.GridLayout``: rank r is worker r // S, shard r % S)
         and open its sub-groups: :attr:`workers`, the ranks of this rank's
-        shard index (the sync mean's), and :attr:`shards`, the ranks of this
-        rank's worker (the params gather's). Every rank creates every
-        sub-group, in one order (the shard sub-groups by worker, then the
-        worker sub-groups by shard index), as ``dist.new_group`` requires of
-        all ranks; a rank that did otherwise would hang its peers. With one
-        shard a worker the worker sub-group is this group. Returns
-        ``self``."""
+        shard index (the sync mean's), :attr:`shards`, the ranks of this
+        rank's worker (the params gather's), and the FSDP sub-group, the
+        ranks that differ only along ``fsdp_axes`` (:meth:`along`). Every
+        rank creates every sub-group, in one order (the shard sub-groups by
+        worker, the worker sub-groups by shard index, then the FSDP
+        sub-groups), as ``dist.new_group`` requires of all ranks; a rank
+        that did otherwise would hang its peers. A sub-group of every rank
+        is this group, one of this rank alone none. Returns ``self``."""
         import torch.distributed as dist
         if layout.world != self.world:
             raise ValueError(f"a {layout.workers} x {layout.shards} grid on "
                              f"{self.world} ranks")
         self.layout = layout
-        if layout.shards == 1:
-            self.workers, self.shards = self, None
-            return self
+        self._along = {}
 
         def sub(ranks):
             pg = dist.new_group(ranks, backend=self.backend)
             if self.rank not in ranks:
                 return None
             return RankGroup(self.device, pg)
-        by_worker = [sub(r) for r in layout.shard_groups()]
-        by_shard = [sub(r) for r in layout.worker_groups()]
-        self.shards = by_worker[self.worker]
-        self.workers = by_shard[self.shard]
+
+        if layout.shards > 1:
+            by_worker = [sub(r) for r in layout.shard_groups()]
+            by_shard = [sub(r) for r in layout.worker_groups()]
+            self.shards = by_worker[self.worker]
+            self.workers = by_shard[self.shard]
+            self._along = {layout.axes[1:]: self.shards,
+                           layout.axes[:1]: self.workers}
+        else:
+            self.workers, self.shards = self, None
+        axes = tuple(sorted(a for a in fsdp_axes if a in layout.axes))
+        groups = layout.groups_along(axes)
+        if (axes and axes not in self._along and len(groups) > 1
+                and len(groups[0]) > 1):
+            mine = [sub(r) for r in groups]
+            self._along[axes] = next(g for g in mine if g is not None)
         return self
+
+    def along(self, axes: Sequence[str]) -> Optional["RankGroup"]:
+        """The sub-group of the ranks that differ from this one only along
+        the grid ``axes``: this group where that is every rank, None where
+        it is this rank alone, else the sub-group :meth:`split` opened."""
+        axes = tuple(sorted(a for a in axes if a in self.layout.axes))
+        group = next(g for g in self.layout.groups_along(axes)
+                     if self.rank in g)
+        if len(group) == 1:
+            return None
+        if len(group) == self.world:
+            return self
+        if axes not in self._along:
+            raise ValueError(f"no sub-group along {axes}: open it with "
+                             f"split(layout, fsdp_axes={axes})")
+        return self._along[axes]
 
     @property
     def route(self) -> str:
@@ -274,13 +306,15 @@ class RankGroup:
         return offsets, total, max(p.element_size() for p in parts)
 
     def _gather_packed(self, sent: Sequence[torch.Tensor], packings,
-                       count: Optional[CollectiveCount]) -> torch.Tensor:
+                       count: Optional[CollectiveCount],
+                       timed: bool = True) -> torch.Tensor:
         """One all-gather of every rank's parts, rank r's packed as
         ``packings[r]`` (:meth:`_packing`; ``sent`` is this rank's) into a
         buffer padded to the largest rank's and aligned to the largest
         element. Returns the (world, bytes) uint8 rows: on the host where
         the wire is staged (pinned), else on the device. ``count`` (None:
-        not counted) gets one collective and the buffer's bytes."""
+        not counted) gets one collective and the buffer's bytes, and the
+        seconds of its parts unless not ``timed``."""
         import torch.distributed as dist
         if self._round_t0 is not None and count is wire:
             wire.seconds["encode"] += self._now() - self._round_t0
@@ -289,7 +323,8 @@ class RankGroup:
         total += (-total) % max(a for _, _, a in packings)
         host = self.staged or (self.device.type == "cpu")
         offsets = packings[self.rank][0]
-        with self.part("d2h", count if self.staged else None):
+        timing = count if timed else None
+        with self.part("d2h", timing if self.staged else None):
             buf = torch.empty(total, dtype=torch.uint8,
                               device="cpu" if host else self.device,
                               pin_memory=self.staged)
@@ -299,7 +334,7 @@ class RankGroup:
                     p.detach().contiguous().reshape(-1).view(torch.uint8))
         out = torch.empty((self.world, total), dtype=torch.uint8,
                           device=buf.device, pin_memory=self.staged)
-        with self.part("wire", count):
+        with self.part("wire", timing):
             dist.all_gather(list(out.unbind(0)), buf, group=self.group)
         if count is not None:
             count.n += 1
@@ -374,6 +409,79 @@ class RankGroup:
                     n = d.numel() * d.element_size()
                     d.view(-1).copy_(out[r, offsets[i]:offsets[i] + n]
                                      .view(d.dtype), non_blocking=self.staged)
+
+    def gather_leaves(self, parts: Sequence[torch.Tensor], splits,
+                      count: Optional[CollectiveCount] = wire
+                      ) -> List[torch.Tensor]:
+        """The whole leaves of an FSDP-sharded tree, one all-gather: rank
+        r's ``parts`` (its parts of the leaves, ``splits[i]`` a
+        ``sharding.specs.LeafSplit`` over this group's ranks) land in part
+        r of each whole leaf, along its split dimension; an unsplit leaf is
+        its part itself. Returns new whole leaves (the unsplit ones as
+        given). ``count`` gets one collective and the bytes this rank sent,
+        the seconds as part ``gather``."""
+        idx = [i for i, s in enumerate(splits) if s.split]
+        out = list(parts)
+        if not idx:
+            return out
+        with self.part("gather", count):
+            for i in idx:
+                out[i] = torch.empty(splits[i].shape, dtype=parts[i].dtype,
+                                     device=parts[i].device)
+            dests = [[splits[i].part(out[i], r) for i in idx]
+                     for r in range(self.world)]
+            packings = [self._packing([parts[i] for i in idx])] * self.world
+            got = self._gather_packed([parts[i] for i in idx], packings,
+                                      count, timed=False)
+            offsets = packings[0][0]
+            for r in range(self.world):
+                for j, (i, d) in enumerate(zip(idx, dests[r])):
+                    if r == self.rank:
+                        d.copy_(parts[i])
+                        continue
+                    n = d.numel() * d.element_size()
+                    d.copy_(got[r, offsets[j]:offsets[j] + n].view(d.dtype)
+                            .view(d.shape), non_blocking=self.staged)
+        return out
+
+    def mean_slices(self, x: torch.Tensor, split,
+                    count: Optional[CollectiveCount] = wire) -> torch.Tensor:
+        """This rank's part (``split``, a ``sharding.specs.LeafSplit``
+        over this group's ranks) of the mean over the ranks of ``x``, each
+        rank's own whole leaf, one all-to-all: part r of every rank's ``x``
+        goes to rank r in float32 (:func:`gather_mean_`'s wire), and each
+        rank takes the :func:`ordered_mean` of the parts it holds, in rank
+        order, cast to ``x``'s dtype: bit for bit its part of
+        ``gather_mean_(x)``. ``all_to_all`` rather than
+        ``reduce_scatter``, which adds in its own order. Returns a new
+        contiguous tensor. ``count`` gets one collective and the bytes
+        this rank sent to the others."""
+        import torch.distributed as dist
+        R, me, n = self.world, self.rank, split.part_numel
+        host = self.staged or self.device.type == "cpu"
+        with self.part("d2h", count if self.staged else None):
+            send = torch.empty((R, n), dtype=torch.float32,
+                               device="cpu" if host else self.device,
+                               pin_memory=self.staged)
+            for r in range(R):        # this rank's own part stays put
+                if r != me:           # widened on the device, then copied
+                    send[r].view(split.part_shape).copy_(
+                        split.part(x, r).float())
+        recv = torch.empty((R, n), dtype=torch.float32, device=send.device,
+                           pin_memory=self.staged)
+        with self.part("wire", count):
+            dist.all_to_all_single(recv, send, group=self.group)
+        if count is not None:
+            count.n += 1
+            count.bytes += 4 * n * (R - 1)
+        del send
+        with self.part("h2d", count if self.staged else None):
+            rows = {r: (recv[r].to(self.device) if self.staged else recv[r])
+                    for r in range(R) if r != me}
+        del recv
+        rows[me] = split.part(x).contiguous().view(-1)
+        out = torch.empty(split.part_shape, dtype=x.dtype, device=x.device)
+        return self.mean_(out, lambda r, a, b: rows[r][a:b])
 
     def gather_stacked(self, tree, *, to_device: bool,
                        count: Optional[CollectiveCount] = side):
@@ -472,6 +580,26 @@ def sync_payload_bytes(algorithm: str, n_params: int, dtype_bytes: int = 4,
     multiplies it by the policy's measured sync count."""
     return sync_round_multiplier(algorithm) * payload_bytes(
         n_params, dtype_bytes, compression, block)
+
+
+def fsdp_step_bytes(n_params: int, n_split: int, world: int,
+                    param_bytes: int = 4,
+                    split_bytes: Optional[int] = None) -> float:
+    """Wire bytes ONE rank of an FSDP group of ``world`` ranks contributes
+    to a step of a run whose split leaves hold ``n_split`` of its
+    ``n_params`` values: its part of the split params (``split_bytes /
+    world``; ``split_bytes``, the split leaves' bytes, defaults to
+    ``n_split`` values of ``param_bytes``, and differs where a leaf keeps
+    another dtype, as the MoE's float32 router in a bf16 model), the parts
+    of its float32 gradient it sends the others (``n_split · (world − 1) /
+    world``), and the unsplit leaves' float32 gradients (``n_params −
+    n_split``). At float32 params: 4·n_params for every ``world``, the
+    replicated run's gradient mean; FSDP saves memory, not wire."""
+    if split_bytes is None:
+        split_bytes = param_bytes * n_split
+    return (split_bytes / world
+            + 4.0 * n_split * (world - 1) / world
+            + 4.0 * (n_params - n_split))
 
 
 def sync_bytes_per_step(algorithm: str, n_params: int, H: int = 1,

@@ -27,7 +27,7 @@ Accumulators are fp32 regardless of the parameter dtype.
 from __future__ import annotations
 
 from functools import partial
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,13 +91,17 @@ def global_norm(tree: Tree, batch_ndim: int = 0) -> torch.Tensor:
                           for g in leaves(tree)))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float, batch_ndim: int = 0):
+def clip_by_global_norm(grads: Tree, max_norm: float, batch_ndim: int = 0,
+                        norm: Optional[torch.Tensor] = None):
     """Scale ``grads`` so their global L2 norm is <= ``max_norm``.
     Returns ``(clipped, factor)``; ``max_norm <= 0`` disables clipping.
-    ``batch_ndim=1`` clips each worker's gradient independently."""
+    ``batch_ndim=1`` clips each worker's gradient independently. ``norm``:
+    the global norm, where the caller has it (e.g. summed over the parts
+    of sharded leaves); :func:`global_norm` of ``grads`` by default."""
     if max_norm <= 0:
         return grads, 1.0
-    norm = global_norm(grads, batch_ndim)
+    if norm is None:
+        norm = global_norm(grads, batch_ndim)
     factor = torch.minimum(_f32(1.0, norm), _f32(max_norm, norm)
                            / torch.maximum(norm, _f32(1e-16, norm)))
 
@@ -361,19 +365,22 @@ def compressed_sync(base: LocalOptimizer, compression="int8", *,
                 new_inner[k] = state[k]
         return new_params, new_inner
 
-    def sync(params, state, mean_fn=_identity, payload_mean=None):
+    def sync(params, state, mean_fn=_identity, payload_mean=None,
+             encode=None):
         inner = {k: v for k, v in state.items() if k not in _RESIDUAL_KEYS}
         # stacked state (counters of shape (R,)): quantization blocks never
         # straddle workers, each of whom sends its own payload
         bnd = 1 if state["step"].ndim > 0 else 0
         codes = payload_mean is not None
-        wire_p, res_p, *pay_p = ef_apply(
-            params, state["res_params"], codec, bnd, codes=codes)
+        if encode is None:
+            encode = partial(ef_apply, codec=codec, batch_ndim=bnd)
+        wire_p, res_p, *pay_p = encode(params, state["res_params"],
+                                       codes=codes)
         res_b2 = None
         if "res_b2" in state:
-            wire_b2, res_b2, *pay_b2 = ef_apply(
-                inner["b2_local"], state["res_b2"], codec, bnd,
-                clamp_nonneg=True, codes=codes)
+            wire_b2, res_b2, *pay_b2 = encode(
+                inner["b2_local"], state["res_b2"], clamp_nonneg=True,
+                codes=codes)
             inner = {**inner, "b2_local": wire_b2}
         if codes:     # the base sync's means, taken from the payloads
             payload_mean(wire_p, pay_p[0], partial(ef_decode_range, codec))

@@ -42,7 +42,6 @@ _SYNC_ONLY_THRESHOLD = 100e9       # > 100B: no local workers (AdaAlter, global 
 #: seconds a collective may wait for a peer before the group fails
 DEFAULT_TIMEOUT_S = 60.0
 
-_FSDP = ("FSDP over fsdp_axes is not ported yet: ROADMAP Queue 1 item 9b")
 _TP = ("a per-leaf run with shards is the reference's tensor parallelism, "
        "not ported yet (ROADMAP Queue 1 item 9c); shard the flat plane "
        "instead: --flat")
@@ -73,13 +72,12 @@ def resolve_plan(cfg: ModelConfig, grid: Union[Dict[str, int], int], *,
     1}``), with its thresholds: the paper-style plan (workers along
     ``local_axes=("data",)``, the flat plane split down
     ``tp_axis="model"``) for a local optimizer up to 20 B parameters; the
-    fully synchronous plan (``grad_axes=("data",)``, one model whose
-    gradient is averaged every step) for the baselines and above 100 B;
-    between them, workers as pods with ZeRO over ``data``. Every plan takes
-    ``remat="full"`` above 1e9 parameters. The reference also shards the
-    synchronous plan's state over ``data`` (FSDP) at any size; the port
-    keeps it replicated up to 20 B. :func:`check_plan` refuses, for a run
-    with ranks, the plans with FSDP (item 9b)."""
+    fully synchronous plan (``grad_axes=fsdp_axes=("data",)``: one model
+    whose gradient is averaged every step, its state FSDP-sharded over
+    ``data``) for the baselines and above 100 B; between them, workers as
+    pods with ZeRO over ``data`` (the grid has no pod axis, so no worker
+    axis: one model). Every plan takes ``remat="full"`` above 1e9
+    parameters."""
     if isinstance(grid, int):
         grid = {"data": grid, "model": 1}
     n_params = cfg.param_count()
@@ -88,8 +86,8 @@ def resolve_plan(cfg: ModelConfig, grid: Union[Dict[str, int], int], *,
     big = n_params > _POD_WORKER_THRESHOLD
     if n_params > _SYNC_ONLY_THRESHOLD or not local:
         return ParallelismPlan(local_axes=(), grad_axes=("data",),
-                               fsdp_axes=("data",) if big else (),
-                               remat=remat, weight_gather_serving=big)
+                               fsdp_axes=("data",), remat=remat,
+                               weight_gather_serving=big)
     if big:        # workers = pods (no pod axis here); ZeRO over "data"
         return ParallelismPlan(local_axes=(), grad_axes=("data",),
                                fsdp_axes=("data",), remat="full",
@@ -100,20 +98,16 @@ def resolve_plan(cfg: ModelConfig, grid: Union[Dict[str, int], int], *,
 
 def check_plan(plan: ParallelismPlan, grid: Dict[str, int], *,
                flat: bool) -> None:
-    """Refuse, for a run with ranks, what the port cannot build yet: FSDP
-    over ``fsdp_axes`` (the >20 B plans; item 9b), and shards of a per-leaf
-    or synchronous run (tensor parallelism, item 9c); and a grid whose
-    shard axis the plan leaves unused (ranks that would hold the same
-    sub-plane)."""
+    """Refuse, for a run with ranks, what the port cannot build yet: shards
+    of a per-leaf or synchronous run (tensor parallelism, item 9c); and a
+    grid whose shard axis the plan leaves unused (ranks that would hold the
+    same sub-plane). FSDP over ``fsdp_axes`` builds (per leaf, without
+    ``local_axes``)."""
     from repro_torch.sharding.specs import plane_shard_count
-    if plan.fsdp_axes:
-        raise NotImplementedError(
-            f"the plan {plan} shards the state over {plan.fsdp_axes} (the "
-            "reference's plan above 20 B parameters); " + _FSDP)
+    if grid.get("model", 1) > 1 and not (flat and plan.local_axes):
+        raise NotImplementedError(f"{grid['model']} shards a worker: " + _TP)
     shards = plane_shard_count(grid, plan)
-    if shards > 1 and not (flat and plan.local_axes):
-        raise NotImplementedError(f"{shards} shards a worker: " + _TP)
-    if shards != grid.get("model", 1):
+    if plan.local_axes and shards != grid.get("model", 1):
         raise ValueError(f"the plan {plan} splits a plane into {shards} "
                          f"shards on a grid of {grid['model']}")
 
@@ -151,10 +145,12 @@ def check_backend(backend: str, local_world: int, device_count: int) -> None:
 
 def init_ranks(backend: Optional[str] = None, device: Optional[str] = None,
                timeout_s: float = DEFAULT_TIMEOUT_S,
-               grid: Optional[Dict[str, int]] = None
+               grid: Optional[Dict[str, int]] = None,
+               fsdp_axes: Tuple[str, ...] = ()
                ) -> Tuple[RankGroup, torch.device]:
     """Open the process group of this ``torchrun`` launch, laid out as
-    ``grid`` (default: one worker a rank). Returns the
+    ``grid`` (default: one worker a rank), with the FSDP sub-groups along
+    ``fsdp_axes`` (the plan's; ``RankGroup.split``). Returns the
     :class:`~repro_torch.core.comm.RankGroup` and this rank's device."""
     import torch.distributed as dist
     backend = backend or default_backend(device)
@@ -173,7 +169,7 @@ def init_ranks(backend: Optional[str] = None, device: Optional[str] = None,
         seconds=timeout_s), **kw)
     group = RankGroup(dev)
     if grid is not None:
-        group.split(GridLayout(grid["data"], grid["model"]))
+        group.split(GridLayout(grid["data"], grid["model"]), fsdp_axes)
     return group, dev
 
 

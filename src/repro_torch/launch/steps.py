@@ -1,4 +1,4 @@
-"""Train steps, R workers stacked on one device or one synchronous model.
+"""Train steps, R workers stacked on one device or one model.
 
 Every family of ``models.build_model`` trains: a worker's loss is the
 model's ``loss_fn`` (the cross-entropy plus the MoE load-balance loss),
@@ -47,18 +47,26 @@ and one mean per half. Given the same schedule the train state is bitwise
 equal to the per-leaf layout's.
 
 With a synchronous optimizer (``sgd``, ``adagrad``, ``adaalter``: the
-paper's Algorithms 1 and 3, its baselines) one model takes the whole
-global batch and ``opt.update(grads, g∘g, ...)`` applies the gradient every
-step, as the reference's non-local branch does: plain tensor ops, no
-kernel (no Pallas kernel is reachable from that branch either). On one
-device there is no all-reduce; ``train_loop`` charges the bytes it would
-move. With a ``group`` each rank takes its share of the global batch and
-the gradients are averaged over the ranks (:func:`core.comm.gather_mean_`,
-fp32 on the wire) before the update: the reference's ``grad_axes`` mean.
+paper's Algorithms 1 and 3, its baselines), or a local one under a plan
+without worker axes (the reference's one-model branch, the plans above
+20 B parameters), one model takes the whole global batch
+(:func:`_leaf_programs`): ``opt.update(grads, g∘g, ...)`` every step, or
+``opt.local_step`` every step and the identity-mean sync (the EF encode
+of a lossy wire) on the policy's sync steps, as the reference's
+non-local branch does. On one device there is no all-reduce;
+``train_loop`` charges the bytes it would move. With a ``group`` each rank
+takes its share of the global batch, split over ``grad_axes``, and holds
+each parameter leaf and its state as the plan's per-leaf spec says
+(``sharding/specs.py``): split over the FSDP sub-group (``fsdp_axes``),
+or whole. A step gathers the split leaves, runs the forward and
+backward, frees them, and averages the gradient over the ranks, a split
+leaf's part by an all-to-all of its slices, an unsplit leaf by
+:func:`core.comm.gather_mean_` (fp32 on the wire): bit for bit the
+replicated run's mean, which is the same code under ``fsdp_axes=()``.
 
 With ``OptimizerConfig.obs_metrics`` every step also returns
 ``metrics['grad_norm']``: the L2 norm of the raw (pre-clip) gradients, one
-per worker on the local paths, a scalar on the synchronous one.
+per worker on the local paths, a scalar on the one-model one.
 """
 from __future__ import annotations
 
@@ -212,6 +220,8 @@ class TrainPrograms:
     n_shards: int = 1            # sub-planes a worker's flat plane splits
                                  # into, one a rank (sharded flat runs)
     shard: int = 0               # this rank's sub-plane
+    leaf_layout: Any = None      # LeafLayout: the parts of each leaf this
+                                 # rank holds (one-model runs)
 
 
 def shard_state(fs, shard: int, plane, state):
@@ -227,34 +237,37 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
     """The step functions of a run of ``n_workers`` workers stacked on
     ``device``, or with a ``group`` spread over its ranks, laid out as its
     (workers × shards) grid: one worker a rank, or with shards each
-    worker's flat plane split into sub-planes, one a rank (a synchronous
-    optimizer's one model spreads its batch over the ranks). ``plan``
+    worker's flat plane split into sub-planes, one a rank. ``plan``
     (default: ``launch.mesh.resolve_plan`` on the grid, a stacked run's
     grid being its workers along ``data``, as the reference's
     ``train_loop`` resolves it) decides between workers along
-    ``local_axes`` and one model whose gradient is averaged along
-    ``grad_axes``, how many shards a flat plane takes (``tp_axis``), and
-    the rematerialisation of the transformer groups (``remat``)."""
+    ``local_axes`` (a local optimizer under a plan with them) and one model
+    whose gradient is averaged along ``grad_axes`` and whose leaves are
+    split over ``fsdp_axes`` (:func:`_leaf_programs`: a synchronous
+    optimizer, or a local one under a plan without worker axes, the
+    reference's one-model branch), how many shards a flat plane takes
+    (``tp_axis``), and the rematerialisation of the transformer groups
+    (``remat``)."""
     from repro_torch.launch.mesh import check_plan
     from repro_torch.sharding.specs import plane_shardings
-    if opt_cfg.flat and opt_cfg.name != "local_adaalter":
-        raise ValueError("OptimizerConfig.flat requires a local Local "
-                         f"AdaAlter run (got optimizer={opt_cfg.name!r})")
     opt = opt_lib.make_optimizer(opt_cfg)
-    local = opt_lib.is_local(opt)
     grid = group.grid if group is not None else {"data": n_workers,
                                                  "model": 1}
     plan = plan or resolve_plan(cfg, grid, optimizer=opt_cfg.name)
+    local = opt_lib.is_local(opt) and bool(plan.local_axes)
+    if opt_cfg.flat and not (local and opt_cfg.name == "local_adaalter"):
+        raise ValueError("OptimizerConfig.flat requires a local Local "
+                         f"AdaAlter run (got optimizer={opt_cfg.name!r}, "
+                         f"local={local})")
     layout, _ = plane_shardings(grid, plan)
     # a stacked run holds whole planes, whatever shard axes its plan has
     n_shards = group.layout.shards if (group is not None
                                        and opt_cfg.flat) else 1
     if group is not None:
         check_plan(plan, grid, flat=opt_cfg.flat)
-        if bool(plan.local_axes) != local:
-            raise ValueError(f"the plan {plan} does not fit {opt_cfg.name!r}"
-                             f" ({'a local' if local else 'a synchronous'} "
-                             "optimizer)")
+        if plan.local_axes and not local:
+            raise ValueError(f"the plan {plan} does not fit "
+                             f"{opt_cfg.name!r} (a synchronous optimizer)")
         if local and n_workers != layout.workers:
             raise ValueError(f"{n_workers} workers on a {grid['data']} x "
                              f"{grid['model']} grid of ranks: a run with "
@@ -262,13 +275,13 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
                              "ranks a worker")
     if not local:
         if n_workers != 1:
+            why = ("is a synchronous optimizer" if not opt_lib.is_local(opt)
+                   else f"has no worker axes under the plan {plan}")
             raise ValueError(
-                f"{opt_cfg.name!r} is a synchronous optimizer: one model "
-                "takes the whole global batch (R = 1), so it trains with "
-                f"one worker, not {n_workers}. The reference runs a local "
-                "optimizer on its synchronous branch only for models over "
-                "100 B parameters, which the port does not build")
-        return _sync_programs(cfg, opt_cfg, opt, torch.device(device), group,
+                f"{opt_cfg.name!r} {why}: one model takes the whole global "
+                f"batch (R = 1), so it trains with one worker, not "
+                f"{n_workers}")
+        return _leaf_programs(cfg, opt_cfg, torch.device(device), group,
                               plan)
     R = 1 if group is not None else n_workers     # workers on this device
     device = torch.device(device)
@@ -377,48 +390,243 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
 
 
 # --------------------------------------------------------------------------- #
-# synchronous steps (sgd, adagrad, adaalter: the paper's baselines)
+# one model, per leaf (the synchronous optimizers, and a local optimizer under
+# a plan without worker axes), each leaf held as its spec says
 # --------------------------------------------------------------------------- #
-def _sync_programs(cfg, opt_cfg, opt, device, group, plan) -> TrainPrograms:
-    """One model over the global batch; ``opt.update`` every step. Both
-    step functions are the same step (a synchronous optimizer has no round
-    to skip; ``train_loop`` runs the sync step every step, as the
-    reference's H = 1 schedule does). With a ``group`` each rank holds the
-    model and its share of the batch; the gradients are averaged over the
-    ranks, fp32 on the wire, and the loss is the mean of the ranks'."""
+class LeafLayout:
+    """The part of each parameter leaf a rank holds in a one-model run:
+    ``splits`` (a ``sharding.specs.LeafSplit`` a leaf, in ``tree.leaves``
+    order) over ``group``, the FSDP sub-group holding the other parts
+    (None: this rank holds every leaf whole). The optimizer state's
+    params-shaped entries are split as the params, its counters whole."""
+
+    def __init__(self, splits, group) -> None:
+        self.splits = list(splits)
+        self.group = group
+        self.index = 0 if group is None else group.rank
+
+    @property
+    def sharded(self) -> bool:
+        return any(s.split for s in self.splits)
+
+    def owned_leaves(self, tree) -> list:
+        """``(index, leaf)`` of each leaf of a params-shaped tree of parts
+        this rank counts in sums over the FSDP sub-group: its part of a
+        split leaf; an unsplit leaf on the sub-group's first rank only."""
+        return [(i, x) for i, (x, s) in enumerate(zip(leaves(tree),
+                                                      self.splits))
+                if s.split or self.index == 0]
+
+    def take(self, tree):
+        """This rank's parts of a params-shaped tree of whole leaves."""
+        return unflatten_like(tree, [s.take(x) for s, x in
+                                     zip(self.splits, leaves(tree))])
+
+    def gather(self, tree, count=comm.wire):
+        """The whole leaves of a tree of this rank's parts, on its device:
+        one all-gather over the FSDP sub-group (``tree`` itself if no leaf
+        is split)."""
+        if not self.sharded:
+            return tree
+        return unflatten_like(tree, self.group.gather_leaves(
+            leaves(tree), self.splits, count))
+
+    def whole(self, tree):
+        """Every leaf whole on the host (a checkpoint): one gather over the
+        FSDP sub-group a split leaf, counted in ``comm.side``."""
+        out = []
+        for x, s in zip(leaves(tree), self.splits):
+            if s.split:
+                x = self.group.gather_leaves([x], [s], count=comm.side)[0]
+            out.append(x.cpu())
+        return unflatten_like(tree, out)
+
+    def whole_like(self, tree):
+        """``meta`` templates of the whole leaves of a tree of parts (a
+        checkpoint's restore template)."""
+        return unflatten_like(tree, [
+            torch.empty(s.shape, dtype=x.dtype, device="meta")
+            for x, s in zip(leaves(tree), self.splits)])
+
+    def state(self, fn, opt_state):
+        """``fn`` applied to every params-shaped entry of an optimizer
+        state; the counters pass."""
+        return {k: v if k in fsp.SCALAR_STATE_KEYS else fn(v)
+                for k, v in opt_state.items()}
+
+    def grad_mean_(self, grads: list, group) -> list:
+        """The gradient mean over ``group`` (the ranks along
+        ``grad_axes``), leaf by leaf, written over ``grads`` (each whole
+        leaf freed as its part replaces it): a split leaf's part by
+        ``RankGroup.mean_slices`` over the FSDP sub-group, an unsplit leaf
+        by ``core.comm.gather_mean_``, fp32 on the wire; bit for bit the
+        replicated run's mean."""
+        for i, s in enumerate(self.splits):
+            grads[i] = (self.group.mean_slices(grads[i], s) if s.split else
+                        gather_mean_(grads[i], group,
+                                     wire_dtype=torch.float32))
+        return grads
+
+    def sums(self, partials: list) -> list:
+        """Per leaf, a float32 sum over the whole leaf from each rank's sum
+        over its part (``partials``, scalars): the split leaves' partials
+        gathered over the FSDP sub-group (one collective, ``comm.side``)
+        and added in part order."""
+        idx = [i for i, s in enumerate(self.splits) if s.split]
+        if not idx:
+            return partials
+        (got,) = self.group.all_gather(
+            [torch.stack([partials[i].float() for i in idx])],
+            count=comm.side)
+        out = list(partials)
+        for j, i in enumerate(idx):
+            acc = got[0, j]
+            for r in range(1, got.shape[0]):
+                acc = acc + got[r, j]
+            out[i] = acc
+        return out
+
+    def norm(self, tree) -> torch.Tensor:
+        """The fp32 global L2 norm of a tree of parts
+        (``core.optimizers.global_norm`` of the whole leaves, but for the
+        order of the split leaves' sums)."""
+        return torch.sqrt(sum(self.sums([torch.sum(torch.square(g.float()))
+                                         for g in leaves(tree)])))
+
+    def encode(self, codec, block: int):
+        """``compressed_sync``'s ``encode`` over this rank's parts: the
+        error-feedback encode of each whole unstacked leaf
+        (``core.sync_engine.ef_apply``, quantization blocks of the leaf's
+        row-major order). A part whose runs hold whole blocks
+        (``LeafSplit.whole_blocks``) is encoded in place, block for block
+        the whole leaf's; elsewhere the leaf and its residual are gathered
+        (``comm.side``), encoded whole, and this rank keeps its part."""
+        from repro_torch.core.sync_engine import ef_apply
+        blocked = codec.name == "int8"
+
+        def enc(tree, residual, *, clamp_nonneg=False, codes=False):
+            if codes:
+                raise ValueError("one model sends no sync payload")
+            wires, res = [], []
+            for x, e, s in zip(leaves(tree), leaves(residual), self.splits):
+                whole = s.split and blocked and not s.whole_blocks(block)
+                if whole:
+                    x, e = self.group.gather_leaves([x, e], [s, s],
+                                                    count=comm.side)
+                w, r = ef_apply(x, e, codec, 0, clamp_nonneg=clamp_nonneg)
+                wires.append(s.take(w) if whole else w)
+                res.append(s.take(r) if whole else r)
+            return unflatten_like(tree, wires), unflatten_like(tree, res)
+        return enc
+
+
+def _leaf_programs(cfg, opt_cfg, device, group, plan) -> TrainPrograms:
+    """One model over the global batch, each leaf as its spec over the grid
+    says (``sharding.specs.param_shardings`` under ``plan``): split along a
+    dimension over the FSDP sub-group (``plan.fsdp_axes``), or whole. A
+    synchronous optimizer runs ``opt.update`` every step (the paper's
+    baselines, Algorithms 1 and 3); a local one (the reference's one-model
+    branch) ``opt.local_step`` every step and on the policy's sync steps
+    ``opt.sync`` with the identity mean, whose only work is the
+    error-feedback encode of a lossy wire (:meth:`LeafLayout.encode`).
+
+    A step, on each rank: the split leaves gathered whole over the FSDP
+    sub-group; the forward and backward on this rank's share of the batch
+    (split over ``grad_axes``); the gathered leaves freed; the gradient's
+    mean over the ``grad_axes`` ranks, a split leaf's part by an
+    all-to-all of its slices (:meth:`LeafLayout.grad_mean_`); the update on
+    the parts, elementwise. Sums over a split leaf (the gradient norm of
+    ``grad_clip`` and ``obs_metrics``) add the parts' partial sums in part
+    order. Under ``fsdp_axes=()`` (or on one device) every leaf is whole
+    and this is the replicated run, whose state the FSDP run's equals bit
+    for bit; the norm may differ in its last bits. The loss is the mean of
+    the ranks'. No kernel runs but the int8 encode's (row 3) with
+    ``use_kernels``, as in the reference's one-model branch."""
+    from repro_torch.sharding import ShardingRules, leaf_split, param_shardings
+    from repro_torch.sharding.partition import rule_overrides
     model = build_model(cfg)
+    abstract = model.init(None, "meta")
+    # the clip needs the norm over every rank's parts: it is applied here,
+    # not by make_optimizer's with_grad_clip
+    opt = opt_lib.make_optimizer(dataclasses.replace(opt_cfg, grad_clip=0.0))
+    local = opt_lib.is_local(opt)
+    grid = group.grid if group is not None else {"data": 1, "model": 1}
+    coords = (group.layout.coords_of(group.rank) if group is not None
+              else dict.fromkeys(grid, 0))
+    specs = param_shardings(ShardingRules(grid, plan, rule_overrides(cfg)),
+                            abstract)
+    splits = [leaf_split(t.shape, sp, grid, coords)
+              for t, sp in zip(leaves(abstract), specs)]
+    grad_group = group.along(plan.grad_axes) if group is not None else None
+    fsdp = group.along(plan.fsdp_axes) if group is not None else None
+    layout = LeafLayout(splits, fsdp)
+    if layout.sharded and (fsdp is None or fsdp is not grad_group
+                           or fsdp is not group):
+        raise NotImplementedError(
+            f"the plan {plan} on the grid {grid} splits leaves over "
+            f"{sorted({a for sp in splits for a in sp.axes})} beside its "
+            "gradient mean: only FSDP over every rank of grad_axes is "
+            "ported (ROADMAP Queue 1 item 9c)")
     # Alg. 3 folds g∘g into B²; Alg. 1 and plain SGD never read it, and the
     # reference's compiled step drops it as dead code
     wants_sq = opt_cfg.name == "adaalter"
+    sync_kw = {}
+    if local:
+        from repro_torch.core.codecs import get_codec
+        codec = get_codec(opt_cfg.sync.compression,
+                          block=opt_cfg.sync.block,
+                          use_kernels=opt_cfg.use_kernels,
+                          fused=opt_cfg.sync.fused)
+        if not codec.lossless:
+            sync_kw = {"encode": layout.encode(codec, opt_cfg.sync.block)}
 
     def init_fn(seed: int, base=None):
         if base is None:
             base = model.init(torch.Generator(device).manual_seed(seed))
-        params = tree_map(lambda x: x.to(device), base)
+        params = layout.take(tree_map(lambda x: x.to(device), base))
         return params, opt.init(params)
 
-    def step(params, opt_state, batch):
-        p = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, _ = model.loss_fn(p, batch, remat=plan.remat)
-        grads = unflatten_like(params, list(
-            torch.autograd.grad(loss, leaves(p))))
+    def step(params, opt_state, batch, *, do_sync: bool):
+        whole = layout.gather(params)
+        p = tree_map(lambda t: t.detach().requires_grad_(), whole)
+        # the ranks' rows are one batch (the MoE routes them as one)
+        loss, _ = model.loss_fn(p, batch, remat=plan.remat,
+                                batch_group=grad_group)
+        grads = list(torch.autograd.grad(loss, leaves(p)))
+        del whole, p                  # the gathered leaves
         loss = loss.detach()
-        if group is not None:     # the grad_axes mean, and the loss's
-            grads = tree_map(lambda g: gather_mean_(
-                g, group, wire_dtype=torch.float32), grads)
-            loss = worker_metrics({"loss": loss}, group)["loss"]
-        sq = (tree_map(lambda g: torch.square(g.float()), grads)
-              if wants_sq else None)
-        new_params, new_state = opt.update(grads, sq, opt_state, params)
+        if grad_group is not None:    # the grad_axes mean, and the loss's
+            grads = layout.grad_mean_(grads, grad_group)
+            loss = worker_metrics({"loss": loss}, grad_group)["loss"]
+        grads = unflatten_like(params, grads)
         metrics = {"loss": loss}
+        norm = None
+        if opt_cfg.obs_metrics or opt_cfg.grad_clip > 0:
+            norm = layout.norm(grads)
         if opt_cfg.obs_metrics:
-            metrics["grad_norm"] = opt_lib.global_norm(grads)
+            metrics["grad_norm"] = norm
+        applied, factor = opt_lib.clip_by_global_norm(
+            grads, opt_cfg.grad_clip, norm=norm)
+        if local:
+            new_params, new_state = opt.local_step(applied, opt_state,
+                                                   params)
+            if do_sync:
+                new_params, new_state = opt.sync(new_params, new_state,
+                                                 **sync_kw)
+            return new_params, new_state, metrics
+        sq = None
+        if wants_sq:
+            sq = tree_map(lambda g: torch.square(g.float()), grads)
+            if opt_cfg.grad_clip > 0:
+                sq = tree_map(lambda q: q * torch.square(factor), sq)
+        new_params, new_state = opt.update(applied, sq, opt_state, params)
         return new_params, new_state, metrics
 
-    n_leaves = len(leaves(model.init(None, "meta")))
-    return TrainPrograms(init_fn=init_fn, local_step=step, sync_step=step,
-                         n_workers=1, H=1, is_local=False,
-                         n_payload_leaves=n_leaves, group=group, plan=plan)
+    return TrainPrograms(init_fn=init_fn, local_step=partial(
+        step, do_sync=False), sync_step=partial(step, do_sync=True),
+        n_workers=1, H=opt.H if local else 1, is_local=False,
+        n_payload_leaves=len(splits), group=group, plan=plan,
+        leaf_layout=layout)
 
 
 # --------------------------------------------------------------------------- #

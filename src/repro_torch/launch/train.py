@@ -10,9 +10,10 @@ transformer families through their ``loss_fn``, full width or
   stacked on one device, per-leaf or over the flat parameter plane
   (``--flat``), the sync round owned by a ``SyncEngine`` (fixed-H or
   adaptive schedule, fp32/bf16/int8 wire, one-pass or three-pass encode);
-* the synchronous baselines (``sgd``, ``adagrad``, ``adaalter``): one model
-  over the global batch, R = 1, the bytes of a gradient all-reduce charged
-  every step;
+* the synchronous baselines (``sgd``, ``adagrad``, ``adaalter``), and a
+  local optimizer under a plan without worker axes (``plan=``; the plans
+  above 20 B parameters): one model over the global batch, R = 1, the
+  bytes of a gradient all-reduce charged every step;
 * checkpoints (``--checkpoint-dir``, ``--checkpoint-every``) in the JAX
   package's format, restored across layouts and, for flat planes, across
   worker counts, with the sync engine's ``SyncState``;
@@ -24,9 +25,13 @@ Under ``torchrun`` (``WORLD_SIZE`` > 1) the ranks form a grid of
 r // S; with S > 1 (``--flat`` only) it holds shard r % S of its worker's
 flat planes, gathers the params over its worker's ranks before each
 forward, and syncs its sub-planes with the ranks of its shard index. The
-sync round is a collective (``core/comm.py``); rank 0 alone writes
-``--out``, ``--trace``, ``--metrics`` and checkpoints, and every rank
-returns the same ``TrainResult``, equal to the stacked run's.
+sync round is a collective (``core/comm.py``). A one-model run spreads
+its batch over the ranks and, under the synchronous plan
+(``fsdp_axes=("data",)``), splits each leaf and its state over them
+(FSDP, ``launch/steps.py::_leaf_programs``). Rank 0 alone writes
+``--out``, ``--trace``, ``--metrics`` and checkpoints (an FSDP run's from
+the gathered parts: the replicated run's files), and every rank returns
+the same ``TrainResult``, equal to the stacked (or replicated) run's.
 
 ``TrainResult`` carries the measured sync schedule and the bytes it moved.
 Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
@@ -158,8 +163,13 @@ def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
     # states written before the SyncState are (params, opt_state) pairs
     no_ss = not any(k.startswith("#2/") for k in keys)
     disk_flat = is_flat_checkpoint(keys)
+    layout = programs.leaf_layout
+    sharded = layout is not None and layout.sharded
     if disk_flat == programs.is_flat:
         like = (params, opt_state)
+        if sharded:                  # the whole leaves, on the host
+            like = (layout.whole_like(params),
+                    layout.state(layout.whole_like, opt_state))
     elif disk_flat:
         if programs.flat_abstract is None:
             raise ValueError(
@@ -194,6 +204,9 @@ def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
         w = programs.group.worker
         params, opt_state = tree_map(lambda t: t[w:w + 1],
                                      (params, opt_state))
+    if sharded:                      # this rank's parts of the leaves
+        params = layout.take(params)
+        opt_state = layout.state(layout.take, opt_state)
     shard = partial(shard_state, programs.flatspace, programs.shard)
     if disk_flat and programs.n_shards > 1:     # and this rank's sub-planes
         params, opt_state = shard(params, opt_state)
@@ -213,19 +226,25 @@ def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
     return params, opt_state, sync_state, step
 
 
-def state_digest(params, opt_state, *, worker_axis: bool) -> Dict[str,
-                                                                List[int]]:
+def state_digest(params, opt_state, *, worker_axis: bool,
+                 layout=None) -> Dict[str, List[int]]:
     """A digest of a train state: for the params and each float entry of
     the optimizer state, one integer per worker (with ``worker_axis``; else
     one), the sum of its elements' bit patterns read as integers. Equal
-    states give equal digests; any one changed element changes it."""
+    states give equal digests; any one changed element changes it. The
+    sums add over the parts of a leaf, so the digests of a one-model run's
+    ranks, each over the leaves it owns (``layout``, a
+    ``steps.LeafLayout``: ``owned_leaves``), add up to the whole
+    state's."""
     from repro_torch.core.flatspace import SCALAR_STATE_KEYS
     out = {}
     entries = [("params", params)] + sorted(
         (k, v) for k, v in opt_state.items() if k not in SCALAR_STATE_KEYS)
     for key, tree in entries:
         total = None
-        for t in tree_leaves(tree):
+        picked = (tree_leaves(tree) if layout is None
+                  else [x for _, x in layout.owned_leaves(tree)])
+        for t in picked:
             if not t.is_floating_point():
                 continue
             bits = t.view(torch.int16 if t.element_size() == 2
@@ -252,12 +271,13 @@ def _launch_counts() -> dict:
 
 
 def _rank_report(group, dev, since: dict, step_s, probe_s, wall: float,
-                 digest: dict) -> dict:
+                 digest: dict, state_bytes: int) -> dict:
     """This rank's share of a run with ranks: its device and place in the
     grid, walls, the collectives it issued and the bytes it contributed
-    (the sync rounds', the params gathers of a sharded run, and the rest),
-    the round parts' and the gathers' seconds, its kernel launches and
-    peak device memory, all counted from ``since``."""
+    (the sync rounds' or an FSDP step's, the params gathers of a sharded
+    flat run, and the rest), the round parts' and the gathers' seconds,
+    its kernel launches, peak device memory and the bytes of the train
+    state it holds, all counted from ``since``."""
     from repro_torch.core import comm
     wire, side = comm.wire.snapshot(), comm.side.snapshot()
     gather = comm.shard_gather.snapshot()
@@ -282,7 +302,7 @@ def _rank_report(group, dev, since: dict, step_s, probe_s, wall: float,
                                  if dev.type == "cuda" else None),
         "max_memory_reserved": (torch.cuda.max_memory_reserved(dev)
                                 if dev.type == "cuda" else None),
-        "state_digest": digest}
+        "state_bytes": state_bytes, "state_digest": digest}
 
 
 def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
@@ -306,8 +326,9 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
     ``launch.mesh.init_ranks``) this process is one rank of a grid of
     ``n_workers`` workers × S shards: one worker a rank (S = 1), or shard
     ``r % S`` of worker ``r // S``'s flat planes (a sharded ``flat`` run).
-    A synchronous optimizer keeps one model and spreads the global batch
-    over the ranks. ``device`` is this rank's. Every rank initialises from
+    A one-model run spreads the global batch over the ranks and holds each
+    leaf as its plan's spec says (FSDP parts or whole); a restore takes
+    this rank's parts. ``device`` is this rank's. Every rank initialises from
     the same seed or ``init_params``, draws its worker's batches, and
     returns the same ``TrainResult``: the stacked run's, bit for bit.
     Rank 0 alone writes the checkpoints, the trace and the metrics, from
@@ -336,10 +357,18 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
              "launches": _launch_counts()}
     programs = build_train_programs(cfg, opt_cfg, n_workers=n_workers,
                                     device=dev, group=group, plan=plan)
-    if (group is not None and not programs.is_local
-            and shape.global_batch % group.world):
-        raise ValueError(f"global batch {shape.global_batch} does not "
-                         f"split over {group.world} ranks")
+    # a rank draws its worker's batches (every shard of a worker the same),
+    # or its share of a one-model run's global batch, split over grad_axes
+    rank = None
+    if group is not None:
+        rank = ((group.worker, programs.n_workers) if programs.is_local
+                else group.layout.index_along(group.rank,
+                                              programs.plan.grad_axes))
+        if not programs.is_local and shape.global_batch % rank[1]:
+            raise ValueError(f"global batch {shape.global_batch} does not "
+                             f"split over {rank[1]} ranks")
+    layout = programs.leaf_layout
+    sharded = layout is not None and layout.sharded
     lead = group is None or group.rank == 0   # writes the run's files
     verbose = verbose and lead
     # a worker axis spread over ranks: the state is gathered to rank 0
@@ -349,8 +378,9 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
                      n_workers=R, seed=seed, non_iid=non_iid)
     params, opt_state = programs.init_fn(seed, init_params)
+    # a one-model run syncs every step (the reference's H = 1 engine)
     engine = make_sync_engine(opt_cfg, is_local=programs.is_local,
-                              H=programs.H)
+                              H=programs.H if programs.is_local else 1)
     start_step, sync_state = 0, None
     if checkpoint_dir:
         from repro_torch.checkpoint import latest_step
@@ -432,12 +462,6 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
         return got if lead else None
 
     losses, ppls, step_s, probe_s = [], [], [], []
-    # a rank draws its worker's batches (every shard of a worker the same),
-    # or its share of the synchronous run's global batch
-    rank = None
-    if group is not None:
-        rank = ((group.worker, R) if programs.is_local
-                else (group.rank, group.world))
     t0 = time.perf_counter()
     for step in range(start_step, steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in
@@ -466,7 +490,7 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
         if probe is not None:   # one summary feeds both exports
             t_probe = time.perf_counter()
             state_view = probe_state(do_sync)
-            if lead:
+            if lead or sharded:     # the parts' sums need every rank
                 summary = probe.step_summary(state_view, metrics,
                                              synced=do_sync)
             del state_view
@@ -516,6 +540,9 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
             state = (params, opt_state)
             if ranked:                # every worker's rows, stacked
                 state = gather_workers(programs, state, to_device=False)
+            elif sharded:             # every leaf whole
+                state = (layout.whole(params),
+                         layout.state(layout.whole, opt_state))
             if lead:
                 save_checkpoint(checkpoint_dir, step + 1,
                                 (*state, engine.export_state()))
@@ -555,14 +582,18 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
             print(f"wrote trace {trace_out} ({len(recorder.spans)} spans; "
                   f"python -m repro_torch.trace.chrome {trace_out} to view, "
                   "python -m repro_torch.trace.replay for what-ifs)")
-    digests = (state_digest(params, opt_state,
-                            worker_axis=programs.is_local) if digest else {})
+    digests = (state_digest(params, opt_state, worker_axis=programs.is_local,
+                            layout=layout if sharded else None)
+               if digest else {})
     ranks = []
     if group is not None:     # every rank's report; rank 0's walls for all
         import torch.distributed as dist
         ranks = [None] * group.world
+        state_bytes = sum(t.numel() * t.element_size() for t in
+                          tree_leaves((params, opt_state))
+                          if t.is_floating_point())
         dist.all_gather_object(ranks, _rank_report(
-            group, dev, since, step_s, probe_s, wall, digests),
+            group, dev, since, step_s, probe_s, wall, digests, state_bytes),
             group=group.group)
         wall, step_s, probe_s = (ranks[0][k]
                                  for k in ("wall_s", "step_s", "probe_s"))
@@ -571,6 +602,9 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
             digests = {k: [sum(rep["state_digest"][k][0]
                                for rep in ranks[w * S:(w + 1) * S])
                            for w in range(R)] for k in digests}
+        elif sharded:         # every rank holds parts of the one model
+            digests = {k: [sum(rep["state_digest"][k][0] for rep in ranks)]
+                       for k in digests}
     return TrainResult(losses=losses, ppl=ppls, steps=executed, n_workers=R,
                        comm_bytes_per_step=total / executed if executed
                        else 0.0,
@@ -684,35 +718,38 @@ def main(argv=None) -> None:
         warmup_steps=args.warmup, use_kernels=args.use_kernels,
         flat=args.flat)
     R = max(1, args.workers)
-    if R > 1 and args.optimizer in SYNC_OPTIMIZERS:
-        ap.error(f"--workers {R}: {args.optimizer} is a synchronous "
-                 "optimizer, trained as one model over the global batch "
-                 "(R = 1); the reference runs local optimizers on that "
-                 "path only for models over 100 B parameters, which the "
-                 "port does not build")
     from repro_torch.launch import mesh
     world = mesh.world_size()
-    grid = None
+    grid = {"data": world, "model": 1}
+    plan = mesh.resolve_plan(cfg, grid, optimizer=args.optimizer)
+    one_model = args.optimizer in SYNC_OPTIMIZERS or not plan.local_axes
+    if R > 1 and one_model:
+        why = ("is a synchronous optimizer" if args.optimizer in
+               SYNC_OPTIMIZERS else "has no worker axes above 20 B "
+               "parameters")
+        ap.error(f"--workers {R}: {args.optimizer} {why}, trained as one "
+                 "model over the global batch (R = 1)")
     if world > 1:
-        grid = {"data": world, "model": 1}   # synchronous: one model
-        if args.optimizer not in SYNC_OPTIMIZERS:
+        if not one_model:        # workers x shards; one model: along data
             try:
                 grid = mesh.grid_of(world, R)
             except ValueError as e:
                 ap.error(str(e))
+            plan = mesh.resolve_plan(cfg, grid, optimizer=args.optimizer)
     elif args.dist_backend:
         ap.error("--dist-backend needs a launch with ranks (torchrun)")
     group, device = None, args.device
     if world > 1:
         group, dev = mesh.init_ranks(args.dist_backend, args.device,
-                                     grid=grid)
+                                     grid=grid, fsdp_axes=plan.fsdp_axes)
         device = str(dev)
     lead = group is None or group.rank == 0
     try:
         where = (f"{R} stacked worker(s) on {resolve_device(device)}"
                  if group is None else
                  f"{world} ranks, " + (
-                     "data-parallel" if args.optimizer in SYNC_OPTIMIZERS
+                     ("one model, FSDP over data" if plan.fsdp_axes
+                      else "data-parallel") if one_model
                      else "one worker each" if grid["model"] == 1 else
                      f"{R} workers x {grid['model']} shards")
                  + f"; rank 0: {group.route}")

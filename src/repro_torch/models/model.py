@@ -136,13 +136,16 @@ def _build_transformer(cfg) -> Model:
         return {}
 
     def _trunk(params, batch, *, window=0, collect_cache=False,
-               remat="none"):
+               remat="none", batch_group=None):
         tokens = batch["tokens"]
         x = params["embed"][tokens.long()].to(dtype)
         pos = torch.arange(tokens.shape[1],
                            device=tokens.device).expand(tokens.shape)
+        ctx = _ctx(params, batch)
+        if batch_group is not None:
+            ctx["batch_group"] = batch_group
         x, aux, caches = tfm.apply_stack(
-            params["blocks"], cfg, x, pos, _ctx(params, batch), window=window,
+            params["blocks"], cfg, x, pos, ctx, window=window,
             collect_cache=collect_cache, encdec_dec=cfg.is_encdec,
             remat=remat)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -156,11 +159,16 @@ def _build_transformer(cfg) -> Model:
         x, _, _ = _trunk(params, batch)
         return _head(params, x)
 
-    def loss_fn(params, batch, rng=None, remat: str = "none"):
+    def loss_fn(params, batch, rng=None, remat: str = "none",
+                batch_group=None):
         """The training loss; ``remat`` rematerialises the decoder's groups
         in the backward (``transformer.apply_stack``), not the encoder's,
-        as in the reference."""
-        x, aux, _ = _trunk(params, batch, remat=remat)
+        as in the reference. ``batch_group``: the ranks (a
+        ``core.comm.RankGroup``) whose rows make one batch with
+        ``batch``'s, in rank order, each as many; the MoE layers route
+        them as one (``moe.moe_apply``)."""
+        x, aux, _ = _trunk(params, batch, remat=remat,
+                           batch_group=batch_group)
         logits = _head(params, x)
         if cfg.fused_xent and "mask" not in batch:
             loss = fused_softmax_xent(logits, batch["labels"])
@@ -238,10 +246,13 @@ def _build_lstm(cfg) -> Model:
     def logits_fn(params, batch):
         return lstm_mod.lstm_logits(params, batch["tokens"], cfg)
 
-    def loss_fn(params, batch, rng=None, remat: str = "none"):
+    def loss_fn(params, batch, rng=None, remat: str = "none",
+                batch_group=None):
         """Dropout 0.1 when ``rng`` (a ``torch.Generator``) is given; the
         training path passes none, as the reference's does. ``remat`` is
-        accepted and ignored, as the reference's LSTM ignores it."""
+        accepted and ignored, as the reference's LSTM ignores it;
+        ``batch_group`` too (no layer of the LSTM couples a batch's
+        rows)."""
         logits = lstm_mod.lstm_logits(
             params, batch["tokens"], cfg, rng=rng,
             dropout_rate=0.1 if rng is not None else 0.0)

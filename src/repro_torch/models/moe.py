@@ -10,6 +10,18 @@ The reference has two forms of the layer, picked by ``cfg.moe_group_tokens``:
 a GShard one-hot einsum dispatch and a gather/scatter one. They compute the
 same function, and the port computes both by index (the one-hot form's
 (T, E, C) float32 einsums would cost 2·T²·k·cf·D operations each).
+
+Capacity, queue positions and the load-balance fractions depend on the
+whole batch. Where ranks split one model's batch (a synchronous or FSDP
+run, ``launch/steps.py``), the caller passes the ranks' ``group`` and each
+rank routes its rows as part of the whole batch, rank after rank, as the
+reference's one program over the global batch does: the capacity counts
+every rank's tokens, a rank's queue positions start after the lower ranks'
+pairs, and the fractions count every rank's choices (one gather of the
+per-expert counts a layer). A rank's expert buffers hold only its own
+kept pairs. The group is an argument, not ambient state, so a
+rematerialised layer recomputes the same routing wherever autograd runs
+its backward (on CUDA, a thread of its own).
 """
 from __future__ import annotations
 
@@ -41,14 +53,18 @@ def _capacity(n_tokens: int, n_experts: int, top_k: int, factor: float) -> int:
     return max(int(n_tokens * top_k * factor / n_experts), 4)
 
 
-def _router(params, xt, cfg):
-    """xt: (T, D). Returns (gate_vals, gate_idx, probs, pos, keep, cap):
+def _router(params, xt, cfg, group=None):
+    """xt: (T, D). Returns (gate_vals, gate_idx, probs, slot, keep, size):
     the (T, k) gates (renormalised over the k choices when k > 1, zero where
-    dropped), expert ids and buffer positions, the (T, E) float32 router
-    probabilities, the (T, k) kept mask and the capacity."""
+    dropped), expert ids and positions in this rank's expert buffers, the
+    (T, E) float32 router probabilities, the (T, k) kept mask and the
+    buffers' length. Without ``group`` the buffers are the capacity long.
+    With ``group`` (a ``core.comm.RankGroup`` whose ranks hold the batch's
+    rows in rank order, each as many) a pair is kept where its position in
+    the whole batch's queue is under the whole batch's capacity, and the
+    buffers are as long as this rank's most kept pairs of one expert."""
     t = xt.shape[0]
     e, k = cfg.n_experts, cfg.top_k
-    cap = _capacity(t, e, k, cfg.capacity_factor)
     probs = torch.softmax(xt.float() @ params["router"], dim=-1)   # (T,E)
     # lax.top_k: the larger first, the lower index first among ties
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
@@ -59,8 +75,27 @@ def _router(params, xt, cfg):
     flat = F.one_hot(gate_idx, e).reshape(t * k, e)                # (T*k,E)
     pos = torch.sum((torch.cumsum(flat, dim=0) - 1) * flat,
                     dim=-1).reshape(t, k)
-    keep = pos < cap
-    return gate_vals * keep, gate_idx, probs, pos, keep, cap
+    if group is None:
+        size = _capacity(t, e, k, cfg.capacity_factor)
+        keep = pos < size
+    else:                         # after the lower ranks' pairs
+        counts = _rank_counts(group, flat)                         # (R,E)
+        offset = torch.sum(counts[:group.rank], dim=0)
+        cap = _capacity(t * group.world, e, k, cfg.capacity_factor)
+        keep = pos + offset[gate_idx] < cap
+        kept = torch.clamp(torch.minimum(counts[group.rank], cap - offset),
+                           min=0)
+        size = max(int(torch.max(kept)), 1)
+    return gate_vals * keep, gate_idx, probs, pos, keep, size
+
+
+def _rank_counts(group, onehot):
+    """Every rank's count of (token, choice) pairs per expert, (R, E):
+    one gather over ``group`` (counted in ``comm.side``)."""
+    from repro_torch.core import comm
+    (counts,) = group.all_gather([torch.sum(onehot, dim=0)],
+                                 count=comm.side)
+    return counts
 
 
 def _expert_ffn(params, xin, cfg):
@@ -73,23 +108,33 @@ def _expert_ffn(params, xin, cfg):
     return torch.bmm(h, params["w2"])
 
 
-def _aux_loss(probs, gate_idx, cfg):
+def _aux_loss(probs, gate_idx, cfg, group=None):
     """The load-balance loss: router_aux_loss · E · Σ_e frac_e · prob_e,
-    frac counting every choice, dropped ones too."""
+    frac counting every choice, dropped ones too. With ``group`` frac
+    counts every rank's choices and prob is this rank's mean, so the
+    ranks' mean loss is the whole batch's."""
     e = cfg.n_experts
-    frac = torch.mean(F.one_hot(gate_idx, e).float().sum(dim=1), dim=0)
+    onehot = F.one_hot(gate_idx, e)
+    if group is None:
+        frac = torch.mean(onehot.float().sum(dim=1), dim=0)
+    else:
+        t = gate_idx.shape[0] * group.world
+        frac = torch.sum(_rank_counts(group, onehot.sum(dim=1)),
+                         dim=0).float() / t
     prob = torch.mean(probs, dim=0)
     return cfg.router_aux_loss * e * torch.sum(frac * prob)
 
 
-def moe_apply(params, x, cfg):
-    """x: (B, S, D) -> (out, aux_loss)."""
+def moe_apply(params, x, cfg, group=None):
+    """x: (B, S, D) -> (out, aux_loss). ``group``: the ranks whose rows
+    make one batch with ``x``'s (module docstring); None: ``x`` is the
+    batch."""
     if cfg.moe_group_tokens:
-        return moe_apply_grouped(params, x, cfg)
-    return moe_apply_einsum(params, x, cfg)
+        return moe_apply_grouped(params, x, cfg, group)
+    return moe_apply_einsum(params, x, cfg, group)
 
 
-def moe_apply_grouped(params, x, cfg):
+def moe_apply_grouped(params, x, cfg, group=None):
     """Gather each expert's tokens into an (E, C, D) buffer, run the experts,
     gather each kept (token, choice) output back and sum them, gate-weighted
     in float32."""
@@ -97,30 +142,31 @@ def moe_apply_grouped(params, x, cfg):
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
     xt = x.reshape(t, d)
-    gate_vals, gate_idx, probs, pos, keep, cap = _router(params, xt, cfg)
+    gate_vals, gate_idx, probs, slot, keep, size = _router(params, xt, cfg,
+                                                           group)
 
     # the buffer slot of each (token, choice); dropped ones go to a sentinel
     # slot E·C that is sliced away, empty slots read token T: a zero row
-    flat_slot = torch.where(keep, gate_idx * cap + pos, e * cap)   # (T,k)
+    flat_slot = torch.where(keep, gate_idx * size + slot, e * size)  # (T,k)
     token_ids = torch.arange(t, device=x.device)[:, None].expand(t, k)
-    buf_token = torch.full((e * cap + 1,), t, dtype=torch.long,
+    buf_token = torch.full((e * size + 1,), t, dtype=torch.long,
                            device=x.device)
     buf_token[flat_slot.reshape(-1)] = token_ids.reshape(-1)
     xt_fill = torch.cat([xt, xt.new_zeros((1, d))])
-    xin = xt_fill[buf_token[:e * cap]].reshape(e, cap, d)
-    eout = _expert_ffn(params, xin, cfg).reshape(e * cap, d)
+    xin = xt_fill[buf_token[:e * size]].reshape(e, size, d)
+    eout = _expert_ffn(params, xin, cfg).reshape(e * size, d)
 
     out_tk = eout[torch.where(keep, flat_slot, 0)]                 # (T,k,D)
     out = torch.sum(out_tk.float() * gate_vals[..., None], dim=1)
     out = out.to(x.dtype).reshape(b, s, d)
     if cfg.shared_expert:
         out = out + mlp_apply(params["shared"], x, cfg.act)
-    return out, _aux_loss(probs, gate_idx, cfg)
+    return out, _aux_loss(probs, gate_idx, cfg, group)
 
 
-def moe_apply_einsum(params, x, cfg):
+def moe_apply_einsum(params, x, cfg, group=None):
     """The reference's GShard form, computed by index. Its dispatch tensor
     has at most one 1 in each (expert, slot), so its dispatch einsum is a
     gather; its combine sums at most top_k gate-weighted rows per token in
     float32. Both are what :func:`moe_apply_grouped` computes."""
-    return moe_apply_grouped(params, x, cfg)
+    return moe_apply_grouped(params, x, cfg, group)

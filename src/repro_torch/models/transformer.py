@@ -109,11 +109,13 @@ def init_stack(gen, cfg, dtype, device="cpu", *,
     return stacked
 
 
-def _ffn(bp, cfg, kind, x):
-    """The block's second half: x + FFN(ln2(x)). Returns (x, aux_loss)."""
+def _ffn(bp, cfg, kind, x, batch_group=None):
+    """The block's second half: x + FFN(ln2(x)). Returns (x, aux_loss).
+    ``batch_group``: the ranks whose rows make one batch with ``x``'s (the
+    MoE routes them as one, ``moe.moe_apply``)."""
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     if kind == "self_moe":
-        out, aux = moe_mod.moe_apply(bp["moe"], h, cfg)
+        out, aux = moe_mod.moe_apply(bp["moe"], h, cfg, batch_group)
         return x + out, aux
     return x + mlp_apply(bp["mlp"], h, cfg.act), None
 
@@ -168,7 +170,7 @@ def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
         if collect_cache:
             cache["xkv"] = xkv
         x = x + out
-    x, aux = _ffn(bp, cfg, kind, x)
+    x, aux = _ffn(bp, cfg, kind, x, ctx.get("batch_group"))
     return x, aux, cache
 
 
@@ -216,7 +218,10 @@ def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
     over the groups. ``remat`` (``"none"``, ``"full"``, ``"dots"``)
     rematerialises each group in the backward, as the reference's
     ``jax.checkpoint`` of its scanned group does; it applies where autograd
-    records the forward and no cache is collected."""
+    records the forward and no cache is collected. ``ctx`` holds the
+    cross-attention source (``"cross_src"``), ``"causal"`` and the ranks
+    whose rows make one batch with ``x``'s (``"batch_group"``); the groups'
+    functions capture it, so a recomputation sees what the forward saw."""
     kinds = group_kinds(cfg)
     n_groups = cfg.n_layers // len(kinds)
     ctx = ctx or {}

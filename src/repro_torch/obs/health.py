@@ -29,6 +29,13 @@ needs by a binary search over the values' bit patterns, counting with one
 comparison pass over the bucket's leaves a step: no sort, no
 concatenation, and no histogram, whose atomic adds would all land in one
 bin (B² is exactly b0² = 1 wherever a gradient was zero).
+
+In a one-model run whose leaves the ranks hold in parts (FSDP,
+``launch/steps.py::LeafLayout``) every rank probes the parts it holds
+(an unsplit leaf on the first rank only), and the ranks' counts, bounds
+and partial sums are combined over the FSDP sub-group: the quantiles stay
+exact (integer counts add), the residual norms add their partial sums in
+part order.
 """
 from __future__ import annotations
 
@@ -58,66 +65,95 @@ def _value(key: int) -> float:
     return float(np.array([bits], np.int32).view(np.float32)[0])
 
 
-def bounds(pieces: Sequence[torch.Tensor]) -> Tuple[float, float]:
-    """(min, max) of all values in ``pieces``, one pass each; NaN if any
-    value is NaN."""
-    mm = torch.stack([torch.stack(torch.aminmax(p)) for p in pieces])
-    lo, hi = (float(v) for v in (mm[:, 0].min(), mm[:, 1].max()))
+def _gathered(group, values: Sequence, dtype) -> torch.Tensor:
+    """Every rank of ``group``'s ``values`` (one collective, counted in
+    ``comm.side``): a (world, len(values)) host tensor."""
+    (got,) = group.all_gather([torch.tensor(list(values), dtype=dtype)],
+                              count=comm.side, to_device=False)
+    return got.cpu()
+
+
+def _count_sum(group, n: int) -> int:
+    """``n`` summed over the ranks of ``group`` (``n`` without one)."""
+    return n if group is None else int(_gathered(group, [n],
+                                                 torch.int64).sum())
+
+
+def bounds(pieces: Sequence[torch.Tensor],
+           group=None) -> Tuple[float, float]:
+    """(min, max) of all values in ``pieces`` (over the ranks of
+    ``group``, each with its pieces), one pass each; NaN if any value is
+    NaN."""
+    lo, hi = math.inf, -math.inf
+    if pieces:
+        mm = torch.stack([torch.stack(torch.aminmax(p)) for p in pieces])
+        lo, hi = (float(v) for v in (mm[:, 0].min(), mm[:, 1].max()))
+    if group is not None:
+        got = _gathered(group, [lo, hi], torch.float64)
+        lo, hi = (math.nan if bool(torch.isnan(got).any()) else v
+                  for v in (float(got[:, 0].min()), float(got[:, 1].max())))
     if math.isnan(lo) or math.isnan(hi):
         return math.nan, math.nan
     return lo, hi
 
 
 def order_statistics(pieces: Sequence[torch.Tensor], ranks: Sequence[int],
-                     lo_hi: Tuple[float, float]) -> List[float]:
+                     lo_hi: Tuple[float, float], group=None) -> List[float]:
     """The ``ranks``-th smallest (0-based) of all float32 values in
     ``pieces`` taken together, between ``lo_hi`` = (min, max) (no NaN),
     without a sort: for each rank, a binary search over the float32 values
     between the minimum and the maximum (at most 32 halvings of their bit
     patterns), each step counting the values ``<= t`` with one comparison
-    pass over every piece. The minimum is tried first: where a bucket holds
-    mostly its least value (B² = b0² wherever the gradients were zero), one
-    count settles the rank."""
-    def count(t: float) -> int:
-        return sum(int(torch.count_nonzero(p <= t)) for p in pieces)
+    pass over every piece. The searches run side by side, one halving of
+    each a round. The minimum is tried first: where a bucket holds mostly
+    its least value (B² = b0² wherever the gradients were zero), one count
+    settles the rank. With a ``group`` the values are every rank's pieces:
+    a round's counts are summed over the ranks in one collective, so a
+    bucket costs at most 33 collectives, whatever the number of ranks."""
+    def counts(ts: Sequence[float]) -> List[int]:
+        local = [sum(int(torch.count_nonzero(p <= t)) for p in pieces)
+                 for t in ts]
+        if group is None:
+            return local
+        return _gathered(group, local, torch.int64).sum(dim=0).tolist()
 
-    lo0, hi0 = _key(lo_hi[0]), _key(lo_hi[1])
-    at_min = None
-    out = []
-    for r in ranks:
-        if at_min is None:
-            at_min = count(lo_hi[0])
-        if at_min > r:
-            out.append(lo_hi[0])
-            continue
-        lo, hi = lo0 + 1, hi0
-        while lo < hi:            # the least key whose count exceeds r
-            mid = (lo + hi) // 2
-            if count(_value(mid)) > r:
-                hi = mid
+    (at_min,) = counts([lo_hi[0]])
+    # rank -> [lo, hi): the least key whose count exceeds the rank
+    search = {r: [_key(lo_hi[0]) + 1, _key(lo_hi[1])] for r in ranks
+              if at_min <= r}
+    while True:
+        live = [r for r, (lo, hi) in search.items() if lo < hi]
+        if not live:
+            break
+        mids = [(search[r][0] + search[r][1]) // 2 for r in live]
+        for r, mid, c in zip(live, mids, counts([_value(m) for m in mids])):
+            if c > r:
+                search[r][1] = mid
             else:
-                lo = mid + 1
-        out.append(_value(lo))
-    return out
+                search[r][0] = mid + 1
+    return [_value(search[r][0]) if r in search else lo_hi[0]
+            for r in ranks]
 
 
 def quantiles(pieces: Sequence[torch.Tensor], qs: Sequence[float],
-              lo_hi: Optional[Tuple[float, float]] = None) -> List[float]:
+              lo_hi: Optional[Tuple[float, float]] = None,
+              group=None) -> List[float]:
     """``jnp.quantile(concat(pieces), qs)`` (linear method) as the JAX
     package's jitted probe computes it: the index q·(n−1), its floor and
     ceiling and the interpolation weights in float32, the interpolation as
     XLA fuses it, NaN if any value is NaN. ``lo_hi``: the pieces'
-    :func:`bounds`, if known."""
-    lo_hi = lo_hi or bounds(pieces)
+    :func:`bounds`, if known. ``group``: the values are every rank's
+    pieces."""
+    lo_hi = lo_hi or bounds(pieces, group)
     if math.isnan(lo_hi[0]):
         return [math.nan] * len(qs)
     f32 = np.float32
-    n = f32(sum(p.numel() for p in pieces))
+    n = f32(_count_sum(group, sum(p.numel() for p in pieces)))
     pos = [f32(q) * (n - f32(1)) for q in qs]
     lo = [min(max(np.floor(p), f32(0)), n - f32(1)) for p in pos]
     hi = [min(max(np.ceil(p), f32(0)), n - f32(1)) for p in pos]
     ranks = sorted({int(v) for v in lo + hi})
-    stat = dict(zip(ranks, order_statistics(pieces, ranks, lo_hi)))
+    stat = dict(zip(ranks, order_statistics(pieces, ranks, lo_hi, group)))
     out = []
     for p, a, b in zip(pos, lo, hi):
         hw = f32(p - a)
@@ -142,8 +178,13 @@ class SyncHealthProbe:
 
     def __init__(self, *, is_flat: bool, flatspace: Any,
                  leaf_dtypes: Sequence[str], engine: Any,
-                 n_params: int, n_shards: int = 1) -> None:
+                 n_params: int, n_shards: int = 1,
+                 leaf_layout: Any = None) -> None:
         self.is_flat = bool(is_flat)
+        # a one-model run's leaves in parts: each rank probes its own
+        self.parts = (leaf_layout if leaf_layout is not None
+                      and leaf_layout.sharded else None)
+        self.group = self.parts.group if self.parts is not None else None
         self.fs = flatspace
         self.engine = engine
         self.n_params = int(n_params)
@@ -161,7 +202,7 @@ class SyncHealthProbe:
         return SyncHealthProbe(
             is_flat=programs.is_flat, flatspace=programs.flatspace,
             leaf_dtypes=dtypes, engine=engine, n_params=n_params,
-            n_shards=programs.n_shards)
+            n_shards=programs.n_shards, leaf_layout=programs.leaf_layout)
 
     def static_summary(self) -> Dict[str, float]:
         """Run-constant facts: wire bytes and compression ratio of one
@@ -193,17 +234,20 @@ class SyncHealthProbe:
                 out.setdefault(name, []).extend(
                     row[start:stop] for row in rows)
         else:
-            pieces = leaves(entry)
-            dtypes = self._leaf_dtypes or ["float32"] * len(pieces)
-            for dt, leaf in zip(dtypes, pieces):
-                out.setdefault(dt, []).append(leaf.float())
+            dtypes = self._leaf_dtypes or ["float32"] * len(leaves(entry))
+            for dt in dtypes:              # every rank has every bucket
+                out.setdefault(dt, [])
+            picked = (self.parts.owned_leaves(entry) if self.parts is not None
+                      else enumerate(leaves(entry)))
+            for i, leaf in picked:
+                out[dtypes[i]].append(leaf.float())
         return sorted(out.items())
 
     def _b2(self, b2_local) -> Dict[str, Dict[str, float]]:
         out = {}
         for name, pieces in self._buckets(b2_local):
-            lo_hi = bounds(pieces)
-            qs = quantiles(pieces, B2_QS, lo_hi)
+            lo_hi = bounds(pieces, self.group)
+            qs = quantiles(pieces, B2_QS, lo_hi, self.group)
             out[name] = {**{f"p{int(q * 100)}": v
                             for q, v in zip(B2_QS, qs)}, "max": lo_hi[1]}
         return out
@@ -215,10 +259,19 @@ class SyncHealthProbe:
                 continue
             tag = "params" if key == "res_params" else "b2"
             for name, pieces in self._buckets(opt_state[key]):
-                sums[f"{tag}/{name}"] = sum(torch.sum(torch.square(p))
-                                            for p in pieces)
+                sums[f"{tag}/{name}"] = sum(
+                    (torch.sum(torch.square(p)) for p in pieces),
+                    torch.zeros((), dtype=torch.float32))
                 total_n += sum(p.numel() for p in pieces)
-        vals = (torch.stack(list(sums.values())).tolist() if sums else [])
+        vals = (torch.stack([v.cpu() for v in sums.values()])
+                if sums else None)
+        if vals is not None and self.group is not None:
+            got = _gathered(self.group, vals.tolist(), torch.float32)
+            vals = got[0]
+            for r in range(1, got.shape[0]):    # in part order
+                vals = vals + got[r]
+        total_n = _count_sum(self.group, total_n)
+        vals = vals.tolist() if vals is not None else []
         sq = dict(zip(sums, vals))
         total = np.float32(sum(np.float32(v) for v in vals))
         mse = float(total / np.float32(total_n)) if total_n else 0.0

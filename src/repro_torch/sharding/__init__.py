@@ -1,9 +1,13 @@
-"""Sharding plans over a (workers × shards) grid of ranks: the port's
-counterparts of the JAX package's ``sharding/partition.py`` and
-``sharding/specs.py`` for the sharded flat plane."""
-from repro_torch.sharding.partition import plane_shard_axes
-from repro_torch.sharding.specs import (GridLayout, plane_shard_count,
-                                        plane_shardings)
+"""Sharding over a (workers × shards) grid of ranks: the port's
+counterparts of the JAX package's ``sharding/partition.py`` (logical-axis
+rules) and ``sharding/specs.py`` (per-leaf specs, the flat plane's
+layout), with the part of a leaf each rank holds (``LeafSplit``)."""
+from repro_torch.sharding.partition import ShardingRules, plane_shard_axes
+from repro_torch.sharding.specs import (GridLayout, LeafSplit, leaf_split,
+                                        logical_for_leaf, param_shardings,
+                                        plane_shard_count, plane_shardings,
+                                        shape_safe_spec)
 
-__all__ = ["GridLayout", "plane_shard_axes", "plane_shard_count",
-           "plane_shardings"]
+__all__ = ["GridLayout", "LeafSplit", "ShardingRules", "leaf_split",
+           "logical_for_leaf", "param_shardings", "plane_shard_axes",
+           "plane_shard_count", "plane_shardings", "shape_safe_spec"]

@@ -1,15 +1,107 @@
-"""The flat plane's shard axes over a grid of ranks.
+"""Logical-axis sharding rules over a grid of ranks, and the flat plane's
+shard axes.
 
-The JAX package's ``sharding/partition.py`` maps logical axis names to
-mesh axes (``ShardingRules``) for its GSPMD annotations; the port runs no
-GSPMD, and what it shards is the flat plane, down :func:`plane_shard_axes`
-over the grid's shape (``{"data": R, "model": S}``, the reference's mesh
-shape). The logical-axis rules come with FSDP and tensor parallelism
-(ROADMAP Queue 1 items 9b and 9c).
+The JAX package's ``sharding/partition.py`` maps the *logical* axis names
+its models and parameter specs use to mesh axes (:class:`ShardingRules`),
+and GSPMD partitions the program from those annotations. The port resolves
+the same names to the same entries over the grid's shape (``{"data": R,
+"model": S}``, the reference's mesh shape), and ``sharding/specs.py``
+turns each parameter leaf's entries into the part of the leaf a rank
+holds; the train steps then move the parts with explicit collectives
+(``core/comm.py``). Nothing here partitions a program, so the reference's
+``use_rules``/``constraint`` annotations have no counterpart yet: they
+come with their first caller (tensor parallelism, ROADMAP Queue 1 item
+9c).
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+#: one dimension's entry of a spec: unsplit, one grid axis, or several
+Entry = Union[None, str, Tuple[str, ...]]
+
+#: logical axis -> grid axis (the reference's table); ``__local__``,
+#: ``__data__`` and ``__fsdp__`` resolve to the plan's ``local_axes``,
+#: ``grad_axes`` and ``fsdp_axes``
+DEFAULT_RULES: Dict[str, Optional[str]] = {
+    # activations
+    "workers": "__local__",
+    "batch": "__data__",
+    "seq": None,
+    "seq_sp": None,             # residual-stream seq axis (model under SP)
+    "embed": None,
+    "q_heads": "model",
+    "kv_heads": "model",
+    "heads_tp": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    "capacity": None,
+    "ssm_heads": "model",
+    "ssm_state": None,
+    "ssm_inner": "model",
+    "frames": None,
+    "image": None,
+    # weights
+    "embed_fsdp": "__fsdp__",   # embed dim of weights, ZeRO-sharded
+    "lstm_hidden": "model",
+}
+
+
+def rule_overrides(cfg) -> Optional[Dict[str, Entry]]:
+    """The config's changes to :data:`DEFAULT_RULES`, as the reference's
+    ``build_train_programs`` makes them: sequence parallelism puts
+    ``seq_sp`` on ``model``, 2-D experts put ``experts`` on (model,
+    data)."""
+    out: Dict[str, Entry] = {}
+    if getattr(cfg, "seq_parallel", False):
+        out["seq_sp"] = "model"
+    if getattr(cfg, "expert_axes_2d", False):
+        out["experts"] = ("model", "data")
+    return out or None
+
+
+class ShardingRules:
+    """Logical names resolved to grid-axis entries under a plan.
+
+    ``grid`` is the grid's shape (``{"data": R, "model": S}``), ``plan`` a
+    ``configs.ParallelismPlan``, ``overrides`` changes to
+    :data:`DEFAULT_RULES`."""
+
+    def __init__(self, grid: Mapping[str, int], plan,
+                 overrides: Optional[Dict[str, Entry]] = None) -> None:
+        self.grid = dict(grid)
+        self.plan = plan
+        self.rules: Dict[str, Entry] = dict(DEFAULT_RULES)
+        if overrides:
+            self.rules.update(overrides)
+
+    def resolve(self, logical: Sequence[Optional[str]]) -> Tuple[Entry, ...]:
+        """One entry per logical name: the grid axes it maps to that the
+        grid has and that no earlier name took (an axis splits one
+        dimension at most), a single axis as its name, none as None."""
+        axes, used = [], set()
+        for name in logical:
+            if name is None:
+                axes.append(None)
+                continue
+            ax = self.rules.get(name, None)
+            if ax == "__local__":
+                ax = tuple(self.plan.local_axes) or None
+            elif ax == "__data__":
+                ax = tuple(self.plan.grad_axes) or None
+            elif ax == "__fsdp__":
+                ax = tuple(self.plan.fsdp_axes) or None
+            if isinstance(ax, str):
+                ax = (ax,)
+            if ax:
+                ax = tuple(a for a in ax if a in self.grid and a not in used)
+                used.update(ax)
+                axes.append(ax if len(ax) > 1 else ax[0] if ax else None)
+            else:
+                axes.append(None)
+        return tuple(axes)
 
 
 def plane_shard_axes(grid: Mapping[str, int], plan) -> Tuple[str, ...]:

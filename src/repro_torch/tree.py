@@ -37,3 +37,16 @@ def unflatten_like(tree, flat: List[Any]):
     if next(it, it) is not it:
         raise ValueError("more leaves than the tree has")
     return out
+
+
+def paths(tree, prefix=()) -> List[tuple]:
+    """The path of every leaf of ``tree``, in :func:`leaves` order: dict
+    keys as themselves, list indices as ``"[i]"`` (the JAX package's
+    ``sharding/specs.py`` names)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in paths(tree[k],
+                                                       prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in paths(t, prefix + (f"[{i}]",))]
+    return [prefix]

@@ -476,7 +476,10 @@ def test_collectives_and_wire_bytes_per_round(runs, name):
     the bytes it contributed beside the accounting's round bytes: int8
     codes + one fp32 scale per 256-block, padded by under one block a
     leaf (the flat plane: by its slot padding, exactly); bf16 and fp32 as
-    accounted. The synchronous baseline moves its fp32 gradient a step."""
+    accounted. The synchronous baseline, FSDP over the two ranks, issues
+    a params gather and one collective a leaf a step, and moves
+    comm.fsdp_step_bytes: the bf16 params' parts and the fp32 gradient's
+    (4 P at float32 params)."""
     from repro_torch.core.flatspace import FlatSpace
     from repro_torch.core.sync_engine import make_sync_engine
     from repro_torch.models import build_model
@@ -490,8 +493,20 @@ def test_collectives_and_wire_bytes_per_round(runs, name):
     rounds = len(got["sync_steps"])
     for rep in got["ranks"]:
         if name == "sync":
-            assert rep["collectives"] == n_leaves * STEPS
-            assert rep["wire_bytes"] == STEPS * 4 * n_params
+            from repro_torch.launch.mesh import resolve_plan
+            from repro_torch.sharding import (ShardingRules, leaf_split,
+                                              param_shardings)
+            grid = {"data": 2, "model": 1}
+            tree = build_model(_cfg()).init(None, "meta")
+            specs = param_shardings(ShardingRules(grid, resolve_plan(
+                _cfg(), grid, optimizer="adaalter")), tree)
+            n_split = sum(t.numel() for t, sp in zip(leaves(tree), specs)
+                          if leaf_split(t.shape, sp, grid,
+                                        {"data": 0, "model": 0}).split)
+            assert rep["collectives"] == (1 + n_leaves) * STEPS
+            assert rep["wire_bytes"] == STEPS * comm.fsdp_step_bytes(
+                n_params, n_split, 2, param_bytes=2)
+            assert comm.fsdp_step_bytes(n_params, n_split, 2) == 4 * n_params
             # and the loss, one fp32 a step
             assert rep["side_collectives"] == STEPS
             assert rep["side_bytes"] == STEPS * 4
@@ -595,7 +610,7 @@ def test_resolve_plan():
             local_axes=("data",), grad_axes=(), fsdp_axes=())
     sync = mesh.resolve_plan(lstm, 2, optimizer="adaalter")
     assert sync.local_axes == () and sync.grad_axes == ("data",)
-    assert sync.fsdp_axes == ()
+    assert sync.fsdp_axes == ("data",)        # FSDP at every size
     # the paper-style plan splits the flat plane down "model"; a per-leaf
     # or synchronous run with shards is tensor parallelism (item 9c)
     assert plane_shard_count(grid22, mesh.resolve_plan(lstm, grid22)) == 2
@@ -609,8 +624,7 @@ def test_resolve_plan():
     for opt in ("local_adaalter", "adaalter"):
         plan = mesh.resolve_plan(big, 2, optimizer=opt)
         assert plan.fsdp_axes == ("data",) and plan.remat == "full"
-        with pytest.raises(NotImplementedError, match="item 9"):
-            mesh.check_plan(plan, {"data": 2, "model": 1}, flat=True)
+        mesh.check_plan(plan, {"data": 2, "model": 1}, flat=False)
     # a run with ranks is built from the plan: workers along local_axes, or
     # one model along grad_axes; the worker count must be the plan's, and
     # a flat plane splits into the grid's shards
@@ -618,7 +632,9 @@ def test_resolve_plan():
     from repro_torch.launch.steps import build_train_programs
     small = reduced(lstm, vocab=64)
     ranks = SimpleNamespace(world=2, grid={"data": 2, "model": 1},
-                            layout=GridLayout(2, 1), shard=0, workers=None)
+                            layout=GridLayout(2, 1), shard=0, workers=None,
+                            rank=0)
+    ranks.along = lambda axes: ranks if axes else None
     for opt, workers in (("local_adaalter", 2), ("adaalter", 1)):
         progs = build_train_programs(small, OptimizerConfig(name=opt),
                                      n_workers=workers, device="cpu",
@@ -629,7 +645,11 @@ def test_resolve_plan():
     with pytest.raises(ValueError, match="one worker a rank"):
         build_train_programs(small, OptimizerConfig(), n_workers=3,
                              device="cpu", group=ranks)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # above 20 B a local optimizer trains one model, its leaves FSDP-split
+    progs = build_train_programs(big, OptimizerConfig(), n_workers=1,
+                                 device="cpu", group=ranks)
+    assert not progs.is_local and progs.leaf_layout.sharded
+    with pytest.raises(ValueError, match="one model"):
         build_train_programs(big, OptimizerConfig(), n_workers=2,
                              device="cpu", group=ranks)
     grid = SimpleNamespace(world=4, grid=grid22, layout=GridLayout(2, 2),

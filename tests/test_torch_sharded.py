@@ -567,9 +567,7 @@ def test_plane_axes_are_the_references(grid, optimizer):
         plan = resolve_plan(get_arch(arch), grid, optimizer=optimizer)
         jplan = jax_resolve_plan(jax_get_arch(arch), jmesh,
                                  optimizer=optimizer)
-        if optimizer == "adaalter" and not plan.fsdp_axes:
-            # the port keeps the synchronous plan replicated up to 20 B
-            jplan = dataclasses.replace(jplan, fsdp_axes=())
+        assert dataclasses.asdict(plan) == dataclasses.asdict(jplan)
         assert plane_shard_axes(grid, plan) == jp.plane_shard_axes(jmesh,
                                                                    jplan)
         assert plane_shard_count(grid, plan) == jax_count(jmesh, jplan)
@@ -578,25 +576,38 @@ def test_plane_axes_are_the_references(grid, optimizer):
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
                                   "llama4-maverick-400b-a17b"])
 def test_stacked_flat_run_keeps_whole_planes_under_a_plan_above_20b(arch):
-    """A stacked run holds whole planes whatever shard axes its plan
-    names: the plans above 20 B parameters (FSDP over ``data``, no worker
-    axes) give a stacked flat run of 2 workers one shard, and it trains as
-    under its own plan, bit for bit (the reduced Big LSTM, whose forward
-    no plan changes, stands in for the full-width model)."""
+    """Under the plans above 20 B parameters (FSDP over ``data``, no
+    worker axes) a local optimizer trains one model, as the reference's
+    one-model branch does: ``flat`` is refused (ValueError), two workers
+    are refused, and the one model per leaf runs ``local_step`` and the
+    identity-mean sync (the int8 EF encode) every step, bit for bit a
+    stacked run of one worker syncing every step (H = 1) under the
+    paper-style plan (the reduced Big LSTM, whose forward no plan changes,
+    stands in for the full-width model)."""
     from repro_torch.launch.mesh import resolve_plan
     from repro_torch.launch.steps import build_train_programs
     plan = resolve_plan(get_arch(arch), {"data": 2, "model": 1},
                         optimizer="local_adaalter")
     assert plan.fsdp_axes == ("data",) and not plan.local_axes
     opt = _opt(*CASES["int8"])
-    assert build_train_programs(_cfg(), opt, n_workers=2, device="cpu",
-                                plan=plan).n_shards == 1
-    kw = dict(steps=STEPS, seed=0, n_workers=2, verbose=False,
+    with pytest.raises(ValueError, match="flat requires a local"):
+        build_train_programs(_cfg(), opt, n_workers=1, device="cpu",
+                             plan=plan)
+    # the stacked run's fused update kernel (plain version here) rounds
+    # apart from local_step, which the one-model branch runs: compare the
+    # plain optimizer's steps
+    opt = dataclasses.replace(opt, flat=False, use_kernels=False)
+    with pytest.raises(ValueError, match="one model"):
+        build_train_programs(_cfg(), opt, n_workers=2, device="cpu",
+                             plan=plan)
+    kw = dict(steps=STEPS, seed=0, n_workers=1, verbose=False,
               device="cpu", digest=True)
-    got = train_loop(_cfg(), _shape(8), opt, plan=plan, **kw)
-    want = train_loop(_cfg(), _shape(8), opt, **kw)
-    assert got.losses == want.losses and got.sync_steps == want.sync_steps
+    got = train_loop(_cfg(), _shape(4), opt, plan=plan, **kw)
+    want = train_loop(_cfg(), _shape(4), dataclasses.replace(opt, H=1), **kw)
+    assert got.n_workers == 1 and got.sync_steps == list(range(STEPS))
+    assert got.losses == want.losses and want.sync_steps == got.sync_steps
     assert got.state_digest == want.state_digest
+    assert {"res_params", "res_b2"} <= set(got.state_digest)
 
 
 @pytest.mark.parametrize("workers,shards", [(1, 2), (2, 2), (3, 2), (2, 3)])

@@ -282,7 +282,7 @@ def test_fresh_init_is_seeded_and_has_reference_structure():
 
 def test_unported_families_raise():
     """The hybrid family is ported: mamba2's mixer beside attention builds
-    (hymba-1.5b too); llama3-405b still raises, an unknown arch is a
+    (hymba-1.5b too); llama3-405b is registered, an unknown arch is a
     KeyError."""
     hybrid = dataclasses.replace(reduced(get_arch("mamba2-370m")),
                                  family="hybrid", hybrid=True, n_heads=8,
@@ -291,8 +291,7 @@ def test_unported_families_raise():
     assert sorted(params["blocks"][0]) == [
         "attn", "ln1", "ln2", "mlp", "norm_attn", "norm_ssm", "ssm"]
     assert get_arch("hymba-1.5b").hybrid
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("llama3-405b")
+    assert get_arch("llama3-405b").family == "dense"
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
