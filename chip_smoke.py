@@ -122,7 +122,7 @@ raises and exits non-zero:
             (equal on the direct path; over 2,500 frames the difference the
             padded keys make is reported); the gate ignored and a causal
             encoder must fail the card-vs-CPU check
-  score_moe  phi3.5-moe at full width, 16 of its 32 layers (32 do not fit
+  score_moe  phi3.5-moe at full width, 8 of its 32 layers (32 do not fit
             one 80 GB card): logits_fn, loss_fn over 2 x 4096 tokens
             (capacity 1,280), the share of choices capacity drops; one
             forward profiled by layer (attention, MoE, expert GEMMs)
@@ -132,13 +132,13 @@ raises and exits non-zero:
             prefill one token short and one with un-renormalised gates must
             exceed), the reference's bounded prefill vs replay reported;
             one decode step profiled by layer
-  score_vlm / serve_vlm  llama-3.2-vision-11b at full width and depth (40
-            layers, 8 cross; 1,601 image tokens, gate 0.7): scoring over 2
+  score_vlm / serve_vlm  llama-3.2-vision-11b at full width, 20 of its 40
+            layers (4 of 8 cross; 1,601 image tokens, gate 0.7): scoring over 2
             x 4096 tokens with the reference's image stubs; serve_session
             as serve_dense (zero image embeddings, as the reference's)
-  score_audio / serve_audio  seamless-m4t-large-v2 at full width and depth
-            (24 + 24 layers, vocab 256,206) over 4,096 audio frames; serving
-            as serve_dense (one fault: with as many KV heads as heads,
+  score_audio / serve_audio  seamless-m4t-large-v2 at full width, 12 + 12
+            of its 24 + 24 layers (vocab 256,206) over 4,096 audio frames;
+            serving as serve_dense (one fault: with as many KV heads as heads,
             rotating the queries rotates the keys too)
   The slice-6 phases launch none of the seven kernels either.
   reference_hybrid  reduced hymba (2 layers, window 64, 16 SSM heads of 32,
@@ -154,9 +154,10 @@ raises and exits non-zero:
             H=4, lr 2, 8 steps), the card with the kernels against the CPU
             with their plain versions: losses to rtol 1e-4, which η 2% off
             must exceed; schedule and comm bytes equal; launch counts
-  score_hybrid  hymba-1.5b at full width and depth (1,640,820,096 counted
-            parameters, bf16, ssm_pallas): logits_fn and loss_fn over 2 x
-            4096 tokens, 32 SSD calls a forward (50 heads: the last 8-head
+  score_hybrid  hymba-1.5b at full width, 16 of its 32 layers
+            (1,640,820,096 counted parameters at 32, bf16, ssm_pallas):
+            logits_fn and loss_fn over 2 x 4096 tokens, 16 SSD calls a
+            forward (50 heads: the last 8-head
             group holds 2); one forward profiled by layer (self-attention,
             SSM, SSD kernel, MLP)
   serve_hybrid  serve_session on it, batch 8, prompt 512, 32 new (the
@@ -173,9 +174,9 @@ raises and exits non-zero:
             leaves; then 4 steps profiled) and 8 over the flat plane (8 and
             4), whose losses must equal the per-leaf run's bit for bit
   train_ranks  the train phase's runs with one worker a rank: torchrun
-            --nproc-per-node 2 -m repro_torch.launch.train --dist-backend
-            gloo (two ranks time-sharing the one card, the wire staged
-            through host memory), per leaf and flat, 8 steps each: losses,
+            --nproc-per-node 2 (two ranks time-sharing the one card, the
+            wire staged through host memory; train_loop a run, per leaf
+            and flat in one launch), 8 steps each: losses,
             schedule, comm bytes and a digest of the final state (params,
             both B², both residuals) equal to the stacked train /
             train_flat runs bit for bit, which a stacked run with η 2% off
@@ -188,8 +189,9 @@ raises and exits non-zero:
             peak memory and the round's parts (encode, device to host,
             gloo, host to device, dequantize + sum); the card's used memory
             (nvidia-smi) under 80 GB. Then the synchronous AdaAlter on two
-            ranks (32 x 20 each; its plan splits every leaf over the two,
-            FSDP) against one model over 64 x 20, float32 parameters, lr 2
+            ranks (-m repro_torch.launch.train --dist-backend gloo; 32 x 20
+            each; its plan splits every leaf over the two, FSDP) against one
+            model over 64 x 20, float32 parameters, lr 2
             without warm-up, 6 steps, to rtol 1e-4, which an η 2% larger
             must exceed, with the gradient mean's bytes a step
   train_hybrid_remat  train_hybrid's configuration for 4 steps with the
@@ -202,7 +204,7 @@ raises and exits non-zero:
             card at the run's peak bytes a parameter (derived, not run)
   train_sharded  full-width Big LSTM with its flat plane split in two: 1
             worker x 2 shards, two gloo ranks on the card through torchrun
-            (--workers 1 --flat on 2 ranks), 32 x 20 tokens, H=2, int8, 3
+            (one launch with train_tp's runs), 32 x 20 tokens, H=2, int8, 3
             steps (one round): equal to the stacked 1-worker flat run bit
             for bit, which the stacked run with η 2% off must fail; per
             rank rows 2, 4 and 6 launched 3, 2 and 2 x ceil((P/2)/2^26)
@@ -212,7 +214,8 @@ raises and exits non-zero:
             gather a step (its bytes and parts' ms), step walls, peak memory
   sharded_grid  reduced Big LSTM as 2 workers x 2 shards, four gloo ranks
             (the worker sub-groups' means run), int8 one-pass and
-            three-pass in one launch (train_loop a run), the same checks
+            three-pass in one launch with tp_grid's runs (train_loop a
+            run), the same checks
   train_fsdp  train_ranks' synchronous AdaAlter run (the CLI; each leaf
             and its B² split over the two data ranks, FSDP) against the
             same run under the replicated plan (fsdp_axes=()) through
@@ -241,6 +244,33 @@ raises and exits non-zero:
             policy the step walls, the gather's and slice mean's ms,
             allocated and reserved GB; state and wire bytes from the
             specs; no kernel launched
+  serve_tp  full-width qwen2-7b (28 layers, bf16) served on 1 x 2 gloo
+            ranks with tensor parallelism over model (build_serve_programs
+            and serve_session with a group; the KV cache split along its
+            sequence): the one-rank run's weights, each rank its parts; a
+            rank's weight bytes the specs' (Σ part numel x 2), its cache
+            half the one-rank cache; the prefill's last logits at 128
+            against the one-rank prefill's to relative L2 5e-2, which rank
+            1 dropping its wo partials must exceed; prefill timed at 512,
+            4 decode steps from 512 (TP collectives and bytes a step,
+            gloo's share); a session (batch 8, 16 replayed positions, 32
+            new) whose prefill vs replay holds 5e-2, which a replay with
+            each rank scoring its slots as its neighbour's must exceed
+  train_tp  qwen2-7b at full width cut to 4 of 28 layers (2,022,229,504
+            parameters, bf16), 1 worker x 2 TP shards, Local AdaAlter int8
+            + kernels, 4 x 512 tokens, H=2, 4 steps, lr 0.5 without
+            warm-up, under remat full and save_tp: losses against the
+            one-rank run to rtol 4e-3, which η 2% off must exceed; save_tp
+            bit for bit full with fewer TP collectives a step; a rank's
+            state bytes equal Σ part numel x 18 from the specs; rows 1, 3
+            and 6 launched; walls, TP collectives and bytes a step, peak GB
+  tp_grid  reduced Big LSTM and qwen2-7b in float32 on 2 x 2 ranks (2
+            workers x 2 TP shards), lr 2, 8 steps: losses against the
+            stacked card run and the CPU run to rtol 1e-4, which the CPU
+            run with η 2% larger must exceed
+  biglstm_tp_meta  full-width Big LSTM at model = 2 reckoned on the meta
+            device: a rank's parameter and state bytes from the specs; its
+            odd vocabulary (793,471) leaves embed, head_w and head_b whole
 
 The kernels phase also holds the SSD chunk scan's warp-level 3xTF32
 product helper alone against a float64 product, then the SSD kernels
@@ -256,7 +286,9 @@ and that tree's plane with its bf16 row sidecars, the flat update and
 both flat EF halves on each sub-plane of train_sharded's 2-shard plane
 with its shard's sidecar rows, and row 3 on every part shape a rank of
 train_fsdp_local encodes (unstacked, bf16 params and fp32 B²), the
-largest timed. Then the script's wall, the kernels summary
+largest timed, and rows 1, 3 and 6 on every part shape a train_tp rank
+updates, encodes and decodes (check_tp_parts). Then the script's wall,
+the kernels summary
 line (each kernel's launches on its main path, and by phase), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 """
@@ -269,6 +301,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -297,8 +330,17 @@ SSD_PARTIAL_GROUP_SHAPES = [(1, 2, 8, 2, 16, 8), (2, 4, 16, 4, 32, 16),
 SERVE_REL_L2 = 5e-2
 CROSS_GATE = 0.7               # the VLM's tanh gate in the checks (0 at init)
 # phi3.5-moe's 32 layers hold 83.75 GB of bf16 weights, more than one 80 GB
-# card: the MoE phases run its first 16 (42.1 GB) at full width
-MOE_LAYERS = 16
+# card: the MoE phases run its first 8 at full width (16 until the script
+# neared its limit)
+MOE_LAYERS = 8
+# depth cuts that keep the script under its 1,200 s limit, every check
+# kept: llama-3.2-vision at 20 of its 40 layers (4 of 8 cross-attention
+# groups), seamless-m4t at 12 + 12 of 24 + 24, hymba scored and served at
+# 16 of 32
+DEPTH_CUTS = {"llama-3.2-vision-11b": {"n_layers": 20},
+              "seamless-m4t-large-v2": {"n_layers": 12,
+                                        "n_encoder_layers": 12},
+              "hymba-1.5b": {"n_layers": 16}}
 SERVE_PROMPT = 512             # the serve phases' prompt length
 # the prompt each serve phase's serve_session replays through decode_step
 # (the serving numbers are timed at SERVE_PROMPT): two of mamba2's 64-token
@@ -893,24 +935,29 @@ def ssd_bound(b, nz, c, nh, hd, n, in_bytes):
                                         1e3 * ops / FP32_FLOP_PER_S))
 
 
-def device_ms_by_kernel(fn, reps: int = 5) -> dict:
+def device_ms_by_kernel(fn, reps: int = 5, tries: int = 3) -> dict:
     """Device milliseconds of each kernel that one ``fn()`` launches, by
     kernel name: ``reps`` warm calls under torch.profiler, the sum over
-    them divided by ``reps``."""
+    them divided by ``reps``. The script's first profiled window has come
+    back without a device event on one host (the tracer starting), so a
+    window that saw none is profiled again, up to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                out[e.name] = out.get(e.name, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 1e3 / reps
+        if out:
+            break
     return out
 
 
@@ -2447,11 +2494,12 @@ def slice6_phases(counters, smi: str) -> None:
     del params
     free_card()
 
-    # llama-3.2-vision-11b and seamless-m4t-large-v2 at full width and depth
+    # llama-3.2-vision-11b and seamless-m4t-large-v2 at full width, their
+    # depth cut (DEPTH_CUTS)
     for phase, arch in (("vlm", "llama-3.2-vision-11b"),
                         ("audio", "seamless-m4t-large-v2")):
         t0 = time.perf_counter()
-        full = get_arch(arch)
+        full = dataclasses.replace(get_arch(arch), **DEPTH_CUTS[arch])
         model = build_model(full)
         params = model.init(torch.Generator("cuda").manual_seed(0))
         if full.cross_attn_every:
@@ -2467,6 +2515,7 @@ def slice6_phases(counters, smi: str) -> None:
                                labels=model_labels())
         require_launches(n)
         emit({"phase": f"score_{phase}", "nvidia_smi": smi,
+              "depth": DEPTH_CUTS[arch],
               "cross_keys": {k: v.shape[1] for k, v in extra.items()},
               **score, "seconds": time.perf_counter() - t0})
         del extra
@@ -2714,7 +2763,9 @@ def slice7_phases(counters, smi: str) -> dict:
     free_card()
 
     t0 = time.perf_counter()
-    hymba = dataclasses.replace(get_arch("hymba-1.5b"), ssm_pallas=True)
+    config_layers = get_arch("hymba-1.5b").n_layers
+    hymba = dataclasses.replace(get_arch("hymba-1.5b"), ssm_pallas=True,
+                                **DEPTH_CUTS["hymba-1.5b"])
     model = build_model(hymba)
     params = model.init(torch.Generator("cuda").manual_seed(0))
     score, score_n = score_model(hymba, params, counters, batch=2, seq=4096,
@@ -2722,7 +2773,7 @@ def slice7_phases(counters, smi: str) -> dict:
                                  labels=hybrid_labels())
     require_launches(score_n, ssd_scan=2 * 3 * hymba.n_layers)
     emit({"phase": "score_hybrid", "nvidia_smi": smi,
-          "ssm_heads": hymba.n_ssm_heads, **score,
+          "ssm_heads": hymba.n_ssm_heads, "layers": hymba.n_layers, **score,
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     serve, serve_n = serve_model(hymba, params, counters, {
@@ -2747,7 +2798,7 @@ def slice7_phases(counters, smi: str) -> dict:
                                 flat=False)
     require_launches(leaf_n, adaalter_update=n_leaves * TRAIN_STEPS,
                      fused_ef=2 * n_leaves * 2)
-    emit({"phase": "train_hybrid", "layers_of_config": hymba.n_layers,
+    emit({"phase": "train_hybrid", "layers_of_config": config_layers,
           **leaf, "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     flat, flat_n = train_hybrid(short, counters, smi, steps=TRAIN_STEPS,
@@ -2760,12 +2811,12 @@ def slice7_phases(counters, smi: str) -> dict:
             f"{short.name}: flat losses {flat['losses']} differ from the "
             f"per-leaf run's {leaf['losses']}")
     flat["losses_equal_per_leaf"] = True
-    emit({"phase": "train_hybrid_flat", "layers_of_config": hymba.n_layers,
+    emit({"phase": "train_hybrid_flat", "layers_of_config": config_layers,
           **flat, "seconds": time.perf_counter() - t0})
     free_card()
     t0 = time.perf_counter()
     remat, remat_n = train_hybrid_remat(short, counters, smi, leaf, n_leaves)
-    emit({"phase": "train_hybrid_remat", "layers_of_config": hymba.n_layers,
+    emit({"phase": "train_hybrid_remat", "layers_of_config": config_layers,
           **remat, "seconds": time.perf_counter() - t0})
     free_card()
     return {"score_hybrid": score_n, "train_hybrid": leaf_n,
@@ -2811,7 +2862,8 @@ if group.rank == 0:
 
 
 def torchrun_train(root: Path, args, *, nproc: int = 2,
-                   timeout: float = 420.0, runs=None, grid=None):
+                   timeout: float = 420.0, runs=None, grid=None,
+                   script=None, spec=None):
     """``python -m torch.distributed.run --standalone --nproc-per-node
     <nproc> -m repro_torch.launch.train --dist-backend gloo <args>``:
     ``nproc`` ranks on the one card, as a subprocess in a session of its
@@ -2822,7 +2874,9 @@ def torchrun_train(root: Path, args, *, nproc: int = 2,
     batch, seq, and a depth cut: layers) the ranks run :data:`RANK_LOOPS`
     instead, laid out as
     ``grid`` (default: ``nproc`` along data), a ``train_loop`` a run, and
-    the result is the list of TrainResults."""
+    the result is the list of TrainResults. With ``script`` (a rank's
+    program: ``script spec.json result.json``) the ranks run it on
+    ``spec``, and the result is what it writes."""
     import os
     import signal
     import tempfile
@@ -2830,7 +2884,12 @@ def torchrun_train(root: Path, args, *, nproc: int = 2,
         out, log_path = Path(tmp) / "result.json", Path(tmp) / "log.txt"
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc-per-node", str(nproc)]
-        if runs is None:
+        if script is not None:
+            path, spec_path = Path(tmp) / "rank.py", Path(tmp) / "spec.json"
+            path.write_text(script)
+            spec_path.write_text(json.dumps(spec))
+            cmd += [str(path), str(spec_path), str(out)]
+        elif runs is None:
             cmd += ["-m", "repro_torch.launch.train", "--dist-backend", "gloo",
                     "--out", str(out), *args]
         else:
@@ -2914,11 +2973,6 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
     n_params = count_params(cfg)
     abstract = build_model(cfg).init(None, "meta")
     n_leaves = len(leaves(abstract))
-    common = ["--arch", cfg.name, "--optimizer", "local_adaalter", "--H",
-              "4", "--lr", "0.5", "--warmup", "100", "--compress", "int8",
-              "--use-kernels", "--workers", str(R), "--batch",
-              str(shape.global_batch), "--seq", str(shape.seq_len),
-              "--steps", str(steps)]
     oc = OptimizerConfig(name="local_adaalter", lr=0.5, H=4,
                          warmup_steps=100, compression="int8",
                          use_kernels=True)
@@ -2927,9 +2981,16 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
     plane = FlatSpace.build(abstract, batch_ndim=0, eps=oc.eps).plane_size
     report, by_phase = {"nvidia_smi": smi, "workers": R, "backend": "gloo",
                         "runs": {}}, {}
-    for name, extra, stacked in (("per_leaf", [], leaf),
-                                 ("flat", ["--flat"], flat)):
-        res, wall, peak_mib = torchrun_train(root, common + extra)
+    # both layouts in one launch (RANK_LOOPS: train_loop as the CLI calls
+    # it); the synchronous baseline below goes through the CLI
+    opt = dict(name="local_adaalter", lr=0.5, H=4, warmup_steps=100,
+               compression="int8", use_kernels=True)
+    got, wall, peak_mib = torchrun_train(root, None, nproc=R, runs=[
+        dict(arch=cfg.name, workers=R, opt={**opt, "flat": f}, steps=steps,
+             batch=shape.global_batch, seq=shape.seq_len)
+        for f in (False, True)], timeout=600)
+    for (name, stacked), res in zip((("per_leaf", leaf), ("flat", flat)),
+                                    got):
         require(same_run(res, stacked), f"train_ranks {name}: the ranks' run "
                 f"differs from the stacked one: losses {res['losses']} vs "
                 f"{stacked['losses']}, digest {res['state_digest']} vs "
@@ -3149,30 +3210,47 @@ def sharded_run(root: Path, cfg, shape, oc, *, workers: int, shards: int,
     return report, res["ranks"][0]["launches"]
 
 
-def sharded_phases(root: Path, cfg, smi) -> dict:
-    """The sharded flat plane on the card. ``train_sharded``: full-width
-    Big LSTM as 1 worker x 2 shards, two gloo ranks sharing the card (four
-    ranks of a 2 x 2 grid at full width would need ~4 x 25 GB), 32 x 20
-    tokens, H = 2, int8 one-pass with the kernels, 3 steps (one round).
-    ``sharded_grid``: reduced Big LSTM as 2 workers x 2 shards, four gloo
-    ranks, where the worker sub-group's mean runs, one-pass and
-    three-pass, both in one launch. Each equal to its stacked run bit for
-    bit. Returns the launches by phase (rank 0's)."""
-    from repro_torch.configs import OptimizerConfig, ShapeConfig, reduced
+def grid_phases(root: Path, cfg, smi, want_logits) -> dict:
+    """The phases of grids with a model axis: serve_tp (its own launch),
+    then one launch of two ranks (1 x 2) for train_sharded's run and
+    train_tp's two, and one of four (2 x 2) for sharded_grid's two runs
+    and tp_grid's two, each phase's checks as if it had launched alone;
+    then the full-width Big LSTM TP reckoning on the meta device.
+
+    ``train_sharded``: full-width Big LSTM as 1 worker x 2 shards of the
+    flat plane (four ranks of a 2 x 2 grid at full width would need ~4 x
+    25 GB), 32 x 20 tokens, H = 2, int8 one-pass with the kernels, 3 steps
+    (one round). ``sharded_grid``: reduced Big LSTM as 2 workers x 2
+    shards, where the worker sub-group's mean runs, one-pass and
+    three-pass. Each equal to its stacked run bit for bit. Returns the
+    launches by phase (rank 0's)."""
+    from repro_torch.configs import (OptimizerConfig, ShapeConfig, get_arch,
+                                     reduced)
     by_phase = {}
-    common = ["--optimizer", "local_adaalter", "--H", str(SHARDED_H),
-              "--compress", "int8", "--use-kernels", "--flat", "--steps",
-              str(SHARDED_STEPS)]
     t0 = time.perf_counter()
+    emit({"phase": "serve_tp", "nvidia_smi": smi,
+          **serve_tp_phase(root, want_logits, smi),
+          "seconds": time.perf_counter() - t0})
+    free_card()
+
+    t0 = time.perf_counter()
+    opt = dict(name="local_adaalter", lr=0.5, H=SHARDED_H,
+               warmup_steps=100, compression="int8", use_kernels=True,
+               flat=True)
+    got, wall, peak_mib = torchrun_train(
+        root, None, nproc=2, grid=TP_GRID, timeout=900, runs=[
+            dict(arch=cfg.name, workers=1, opt=opt, steps=SHARDED_STEPS,
+                 batch=32, seq=20)] + tp_train_runs())
     shape = ShapeConfig("sharded", seq_len=20, global_batch=32, kind="train")
-    oc = OptimizerConfig(name="local_adaalter", lr=0.5, H=SHARDED_H,
-                         warmup_steps=100, compression="int8",
-                         use_kernels=True, flat=True)
     full, by_phase["train_sharded"] = sharded_run(
-        root, cfg, shape, oc, workers=1, shards=2, what="train_sharded",
-        cli=["--arch", cfg.name, "--lr", "0.5", "--warmup", "100",
-             "--workers", "1", "--batch", "32", "--seq", "20", *common])
+        root, cfg, shape, OptimizerConfig(**opt), workers=1, shards=2,
+        what="train_sharded", cli=None, launched=(got[0], wall, peak_mib))
     emit({"phase": "train_sharded", "nvidia_smi": smi, **full,
+          "seconds": time.perf_counter() - t0})
+    free_card()
+    t0 = time.perf_counter()
+    train, by_phase["train_tp"] = train_tp_phase(got[1:], wall, peak_mib)
+    emit({"phase": "train_tp", "nvidia_smi": smi, **train,
           "seconds": time.perf_counter() - t0})
     free_card()
 
@@ -3184,12 +3262,12 @@ def sharded_phases(root: Path, cfg, smi) -> dict:
                       warmup_steps=0, compression="int8", use_kernels=True,
                       flat=True, sync_fused=fused)
            for name, fused in (("one_pass", True), ("three_pass", False))}
-    # both encodes in one launch of four ranks
+    # both encodes and tp_grid's two models in one launch of four ranks
     got, wall, peak_mib = torchrun_train(
-        root, None, nproc=4, grid={"data": 2, "model": 2}, runs=[
-            dict(arch=cfg.name, reduced=True, workers=2, opt=opt,
-                 steps=SHARDED_STEPS, batch=8, seq=16)
-            for opt in ocs.values()])
+        root, None, nproc=4, grid={"data": 2, "model": 2}, timeout=600,
+        runs=[dict(arch=cfg.name, reduced=True, workers=2, opt=opt,
+                   steps=SHARDED_STEPS, batch=8, seq=16)
+              for opt in ocs.values()] + tp_grid_runs())
     for (name, opt), res in zip(ocs.items(), got):
         grid[name], launches = sharded_run(
             root, small, shape, OptimizerConfig(**opt), workers=2, shards=2,
@@ -3199,6 +3277,13 @@ def sharded_phases(root: Path, cfg, smi) -> dict:
                  else "sharded_grid_three_pass"] = launches
     emit({"phase": "sharded_grid", "nvidia_smi": smi, "arch": small.name,
           **grid, "seconds": time.perf_counter() - t0})
+    free_card()
+    t0 = time.perf_counter()
+    tp_grid, by_phase["tp_grid"] = tp_grid_phase(got[2:], wall, peak_mib)
+    emit({"phase": "tp_grid", "nvidia_smi": smi, **tp_grid,
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "biglstm_tp_meta",
+          **biglstm_tp_reckoning(get_arch("biglstm"))})
     free_card()
     return by_phase
 
@@ -3683,6 +3768,494 @@ def train_hybrid_remat(cfg, counters, smi, leaf, n_leaves: int):
             "layers_that_fit_80gb_derived": fit}, remat["launches"]
 
 
+# ---- slice 11: tensor parallelism over the model ranks ------------------ #
+# train_tp: qwen2-7b at full width, 4 of its 28 layers (2,022,229,504
+# parameters), 1 worker x 2 TP shards
+TP_TRAIN_LAYERS = 4
+TP_TRAIN_STEPS = 4
+TP_GRID = {"data": 1, "model": 2}
+# serve_tp: the TP prefill's last logits against the one-rank prefill's,
+# relative L2 over the batch (bf16: the row-parallel partials are rounded
+# to bf16 by their products before the float32 sum); the fault (one rank's
+# wo partial dropped) must exceed it
+TP_SERVE_REL_L2 = 5e-2
+# serve_tp: a gloo collective takes milliseconds, ~114 a decode step, so
+# its session replays 16 prompt positions (then 32 new tokens) and its
+# decode fault a replay of 16 positions over a 16-slot cache split over
+# the two ranks; the prefill is checked at 128 and timed at 512
+TP_SERVE_REPLAY = 16
+TP_FAULT_REPLAY = 16
+TP_CHECK_PROMPT = 128
+# train_tp: TP losses against the one-rank run's (bf16; rtol), which the
+# one-rank run with η 2% off must exceed (lr 0.5 without warm-up at full
+# width: the losses climb, and on an H100 the runs part by 1.6e-3, η 2%
+# off by 1.1e-2)
+TP_TRAIN_RTOL = 4e-3
+# tp_grid: lr 2 and 8 steps, as the reference phase (the η check needs the
+# losses to move)
+TP_GRID_STEPS = 8
+
+SERVE_TP = r"""
+import json, statistics, sys, time
+import torch
+from repro_torch.configs import ShapeConfig, get_arch
+from repro_torch.core import comm
+from repro_torch.data import SyntheticLM
+from repro_torch.launch import mesh
+from repro_torch.launch.serve import serve_session
+from repro_torch.launch.serving import build_serve_programs, decode_cache_specs
+from repro_torch.models import attention, build_model, layers
+from repro_torch.tree import leaves, tree_map
+
+spec = json.load(open(sys.argv[1]))
+group, dev = mesh.init_ranks("gloo", None, grid=spec["grid"])
+cfg = get_arch(spec["arch"])
+B, P, NEW, REPLAY = spec["batch"], spec["prompt"], spec["new"], spec["replay"]
+M = group.layout.shards
+res = {"rank": group.rank}
+
+def sync():
+    torch.cuda.synchronize(dev)
+
+def rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+def programs(cache_len):
+    return build_serve_programs(cfg, ShapeConfig(
+        "decode_32k", seq_len=cache_len, global_batch=B, kind="decode"),
+        group=group)
+
+def zero_cache(progs, cache_len):
+    whole = decode_cache_specs(cfg, ShapeConfig(
+        "decode_32k", seq_len=cache_len, global_batch=B, kind="decode"))
+    meta = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), whole)
+    part = progs.cache_parts(meta)
+    return (tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                           device=dev), part),
+            sum(t.numel() * t.element_size() for t in leaves(meta)))
+
+progs = programs(P + NEW)
+params = progs.init_fn(torch.Generator(dev).manual_seed(0))
+torch.cuda.empty_cache()
+torch.cuda.reset_peak_memory_stats(dev)
+itemsizes = [t.element_size() for t in leaves(build_model(cfg).init(
+    None, "meta"))]
+res["weight_bytes"] = sum(t.numel() * t.element_size() for t in leaves(params))
+res["weight_bytes_from_specs"] = sum(
+    s.part_numel * b for s, b in zip(progs.param_splits, itemsizes))
+res["weight_bytes_whole"] = sum(
+    __import__("math").prod(s.shape) * b
+    for s, b in zip(progs.param_splits, itemsizes))
+cache, whole_cache = zero_cache(progs, P + NEW)
+res["cache_bytes"] = sum(t.numel() * t.element_size() for t in leaves(cache))
+res["cache_bytes_one_rank"] = whole_cache
+prompts = torch.from_numpy(SyntheticLM(
+    vocab_size=cfg.vocab_size, seq_len=P, n_workers=1, seed=0).worker_batch(
+        0, 0, B)["tokens"]).to(dev)[progs.rows]
+
+# ---- the prefill at CHECK: against the one-rank run's, and with a fault - #
+C = spec["check_prompt"]
+logits, _ = progs.prefill(params, {"tokens": prompts[:, :C]})
+res["prefill_finite"] = bool(torch.isfinite(logits).all())
+if group.rank == 0:
+    torch.save(logits.float().cpu(), spec["out"] + ".prefill.pt")
+# fault: rank 1 drops its wo partial products in every layer
+real_linear = layers.tp_linear
+wo_rows = cfg.n_heads * cfg.head_dim // M
+def drop_wo(x, w, split, tp, **kw):
+    if (split.split and split.dim == 0 and w.shape[0] == wo_rows
+            and tp.rank == 1):
+        w = torch.zeros_like(w)
+    return real_linear(x, w, split, tp, **kw)
+layers.tp_linear = drop_wo
+try:
+    bad, _ = progs.prefill(params, {"tokens": prompts[:, :C]})
+finally:
+    layers.tp_linear = real_linear
+if group.rank == 0:
+    torch.save(bad.float().cpu(), spec["out"] + ".prefill_fault.pt")
+del logits, bad
+
+# ---- the prefill at P (warm: the prefills above ran), timed, counted ---- #
+comm.tp.reset()
+sync(); t0 = time.perf_counter()
+logits, _ = progs.prefill(params, {"tokens": prompts})
+sync()
+res["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+res["prefill_tp"] = {"collectives": comm.tp.n, "bytes": comm.tp.bytes,
+                     "gloo_s": comm.tp.seconds["wire"],
+                     "staging_s": comm.tp.seconds["d2h"]
+                     + comm.tp.seconds["h2d"]}
+res["prefill_finite"] &= bool(torch.isfinite(logits).all())
+del logits
+
+# ---- decode steps at P, P + 1, ... over the zero cache ----------------- #
+tok = prompts[:, -1:]
+steps = []
+for i in range(spec["decode_steps"]):
+    pos = torch.full((tok.shape[0],), P + i, dtype=torch.int32, device=dev)
+    comm.tp.reset()
+    sync(); t0 = time.perf_counter()
+    lg, cache = progs.decode_step(params, cache, tok, pos)
+    tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+    sync()
+    steps.append({"s": time.perf_counter() - t0, "n": comm.tp.n,
+                  "bytes": comm.tp.bytes, "gloo_s": comm.tp.seconds["wire"],
+                  "staging_s": comm.tp.seconds["d2h"]
+                  + comm.tp.seconds["h2d"]})
+med = statistics.median(x["s"] for x in steps)
+res["decode_ms_per_step"] = 1e3 * med
+res["decode_tp_collectives_per_step"] = steps[-1]["n"]
+res["decode_tp_bytes_per_step"] = steps[-1]["bytes"]
+res["decode_gloo_share"] = statistics.median(x["gloo_s"] / x["s"]
+                                             for x in steps)
+res["decode_staging_share"] = statistics.median(x["staging_s"] / x["s"]
+                                                for x in steps)
+del cache
+
+# ---- the session: prefill vs replay (SERVE_REL_L2) ---------------------- #
+stats = {}
+gen, tps = serve_session(cfg, batch=B, prompt_len=REPLAY, new_tokens=NEW,
+                         seed=0, device=str(dev), params=params,
+                         verbose=False, stats=stats, group=group)
+res["session"] = {
+    "prompt_len": REPLAY, "new_tokens": NEW, "tokens_per_s": tps,
+    "prefill_ms": 1e3 * stats["prefill_s"],
+    "decode_ms_per_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
+    "logits_finite": stats["logits_finite"],
+    "prefill_vs_replay_rel_l2": rel_l2(stats["prefill_logits"],
+                                       stats["replay_logits"]),
+    "generated": gen.tolist()}
+
+# ---- a replay where each rank scores its slots as its neighbour's ------- #
+F = spec["fault_replay"]
+short = programs(F)
+want = short.prefill(params, {"tokens": prompts[:, :F]})[0]
+real_slots = attention._slot_positions
+def neighbours(idx, positions, cache_spec):
+    return real_slots((idx + idx.shape[-1]) % cache_spec.cache_len,
+                      positions, cache_spec)
+attention._slot_positions = neighbours
+try:
+    c, _ = zero_cache(short, F)
+    for pos in range(F):
+        lg, c = short.decode_step(params, c, prompts[:, pos:pos + 1],
+                                  torch.full((prompts.shape[0],), pos,
+                                             dtype=torch.int32, device=dev))
+finally:
+    attention._slot_positions = real_slots
+res["fault_replay"] = {"positions": F, "fault_neighbour_slots_rel_l2":
+                       rel_l2(lg, want)}
+res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+res["max_memory_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+import torch.distributed as dist
+everyone = [None] * group.world
+dist.all_gather_object(everyone, res)
+mesh.close_ranks()
+if group.rank == 0:
+    json.dump(everyone, open(sys.argv[2], "w"))
+"""
+
+
+def serve_tp_phase(root: Path, want_logits, smi) -> dict:
+    """Full-width qwen2-7b served on 1 x 2 gloo ranks (tensor parallelism
+    over model, the KV cache's sequence split over it) through
+    ``build_serve_programs(group=)`` / ``serve_session(group=)``: the
+    one-rank run's weights (the same seed), each rank keeping its parts;
+    a rank's weight bytes the specs' parts, its cache half the one-rank
+    cache; the prefill's last logits at TP_CHECK_PROMPT against the
+    one-rank prefill's (``want_logits``) to TP_SERVE_REL_L2, which rank 1
+    dropping its wo partials must exceed; the session's prefill vs replay
+    to SERVE_REL_L2, which a replay where each rank scores its slots as
+    its neighbour's must fail; prefill ms at 512 and decode ms a step from
+    position 512, the TP collectives and bytes a decode step and gloo's
+    share of it."""
+    import torch
+    from repro_torch.models.counting import count_params
+    from repro_torch.configs import get_arch
+    qwen = get_arch("qwen2-7b")
+    spec = {"grid": TP_GRID, "arch": qwen.name, "batch": 8,
+            "prompt": SERVE_PROMPT, "new": 32, "replay": TP_SERVE_REPLAY,
+            "decode_steps": 4, "fault_replay": TP_FAULT_REPLAY,
+            "check_prompt": TP_CHECK_PROMPT}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec["out"] = str(Path(tmp) / "serve")
+        reps, wall, peak_mib = torchrun_train(
+            root, None, nproc=2, script=SERVE_TP, spec=spec, timeout=600)
+        got = torch.load(spec["out"] + ".prefill.pt")
+        bad = torch.load(spec["out"] + ".prefill_fault.pt")
+    err, fault = rel_l2(got, want_logits), rel_l2(bad, want_logits)
+    require(err <= TP_SERVE_REL_L2, f"serve_tp: prefill logits off the "
+            f"one-rank run's by {err} (relative L2)")
+    require(fault > TP_SERVE_REL_L2, f"serve_tp: the check accepts rank 1 "
+            f"dropping its wo partials ({fault})")
+    for rep in reps:
+        r = rep["rank"]
+        require(rep["weight_bytes"] == rep["weight_bytes_from_specs"],
+                f"serve_tp: rank {r} holds {rep['weight_bytes']} B of "
+                f"weights, the specs {rep['weight_bytes_from_specs']}")
+        require(2 * rep["cache_bytes"] == rep["cache_bytes_one_rank"],
+                f"serve_tp: rank {r}'s cache {rep['cache_bytes']} B, not "
+                f"half of {rep['cache_bytes_one_rank']}")
+        ses = rep["session"]
+        require(rep["prefill_finite"] and ses["logits_finite"],
+                f"serve_tp: rank {r}: a non-finite logit")
+        require(ses["prefill_vs_replay_rel_l2"] <= SERVE_REL_L2,
+                f"serve_tp: rank {r}: prefill vs replay "
+                f"{ses['prefill_vs_replay_rel_l2']}")
+        fr = rep["fault_replay"]
+        require(fr["fault_neighbour_slots_rel_l2"] > SERVE_REL_L2,
+                f"serve_tp: rank {r}: the prefill/replay check accepts "
+                f"ranks scoring their slots as their neighbours' ({fr})")
+        require(ses["generated"] == reps[0]["session"]["generated"],
+                "serve_tp: the ranks gathered different generations")
+    gen = torch.tensor(reps[0]["session"]["generated"])
+    require(gen.shape == (8, 32) and bool(((gen >= 0)
+                                           & (gen < qwen.vocab_size)).all()),
+            f"serve_tp: generated tokens {tuple(gen.shape)}")
+    card_gb = peak_mib * 2**20 / 1e9
+    require(card_gb < 80.0, f"serve_tp: the card used {card_gb} GB")
+    return {"arch": qwen.name, "params": count_params(qwen),
+            "grid": TP_GRID, "batch": 8, "prompt_len": SERVE_PROMPT,
+            "new_tokens": 32, "check_prompt": TP_CHECK_PROMPT,
+            "prefill_rel_l2_vs_one_rank": err,
+            "tol": TP_SERVE_REL_L2,
+            "fault_wo_partial_dropped_rel_l2": fault,
+            "ranks": [{**rep, "session": {k: v for k, v in
+                                          rep["session"].items()
+                                          if k != "generated"}}
+                      for rep in reps],
+            "card_memory_used_peak_gb": card_gb, "torchrun_wall_s": wall}
+
+
+def tp_train_cfg():
+    import dataclasses as dc
+    from repro_torch.configs import get_arch
+    return dc.replace(get_arch("qwen2-7b"), n_layers=TP_TRAIN_LAYERS)
+
+
+def tp_splits(cfg, grid=TP_GRID):
+    """A rank's LeafSplits of ``cfg``'s leaves under the paper-style plan
+    on ``grid`` (the worker axis left out), rank by rank along model."""
+    from repro_torch.configs import ParallelismPlan
+    from repro_torch.models import build_model
+    from repro_torch.sharding import (ShardingRules, leaf_split,
+                                      param_shardings)
+    from repro_torch.tree import leaves
+    body = build_model(cfg).init(None, "meta")
+    specs = param_shardings(ShardingRules(grid, ParallelismPlan(
+        local_axes=("data",))), body)
+    return [[leaf_split(t.shape, sp, grid, {"data": 0, "model": m})
+             for t, sp in zip(leaves(body), specs)]
+            for m in range(grid["model"])]
+
+
+def check_tp_parts(gen) -> dict:
+    """Rows 1 and 3 on each distinct part shape a train_tp rank updates
+    and encodes (stacked, a worker axis of 1): the bf16 params' update and
+    EF encode, the fp32 B²'s encode, bitwise (row 3) or to the update's
+    tolerance (row 1) against their plain versions; the largest part
+    timed beside its bound. Row 6 on the largest part's codes, decoded a
+    2^26-element chunk at a time."""
+    import torch
+    part = tp_splits(tp_train_cfg())[0]
+    shapes = sorted({(1,) + s.part_shape for s in part}, key=math.prod,
+                    reverse=True)
+    upd, ef = [], []
+    for i, shape in enumerate(shapes):
+        upd.append(check_update(gen, shape, torch.bfloat16, timed=i == 0))
+        ef.append(check_ef(gen, shape, torch.bfloat16, False, timed=i == 0))
+        ef.append(check_ef(gen, shape, torch.float32, True, timed=i == 0))
+        torch.cuda.empty_cache()
+    codes = check_subplane_codes(gen, math.prod(shapes[0]))
+    return {"shapes": [list(s) for s in shapes], "update": upd, "ef": ef,
+            "codes": codes}
+
+
+TP_TRAIN_OPT = dict(name="local_adaalter", lr=0.5, H=2, warmup_steps=0,
+                    compression="int8", use_kernels=True)
+
+
+def tp_train_runs() -> list:
+    """train_tp's runs (RANK_LOOPS) on TP_GRID: remat "full" (the plan's),
+    then "save_tp"."""
+    return [dict(arch="qwen2-7b", layers=TP_TRAIN_LAYERS, workers=1,
+                 opt=TP_TRAIN_OPT, steps=TP_TRAIN_STEPS, batch=4, seq=512,
+                 plan=dict(local_axes=["data"], remat=remat))
+            for remat in ("full", "save_tp")]
+
+
+def train_tp_phase(got, wall: float, peak_mib: int) -> tuple:
+    """qwen2-7b at full width cut to 4 of 28 layers, Local AdaAlter, int8
+    wire with the kernels, as 1 worker x 2 TP shards (two gloo ranks on
+    the card), 4 x 512 tokens, H = 2, 4 steps: ``got``, the results of
+    :func:`tp_train_runs` (remat "full", then "save_tp"), against the
+    one-rank run of the same (TP_TRAIN_RTOL, which η 2% off must exceed).
+    "save_tp" equals "full" bit for bit with fewer TP collectives a step;
+    a rank's state bytes equal the specs' parts. Returns (report, rank
+    0's launches)."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, ShapeConfig
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.counting import count_params
+    cfg = tp_train_cfg()
+    n_params = count_params(cfg)
+    opt = TP_TRAIN_OPT
+    shape = ShapeConfig("tp", seq_len=512, global_batch=4, kind="train")
+
+    def one_rank(lr):
+        free_card()
+        r = train_loop(cfg, shape, OptimizerConfig(**{**opt, "lr": lr}),
+                       steps=TP_TRAIN_STEPS, n_workers=1, verbose=False,
+                       device="cuda")
+        return {"losses": r.losses, "sync_steps": r.sync_steps,
+                "step_s": r.step_s, "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9}
+    want, off = one_rank(opt["lr"]), one_rank(opt["lr"] * 1.02)
+    free_card()
+    full, save = got
+    err = max_rel(full["losses"], want["losses"])
+    off_err = max_rel(off["losses"], want["losses"])
+    require(err <= TP_TRAIN_RTOL, f"train_tp: losses {full['losses']} off "
+            f"the one-rank run's {want['losses']} by {err}")
+    require(off_err > TP_TRAIN_RTOL, f"train_tp: η 2% off passes ({off_err})")
+    require(full["sync_steps"] == want["sync_steps"] == [1, 3],
+            f"train_tp: sync steps {full['sync_steps']}")
+    require(same_run(save, full), "train_tp: save_tp differs from full")
+    splits = tp_splits(cfg)
+    ranks = []
+    for rf, rs in zip(full["ranks"], save["ranks"]):
+        part = splits[rf["shard"]]
+        state = sum(s.part_numel * (2 + 4 * 4) for s in part)
+        require(rf["state_bytes"] == state,
+                f"train_tp: rank {rf['rank']} holds {rf['state_bytes']} B, "
+                f"the specs {state}")
+        require(rs["tp_collectives"] < rf["tp_collectives"],
+                f"train_tp: save_tp issued {rs['tp_collectives']} TP "
+                f"collectives, full {rf['tp_collectives']}")
+        require(rf["launches"]["adaalter_update"] > 0
+                and rf["launches"]["fused_ef"] > 0
+                and rf["launches"]["dequantize_blocks"] > 0,
+                f"train_tp: rank {rf['rank']} launches {rf['launches']}")
+        ranks.append({
+            "rank": rf["rank"], "shard": rf["shard"], "route": rf["route"],
+            "state_bytes": rf["state_bytes"], "state_bytes_from_specs": state,
+            "launches": rf["launches"],
+            **{f"{tag}_{k}": v for tag, rep in (("full", rf), ("save_tp", rs))
+               for k, v in {
+                   "step_ms": [1e3 * t for t in rep["step_s"]],
+                   "tp_collectives_per_step": rep["tp_collectives"]
+                   / TP_TRAIN_STEPS,
+                   "tp_bytes_per_step": rep["tp_bytes"] / TP_TRAIN_STEPS,
+                   "tp_gloo_s_per_step": rep["tp_s"]["wire"]
+                   / TP_TRAIN_STEPS,
+                   "max_memory_allocated_gb":
+                       rep["max_memory_allocated"] / 1e9}.items()}})
+    card_gb = peak_mib * 2**20 / 1e9
+    require(card_gb < 80.0, f"train_tp: the card used {card_gb} GB")
+    return ({"arch": cfg.name, "layers": TP_TRAIN_LAYERS, "params": n_params,
+             "grid": TP_GRID, "steps": TP_TRAIN_STEPS, "H": 2,
+             "tokens_per_step": 4 * 512, "losses": full["losses"],
+             "one_rank_losses": want["losses"], "rel_err": err,
+             "tol": TP_TRAIN_RTOL, "eta_2pct_high_rel_err": off_err,
+             "save_tp_equals_full": True, "ranks": ranks,
+             "one_rank": {"step_ms": [1e3 * t for t in want["step_s"]],
+                          "max_memory_allocated_gb":
+                              want["max_memory_allocated_gb"]},
+             "card_memory_used_peak_gb": card_gb, "torchrun_wall_s": wall},
+            full["ranks"][0]["launches"])
+
+
+TP_GRID_OPT = dict(name="local_adaalter", lr=2.0, H=2, warmup_steps=0,
+                   compression="int8", use_kernels=True)
+TP_GRID_ARCHS = ("biglstm", "qwen2-7b")
+
+
+def tp_grid_runs() -> list:
+    """tp_grid's runs (RANK_LOOPS) on a 2 x 2 grid: reduced, float32."""
+    return [dict(arch=a, reduced=True, dtype="float32", workers=2,
+                 opt=TP_GRID_OPT, steps=TP_GRID_STEPS, batch=8, seq=16)
+            for a in TP_GRID_ARCHS]
+
+
+def tp_grid_phase(got, wall: float, peak_mib: int) -> tuple:
+    """Reduced Big LSTM and reduced qwen2-7b in float32 on a 2 x 2 grid
+    (four gloo ranks on the card), lr 2, 8 steps: ``got``, the results of
+    :func:`tp_grid_runs`, against the stacked 2-worker card run and the
+    CPU run of the same weights to MODEL_RTOL, which the CPU run with η
+    2% larger must exceed. Returns (report, rank 0's launches of the last
+    run)."""
+    import torch
+    from repro_torch.configs import (OptimizerConfig, ShapeConfig, get_arch,
+                                     reduced)
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    opt = TP_GRID_OPT
+    shape = ShapeConfig("tp_grid", seq_len=16, global_batch=8, kind="train")
+    report = {}
+    for arch, res in zip(TP_GRID_ARCHS, got):
+        cfg = dataclasses.replace(reduced(get_arch(arch)),
+                                  param_dtype="float32")
+        # the ranks' and the stacked card run's weights (the same seed)
+        cpu_base = tree_map(lambda t: t.cpu(), build_model(cfg).init(
+            torch.Generator("cuda").manual_seed(0)))
+        card = train_loop(cfg, shape, OptimizerConfig(**opt),
+                          steps=TP_GRID_STEPS, n_workers=2, verbose=False,
+                          device="cuda")
+        cpu = {lr: train_loop(cfg, shape, OptimizerConfig(**{**opt,
+                                                             "lr": lr}),
+                              steps=TP_GRID_STEPS, n_workers=2,
+                              verbose=False, device="cpu",
+                              init_params=cpu_base)
+               for lr in (opt["lr"], opt["lr"] * 1.02)}
+        g = res["losses"]
+        errs = {"card_stacked": max_rel(g, card.losses),
+                "cpu": max_rel(g, cpu[opt["lr"]].losses),
+                "cpu_eta_2pct_high": max_rel(g, cpu[opt["lr"] * 1.02].losses)}
+        require(errs["card_stacked"] <= MODEL_RTOL and errs["cpu"]
+                <= MODEL_RTOL, f"tp_grid {arch}: {errs}")
+        require(errs["cpu_eta_2pct_high"] > MODEL_RTOL,
+                f"tp_grid {arch}: η 2% off passes ({errs})")
+        require(res["sync_steps"] == card.sync_steps
+                and res["comm_bytes_total"] == card.comm_bytes_total,
+                f"tp_grid {arch}: schedule or bytes differ")
+        report[arch] = {"losses": res["losses"], "rel_err": errs,
+                        "tol": MODEL_RTOL, "sync_steps": res["sync_steps"],
+                        "tp_collectives_per_step": [
+                            rep["tp_collectives"] / TP_GRID_STEPS
+                            for rep in res["ranks"]],
+                        "launches": res["ranks"][0]["launches"]}
+    card_gb = peak_mib * 2**20 / 1e9
+    return ({**report, "card_memory_used_peak_gb": card_gb,
+             "torchrun_wall_s": wall}, got[-1]["ranks"][0]["launches"])
+
+
+def biglstm_tp_reckoning(cfg) -> dict:
+    """Full-width Big LSTM under tensor parallelism at model = 2, reckoned
+    on the meta device (not run): a rank's parameter and Local AdaAlter
+    state bytes (bf16 params, four float32 entries) from the specs; the
+    vocabulary (793,471, odd) leaves its embed, head_w and head_b whole."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, paths
+    splits = tp_splits(cfg)[0]
+    body = build_model(cfg).init(None, "meta")
+    whole = [(("/".join(n)), s.split) for n, s in zip(paths(body), splits)]
+    item = [t.element_size() for t in leaves(body)]
+    per_rank = sum(s.part_numel * (b + 16) for s, b in zip(splits, item))
+    total = sum(math.prod(s.shape) * (b + 16) for s, b in zip(splits, item))
+    split_values = sum(math.prod(s.shape) for s in splits if s.split)
+    vocab = {n: sp for n, sp in whole if n in ("embed", "head_w", "head_b")}
+    require(not any(vocab.values()), f"Big LSTM's vocab leaves split: {vocab}")
+    return {"arch": cfg.name, "grid": TP_GRID,
+            "state_bytes_per_rank": per_rank, "state_bytes_one_rank": total,
+            "split_values": split_values,
+            "values": sum(math.prod(s.shape) for s in splits),
+            "vocab_leaves_whole": sorted(vocab)}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3807,6 +4380,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # row 3 on every part shape train_fsdp_local's ranks encode whole
     fsdp_parts = check_fsdp_parts(gen, cfg)
+    # rows 1, 3 and 6 on every part shape a train_tp rank holds
+    tp_parts = check_tp_parts(gen)
     sass = sass_tf32_mma_counts(_build.library_path())
     require(all(sass.get(f"{k}<{t}>", 0) > 0 for k in SSD_KERNELS[::2]
                 for t in ("float", "bf16")),
@@ -3816,7 +4391,7 @@ def main() -> int:
           "sync_mean": mean, "mma_selftest": mma, "ssd": ssd_checks,
           "ssd_partial_head_groups": ssd_partial, "ssd_hymba": ssd_hymba,
           "hymba_train": hymba_train, "sharded_subplanes": sharded,
-          "fsdp_parts": fsdp_parts,
+          "fsdp_parts": fsdp_parts, "tp_parts": tp_parts,
           "ssd_sass_tf32_hmma": sass,
           "plane": {"plane_size": fs.plane_size, "real": fs.n_real,
                     "slots": fs.n_leaves, "buckets": fs.bucket_ranges()}})
@@ -3982,6 +4557,14 @@ def main() -> int:
             scaled_queries(params, 1.02), {"tokens": p})[0]})
     require_launches(serve_n)
     emit({"phase": "serve_dense", "nvidia_smi": smi, **serve})
+    # the one-rank prefill's last logits: serve_tp's reference (its
+    # prompts, the session's at 512, cut to TP_CHECK_PROMPT)
+    from repro_torch.data import SyntheticLM
+    with torch.inference_mode():
+        tp_want = model.prefill(params, {"tokens": torch.from_numpy(
+            SyntheticLM(vocab_size=qwen.vocab_size, seq_len=SERVE_PROMPT,
+                        seed=0).worker_batch(0, 0, 8)["tokens"][
+                :, :TP_CHECK_PROMPT]).cuda()})[0].float().cpu()
     del params, model
     torch.cuda.empty_cache()
     params = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
@@ -4001,13 +4584,13 @@ def main() -> int:
                                                  leaf, flat)
     emit({"phase": "train_ranks", **ranks,
           "seconds": time.perf_counter() - t0})
-    sharded_n = sharded_phases(root, cfg, smi)
     fsdp_n = fsdp_phases(root, cfg, smi, fsdp_cli,
                          ranks["baseline_adaalter"]["steps"])
+    grid_n = grid_phases(root, cfg, smi, tp_want)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     by_phase = {"train": leaf_n, "train_flat": flat_n,
                 "train_unfused": unfused_n, "score": score_n, **hybrid_n,
-                **ranks_n, **sharded_n, **fsdp_n}
+                **ranks_n, **fsdp_n, **grid_n}
 
     def entry(name, source, replaces, n, err, timed, library_ms=None):
         return {"name": name, "route": "cuda",
@@ -4023,11 +4606,12 @@ def main() -> int:
     emit({"kernels": [
         entry("adaalter_update", "adaalter_update.cu", "adaalter_update.py:55",
               leaf_n["adaalter_update"],
-              max([x["max_abs_err"] for x in upd] + [
+              max([x["max_abs_err"] for x in upd + tp_parts["update"]] + [
                   x["update"] for x in hymba_train["leaves"]]), upd[0]),
         entry("fused_ef", "sync_fused.cu", "sync_fused.py:81",
               leaf_n["fused_ef"],
-              max([x["max_abs_err"] for x in ef + fsdp_parts] + [
+              max([x["max_abs_err"] for x in ef + fsdp_parts
+                   + tp_parts["ef"]] + [
                   max(x["ef_params"], x["ef_b2"])
                   for x in hymba_train["leaves"]]), ef[0]),
         entry("flat_fused_update", "adaalter_update.cu",
@@ -4050,7 +4634,8 @@ def main() -> int:
         entry("dequantize_blocks", "quantize.cu", "quantize.py:96",
               unfused_n["dequantize_blocks"],
               max(x["max_abs_err"]["dequantize"] for x in [quant]
-                  + sharded["codes"] + sharded["grid_codes"]),
+                  + sharded["codes"] + sharded["grid_codes"]
+                  + [tp_parts["codes"]]),
               quant["dequantize"], quant["dequantize"]["library_ms"]),
         # no single PyTorch call computes the SSD chunk scan
         entry("ssd_scan", "ssd_scan.cu", "ssd_scan.py:88",

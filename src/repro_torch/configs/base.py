@@ -231,14 +231,16 @@ class ParallelismPlan:
     port: ``local_axes`` (the workers) and ``grad_axes`` (the synchronous
     gradient mean) of a run with ranks; ``tp_axis``, down which a flat
     plane splits into sub-planes, one a rank
-    (``sharding.partition.plane_shard_axes``); and ``remat``, the
+    (``sharding.partition.plane_shard_axes``), and a per-leaf run splits
+    its weights (tensor parallelism, ``sharding.partition.
+    TensorParallel``); and ``remat``, the
     rematerialisation of the transformer groups in training
     (``models/transformer.py::apply_stack``); ``fsdp_axes``, over which a
     one-model run splits each leaf and its state (FSDP,
     ``launch/steps.py::_leaf_programs``, leaf by leaf as
-    ``sharding.specs.param_shardings`` says); ``weight_gather_serving`` is the reference's field, kept so the two
-    packages' plans compare field for field, and decides nothing yet
-    (item 9c).
+    ``sharding.specs.param_shardings`` says); ``weight_gather_serving``
+    (serving above 20 B parameters: FSDP beside tensor parallelism) is
+    refused on ranks (``launch/mesh.py::check_serve_plan``, item 9c-2).
     """
 
     local_axes: Tuple[str, ...] = ("data",)

@@ -31,7 +31,7 @@ class FabricModel:
                  50 GB/s per GPU (NVIDIA data sheet);
     ``latency``  launch and rendezvous of one collective: an assumption
                  (10 µs), not a measurement. Measuring it needs ranks on
-                 several cards over NCCL (ROADMAP Queue 1 item 9c).
+                 several cards over NCCL (ROADMAP Queue 1 item 9c-2).
     """
     ici_bw: float = 450e9
     dcn_bw: float = 50e9
@@ -140,6 +140,10 @@ side = CollectiveCount()
 #: a sharded flat run's params gather before each forward (its parts d2h,
 #: wire, h2d, as a round's)
 shard_gather = CollectiveCount()
+#: tensor parallelism's collectives over the ``model`` sub-group (the
+#: layers' sums and gathers, forward and backward, and the decode's
+#: softmax combine): :func:`tp_copy`, :func:`tp_sum`, :func:`tp_gather`
+tp = CollectiveCount()
 
 
 def nccl_shares_a_card(backend: str, local_world: int,
@@ -508,6 +512,114 @@ def gather_mean_(x: torch.Tensor, group: RankGroup, round16=(),
     sent = x if wire_dtype in (None, x.dtype) else x.to(wire_dtype)
     (rows,) = group.all_gather([sent])
     return group.mean_(x, lambda r, a, b: rows[r].view(-1)[a:b], round16)
+
+
+# --------------------------------------------------------------------------- #
+# tensor parallelism: Megatron's f and g over the model sub-group
+# --------------------------------------------------------------------------- #
+def ordered_sum(group: RankGroup, x: torch.Tensor,
+                count: Optional[CollectiveCount] = None) -> torch.Tensor:
+    """Every rank's ``x`` summed in float32 in rank order (one all-gather
+    of the float32 values), rounded once to ``x``'s dtype: the same bits
+    on every rank of ``group``. ``all_reduce(SUM)`` is not used: NCCL and
+    gloo add in their own order, and a bf16 all-reduce would round each
+    partial. ``count`` defaults to :data:`tp`."""
+    (rows,) = group.all_gather([x.detach().float()],
+                               count=tp if count is None else count)
+    acc = rows[0].clone()
+    for r in range(1, group.world):
+        acc.add_(rows[r])
+    return acc.to(x.dtype)
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, :func:`ordered_sum` of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return ordered_sum(ctx.group, g), None
+
+
+class _Sum(torch.autograd.Function):
+    """:func:`ordered_sum` forward, identity backward. With a ``log``
+    (:class:`TPSumLog`) replaying, the sum recorded by the first forward is
+    returned instead: a recomputation issues no collective."""
+
+    @staticmethod
+    def forward(ctx, x, group, log):
+        if log is not None and log.replaying:
+            return log.pop().clone()
+        y = ordered_sum(group, x)
+        if log is not None:
+            log.push(y.detach())
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's part concatenated along ``dim`` in rank order forward;
+    this rank's slice of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        (rows,) = group.all_gather([x.detach().contiguous()], count=tp)
+        return torch.cat(rows.unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.group.rank * ctx.n, ctx.n)
+                .contiguous(), None, None)
+
+
+class TPSumLog:
+    """The outputs of one rematerialised group's :func:`tp_sum` calls, in
+    call order: recorded by its forward, handed back to its recomputation
+    (remat ``"save_tp"``, ``models/transformer.py``)."""
+
+    def __init__(self) -> None:
+        self.saved: List[torch.Tensor] = []
+        self.replaying = False
+        self._next = 0
+
+    def push(self, y: torch.Tensor) -> None:
+        self.saved.append(y)
+
+    def replay(self) -> None:
+        self.replaying, self._next = True, 0
+
+    def pop(self) -> torch.Tensor:
+        y = self.saved[self._next]
+        self._next += 1
+        return y
+
+
+def tp_copy(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """Megatron's f: ``x`` (the same on every rank of ``group``) entering
+    rank-specific work; its gradient is summed over the ranks."""
+    return _Copy.apply(x, group)
+
+
+def tp_sum(x: torch.Tensor, group: RankGroup,
+           log: Optional[TPSumLog] = None) -> torch.Tensor:
+    """Megatron's g: the ranks' partial results summed (float32, rank
+    order, rounded once); the gradient passes unchanged to each partial."""
+    return _Sum.apply(x, group, log)
+
+
+def tp_gather(x: torch.Tensor, group: RankGroup, dim: int = -1
+              ) -> torch.Tensor:
+    """The ranks' parts of a tensor split along ``dim`` put together; the
+    gradient's slice goes back to each part."""
+    return _Gather.apply(x, group, dim % x.ndim)
 
 
 def payload_bytes(n_values: int, dtype_bytes: int = 4, compression="",

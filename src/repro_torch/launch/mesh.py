@@ -12,7 +12,11 @@ they are the ranks of a ``torch.distributed`` process group, started by
 The ranks form an (R, S) grid, the reference's ``("data", "model")`` mesh:
 rank r is worker ``r // S`` and shard ``r % S``. With S = 1 every rank is
 one worker; with S > 1 each worker's flat plane is split into S
-sub-planes, one a rank (the paper-style plan shards it down ``tp_axis``).
+sub-planes, one a rank (the paper-style plan shards it down ``tp_axis``),
+or, per leaf, each worker's weights are split over its S ranks as their
+specs say (tensor parallelism, ``sharding.partition.TensorParallel``).
+Serving lays its ranks out as ``{"data": D, "model": N // D}``
+(``launch/serve.py``).
 
 :func:`init_ranks` reads the launcher's environment (``WORLD_SIZE``,
 ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` /
@@ -42,9 +46,8 @@ _SYNC_ONLY_THRESHOLD = 100e9       # > 100B: no local workers (AdaAlter, global 
 #: seconds a collective may wait for a peer before the group fails
 DEFAULT_TIMEOUT_S = 60.0
 
-_TP = ("a per-leaf run with shards is the reference's tensor parallelism, "
-       "not ported yet (ROADMAP Queue 1 item 9c); shard the flat plane "
-       "instead: --flat")
+#: the families whose layers run under tensor parallelism
+TP_FAMILIES = ("lstm", "dense")
 
 
 def world_size() -> int:
@@ -96,20 +99,63 @@ def resolve_plan(cfg: ModelConfig, grid: Union[Dict[str, int], int], *,
                            remat=remat)
 
 
+def check_tp(cfg: ModelConfig, what: str) -> None:
+    """Refuse tensor parallelism over ``model`` for what this port does
+    not split yet (ROADMAP Queue 1 item 9c-2): families other than
+    :data:`TP_FAMILIES` (the MoE's experts, the SSM's heads and inner
+    width, cross-attention and the encoder-decoder), sequence
+    parallelism."""
+    from repro_torch.sharding.partition import TP_TODO
+    if cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"{what} of {cfg.name} ({cfg.family}) over model ranks: tensor "
+            f"parallelism beyond the {'/'.join(TP_FAMILIES)} families is "
+            + TP_TODO)
+    if cfg.seq_parallel:
+        raise NotImplementedError(f"sequence parallelism ({cfg.name}) is "
+                                  + TP_TODO)
+
+
 def check_plan(plan: ParallelismPlan, grid: Dict[str, int], *,
-               flat: bool) -> None:
-    """Refuse, for a run with ranks, what the port cannot build yet: shards
-    of a per-leaf or synchronous run (tensor parallelism, item 9c); and a
-    grid whose shard axis the plan leaves unused (ranks that would hold the
-    same sub-plane). FSDP over ``fsdp_axes`` builds (per leaf, without
+               flat: bool, cfg: Optional[ModelConfig] = None) -> None:
+    """Refuse, for a run with ranks, what the port cannot build yet. Shards
+    of a worker (``model`` > 1) are a sharded flat plane (``flat``) or,
+    per leaf, tensor parallelism under the paper-style plan (workers along
+    ``local_axes``, no FSDP) for the families :func:`check_tp` admits; a
+    synchronous or one-model plan, or FSDP beside them (a leaf split along
+    two dimensions), is ROADMAP item 9c-2. Also refused: a grid whose
+    shard axis the plan leaves unused (ranks that would hold the same
+    sub-plane). FSDP over ``fsdp_axes`` builds (per leaf, without
     ``local_axes``)."""
+    from repro_torch.sharding.partition import TP_TODO
     from repro_torch.sharding.specs import plane_shard_count
-    if grid.get("model", 1) > 1 and not (flat and plan.local_axes):
-        raise NotImplementedError(f"{grid['model']} shards a worker: " + _TP)
+    if grid.get("model", 1) > 1 and not flat:
+        if not plan.local_axes or plan.fsdp_axes:
+            raise NotImplementedError(
+                f"{grid['model']} model ranks under the plan {plan}: tensor "
+                "parallelism beside one model's gradient mean or FSDP is "
+                + TP_TODO)
+        if cfg is not None:
+            check_tp(cfg, "training")
     shards = plane_shard_count(grid, plan)
     if plan.local_axes and shards != grid.get("model", 1):
         raise ValueError(f"the plan {plan} splits a plane into {shards} "
                          f"shards on a grid of {grid['model']}")
+
+
+def check_serve_plan(cfg: ModelConfig, plan: ParallelismPlan,
+                     grid: Dict[str, int]) -> None:
+    """Refuse sharded serving the port cannot build yet (ROADMAP item
+    9c-2): FSDP beside tensor parallelism (``weight_gather_serving``, the
+    plan above 20 B parameters) and, on ``model`` > 1, what
+    :func:`check_tp` refuses."""
+    from repro_torch.sharding.partition import TP_TODO
+    if plan.fsdp_axes or plan.weight_gather_serving:
+        raise NotImplementedError(
+            f"serving {cfg.name} under {plan}: FSDP and the gathered "
+            "weights of the plan above 20 B parameters are " + TP_TODO)
+    if grid.get("model", 1) > 1:
+        check_tp(cfg, "serving")
 
 
 def rank_device(device: Optional[str], local_rank: int) -> torch.device:

@@ -10,6 +10,15 @@ audio frames, and decode starts from a zero cache, its cross-attention
 (k, v) included. Runs on the CUDA device unless ``device='cpu'`` /
 ``--device cpu``.
 
+Under ``torchrun`` (``WORLD_SIZE`` N > 1) the ranks form a ``{"data": D,
+"model": N // D}`` grid (``--data``, default N: the reference's
+``(device_count, 1)`` mesh, the batch split alone): each rank serves its
+rows of the batch with its parts of the weights and of the cache
+(``launch/serving.py``: tensor parallelism over ``model``, the cache's
+sequence split over it), the generated tokens are gathered and rank 0
+prints them. Sharded serving covers the ``lstm`` and ``dense`` families
+up to 20 B parameters.
+
   python -m repro_torch.launch.serve --arch qwen2-7b --batch 8 \\
       --prompt-len 512 --new-tokens 32
   python -m repro_torch.launch.serve --arch biglstm --batch 8 \\
@@ -17,6 +26,9 @@ audio frames, and decode starts from a zero cache, its cross-attention
   python -m repro_torch.launch.serve --arch llama-3.2-vision-11b \\
       --batch 8 --prompt-len 512 --new-tokens 32
   python -m repro_torch.launch.serve --device cpu --arch qwen2-7b \\
+      --reduced --batch 4 --prompt-len 32 --new-tokens 16
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --device cpu --dist-backend gloo --data 1 --arch qwen2-7b \\
       --reduced --batch 4 --prompt-len 32 --new-tokens 16
 """
 from __future__ import annotations
@@ -44,7 +56,8 @@ def _sync(dev: torch.device) -> None:
 def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
                   new_tokens: int = 16, seed: int = 0,
                   device: Optional[str] = None, params=None,
-                  verbose: bool = True, stats: Optional[dict] = None):
+                  verbose: bool = True, stats: Optional[dict] = None,
+                  group=None):
     """Returns (generated tokens (B, new_tokens), tokens/s), the rate over
     the decode loop (prompt replay included), by a host clock around work
     that ends in a device synchronisation.
@@ -55,17 +68,27 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
     ``logits_finite`` (every prefill and decode logit finite), and the
     logits of the prompt's last position from the prefill
     (``prefill_logits``) and from its replay through ``decode_step``
-    (``replay_logits``), which should agree."""
+    (``replay_logits``), which should agree.
+
+    With a ``group`` (a ``core.comm.RankGroup`` laid out as ``{"data":
+    D, "model": M}``; ``device`` is this rank's) the rank serves its rows
+    of the batch with its parts of the weights (``params``: its parts, as
+    ``programs.param_parts`` cuts them) and of the cache; the logits in
+    ``stats`` are its rows', ``stats["programs"]`` the programs, and the
+    returned tokens every row's, gathered over the ranks."""
     dev = resolve_device(device)
     cache_len = prompt_len + new_tokens
     shape = ShapeConfig(name="decode_32k", seq_len=cache_len,
                         global_batch=batch, kind="decode")
-    programs = build_serve_programs(cfg, shape)
+    programs = build_serve_programs(cfg, shape, group=group)
     if params is None:
         params = programs.init_fn(torch.Generator(dev).manual_seed(seed))
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                      n_workers=1, seed=seed)
     prompts = torch.from_numpy(ds.worker_batch(0, 0, batch)["tokens"]).to(dev)
+    rows = programs.rows or slice(0, batch)
+    prompts = prompts[rows]
+    n_rows = prompts.shape[0]
 
     # ---- prefill: run the prompt (its caches are not used: see below)
     pre_shape = ShapeConfig(name="prefill", seq_len=prompt_len,
@@ -73,7 +96,8 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
     pre_batch = {"tokens": prompts}
     for k, v in serve_batch_specs(cfg, pre_shape)["prefill"].items():
         if k != "tokens":
-            pre_batch[k] = torch.zeros(v.shape, dtype=v.dtype, device=dev)
+            pre_batch[k] = torch.zeros((n_rows,) + v.shape[1:],
+                                       dtype=v.dtype, device=dev)
     _sync(dev)
     t_pre = time.perf_counter()
     prefill_logits, _ = programs.prefill(params, pre_batch)
@@ -85,8 +109,12 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
     # decode continues from a zero cache replayed over the prompt — simple
     # and correct for every family (the SSM recurrence updates through
     # decode_step).
-    cache = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
-                     decode_cache_specs(cfg, shape))
+    # this rank's part of every leaf (the whole cache on one device)
+    cache = programs.cache_parts(tree_map(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+        decode_cache_specs(cfg, shape)))
+    cache = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                           device=dev), cache)
     tok = prompts[:, :1]
     out = []
     steps = 0
@@ -96,7 +124,7 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
         nxt = prompts[:, pos + 1:pos + 2] if pos + 1 < prompt_len else None
         logits, cache = programs.decode_step(
             params, cache, tok,
-            torch.full((batch,), pos, dtype=torch.int32, device=dev))
+            torch.full((n_rows,), pos, dtype=torch.int32, device=dev))
         steps += 1
         if finite is not None:
             finite = finite & torch.isfinite(logits).all()
@@ -108,28 +136,42 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
         tok = nxt
         if len(out) >= new_tokens:
             break
-    gen = (torch.cat(out, dim=1).cpu().numpy() if out
-           else np.zeros((batch, 0), np.int32))
+    gen = (torch.cat(out, dim=1) if out
+           else torch.zeros((n_rows, 0), dtype=torch.int32, device=dev))
     _sync(dev)
     dt = time.perf_counter() - t0
+    if group is not None:            # every rank's rows, in batch order
+        gen = gather_rows(gen, group)
+    gen = gen.cpu().numpy()
     tps = batch * gen.shape[1] / max(dt, 1e-9)
     if stats is not None:
         stats.update(prefill_s=prefill_s, decode_s=dt, decode_steps=steps,
                      logits_finite=bool(finite), prefill_logits=prefill_logits,
-                     replay_logits=replay_logits)
+                     replay_logits=replay_logits, programs=programs)
     if verbose:
         print(f"generated {gen.shape} tokens in {dt:.2f}s "
               f"({tps:.1f} tok/s incl. prompt replay) on {dev}")
     return gen, tps
 
 
+def gather_rows(rows: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's rows of a batch split over ``data``, in batch order
+    (one collective; the ``model`` ranks of a row hold the same)."""
+    from repro_torch.core import comm
+    (got,) = group.all_gather([rows], count=comm.side)
+    firsts = [r for r in range(group.world)
+              if group.layout.coords(r)[1] == 0]
+    return torch.cat([got[r] for r in firsts], 0)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(
         description=__doc__,
         epilog="phi3.5-moe-42b-a6.6b holds 83.75 GB of bf16 weights and "
-               "llama4-maverick-400b-a17b 807 GB: more than one 80 GB card. "
-               "They need several cards (ROADMAP Queue 1 item 9c) and run "
-               "only --reduced on one.")
+               "llama4-maverick-400b-a17b 807 GB: more than one 80 GB card, "
+               "and tensor parallelism over their experts, and the FSDP of "
+               "serving above 20 B parameters, are not ported yet (ROADMAP "
+               "Queue 1 item 9c-2): they run only --reduced on one card.")
     ap.add_argument("--arch", default="qwen2-7b",
                     help=f"one of {sorted(ARCHS)}")
     ap.add_argument("--reduced", action="store_true")
@@ -140,16 +182,40 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; never a "
                          "silent CPU)")
+    ap.add_argument("--data", type=int, default=0, metavar="D",
+                    help="under torchrun: the ranks form a D x (world / D) "
+                         "grid, the batch split over D and the weights over "
+                         "world / D (default: D = world)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="under torchrun (default: nccl on cards, gloo on "
+                         "the CPU)")
     args = ap.parse_args()
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    gen, tps = serve_session(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                             new_tokens=args.new_tokens, seed=args.seed,
-                             device=args.device)
-    print("sample generations (token ids):")
-    for row in gen[:4]:
-        print("  ", row.tolist())
+    from repro_torch.launch import mesh
+    group, device = None, args.device
+    world = mesh.world_size()
+    if world > 1:
+        data = args.data or world
+        if world % data:
+            ap.error(f"--data {data} does not divide {world} ranks")
+        group, dev = mesh.init_ranks(args.dist_backend, args.device, grid={
+            "data": data, "model": world // data})
+        device = str(dev)
+    try:
+        gen, tps = serve_session(cfg, batch=args.batch,
+                                 prompt_len=args.prompt_len,
+                                 new_tokens=args.new_tokens, seed=args.seed,
+                                 device=device, group=group,
+                                 verbose=group is None or group.rank == 0)
+    finally:
+        if group is not None:
+            mesh.close_ranks()
+    if group is None or group.rank == 0:
+        print("sample generations (token ids):")
+        for row in gen[:4]:
+            print("  ", row.tolist())
 
 
 if __name__ == "__main__":

@@ -64,6 +64,20 @@ leaf's part by an all-to-all of its slices, an unsplit leaf by
 :func:`core.comm.gather_mean_` (fp32 on the wire): bit for bit the
 replicated run's mean, which is the same code under ``fsdp_axes=()``.
 
+With a ``group`` of workers × S shards and S > 1, per leaf (no ``flat``),
+each rank holds its parts of its worker's leaves, split over the
+worker's S ranks as the specs ``with_workers`` say (tensor parallelism
+under the paper-style plan, ``sharding.partition.TensorParallel``): the
+worker's loss and gradient come from its ranks' parts
+(``loss_fn(..., tp=)``, every rank of a worker the same batch), the
+update (row 1) runs on the parts, and the sync round encodes each part
+(row 3; a part whose quantization blocks straddle its boundary is
+gathered for the encode) and averages it over the worker sub-group of
+its shard index (row 6 decoding, the ordered float32 sum). The norms and
+drift statistics add the parts' partial sums in shard order, a leaf the
+specs leave whole counted once. Replicated leaves stay equal on a
+worker's ranks: the collectives give every rank the same bits.
+
 With ``OptimizerConfig.obs_metrics`` every step also returns
 ``metrics['grad_norm']``: the L2 norm of the raw (pre-clip) gradients, one
 per worker on the local paths, a scalar on the one-model one.
@@ -72,6 +86,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from functools import partial
 from typing import Any, Callable
 
@@ -120,34 +135,63 @@ class RankMean:
         """Per leaf of ``wires``: its payload's parts (int8 codes, fp32
         scales) packed into one collective, every rank's decoded by
         ``decode(parts, like, start, stop)`` into wire values a chunk at a
-        time, the ordered mean written over the leaf."""
+        time, the ordered mean written over the leaf. A
+        :class:`WholePayload` is a whole leaf's, of which ``x`` is this
+        rank's part: each rank's is decoded whole and cut."""
         for x, parts in zip(leaves(wires), payloads):
-            got = self.group.all_gather(parts)
-            self.group.mean_(x, lambda r, a, b, x=x, got=got: decode(
-                tuple(g[r] for g in got), x, a, b))
+            whole = parts if isinstance(parts, WholePayload) else None
+            got = self.group.all_gather(whole.payload if whole else parts)
+            if whole is None:
+                self.group.mean_(x, lambda r, a, b, x=x, got=got: decode(
+                    tuple(g[r] for g in got), x, a, b))
+                continue
+            n = math.prod(whole.split.shape)
+            rows = [whole.split.part(decode(tuple(g[r] for g in got), x, 0,
+                                            n).view(whole.split.shape))
+                    .reshape(-1) for r in range(self.group.world)]
+            self.group.mean_(x, lambda r, a, b, rows=rows: rows[r][a:b])
 
 
-def _sq_norms(pairs) -> torch.Tensor:
-    """Per-worker Σ over the given stacked tensors of their squared norms,
-    leaf by leaf (no whole-tree temporary), each worker's row reduced on
-    its own (``core.optimizers.worker_sums``)."""
-    return sum(opt_lib.worker_sums(torch.square(d)) for d in pairs)
+@dataclasses.dataclass
+class WholePayload:
+    """The encoded payload of a whole leaf of which a rank sends its part
+    (``split``, a ``sharding.specs.LeafSplit``): a part whose quantization
+    blocks straddle its boundary is encoded whole."""
+    payload: Any
+    split: Any
 
 
-def _drift_per_worker(new_params, params) -> torch.Tensor:
+def _sq_norms(fn, *trees, layout=None) -> torch.Tensor:
+    """Per-worker Σ over the leaves of ``trees`` (stacked alike) of the
+    squared norms of ``fn(*leaf_i)``, leaf by leaf (no whole-tree
+    temporary), each worker's row reduced on its own
+    (``core.optimizers.worker_sums``). With a ``layout`` (a
+    :class:`LeafLayout` of parts) over the leaves this rank owns, the
+    partial sums added over its sub-group in part order."""
+    picked = list(zip(*(leaves(t) for t in trees)))
+    if layout is not None:
+        picked = [picked[i] for i, _ in layout.owned_leaves(trees[0])]
+    out = sum((opt_lib.worker_sums(torch.square(fn(*xs))) for xs in picked),
+              torch.zeros(leaves(trees[0])[0].shape[:1], device=leaves(
+                  trees[0])[0].device))
+    if layout is None or layout.group is None:
+        return out
+    return comm.ordered_sum(layout.group, out, comm.side)
+
+
+def _drift_per_worker(new_params, params, layout=None) -> torch.Tensor:
     """(rows,): ||x_i' − x_i|| / (||x_i|| + tiny) of each worker."""
-    d = torch.sqrt(_sq_norms(n.float() - p.float() for n, p in
-                             zip(leaves(new_params), leaves(params))))
-    p = torch.sqrt(_sq_norms(p.float() for p in leaves(params)))
+    d = torch.sqrt(_sq_norms(lambda n, p: n.float() - p.float(), new_params,
+                             params, layout=layout))
+    p = torch.sqrt(_sq_norms(lambda p: p.float(), params, layout=layout))
     return d / (p + 1e-12)
 
 
-def _staleness_per_worker(grads, anchor) -> torch.Tensor:
+def _staleness_per_worker(grads, anchor, layout=None) -> torch.Tensor:
     """(rows,): ‖g_i,t − g_i,last_sync‖² / (‖g_i,t‖² + tiny) of each
     worker."""
-    d2 = _sq_norms(g.float() - a for g, a in zip(leaves(grads),
-                                                 leaves(anchor)))
-    g2 = _sq_norms(g.float() for g in leaves(grads))
+    d2 = _sq_norms(lambda g, a: g.float() - a, grads, anchor, layout=layout)
+    g2 = _sq_norms(lambda g: g.float(), grads, layout=layout)
     return d2 / (g2 + 1e-12)
 
 
@@ -171,19 +215,22 @@ def worker_metrics(per_worker: dict, group=None) -> dict:
     return out
 
 
-def worker_grads(params, batch, model, grads=None, remat: str = "none"):
+def worker_grads(params, batch, model, grads=None, remat: str = "none",
+                 tp=None):
     """Each worker's loss (``model.loss_fn``: xent + aux) and gradient, one
     worker at a time, the transformer groups rematerialised as ``remat``
     says (the plan's). ``grads`` (stacked like ``params``, any float dtype,
     e.g. fp32 views of a flat plane) receives the gradients; new tensors
-    like ``params`` by default. Returns (losses (R,), grads)."""
+    like ``params`` by default. ``tp``: tensor parallelism, ``params``
+    this rank's parts. Returns (losses (R,), grads)."""
     if grads is None:
         grads = tree_map(torch.empty_like, params)
     losses = []
+    kw = {} if tp is None else {"tp": tp}
     for w in range(leaves(params)[0].shape[0]):
         p_w = tree_map(lambda t: t[w].detach().requires_grad_(), params)
         loss, _ = model.loss_fn(p_w, {k: v[w] for k, v in batch.items()},
-                                remat=remat)
+                                remat=remat, **kw)
         for dst, g in zip(leaves(grads),
                           torch.autograd.grad(loss, leaves(p_w))):
             dst[w].copy_(g)
@@ -221,7 +268,10 @@ class TrainPrograms:
                                  # into, one a rank (sharded flat runs)
     shard: int = 0               # this rank's sub-plane
     leaf_layout: Any = None      # LeafLayout: the parts of each leaf this
-                                 # rank holds (one-model runs)
+                                 # rank holds (one-model runs, and tensor
+                                 # parallelism's parts of a worker)
+    tp: Any = None               # sharding.partition.TensorParallel of a
+                                 # per-leaf run with shards
 
 
 def shard_state(fs, shard: int, plane, state):
@@ -264,7 +314,7 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
     n_shards = group.layout.shards if (group is not None
                                        and opt_cfg.flat) else 1
     if group is not None:
-        check_plan(plan, grid, flat=opt_cfg.flat)
+        check_plan(plan, grid, flat=opt_cfg.flat, cfg=cfg)
         if plan.local_axes and not local:
             raise ValueError(f"the plan {plan} does not fit "
                              f"{opt_cfg.name!r} (a synchronous optimizer)")
@@ -285,6 +335,13 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
                               plan)
     R = 1 if group is not None else n_workers     # workers on this device
     device = torch.device(device)
+    model = build_model(cfg)
+    tp = layout = None
+    if group is not None and not opt_cfg.flat and group.layout.shards > 1:
+        tp, layout = _tp_layout(cfg, plan, group, model)
+        # the clip needs the norm over the worker's parts: applied here
+        opt = opt_lib.make_optimizer(dataclasses.replace(opt_cfg,
+                                                         grad_clip=0.0))
     mean_fn = mean_over_workers
     sync_kw = {}
     if group is not None:
@@ -293,7 +350,13 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
                            else torch.float32)
         if opt_cfg.sync.compression == "int8":
             sync_kw = {"payload_mean": mean_fn.of_payloads}
-    model = build_model(cfg)
+            if layout is not None:
+                from repro_torch.core.codecs import get_codec
+                sync_kw["encode"] = layout.encode(get_codec(
+                    "int8", block=opt_cfg.sync.block,
+                    use_kernels=opt_cfg.use_kernels,
+                    fused=opt_cfg.sync.fused), opt_cfg.sync.block,
+                    batch_ndim=1)
     fused = opt_cfg.use_kernels and opt_cfg.name == "local_adaalter"
     stat = drift_statistic(opt_cfg.sync)
     staleness = stat == "grad_staleness"
@@ -311,27 +374,38 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
 
     def init_fn(seed: int, base=None):
         """Stacked (params, opt_state), one worker's parameters copied to
-        all R workers."""
+        all R workers (this rank's parts of them, under ``tp``)."""
         params = tree_map(lambda x: x[None].repeat((R,) + (1,) * x.ndim),
                           base_params(seed, base))
+        if layout is not None:
+            params = layout.take(params)
         return params, opt.init(params, workers=R)
 
     def step(params, opt_state, batch, *, do_sync: bool):
-        loss, grads = worker_grads(params, batch, model, remat=plan.remat)
+        loss, grads = worker_grads(params, batch, model, remat=plan.remat,
+                                   tp=tp)
         stats = {"loss": loss}
+        norm = None
+        if opt_cfg.obs_metrics or (layout is not None
+                                   and opt_cfg.grad_clip > 0):
+            norm = (opt_lib.global_norm(grads, batch_ndim=1) if layout is None
+                    else torch.sqrt(_sq_norms(lambda g: g.float(), grads,
+                                              layout=layout)))
         if opt_cfg.obs_metrics:
-            stats["grad_norm"] = opt_lib.global_norm(grads, batch_ndim=1)
+            stats["grad_norm"] = norm
         if staleness:
-            stats["drift"] = _staleness_per_worker(grads,
-                                                   opt_state["g_anchor"])
-        if fused:
+            stats["drift"] = _staleness_per_worker(
+                grads, opt_state["g_anchor"], layout)
+        if fused or layout is not None:
             # the kernel bypasses opt.local_step, so the grad_clip wrapper
-            # never sees these grads: clip per worker here. `grads` stays
-            # raw for the drift statistics, as on the reference.
+            # never sees these grads (under tp it would see parts): clip
+            # per worker here. `grads` stays raw for the drift statistics,
+            # as on the reference.
             applied = grads
             if opt_cfg.grad_clip > 0:
                 applied, _ = opt_lib.clip_by_global_norm(
-                    grads, opt_cfg.grad_clip, batch_ndim=1)
+                    grads, opt_cfg.grad_clip, batch_ndim=1, norm=norm)
+        if fused:
             step_no = opt_state["step"] + 1
             tprime = opt_state["tprime"] + 1
             eta, extra = opt_lib.local_scalars(
@@ -345,10 +419,13 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
             new_state = {**opt_state, "step": step_no, "tprime": tprime,
                          "b2_local": new_b2}
         else:
-            new_params, new_state = opt.local_step(grads, opt_state, params)
+            new_params, new_state = opt.local_step(
+                applied if layout is not None else grads, opt_state, params)
         if stat is not None and not staleness:
-            stats["drift"] = _drift_per_worker(new_params, params)
-        metrics = worker_metrics(stats, group)
+            stats["drift"] = _drift_per_worker(new_params, params, layout)
+        # a worker's ranks hold the same statistics: one a worker
+        metrics = worker_metrics(stats, group if layout is None
+                                 else group.workers)
         if do_sync:
             with (contextlib.nullcontext() if group is None
                   else group.workers.round_()):
@@ -380,13 +457,36 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
             init_fn, local_step, sync_step = _flat_programs(
                 fs, model, opt_cfg, opt, abstract, base_params, device,
                 group, plan.remat)
+    if layout is not None:
+        n_shards = group.layout.shards
     return TrainPrograms(init_fn=init_fn, local_step=local_step,
                          sync_step=sync_step, n_workers=n_workers, H=opt.H,
                          n_payload_leaves=len(leaves(abstract)),
                          is_flat=opt_cfg.flat, group=group, plan=plan,
                          n_shards=n_shards,
                          shard=group.shard if n_shards > 1 else 0,
-                         **flat_fields)
+                         leaf_layout=layout, tp=tp, **flat_fields)
+
+
+def _tp_layout(cfg, plan, group, model):
+    """Tensor parallelism of a per-leaf run with shards: the context the
+    layers take (over ``group.shards``, the worker's ranks in shard order)
+    and the :class:`LeafLayout` of the parts this rank holds of its
+    worker's stacked leaves (a leading worker axis of 1), as
+    ``sharding.specs.param_shardings`` splits the leaves over ``model``."""
+    from repro_torch.sharding import (LeafSplit, ShardingRules, leaf_split,
+                                      param_shardings)
+    from repro_torch.sharding.partition import TensorParallel, rule_overrides
+    rules = ShardingRules(group.grid, plan, rule_overrides(cfg))
+    body = model.init(None, "meta")
+    coords = {"data": 0, "model": group.shard}    # a part of the worker's
+    splits = []
+    for t, spec in zip(leaves(body), param_shardings(rules, body)):
+        s = leaf_split(t.shape, spec, group.grid, coords)
+        splits.append(LeafSplit((1,) + s.shape, None if s.dim is None
+                                else s.dim + 1, s.parts, s.index, s.axes))
+    return TensorParallel(group.shards, rules), LeafLayout(splits,
+                                                           group.shards)
 
 
 # --------------------------------------------------------------------------- #
@@ -394,11 +494,12 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
 # a plan without worker axes), each leaf held as its spec says
 # --------------------------------------------------------------------------- #
 class LeafLayout:
-    """The part of each parameter leaf a rank holds in a one-model run:
-    ``splits`` (a ``sharding.specs.LeafSplit`` a leaf, in ``tree.leaves``
-    order) over ``group``, the FSDP sub-group holding the other parts
-    (None: this rank holds every leaf whole). The optimizer state's
-    params-shaped entries are split as the params, its counters whole."""
+    """The part of each parameter leaf a rank holds: ``splits`` (a
+    ``sharding.specs.LeafSplit`` a leaf, in ``tree.leaves`` order) over
+    ``group``, the ranks holding the other parts (a one-model run's FSDP
+    sub-group, or under tensor parallelism the worker's ranks; None: this
+    rank holds every leaf whole). The optimizer state's params-shaped
+    entries are split as the params, its counters whole."""
 
     def __init__(self, splits, group) -> None:
         self.splits = list(splits)
@@ -493,30 +594,35 @@ class LeafLayout:
         return torch.sqrt(sum(self.sums([torch.sum(torch.square(g.float()))
                                          for g in leaves(tree)])))
 
-    def encode(self, codec, block: int):
+    def encode(self, codec, block: int, batch_ndim: int = 0):
         """``compressed_sync``'s ``encode`` over this rank's parts: the
-        error-feedback encode of each whole unstacked leaf
+        error-feedback encode of each whole leaf
         (``core.sync_engine.ef_apply``, quantization blocks of the leaf's
-        row-major order). A part whose runs hold whole blocks
-        (``LeafSplit.whole_blocks``) is encoded in place, block for block
-        the whole leaf's; elsewhere the leaf and its residual are gathered
-        (``comm.side``), encoded whole, and this rank keeps its part."""
+        row-major order, a worker's row at a time with ``batch_ndim`` 1).
+        A part whose runs hold whole blocks (``LeafSplit.whole_blocks``)
+        is encoded in place, block for block the whole leaf's; elsewhere
+        the leaf and its residual are gathered (``comm.side``), encoded
+        whole, and this rank keeps its part (and, asked for the ``codes``,
+        sends the whole leaf's, a :class:`WholePayload`)."""
         from repro_torch.core.sync_engine import ef_apply
         blocked = codec.name == "int8"
 
         def enc(tree, residual, *, clamp_nonneg=False, codes=False):
-            if codes:
-                raise ValueError("one model sends no sync payload")
-            wires, res = [], []
+            wires, res, pays = [], [], []
             for x, e, s in zip(leaves(tree), leaves(residual), self.splits):
                 whole = s.split and blocked and not s.whole_blocks(block)
                 if whole:
                     x, e = self.group.gather_leaves([x, e], [s, s],
                                                     count=comm.side)
-                w, r = ef_apply(x, e, codec, 0, clamp_nonneg=clamp_nonneg)
+                w, r, *p = ef_apply(x, e, codec, batch_ndim,
+                                    clamp_nonneg=clamp_nonneg, codes=codes)
                 wires.append(s.take(w) if whole else w)
                 res.append(s.take(r) if whole else r)
-            return unflatten_like(tree, wires), unflatten_like(tree, res)
+                if codes:
+                    pays.append(WholePayload(p[0][0], s) if whole
+                                else p[0][0])
+            out = unflatten_like(tree, wires), unflatten_like(tree, res)
+            return (*out, pays) if codes else out
         return enc
 
 
@@ -566,7 +672,7 @@ def _leaf_programs(cfg, opt_cfg, device, group, plan) -> TrainPrograms:
             f"the plan {plan} on the grid {grid} splits leaves over "
             f"{sorted({a for sp in splits for a in sp.axes})} beside its "
             "gradient mean: only FSDP over every rank of grad_axes is "
-            "ported (ROADMAP Queue 1 item 9c)")
+            "ported (ROADMAP Queue 1 item 9c-2)")
     # Alg. 3 folds g∘g into B²; Alg. 1 and plain SGD never read it, and the
     # reference's compiled step drops it as dead code
     wants_sq = opt_cfg.name == "adaalter"

@@ -24,8 +24,11 @@ Under ``torchrun`` (``WORLD_SIZE`` > 1) the ranks form a grid of
 ``--workers`` R × S = world / R (``launch/mesh.py``): rank r is worker
 r // S; with S > 1 (``--flat`` only) it holds shard r % S of its worker's
 flat planes, gathers the params over its worker's ranks before each
-forward, and syncs its sub-planes with the ranks of its shard index. The
-sync round is a collective (``core/comm.py``). A one-model run spreads
+forward, and syncs its sub-planes with the ranks of its shard index; per
+leaf (tensor parallelism) it holds its parts of its worker's leaves, as
+their specs split them over the worker's ranks, and computes with them
+(``loss_fn(..., tp=)``). The sync round is a collective
+(``core/comm.py``). A one-model run spreads
 its batch over the ranks and, under the synchronous plan
 (``fsdp_axes=("data",)``), splits each leaf and its state over them
 (FSDP, ``launch/steps.py::_leaf_programs``). Rank 0 alone writes
@@ -51,6 +54,9 @@ Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
       --device cpu --dist-backend gloo --workers 2 --flat --arch biglstm \\
       --reduced --use-kernels --compress int8 --batch 8 --seq 16 --steps 8
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+      --device cpu --dist-backend gloo --workers 2 --arch qwen2-7b \\
+      --reduced --use-kernels --compress int8 --batch 8 --seq 16 --steps 4
 """
 from __future__ import annotations
 
@@ -165,6 +171,10 @@ def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
     disk_flat = is_flat_checkpoint(keys)
     layout = programs.leaf_layout
     sharded = layout is not None and layout.sharded
+    if disk_flat and programs.tp is not None:
+        raise NotImplementedError(
+            "a flat checkpoint into a tensor-parallel per-leaf run: restore "
+            "it on one rank or with --flat, and checkpoint per leaf")
     if disk_flat == programs.is_flat:
         like = (params, opt_state)
         if sharded:                  # the whole leaves, on the host
@@ -280,7 +290,7 @@ def _rank_report(group, dev, since: dict, step_s, probe_s, wall: float,
     state it holds, all counted from ``since``."""
     from repro_torch.core import comm
     wire, side = comm.wire.snapshot(), comm.side.snapshot()
-    gather = comm.shard_gather.snapshot()
+    gather, tp = comm.shard_gather.snapshot(), comm.tp.snapshot()
     launches = _launch_counts()
     return {
         "rank": group.rank, "device": str(dev), "route": group.route,
@@ -296,6 +306,10 @@ def _rank_report(group, dev, since: dict, step_s, probe_s, wall: float,
         "shard_gather_bytes": gather["bytes"] - since["shard_gather"]["bytes"],
         "shard_gather_s": {k: v - since["shard_gather"]["seconds"][k]
                            for k, v in gather["seconds"].items()},
+        "tp_collectives": tp["n"] - since["tp"]["n"],
+        "tp_bytes": tp["bytes"] - since["tp"]["bytes"],
+        "tp_s": {k: v - since["tp"]["seconds"][k]
+                 for k, v in tp["seconds"].items()},
         "launches": {k: v - since["launches"][k]
                      for k, v in launches.items()},
         "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
@@ -354,6 +368,7 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
     dev = resolve_device(device)
     since = {"wire": comm.wire.snapshot(), "side": comm.side.snapshot(),
              "shard_gather": comm.shard_gather.snapshot(),
+             "tp": comm.tp.snapshot(),
              "launches": _launch_counts()}
     programs = build_train_programs(cfg, opt_cfg, n_workers=n_workers,
                                     device=dev, group=group, plan=plan)
@@ -452,8 +467,9 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
 
     def probe_state(synced: bool):
         """The opt-state entries the probe reads, all workers stacked:
-        gathered to rank 0 in a run with ranks (None on the others)."""
-        if not ranked:
+        gathered to rank 0 in a run with ranks (None on the others); a run
+        whose leaves are in parts probes each rank's own."""
+        if not ranked or sharded:
             return opt_state
         keys = ["b2_local"] + (["res_params", "res_b2"] if synced else [])
         got = gather_workers(
@@ -538,7 +554,12 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
             from repro_torch.checkpoint import save_checkpoint
             t_ck = now()
             state = (params, opt_state)
-            if ranked:                # every worker's rows, stacked
+            if ranked and sharded:    # whole leaves, every worker's rows
+                state = group.workers.gather_stacked(
+                    (layout.gather(params, comm.side),
+                     layout.state(partial(layout.gather, count=comm.side),
+                                  opt_state)), to_device=False)
+            elif ranked:              # every worker's rows, stacked
                 state = gather_workers(programs, state, to_device=False)
             elif sharded:             # every leaf whole
                 state = (layout.whole(params),
@@ -655,7 +676,9 @@ def main(argv=None) -> None:
                     help="workers stacked on the one device (0 -> 1); under "
                          "torchrun the ranks form an N x (world / N) grid: "
                          "rank r is worker r // S and holds shard r %% S of "
-                         "its flat plane (S > 1 needs --flat), so N must "
+                         "its flat plane (--flat) or, per leaf, its parts "
+                         "of the worker's weights (tensor parallelism over "
+                         "model, the lstm and dense families), so N must "
                          "divide the world size (a synchronous optimizer "
                          "keeps one model and spreads --batch over the "
                          "ranks)")

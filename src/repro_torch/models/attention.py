@@ -12,8 +12,22 @@ forward keeps no attention intermediate: the backward recomputes it. No
 library attention: it would differ
 at the masked edges and in precision. Cross-attention (the VLM's image
 layers, the audio decoder's attention to the encoder) is non-causal, at
-position 0 on both sides, without RoPE. The tensor-parallel head padding
-waits for tensor parallelism (ROADMAP Queue 1 item 9c).
+position 0 on both sides, without RoPE.
+
+Under tensor parallelism (``tp``, a ``sharding.partition.TensorParallel``)
+the projections take the parts their specs give a rank: ``wq``/``wk``/
+``wv`` and their biases column-split (by heads where the split falls on
+head boundaries), ``wo`` row-split and its partial products summed over
+``model``. A rank attends with its own heads; where the parts do not hold
+whole heads the projections are gathered and every rank attends with all,
+or, under ``cfg.attn_tp_pad`` (the reference's ``_tp_pad_heads``), q is
+padded to a multiple of the TP size and k/v repeated to that MHA layout,
+each rank attending with its share of the padded heads. Decode reads a
+KV cache split along its sequence over ``model`` (the reference's
+``cache_shardings``): each rank holds ``cache_len / M`` slots of every kv
+head, the owner of the new token's slot writes it, each rank scores its
+own slots, and the online-softmax partials are combined over ``model`` in
+rank order.
 """
 from __future__ import annotations
 
@@ -138,23 +152,107 @@ def blockwise_attention(q, k, v, pos_q, pos_kv, *, causal: bool,
     return out.to(q.dtype)
 
 
+def _tp_project_qkv(params, x, cfg, tp):
+    """q, k, v (B, S, heads, hd) under tensor parallelism: each
+    projection as its spec splits it (``models.layers.tp_linear``, one
+    ``tp_copy`` of ``x`` for all three). Returns ``(q, k, v, by_heads)``:
+    with ``by_heads`` this rank's heads, a contiguous share of the q and
+    kv heads (the three split and the head counts divisible by the TP
+    size); else every head, the parts gathered."""
+    from repro_torch.core.comm import tp_copy, tp_gather
+    from repro_torch.models.layers import tp_linear
+    d, hd = x.shape[-1], cfg.head_dim
+    widths = {"q": cfg.n_heads * hd, "k": cfg.n_kv_heads * hd,
+              "v": cfg.n_kv_heads * hd}
+    splits = {n: tp.split("w" + n, (d, w)) for n, w in widths.items()}
+    xc = tp_copy(x, tp.group) if any(sp.split for sp in splits.values()) \
+        else None
+    out = {}
+    for n, sp in splits.items():
+        y, part = tp_linear(x, params["w" + n], sp, tp, xc=xc)
+        if cfg.qkv_bias:             # split with its weight's columns
+            y = y + params["b" + n].to(y.dtype)
+        out[n] = (y, part)
+    by_heads = (all(part for _, part in out.values())
+                and cfg.n_heads % tp.size == 0
+                and cfg.n_kv_heads % tp.size == 0)
+    b, s = x.shape[:2]
+    q, k, v = ((y if by_heads or not part else tp_gather(y, tp.group))
+               .reshape(b, s, -1, hd) for y, part in out.values())
+    return q, k, v, by_heads
+
+
+def _tp_pad_heads(q, k, v, cfg, tp):
+    """The reference's ``_tp_pad_heads`` (``cfg.attn_tp_pad``, heads that
+    do not divide the TP size): q padded with zero heads to the next
+    multiple of the TP size, k/v repeated to that MHA layout; returns this
+    rank's contiguous share of the padded heads (``tp_copy``'d: they enter
+    rank-specific work) and the padded count."""
+    from repro_torch.core.comm import tp_copy
+    h, kvh, m = cfg.n_heads, cfg.n_kv_heads, tp.size
+    h_pad = -(-h // m) * m
+    k = torch.repeat_interleave(k, h // kvh, dim=2)
+    v = torch.repeat_interleave(v, h // kvh, dim=2)
+    pad = (0, 0, 0, h_pad - h)
+    q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+    n = h_pad // m
+    return tuple(tp_copy(t, tp.group).narrow(2, tp.rank * n, n)
+                 for t in (q, k, v)), h_pad
+
+
 def self_attention(params, x, positions, cfg, *, window: int = 0,
-                   causal: bool = True, kv_block: int = 1024):
-    """Full-sequence self-attention; returns (out, (k, v)) for the cache."""
-    q, k, v = _project_qkv(params, x, x, cfg)
+                   causal: bool = True, kv_block: int = 1024, tp=None,
+                   cache: bool = False):
+    """Full-sequence self-attention; returns (out, (k, v)) for the cache.
+    Under ``tp`` the output is the same on every rank, and with ``cache``
+    (k, v) are this rank's part of the sequence-split cache
+    (:func:`tp_cache_part`)."""
+    by_heads = False
+    if tp is None:
+        q, k, v = _project_qkv(params, x, x, cfg)
+    else:
+        q, k, v, by_heads = _tp_project_qkv(params, x, cfg, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     attend = partial(blockwise_attention, causal=causal, window=window,
                      kv_block=kv_block, bf16_probs=cfg.attn_bf16_probs)
+    qa, ka, va = q, k, v
+    padded = (tp is not None and not by_heads and cfg.attn_tp_pad
+              and tp.size > 1)
+    if padded:
+        (qa, ka, va), h_pad = _tp_pad_heads(q, k, v, cfg, tp)
     if cfg.attn_remat and torch.is_grad_enabled():
         # the backward recomputes the per-block scores instead of keeping
         # every block's probabilities, as the reference's jax.checkpoint
         out = torch.utils.checkpoint.checkpoint(
-            attend, q, k, v, positions, positions, use_reentrant=False)
+            attend, qa, ka, va, positions, positions, use_reentrant=False)
     else:
-        out = attend(q, k, v, positions, positions)
-    out = out.reshape(x.shape[0], x.shape[1], -1) @ params["wo"]
-    return out, (k, v)
+        out = attend(qa, ka, va, positions, positions)
+    if padded:                        # every rank's heads, then the real h
+        from repro_torch.core.comm import tp_gather
+        out = tp_gather(out, tp.group, 2)[:, :, :cfg.n_heads]
+    out = out.reshape(x.shape[0], x.shape[1], -1)
+    if tp is None:
+        return out @ params["wo"], (k, v)
+    from repro_torch.models.layers import tp_linear
+    out, _ = tp_linear(out, params["wo"], tp.split(
+        "wo", (cfg.n_heads * cfg.head_dim, x.shape[-1])), tp,
+        x_part=by_heads)
+    return out, (tp_cache_part((k, v), tp, by_heads) if cache else (k, v))
+
+
+def tp_cache_part(kv, tp, by_heads: bool):
+    """A prefill's (k, v) (B, S, heads, hd) as the cache's split gives a
+    rank its part: every kv head (this rank's heads gathered over
+    ``model``, where it attended by heads), and its contiguous share of
+    the sequence where the TP size divides S (else the whole sequence)."""
+    from repro_torch.core.comm import tp_gather
+    out = []
+    for t in kv:
+        if by_heads:
+            t = tp_gather(t, tp.group, 2)
+        out.append(tp.seq_split(t.shape, 1).take(t))
+    return tuple(out)
 
 
 def cross_attention_cached(params, x, k, v, cfg):
@@ -223,3 +321,101 @@ def decode_self_attention(params, x, cache_k, cache_v, pos, cfg,
                            causal=True, window=0, valid_kv=valid)
     out = out.reshape(b, 1, -1) @ params["wo"]
     return out, cache_k, cache_v
+
+
+def _slot_positions(idx, positions, spec: KVCacheSpec):
+    """The absolute position each slot ``idx`` (1, n) holds at query
+    position ``positions`` (B, 1), and which hold one (the ring layout
+    when windowed)."""
+    if spec.windowed:
+        base = (positions // spec.cache_len) * spec.cache_len
+        pos_kv = torch.where(idx <= positions % spec.cache_len, base + idx,
+                             base - spec.cache_len + idx)
+        return pos_kv, pos_kv >= 0
+    return idx.expand(positions.shape[0], -1), idx <= positions
+
+
+def tp_decode_self_attention(params, x, cache_k, cache_v, pos, cfg,
+                             spec: KVCacheSpec, tp):
+    """:func:`decode_self_attention` under tensor parallelism. ``spec``
+    holds the whole cache length; ``cache_k``/``cache_v`` are this rank's
+    part (``tp.seq_split``): ``cache_len / M`` slots of every kv head, or
+    the whole cache where M does not divide it. The new token's q, k, v
+    are whole on every rank (the parts gathered over ``model``, one
+    collective); the rank owning the token's slot writes it; each rank
+    scores its own slots, and the partial softmax statistics (max, sum of
+    exponentials, weighted values; float32) are combined over ``model``
+    in rank order, one collective. ``wo`` as its spec splits it."""
+    from repro_torch.core import comm
+    from repro_torch.models.layers import tp_linear
+    b, d = x.shape[0], x.shape[-1]
+    hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    split = tp.seq_split((b, spec.cache_len, kvh, hd), 1)
+    q, k, v, by_heads = _tp_project_qkv(params, x, cfg, tp)
+    if by_heads:                     # every head, one collective
+        (got,) = tp.group.all_gather([torch.cat(
+            [t.reshape(b, 1, -1) for t in (q, k, v)], -1)], count=comm.tp)
+        nq, nk = q.shape[2] * hd, k.shape[2] * hd
+        parts = [torch.split(r, (nq, nk, nk), -1) for r in got.unbind(0)]
+        q, k, v = (torch.cat([p[i] for p in parts], -1).reshape(b, 1, -1, hd)
+                   for i in range(3))
+    positions = pos[:, None]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if not split.split:              # the whole cache on every rank
+        slot = (pos % spec.cache_len) if spec.windowed else pos
+        rows = torch.arange(b, device=x.device)
+        cache_k = cache_k.index_put((rows, slot.long()), k[:, 0])
+        cache_v = cache_v.index_put((rows, slot.long()), v[:, 0])
+        idx = torch.arange(spec.cache_len, device=x.device)[None, :]
+        pos_kv, valid = _slot_positions(idx, positions, spec)
+        out = direct_attention(q, cache_k, cache_v, positions, pos_kv,
+                               causal=True, window=0, valid_kv=valid)
+    else:
+        n = cache_k.shape[1]
+        lo = split.index * n
+        slot = ((pos % spec.cache_len) if spec.windowed else pos).long()
+        mine = (slot >= lo) & (slot < lo + n)
+        rows = torch.arange(b, device=x.device)
+        local = torch.clamp(slot - lo, 0, n - 1)
+        keep = mine[:, None, None]
+        cache_k = cache_k.index_put((rows, local), torch.where(
+            keep, k[:, 0], cache_k[rows, local]))
+        cache_v = cache_v.index_put((rows, local), torch.where(
+            keep, v[:, 0], cache_v[rows, local]))
+        idx = torch.arange(lo, lo + n, device=x.device)[None, :]
+        pos_kv, valid = _slot_positions(idx, positions, spec)
+        out = _combined_attention(q, cache_k, cache_v, positions, pos_kv,
+                                  valid, tp)
+    out, _ = tp_linear(out.reshape(b, 1, -1), params["wo"],
+                       tp.split("wo", (h * hd, d)), tp)
+    return out, cache_k, cache_v
+
+
+def _combined_attention(q, k, v, pos_q, pos_kv, valid, tp):
+    """Attention of q (B, 1, H, hd) over every rank's slots, from this
+    rank's k, v (B, n, KV, hd): the scores as :func:`direct_attention`
+    takes them (float32, scaled after the product, the additive mask), the
+    rank's max m, sum of exponentials l and weighted values acc, combined
+    over ``tp``'s ranks in rank order: M = max m_r, l = Σ l_r e^(m_r − M),
+    out = Σ acc_r e^(m_r − M) / l."""
+    from repro_torch.core import comm
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd).float()
+    s = torch.einsum("bqkrh,bskh->bkrqs", qg, k.float()) * hd ** -0.5
+    s = s + _mask(pos_q, pos_kv, True, 0, valid)[:, None, None]
+    m = torch.amax(s, dim=-1)                             # (b,kv,rep,q)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("bkrqs,bskh->bkrqh", p, v.float())
+    ms, ls, accs = tp.group.all_gather([m, l, acc], count=comm.tp)
+    top = torch.amax(ms, dim=0)
+    tot_l = tot_acc = None
+    for r in range(tp.size):                              # rank order
+        c = torch.exp(ms[r] - top)
+        lr, ar = ls[r] * c, accs[r] * c[..., None]
+        tot_l = lr if tot_l is None else tot_l + lr
+        tot_acc = ar if tot_acc is None else tot_acc + ar
+    out = tot_acc / tot_l[..., None]                      # (b,kv,rep,q,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)

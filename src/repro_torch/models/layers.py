@@ -1,5 +1,7 @@
 """Shared building blocks (the JAX package's ``models/layers.py``): the
-dense initialiser, RMSNorm, the MLPs, RoPE and dropout."""
+dense initialiser, RMSNorm, the MLPs, RoPE and dropout; and the
+tensor-parallel product :func:`tp_linear` and lookup :func:`tp_embed`,
+which the layers take under a ``sharding.partition.TensorParallel``."""
 from __future__ import annotations
 
 import torch
@@ -35,12 +37,89 @@ def gelu_mlp(x, w1, w2):
     return F.gelu(x @ w1, approximate="tanh") @ w2
 
 
-def mlp_apply(params, x, act: str):
+def _act(h1, h3, act: str):
     if act == "swiglu":
-        return swiglu(x, params["w1"], params["w3"], params["w2"])
+        return F.silu(h1) * h3
     if act == "gelu":
-        return gelu_mlp(x, params["w1"], params["w2"])
-    return F.relu(x @ params["w1"]) @ params["w2"]
+        return F.gelu(h1, approximate="tanh")
+    return F.relu(h1)
+
+
+def mlp_apply(params, x, act: str, tp=None, d_ff: int = 0):
+    """The block's MLP; under ``tp`` (a ``TensorParallel``; ``d_ff`` the
+    whole width) ``w1``/``w3`` column-split and ``w2`` row-split as their
+    specs say, each whole where shape-safety leaves it so: the output is
+    the same on every rank."""
+    if tp is None:
+        if act == "swiglu":
+            return swiglu(x, params["w1"], params["w3"], params["w2"])
+        if act == "gelu":
+            return gelu_mlp(x, params["w1"], params["w2"])
+        return F.relu(x @ params["w1"]) @ params["w2"]
+    from repro_torch.core.comm import tp_copy, tp_gather
+    d = x.shape[-1]
+    names = ("w1", "w3") if act == "swiglu" else ("w1",)
+    splits = [tp.split(n, (d, d_ff)) for n in names]
+    xc = tp_copy(x, tp.group) if any(sp.split for sp in splits) else None
+    hs = [tp_linear(x, params[n], sp, tp, xc=xc)
+          for n, sp in zip(names, splits)]
+    if len({part for _, part in hs}) > 1:      # one whole, one split
+        hs = [(tp_gather(h, tp.group) if part else h, False)
+              for h, part in hs]
+    a = _act(hs[0][0], hs[-1][0], act)
+    out, _ = tp_linear(a, params["w2"], tp.split("w2", (d_ff, d)), tp,
+                       x_part=hs[0][1])
+    return out
+
+
+def tp_linear(x, w, split, tp, *, x_part: bool = False, xc=None):
+    """``x @ w`` where ``w`` is this rank's part of a weight split as
+    ``split`` (a ``sharding.specs.LeafSplit`` of the whole (d_in, d_out)
+    weight) over ``tp``'s ranks, and ``x`` is the same on every rank, or
+    with ``x_part`` split along its last dimension as a column-split
+    product leaves it. ``xc``: ``core.comm.tp_copy(x)``, where the caller
+    made one for several products. Returns ``(y, y_part)``:
+
+    * ``w`` whole: ``x`` gathered first if split; ``y`` whole;
+    * column-split: ``x`` gathered first if split; ``y`` split;
+    * row-split: ``x`` split the same way (this rank's slice of a whole
+      ``x``), and ``y`` the partial products summed over the ranks
+      (``core.comm.tp_sum``: float32, rank order, rounded once).
+
+    A whole ``x`` enters rank-specific work through ``tp_copy``, which
+    sums its gradient over the ranks, so every rank's gradient of it is
+    the whole one (and the same bits)."""
+    from repro_torch.core.comm import tp_copy, tp_gather, tp_sum
+    row = split.split and split.dim == 0
+    if x_part and not row:
+        x, xc = tp_gather(x, tp.group), None
+    if not split.split:
+        return x @ w, False
+    xc = xc if xc is not None else tp_copy(x, tp.group)
+    if not row:
+        return xc @ w, True
+    if not x_part:
+        x = xc.narrow(-1, split.index * w.shape[0], w.shape[0])
+    elif x.shape[-1] != w.shape[0]:
+        raise ValueError(f"a part of {x.shape[-1]} against rows "
+                         f"{w.shape[0]} of a row-split weight")
+    return tp_sum(x @ w, tp.group, tp.sum_log), False
+
+
+def tp_embed(embed, tokens, split, tp):
+    """``embed[tokens]`` from this rank's rows of a vocab-split table: the
+    rank looks up the tokens it holds, the others as zeros, and the
+    lookups are summed over the ranks (one nonzero term an element: the
+    whole table's rows, bit for bit). ``embed`` whole: the plain lookup."""
+    if tp is None or not split.split:
+        return embed[tokens.long()]
+    from repro_torch.core.comm import tp_sum
+    n = embed.shape[0]
+    local = tokens.long() - split.index * n
+    mine = (local >= 0) & (local < n)
+    rows = embed[torch.clamp(local, 0, n - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return tp_sum(rows, tp.group, tp.sum_log)
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str,

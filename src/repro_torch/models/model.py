@@ -23,7 +23,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import lstm as lstm_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import init_dense, rms_norm
+from repro_torch.models.layers import (init_dense, rms_norm, tp_embed,
+                                       tp_linear)
 
 
 def softmax_xent(logits, labels, mask=None):
@@ -71,6 +72,75 @@ class FusedSoftmaxXent(torch.autograd.Function):
 def fused_softmax_xent(logits, labels):
     """Mean token cross-entropy; logits: (B,S,V), labels: (B,S)."""
     return FusedSoftmaxXent.apply(logits, labels)
+
+
+class VocabParallelXent(torch.autograd.Function):
+    """The mean token cross-entropy of logits split along the vocabulary
+    over ``model`` (this rank's columns ``lo:lo + V/M``), in float32: the
+    max, the sum of exponentials and the gold logit each combined over the
+    ranks (the max exactly; the sums in rank order), two collectives. The
+    backward is local: (g / n)·(softmax − onehot) on this rank's columns
+    in the logits' dtype (masked rows weighted as ``softmax_xent``
+    weights them). ``softmax_xent`` and ``fused_softmax_xent`` both take
+    this form under tensor parallelism."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mask, group, lo):
+        from repro_torch.core import comm
+        x = logits.float()
+        (ms,) = group.all_gather([torch.amax(x, dim=-1)], count=comm.tp)
+        m = torch.amax(ms, dim=0)
+        z_part = torch.sum(torch.exp(x - m[..., None]), dim=-1)
+        local = labels.long() - lo
+        mine = (local >= 0) & (local < x.shape[-1])
+        gold_part = torch.where(mine, torch.gather(
+            x, -1, torch.clamp(local, 0, x.shape[-1] - 1)[..., None])[..., 0],
+            torch.zeros_like(m))
+        zs, golds = group.all_gather([z_part, gold_part], count=comm.tp)
+        z, gold = zs[0].clone(), golds[0].clone()
+        for r in range(1, group.world):                  # rank order
+            z.add_(zs[r])
+            gold.add_(golds[r])
+        nll = torch.log(z) + m - gold
+        if mask is None:
+            weight = None
+            loss = torch.mean(nll)
+        else:
+            mask = mask.float()
+            weight = mask / torch.clamp(torch.sum(mask), min=1.0)
+            loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask),
+                                                       min=1.0)
+        ctx.save_for_backward(logits, local, mine, m, z)
+        ctx.weight = weight
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, local, mine, m, z = ctx.saved_tensors
+        x = logits.float()
+        p = torch.exp(x - m[..., None]) / z[..., None]
+        iota = torch.arange(x.shape[-1], device=x.device)
+        onehot = ((iota == local[..., None]) & mine[..., None]).float()
+        w = (g / local.numel() if ctx.weight is None
+             else (g * ctx.weight)[..., None])
+        return (w * (p - onehot)).to(logits.dtype), None, None, None, None
+
+
+def vocab_parallel_xent(logits, labels, tp, split, mask=None):
+    """Mean token cross-entropy of this rank's vocabulary part of the
+    logits (``split``: the head weight's ``LeafSplit`` along the
+    vocabulary) under ``tp`` (:class:`VocabParallelXent`)."""
+    return VocabParallelXent.apply(logits, labels, mask, tp.group,
+                                   split.index * logits.shape[-1])
+
+
+def tp_logits(logits, part: bool, tp):
+    """Logits whole on every rank: a vocabulary part gathered over
+    ``model``, as the reference returns serving's logits unsharded."""
+    if not part:
+        return logits
+    from repro_torch.core.comm import tp_gather
+    return tp_gather(logits, tp.group)
 
 
 @dataclasses.dataclass
@@ -135,15 +205,28 @@ def _build_transformer(cfg) -> Model:
             return {"cross_src": batch["image_embeds"].to(dtype)}
         return {}
 
+    def _vocab_split(tp):
+        """The head weight's split along the vocabulary (the tied
+        ``embed``'s rows, or ``lm_head``'s columns)."""
+        if cfg.tie_embeddings:
+            return tp.split("embed", (cfg.vocab_size, cfg.d_model))
+        return tp.split("lm_head", (cfg.d_model, cfg.vocab_size))
+
     def _trunk(params, batch, *, window=0, collect_cache=False,
-               remat="none", batch_group=None):
+               remat="none", batch_group=None, tp=None):
         tokens = batch["tokens"]
-        x = params["embed"][tokens.long()].to(dtype)
+        if tp is None:
+            x = params["embed"][tokens.long()].to(dtype)
+        else:
+            x = tp_embed(params["embed"], tokens, tp.split(
+                "embed", (cfg.vocab_size, cfg.d_model)), tp).to(dtype)
         pos = torch.arange(tokens.shape[1],
                            device=tokens.device).expand(tokens.shape)
         ctx = _ctx(params, batch)
         if batch_group is not None:
             ctx["batch_group"] = batch_group
+        if tp is not None:
+            ctx["tp"] = tp
         x, aux, caches = tfm.apply_stack(
             params["blocks"], cfg, x, pos, ctx, window=window,
             collect_cache=collect_cache, encdec_dec=cfg.is_encdec,
@@ -151,39 +234,56 @@ def _build_transformer(cfg) -> Model:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, aux, caches
 
-    def _head(params, x):
-        w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-        return x @ w
+    def _head(params, x, tp=None):
+        """Logits, and whether they are this rank's vocabulary part."""
+        if tp is None:
+            w = (params["embed"].T if cfg.tie_embeddings
+                 else params["lm_head"])
+            return x @ w, False
+        split = _vocab_split(tp)
+        if cfg.tie_embeddings:       # embed's rows are the head's columns
+            if not split.split:
+                return x @ params["embed"].T, False
+            from repro_torch.core.comm import tp_copy
+            return tp_copy(x, tp.group) @ params["embed"].T, True
+        return tp_linear(x, params["lm_head"], split, tp)
 
-    def logits_fn(params, batch):
-        x, _, _ = _trunk(params, batch)
-        return _head(params, x)
+    def logits_fn(params, batch, tp=None):
+        x, _, _ = _trunk(params, batch, tp=tp)
+        return tp_logits(*_head(params, x, tp), tp)
 
     def loss_fn(params, batch, rng=None, remat: str = "none",
-                batch_group=None):
+                batch_group=None, tp=None):
         """The training loss; ``remat`` rematerialises the decoder's groups
         in the backward (``transformer.apply_stack``), not the encoder's,
         as in the reference. ``batch_group``: the ranks (a
         ``core.comm.RankGroup``) whose rows make one batch with
         ``batch``'s, in rank order, each as many; the MoE layers route
-        them as one (``moe.moe_apply``)."""
+        them as one (``moe.moe_apply``). ``tp``: tensor parallelism (a
+        ``sharding.partition.TensorParallel``; ``params`` this rank's
+        parts): the same loss on every rank, vocabulary-parallel where the
+        head splits."""
         x, aux, _ = _trunk(params, batch, remat=remat,
-                           batch_group=batch_group)
-        logits = _head(params, x)
-        if cfg.fused_xent and "mask" not in batch:
+                           batch_group=batch_group, tp=tp)
+        logits, part = _head(params, x, tp)
+        if part:
+            loss = vocab_parallel_xent(logits, batch["labels"], tp,
+                                       _vocab_split(tp), batch.get("mask"))
+        elif cfg.fused_xent and "mask" not in batch:
             loss = fused_softmax_xent(logits, batch["labels"])
         else:
             loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
         return loss + aux, {"xent": loss, "aux": aux}
 
-    def prefill(params, batch, *, window: int = 0):
+    def prefill(params, batch, *, window: int = 0, tp=None):
         """Last-position logits and the stacked caches: the attention
         layers' post-RoPE (k, v), the cross-attention layers' (k, v) of the
         image embeddings or the encoder's output (``xkv``), the SSM layers'
-        last state."""
+        last state. Under ``tp`` the logits are whole on every rank and the
+        (k, v) this rank's part of the sequence-split cache."""
         x, _, caches = _trunk(params, batch, window=window,
-                              collect_cache=True)
-        logits = _head(params, x[:, -1:])
+                              collect_cache=True, tp=tp)
+        logits = tp_logits(*_head(params, x[:, -1:], tp), tp)
         return logits, caches
 
     def init_cache(batch_size: int, cache_len: int, *, windowed: bool = False,
@@ -218,17 +318,25 @@ def _build_transformer(cfg) -> Model:
             entries.append(c)
         return entries
 
-    def decode_step(params, caches, token, pos, *, window: int = 0):
-        """token: (B,1); pos: (B,). Returns (logits (B,1,V), caches)."""
-        x = params["embed"][token.long()].to(dtype)
+    def decode_step(params, caches, token, pos, *, window: int = 0,
+                    tp=None, cache_len: int = 0):
+        """token: (B,1); pos: (B,). Returns (logits (B,1,V), caches). Under
+        ``tp`` the caches are this rank's parts and ``cache_len`` the whole
+        cache's length."""
+        if tp is None:
+            x = params["embed"][token.long()].to(dtype)
+        else:
+            x = tp_embed(params["embed"], token, tp.split(
+                "embed", (cfg.vocab_size, cfg.d_model)), tp).to(dtype)
         kv_leaves = [v for e in caches for k, v in e.items() if k == "kv"]
         spec = attn_mod.KVCacheSpec(
-            cache_len=kv_leaves[0][0].shape[2] if kv_leaves else 0,
+            cache_len=cache_len or (kv_leaves[0][0].shape[2] if kv_leaves
+                                    else 0),
             windowed=bool(window))
         x, caches = tfm.decode_stack(params["blocks"], cfg, x, pos, caches,
-                                     spec=spec)
+                                     spec=spec, tp=tp)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return _head(params, x), caches
+        return tp_logits(*_head(params, x, tp), tp), caches
 
     return Model(cfg=cfg, init=init, loss_fn=loss_fn, logits_fn=logits_fn,
                  prefill=prefill, decode_step=decode_step, init_cache=init_cache)
@@ -243,28 +351,37 @@ def _build_lstm(cfg) -> Model:
         return lstm_mod.init_lstm(gen, cfg, dtype,
                                   gen.device if device is None else device)
 
-    def logits_fn(params, batch):
-        return lstm_mod.lstm_logits(params, batch["tokens"], cfg)
+    def logits_fn(params, batch, tp=None):
+        out = lstm_mod.lstm_logits(params, batch["tokens"], cfg, tp=tp)
+        return out if tp is None else tp_logits(*out, tp)
 
     def loss_fn(params, batch, rng=None, remat: str = "none",
-                batch_group=None):
+                batch_group=None, tp=None):
         """Dropout 0.1 when ``rng`` (a ``torch.Generator``) is given; the
         training path passes none, as the reference's does. ``remat`` is
         accepted and ignored, as the reference's LSTM ignores it;
         ``batch_group`` too (no layer of the LSTM couples a batch's
-        rows)."""
+        rows). ``tp``: tensor parallelism (``lstm.lstm_logits``), the
+        cross-entropy vocabulary-parallel where the head splits."""
         logits = lstm_mod.lstm_logits(
             params, batch["tokens"], cfg, rng=rng,
-            dropout_rate=0.1 if rng is not None else 0.0)
-        loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
+            dropout_rate=0.1 if rng is not None else 0.0, tp=tp)
+        if tp is not None:
+            logits, part = logits
+            if part:
+                loss = vocab_parallel_xent(
+                    logits, batch["labels"], tp, lstm_mod.head_split(cfg, tp),
+                    batch.get("mask"))
+        if tp is None or not part:
+            loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
         return loss, {"xent": loss,
                       "aux": torch.zeros((), dtype=torch.float32,
                                          device=loss.device)}
 
-    def prefill(params, batch, *, window: int = 0):
+    def prefill(params, batch, *, window: int = 0, tp=None):
         """The state after the prompt, and the logits of its last position:
         the 793k-vocab head runs once, on the last hidden state, not at
-        every position."""
+        every position. Under ``tp`` the logits are whole on every rank."""
         tokens = batch["tokens"]
         state = lstm_mod.init_lstm_state(cfg, tokens.shape[0], dtype,
                                          tokens.device)
@@ -272,9 +389,9 @@ def _build_lstm(cfg) -> Model:
                         device=tokens.device)
         for t in range(tokens.shape[1]):
             h, state = lstm_mod.lstm_hidden_step(params, tokens[:, t:t + 1],
-                                                 state, cfg)
-        logits = (h @ params["head_w"] + params["head_b"])[:, None]
-        return logits, state
+                                                 state, cfg, tp=tp)
+        logits = lstm_mod.lstm_head(params, h, cfg, tp)
+        return logits[:, None], state
 
     def init_cache(batch_size: int, cache_len: int, *, windowed: bool = False,
                    cross_len: int = 0, device="cpu"):
@@ -282,8 +399,9 @@ def _build_lstm(cfg) -> Model:
         ``cache_len``."""
         return lstm_mod.init_lstm_state(cfg, batch_size, dtype, device)
 
-    def decode_step(params, caches, token, pos, *, window: int = 0):
-        return lstm_mod.lstm_decode_step(params, token, caches, cfg)
+    def decode_step(params, caches, token, pos, *, window: int = 0,
+                    tp=None, cache_len: int = 0):
+        return lstm_mod.lstm_decode_step(params, token, caches, cfg, tp=tp)
 
     return Model(cfg=cfg, init=init, loss_fn=loss_fn, logits_fn=logits_fn,
                  prefill=prefill, decode_step=decode_step, init_cache=init_cache)

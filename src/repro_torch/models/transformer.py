@@ -109,15 +109,23 @@ def init_stack(gen, cfg, dtype, device="cpu", *,
     return stacked
 
 
-def _ffn(bp, cfg, kind, x, batch_group=None):
+def _ffn(bp, cfg, kind, x, batch_group=None, tp=None):
     """The block's second half: x + FFN(ln2(x)). Returns (x, aux_loss).
     ``batch_group``: the ranks whose rows make one batch with ``x``'s (the
-    MoE routes them as one, ``moe.moe_apply``)."""
+    MoE routes them as one, ``moe.moe_apply``); ``tp``: tensor
+    parallelism (the dense MLP's, ``layers.mlp_apply``)."""
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     if kind == "self_moe":
         out, aux = moe_mod.moe_apply(bp["moe"], h, cfg, batch_group)
         return x + out, aux
-    return x + mlp_apply(bp["mlp"], h, cfg.act), None
+    return x + mlp_apply(bp["mlp"], h, cfg.act, tp, cfg.d_ff), None
+
+
+def _check_tp(kind: str, tp) -> None:
+    if tp is not None and kind != "self_dense":
+        from repro_torch.sharding.partition import TP_TODO
+        raise NotImplementedError(
+            f"tensor parallelism over a {kind!r} layer is {TP_TODO}")
 
 
 def _mean_fusion(bp, cfg, a_out, s_out):
@@ -131,6 +139,8 @@ def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
                  collect_cache: bool, encdec_dec: bool = False):
     """Returns (x, aux_loss or None, cache_entry)."""
     cache: Dict[str, Any] = {}
+    tp = ctx.get("tp")
+    _check_tp(kind, tp)
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     if kind == "ssm":
         if collect_cache:
@@ -157,9 +167,10 @@ def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
             cache["kv"] = kv
         x = x + _mean_fusion(bp, cfg, a_out, s_out)
     else:                                       # self_dense / self_moe
+        kw = {} if tp is None else {"tp": tp, "cache": collect_cache}
         out, kv = attn.self_attention(bp["attn"], h, positions, cfg,
                                       window=window,
-                                      causal=ctx.get("causal", True))
+                                      causal=ctx.get("causal", True), **kw)
         if collect_cache:
             cache["kv"] = kv
         x = x + out
@@ -170,13 +181,12 @@ def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
         if collect_cache:
             cache["xkv"] = xkv
         x = x + out
-    x, aux = _ffn(bp, cfg, kind, x, ctx.get("batch_group"))
+    x, aux = _ffn(bp, cfg, kind, x, ctx.get("batch_group"), tp)
     return x, aux, cache
 
 
-#: the reference's ``remat`` policies that train here (``"save_tp"`` keeps
-#: the tensor-parallel outputs, which wait for tensor parallelism)
-REMAT_POLICIES = ("none", "full", "dots")
+#: the reference's ``remat`` policies
+REMAT_POLICIES = ("none", "full", "dots", "save_tp")
 
 
 def _saves_matmuls(ctx, op, *args, **kwargs):
@@ -191,22 +201,37 @@ def _saves_matmuls(ctx, op, *args, **kwargs):
 
 
 def _rematerialised(fn, remat: str):
-    """``fn`` under the reference's ``jax.checkpoint`` of a group:
-    non-reentrant ``torch.utils.checkpoint`` (``"full"``: the group's input
-    alone is kept for the backward), with a selective policy for
-    ``"dots"``; ``fn`` itself for ``"none"``."""
+    """``fn(x, gp, log)`` under the reference's ``jax.checkpoint`` of a
+    group: non-reentrant ``torch.utils.checkpoint`` (``"full"``: the
+    group's input alone is kept for the backward), with a selective policy
+    for ``"dots"``; ``fn`` itself for ``"none"``. ``"save_tp"`` (the
+    reference's ``save_only_these_names("attn_out", "mlp_out")``) keeps
+    the sub-layer outputs that tensor parallelism sums over ``model``: the
+    group's forward records each ``tp_sum``'s output
+    (``core.comm.TPSumLog``) and its recomputation takes them back instead
+    of issuing the collectives again; everything else is recomputed. On
+    one rank no sum runs, and it is ``"full"``. The returned function
+    takes ``(x, gp)``."""
     if remat not in REMAT_POLICIES:
-        raise ValueError(f"remat {remat!r}: one of {REMAT_POLICIES} (the "
-                         "reference's 'save_tp' goes with tensor "
-                         "parallelism, ROADMAP Queue 1 item 9c)")
+        raise ValueError(f"remat {remat!r}: one of {REMAT_POLICIES}")
     if remat == "none":
-        return fn
+        return lambda x, gp: fn(x, gp, None)
     import torch.utils.checkpoint as ckpt
+    if remat == "save_tp":
+        from repro_torch.core.comm import TPSumLog
+
+        def run(x, gp):
+            log = TPSumLog()
+            out = ckpt.checkpoint(fn, x, gp, log, use_reentrant=False)
+            log.replay()              # the recomputation reads it back
+            return out
+        return run
     kw = {}
     if remat == "dots":
         kw["context_fn"] = partial(ckpt.create_selective_checkpoint_contexts,
                                    _saves_matmuls)
-    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False, **kw)
+    return lambda x, gp: ckpt.checkpoint(fn, x, gp, None,
+                                         use_reentrant=False, **kw)
 
 
 def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
@@ -217,23 +242,32 @@ def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
     summed as the reference sums them: within each group in order, then
     over the groups. ``remat`` (``"none"``, ``"full"``, ``"dots"``)
     rematerialises each group in the backward, as the reference's
-    ``jax.checkpoint`` of its scanned group does; it applies where autograd
-    records the forward and no cache is collected. ``ctx`` holds the
-    cross-attention source (``"cross_src"``), ``"causal"`` and the ranks
-    whose rows make one batch with ``x``'s (``"batch_group"``); the groups'
+    ``jax.checkpoint`` of its scanned group does (``"save_tp"`` too:
+    :func:`_rematerialised`); it applies where autograd records the
+    forward and no cache is collected. ``ctx`` holds the cross-attention
+    source (``"cross_src"``), ``"causal"``, the ranks whose rows make one
+    batch with ``x``'s (``"batch_group"``) and tensor parallelism
+    (``"tp"``, a ``sharding.partition.TensorParallel``); the groups'
     functions capture it, so a recomputation sees what the forward saw."""
     kinds = group_kinds(cfg)
     n_groups = cfg.n_layers // len(kinds)
     ctx = ctx or {}
     if collect_cache or not torch.is_grad_enabled():
         remat = "none"
+    if remat == "dots" and ctx.get("tp") is not None:
+        from repro_torch.sharding.partition import TP_TODO
+        raise NotImplementedError(f"remat 'dots' under tensor parallelism "
+                                  f"is {TP_TODO}")
 
-    def group_fn(x, gp):
+    def group_fn(x, gp, log=None):
         group_caches = []
         aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        gctx = ctx
+        if log is not None and ctx.get("tp") is not None:
+            gctx = {**ctx, "tp": ctx["tp"].with_log(log)}
         for i, kind in enumerate(kinds):
-            x, aux, cache = _apply_block(gp[i], cfg, kind, x, positions, ctx,
-                                         window=window,
+            x, aux, cache = _apply_block(gp[i], cfg, kind, x, positions,
+                                         gctx, window=window,
                                          collect_cache=collect_cache,
                                          encdec_dec=encdec_dec)
             if aux is not None:
@@ -241,7 +275,7 @@ def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
             group_caches.append(cache)
         return x, aux_tot, group_caches
 
-    run = _rematerialised(lambda x, gp: group_fn(x, gp)[:2], remat)
+    run = _rematerialised(lambda x, gp, log: group_fn(x, gp, log)[:2], remat)
     caches, group_aux = [], []
     for g in range(n_groups):
         gp = tree_map(lambda t: t[g], params)
@@ -255,7 +289,8 @@ def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
     return x, aux, (stack_trees(caches) if collect_cache else None)
 
 
-def _decode_block(bp, cfg, kind, x, pos, cache, spec):
+def _decode_block(bp, cfg, kind, x, pos, cache, spec, tp=None):
+    _check_tp(kind, tp)
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     if kind == "ssm":
         out, st = ssm_mod.ssm_decode_step(bp["ssm"], h, cache["ssm"], cfg)
@@ -276,8 +311,12 @@ def _decode_block(bp, cfg, kind, x, pos, cache, spec):
         x = x + _mean_fusion(bp, cfg, a_out, s_out)
     else:                                       # self_dense / self_moe
         ck, cv = cache["kv"]
-        out, nk, nv = attn.decode_self_attention(bp["attn"], h, ck, cv, pos,
-                                                 cfg, spec)
+        if tp is None:
+            out, nk, nv = attn.decode_self_attention(bp["attn"], h, ck, cv,
+                                                     pos, cfg, spec)
+        else:
+            out, nk, nv = attn.tp_decode_self_attention(
+                bp["attn"], h, ck, cv, pos, cfg, spec, tp)
         new_cache["kv"] = (nk, nv)
         x = x + out
     if "xkv" in cache and kind != "cross":          # enc-dec decoder
@@ -285,13 +324,15 @@ def _decode_block(bp, cfg, kind, x, pos, cache, spec):
         h = rms_norm(x, bp["ln3"], cfg.norm_eps)
         x = x + attn.cross_attention_cached(bp["xattn"], h, k, v, cfg)
         new_cache["xkv"] = (k, v)
-    x, _ = _ffn(bp, cfg, kind, x)       # decode drops the MoE aux loss
+    x, _ = _ffn(bp, cfg, kind, x, tp=tp)   # decode drops the MoE aux loss
     return x, new_cache
 
 
-def decode_stack(params, cfg, x, pos, caches, *, spec: attn.KVCacheSpec):
+def decode_stack(params, cfg, x, pos, caches, *, spec: attn.KVCacheSpec,
+                 tp=None):
     """x: (B,1,D); pos: (B,); caches: stacked (n_groups leading). Returns
-    (x, caches)."""
+    (x, caches). Under ``tp`` the caches are this rank's parts and
+    ``spec`` holds the whole cache length."""
     kinds = group_kinds(cfg)
     n_groups = cfg.n_layers // len(kinds)
     new_caches = []
@@ -300,7 +341,8 @@ def decode_stack(params, cfg, x, pos, caches, *, spec: attn.KVCacheSpec):
         gc = tree_map(lambda t: t[g], caches)
         group_caches = []
         for i, kind in enumerate(kinds):
-            x, nc = _decode_block(gp[i], cfg, kind, x, pos, gc[i], spec)
+            x, nc = _decode_block(gp[i], cfg, kind, x, pos, gc[i], spec,
+                                  tp)
             group_caches.append(nc)
         new_caches.append(group_caches)
     return x, stack_trees(new_caches)

@@ -35,7 +35,9 @@ In a one-model run whose leaves the ranks hold in parts (FSDP,
 (an unsplit leaf on the first rank only), and the ranks' counts, bounds
 and partial sums are combined over the FSDP sub-group: the quantiles stay
 exact (integer counts add), the residual norms add their partial sums in
-part order.
+part order. Under tensor parallelism (a worker's leaves in parts over its
+ranks) they are combined over every rank, all workers' parts together,
+a leaf the specs leave whole counted on its worker's first rank only.
 """
 from __future__ import annotations
 
@@ -179,12 +181,15 @@ class SyncHealthProbe:
     def __init__(self, *, is_flat: bool, flatspace: Any,
                  leaf_dtypes: Sequence[str], engine: Any,
                  n_params: int, n_shards: int = 1,
-                 leaf_layout: Any = None) -> None:
+                 leaf_layout: Any = None, group: Any = None) -> None:
         self.is_flat = bool(is_flat)
-        # a one-model run's leaves in parts: each rank probes its own
+        # leaves in parts: each rank probes its own, combined over the
+        # parts' sub-group (or ``group``, where it holds more: every
+        # worker's ranks under tensor parallelism)
         self.parts = (leaf_layout if leaf_layout is not None
                       and leaf_layout.sharded else None)
-        self.group = self.parts.group if self.parts is not None else None
+        self.group = (None if self.parts is None
+                      else group or self.parts.group)
         self.fs = flatspace
         self.engine = engine
         self.n_params = int(n_params)
@@ -202,7 +207,8 @@ class SyncHealthProbe:
         return SyncHealthProbe(
             is_flat=programs.is_flat, flatspace=programs.flatspace,
             leaf_dtypes=dtypes, engine=engine, n_params=n_params,
-            n_shards=programs.n_shards, leaf_layout=programs.leaf_layout)
+            n_shards=programs.n_shards, leaf_layout=programs.leaf_layout,
+            group=programs.group if programs.tp is not None else None)
 
     def static_summary(self) -> Dict[str, float]:
         """Run-constant facts: wire bytes and compression ratio of one

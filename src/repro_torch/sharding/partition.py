@@ -9,13 +9,16 @@ the same names to the same entries over the grid's shape (``{"data": R,
 turns each parameter leaf's entries into the part of the leaf a rank
 holds; the train steps then move the parts with explicit collectives
 (``core/comm.py``). Nothing here partitions a program, so the reference's
-``use_rules``/``constraint`` annotations have no counterpart yet: they
-come with their first caller (tensor parallelism, ROADMAP Queue 1 item
-9c).
+``use_rules``/``constraint`` annotations have no counterpart: tensor
+parallelism (:class:`TensorParallel`) reaches the layers as an argument,
+never as a thread-local (autograd runs a CUDA backward, and with it
+remat's recomputation, on a thread of its own), and the layers call the
+collectives themselves.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 #: one dimension's entry of a spec: unsplit, one grid axis, or several
 Entry = Union[None, str, Tuple[str, ...]]
@@ -120,3 +123,60 @@ def plane_shard_axes(grid: Mapping[str, int], plan) -> Tuple[str, ...]:
             out.append(a)
             seen.add(a)
     return tuple(out)
+
+
+#: what a grid with ``model`` > 1 does not build yet
+TP_TODO = "not ported yet (ROADMAP Queue 1 item 9c-2)"
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """Tensor parallelism over the ``model`` axis: the layers' context.
+
+    ``group`` is the ``model`` sub-group (a ``core.comm.RankGroup``:
+    ``RankGroup.along(("model",))``, its ranks in ``model`` order), and
+    ``rules`` the run's :class:`ShardingRules` (its grid and plan). A layer
+    asks :meth:`split` how the spec splits a weight it holds, and moves
+    its parts with ``core.comm.tp_copy`` / ``tp_sum`` / ``tp_gather`` over
+    the group: shape-safety decides which leaf splits, never the layer.
+    ``sum_log`` (a ``core.comm.TPSumLog``) is set inside a group
+    rematerialised under ``"save_tp"``."""
+    group: Any
+    rules: ShardingRules
+    sum_log: Any = None
+
+    @property
+    def size(self) -> int:
+        return self.group.world
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+    def coords(self) -> Dict[str, int]:
+        """This rank's index along each axis, as far as a weight's split
+        needs it (the weights split along ``model`` alone)."""
+        return {a: (self.rank if a == "model" else 0) for a in self.rules.grid}
+
+    def split(self, name: str, shape: Sequence[int]):
+        """The ``sharding.specs.LeafSplit`` of an (unstacked) weight named
+        ``name`` whose whole shape is ``shape``, as
+        ``sharding.specs.param_shardings`` splits it."""
+        from repro_torch.sharding.specs import (leaf_split, logical_for_leaf,
+                                                shape_safe_spec)
+        spec = shape_safe_spec(shape, self.rules.resolve(
+            logical_for_leaf((name,), shape)), self.rules.grid)
+        return leaf_split(shape, spec, self.rules.grid, self.coords())
+
+    def seq_split(self, shape: Sequence[int], dim: int):
+        """The split of a cache of ``shape`` along its sequence dimension
+        ``dim`` over ``model`` (the reference's ``cache_shardings``, shape
+        safe; the batch, split over ``data``, is this rank's already)."""
+        from repro_torch.sharding.specs import leaf_split, shape_safe_spec
+        spec = [None] * len(shape)
+        spec[dim] = "model"
+        spec = shape_safe_spec(shape, tuple(spec), self.rules.grid)
+        return leaf_split(shape, spec, self.rules.grid, self.coords())
+
+    def with_log(self, log) -> "TensorParallel":
+        return dataclasses.replace(self, sum_log=log)

@@ -611,12 +611,17 @@ def test_resolve_plan():
     sync = mesh.resolve_plan(lstm, 2, optimizer="adaalter")
     assert sync.local_axes == () and sync.grad_axes == ("data",)
     assert sync.fsdp_axes == ("data",)        # FSDP at every size
-    # the paper-style plan splits the flat plane down "model"; a per-leaf
-    # or synchronous run with shards is tensor parallelism (item 9c)
+    # the paper-style plan splits the flat plane down "model"; per leaf it
+    # is tensor parallelism, for the lstm and dense families (item 9c-1);
+    # another family, or a synchronous run with shards, is item 9c-2
     assert plane_shard_count(grid22, mesh.resolve_plan(lstm, grid22)) == 2
     mesh.check_plan(mesh.resolve_plan(lstm, grid22), grid22, flat=True)
-    with pytest.raises(NotImplementedError, match="--flat"):
-        mesh.check_plan(mesh.resolve_plan(lstm, grid22), grid22, flat=False)
+    mesh.check_plan(mesh.resolve_plan(lstm, grid22), grid22, flat=False,
+                    cfg=lstm)
+    ssm = get_arch("mamba2-370m")
+    with pytest.raises(NotImplementedError, match="item 9c-2"):
+        mesh.check_plan(mesh.resolve_plan(ssm, grid22), grid22, flat=False,
+                        cfg=ssm)
     with pytest.raises(NotImplementedError, match="item 9c"):
         mesh.check_plan(sync, grid22, flat=False)
     big = dataclasses.replace(get_arch("qwen2-7b"), n_layers=100)

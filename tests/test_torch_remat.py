@@ -52,6 +52,7 @@ LONG = (2100, 1)            # (seq, batch): the blockwise path
 # (arch, remat, attn_remat, seq, batch) the reference computes
 REF_CASES = ([(a, r, False, SEQ, BATCH) for a in FAMILIES
               for r in ("none", "full", "dots")]
+             + [("qwen2-7b", "save_tp", False, SEQ, BATCH)]
              + [("qwen2-7b", r, True, *LONG) for r in ("none", "full")])
 
 # the reference's weights, and its loss, aux loss and gradient leaves for
@@ -269,5 +270,16 @@ def test_train_loop_trains_through_the_plans_remat(monkeypatch):
 
 @pytest.mark.parametrize("remat", ["save_tp", "everything"])
 def test_unported_policies_raise(reference, remat):
+    """A policy the reference does not name raises. ``"save_tp"`` is
+    ported (it keeps the outputs of tensor parallelism's sums; on one rank
+    it is ``"full"``): ``"none"``'s loss and gradients bit for bit, the
+    reference's to RTOL."""
+    if remat == "save_tp":
+        got = _port(reference, "qwen2-7b", remat)
+        plain = _port(reference, "qwen2-7b", "none")
+        assert torch.equal(got[0], plain[0])
+        assert all(torch.equal(g, w) for g, w in zip(got[2], plain[2]))
+        _close(got, _reference(reference, "qwen2-7b", remat))
+        return
     with pytest.raises(ValueError, match="remat"):
         _port(reference, "qwen2-7b", remat)
