@@ -5,7 +5,7 @@
 ``reduced(cfg)`` a smoke-test variant. Every architecture of the JAX
 package is registered; llama3-405b (405.9 B parameters) builds on the
 ``meta`` device and resolves its plan, and training it waits for several
-cards (ROADMAP Queue 1 item 9c-2).
+cards (ROADMAP Queue 1 item 9c-2b).
 """
 from repro_torch.configs import (biglstm, hymba_1_5b, llama3_405b,
                                  llama4_maverick_400b_a17b,

@@ -240,7 +240,7 @@ class ParallelismPlan:
     ``launch/steps.py::_leaf_programs``, leaf by leaf as
     ``sharding.specs.param_shardings`` says); ``weight_gather_serving``
     (serving above 20 B parameters: FSDP beside tensor parallelism) is
-    refused on ranks (``launch/mesh.py::check_serve_plan``, item 9c-2).
+    refused on ranks (``launch/mesh.py::check_serve_plan``, item 9c-2b).
     """
 
     local_axes: Tuple[str, ...] = ("data",)

@@ -31,7 +31,7 @@ class FabricModel:
                  50 GB/s per GPU (NVIDIA data sheet);
     ``latency``  launch and rendezvous of one collective: an assumption
                  (10 µs), not a measurement. Measuring it needs ranks on
-                 several cards over NCCL (ROADMAP Queue 1 item 9c-2).
+                 several cards over NCCL (ROADMAP Queue 1 item 9c-2b).
     """
     ici_bw: float = 450e9
     dcn_bw: float = 50e9

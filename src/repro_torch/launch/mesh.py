@@ -46,8 +46,8 @@ _SYNC_ONLY_THRESHOLD = 100e9       # > 100B: no local workers (AdaAlter, global 
 #: seconds a collective may wait for a peer before the group fails
 DEFAULT_TIMEOUT_S = 60.0
 
-#: the families whose layers run under tensor parallelism
-TP_FAMILIES = ("lstm", "dense")
+#: the families whose layers run under tensor parallelism (every one)
+TP_FAMILIES = ("lstm", "dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def world_size() -> int:
@@ -101,10 +101,8 @@ def resolve_plan(cfg: ModelConfig, grid: Union[Dict[str, int], int], *,
 
 def check_tp(cfg: ModelConfig, what: str) -> None:
     """Refuse tensor parallelism over ``model`` for what this port does
-    not split yet (ROADMAP Queue 1 item 9c-2): families other than
-    :data:`TP_FAMILIES` (the MoE's experts, the SSM's heads and inner
-    width, cross-attention and the encoder-decoder), sequence
-    parallelism."""
+    not split yet (ROADMAP Queue 1 item 9c-2b): sequence parallelism, and
+    a family outside :data:`TP_FAMILIES`."""
     from repro_torch.sharding.partition import TP_TODO
     if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
@@ -123,7 +121,7 @@ def check_plan(plan: ParallelismPlan, grid: Dict[str, int], *,
     per leaf, tensor parallelism under the paper-style plan (workers along
     ``local_axes``, no FSDP) for the families :func:`check_tp` admits; a
     synchronous or one-model plan, or FSDP beside them (a leaf split along
-    two dimensions), is ROADMAP item 9c-2. Also refused: a grid whose
+    two dimensions), is ROADMAP item 9c-2b. Also refused: a grid whose
     shard axis the plan leaves unused (ranks that would hold the same
     sub-plane). FSDP over ``fsdp_axes`` builds (per leaf, without
     ``local_axes``)."""
@@ -146,7 +144,7 @@ def check_plan(plan: ParallelismPlan, grid: Dict[str, int], *,
 def check_serve_plan(cfg: ModelConfig, plan: ParallelismPlan,
                      grid: Dict[str, int]) -> None:
     """Refuse sharded serving the port cannot build yet (ROADMAP item
-    9c-2): FSDP beside tensor parallelism (``weight_gather_serving``, the
+    9c-2b): FSDP beside tensor parallelism (``weight_gather_serving``, the
     plan above 20 B parameters) and, on ``model`` > 1, what
     :func:`check_tp` refuses."""
     from repro_torch.sharding.partition import TP_TODO

@@ -16,8 +16,9 @@ Under ``torchrun`` (``WORLD_SIZE`` N > 1) the ranks form a ``{"data": D,
 rows of the batch with its parts of the weights and of the cache
 (``launch/serving.py``: tensor parallelism over ``model``, the cache's
 sequence split over it), the generated tokens are gathered and rank 0
-prints them. Sharded serving covers the ``lstm`` and ``dense`` families
-up to 20 B parameters.
+prints them. Sharded serving covers every family up to 20 B parameters
+(the SSM state split by heads, the conv tail by channels, the MoE's
+experts over ``model``).
 
   python -m repro_torch.launch.serve --arch qwen2-7b --batch 8 \\
       --prompt-len 512 --new-tokens 32
@@ -29,6 +30,9 @@ up to 20 B parameters.
       --reduced --batch 4 --prompt-len 32 --new-tokens 16
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \\
       --device cpu --dist-backend gloo --data 1 --arch qwen2-7b \\
+      --reduced --batch 4 --prompt-len 32 --new-tokens 16
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --device cpu --dist-backend gloo --data 1 --arch mamba2-370m \\
       --reduced --batch 4 --prompt-len 32 --new-tokens 16
 """
 from __future__ import annotations
@@ -168,10 +172,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(
         description=__doc__,
         epilog="phi3.5-moe-42b-a6.6b holds 83.75 GB of bf16 weights and "
-               "llama4-maverick-400b-a17b 807 GB: more than one 80 GB card, "
-               "and tensor parallelism over their experts, and the FSDP of "
-               "serving above 20 B parameters, are not ported yet (ROADMAP "
-               "Queue 1 item 9c-2): they run only --reduced on one card.")
+               "llama4-maverick-400b-a17b 807 GB: more than one 80 GB card. "
+               "Above 20 B parameters serving takes FSDP beside tensor "
+               "parallelism, which is not ported yet (ROADMAP Queue 1 item "
+               "9c-2b): they run --reduced, on one card or over model "
+               "ranks.")
     ap.add_argument("--arch", default="qwen2-7b",
                     help=f"one of {sorted(ARCHS)}")
     ap.add_argument("--reduced", action="store_true")

@@ -15,12 +15,13 @@ On a ``group`` of ranks laid out as a ``{"data": D, "model": M}`` grid
 (``launch/mesh.py``) the programs are the reference's sharded ones:
 :func:`serve_plan` splits the batch over ``data`` and the weights over
 ``model`` (tensor parallelism, ``sharding.partition.TensorParallel``),
-:func:`cache_shardings` splits the KV cache's sequence over ``model``
-(shape safe), and each rank runs on its parts (``param_parts``,
+:func:`cache_shardings` splits the KV and cross caches' sequence, the
+SSM state's heads and the conv tail's channels over ``model`` (shape
+safe), and each rank runs on its parts (``param_parts``,
 ``cache_parts``) and its rows of the batch. The Big LSTM's state is split
-over ``data`` and the same on every ``model`` rank. Up to 20 B
-parameters and for the ``lstm`` and ``dense`` families only
-(``launch/mesh.py::check_serve_plan``; the rest is ROADMAP item 9c-2).
+over ``data`` and the same on every ``model`` rank. Every family, up to
+20 B parameters (``launch/mesh.py::check_serve_plan``; FSDP beside
+tensor parallelism, the plan above, is ROADMAP item 9c-2b).
 The programs run eagerly under ``torch.inference_mode()``.
 """
 from __future__ import annotations
@@ -224,15 +225,22 @@ def build_serve_programs(cfg: ModelConfig, shape: ShapeConfig, group=None,
         if mgroup is not None:
             tp = TensorParallel(mgroup, rules)
             kw = {"tp": tp}
+        # the ranks along data hold one batch's rows: the MoE routes them
+        # as one, as the reference's one program over the global batch
+        dgroup = group.along(_data_axes(grid))
+        if dgroup is not None:
+            kw["batch_group"] = dgroup
 
     @torch.inference_mode()
     def prefill_fn(params, batch):
-        return model.prefill(params, batch, window=window, **kw)
+        lens = {"cache_len": cache_len, "cross_len": cross_len} if tp else {}
+        return model.prefill(params, batch, window=window, **lens, **kw)
 
     @torch.inference_mode()
     def decode_fn(params, caches, token, pos):
         return model.decode_step(params, caches, token, pos, window=window,
-                                 cache_len=cache_len if tp else 0, **kw)
+                                 cache_len=cache_len if tp else 0,
+                                 cross_len=cross_len if tp else 0, **kw)
 
     programs = ServePrograms(init_fn=None, prefill=prefill_fn,
                              decode_step=decode_fn, cache_len=cache_len,

@@ -672,7 +672,7 @@ def _leaf_programs(cfg, opt_cfg, device, group, plan) -> TrainPrograms:
             f"the plan {plan} on the grid {grid} splits leaves over "
             f"{sorted({a for sp in splits for a in sp.axes})} beside its "
             "gradient mean: only FSDP over every rank of grad_axes is "
-            "ported (ROADMAP Queue 1 item 9c-2)")
+            "ported (ROADMAP Queue 1 item 9c-2b)")
     # Alg. 3 folds g∘g into B²; Alg. 1 and plain SGD never read it, and the
     # reference's compiled step drops it as dead code
     wants_sq = opt_cfg.name == "adaalter"

@@ -152,33 +152,40 @@ def blockwise_attention(q, k, v, pos_q, pos_kv, *, causal: bool,
     return out.to(q.dtype)
 
 
-def _tp_project_qkv(params, x, cfg, tp):
+def _tp_project_qkv(params, x, cfg, tp, src=None):
     """q, k, v (B, S, heads, hd) under tensor parallelism: each
     projection as its spec splits it (``models.layers.tp_linear``, one
-    ``tp_copy`` of ``x`` for all three). Returns ``(q, k, v, by_heads)``:
-    with ``by_heads`` this rank's heads, a contiguous share of the q and
-    kv heads (the three split and the head counts divisible by the TP
-    size); else every head, the parts gathered."""
+    ``tp_copy`` of each input for all its products); q from ``x``, k and
+    v from ``src`` (cross-attention's source; default ``x``). Returns
+    ``(q, k, v, by_heads)``: with ``by_heads`` this rank's heads, a
+    contiguous share of the q and kv heads (the three split and the head
+    counts divisible by the TP size); else every head, the parts
+    gathered."""
     from repro_torch.core.comm import tp_copy, tp_gather
     from repro_torch.models.layers import tp_linear
     d, hd = x.shape[-1], cfg.head_dim
     widths = {"q": cfg.n_heads * hd, "k": cfg.n_kv_heads * hd,
               "v": cfg.n_kv_heads * hd}
     splits = {n: tp.split("w" + n, (d, w)) for n, w in widths.items()}
-    xc = tp_copy(x, tp.group) if any(sp.split for sp in splits.values()) \
-        else None
+    inputs = {"q": x, "k": x if src is None else src}
+    inputs["v"] = inputs["k"]
+    copies = {}
+    for n, sp in splits.items():
+        if sp.split and id(inputs[n]) not in copies:
+            copies[id(inputs[n])] = tp_copy(inputs[n], tp.group)
     out = {}
     for n, sp in splits.items():
-        y, part = tp_linear(x, params["w" + n], sp, tp, xc=xc)
+        y, part = tp_linear(inputs[n], params["w" + n], sp, tp,
+                            xc=copies.get(id(inputs[n])))
         if cfg.qkv_bias:             # split with its weight's columns
             y = y + params["b" + n].to(y.dtype)
         out[n] = (y, part)
     by_heads = (all(part for _, part in out.values())
                 and cfg.n_heads % tp.size == 0
                 and cfg.n_kv_heads % tp.size == 0)
-    b, s = x.shape[:2]
+    b = x.shape[0]
     q, k, v = ((y if by_heads or not part else tp_gather(y, tp.group))
-               .reshape(b, s, -1, hd) for y, part in out.values())
+               .reshape(b, y.shape[1], -1, hd) for y, part in out.values())
     return q, k, v, by_heads
 
 
@@ -202,11 +209,12 @@ def _tp_pad_heads(q, k, v, cfg, tp):
 
 def self_attention(params, x, positions, cfg, *, window: int = 0,
                    causal: bool = True, kv_block: int = 1024, tp=None,
-                   cache: bool = False):
+                   cache: bool = False, cache_len: int = 0):
     """Full-sequence self-attention; returns (out, (k, v)) for the cache.
     Under ``tp`` the output is the same on every rank, and with ``cache``
     (k, v) are this rank's part of the sequence-split cache
-    (:func:`tp_cache_part`)."""
+    (:func:`tp_cache_part`; ``cache_len``: the decode cache's length,
+    whose split the part follows)."""
     by_heads = False
     if tp is None:
         q, k, v = _project_qkv(params, x, x, cfg)
@@ -238,21 +246,57 @@ def self_attention(params, x, positions, cfg, *, window: int = 0,
     out, _ = tp_linear(out, params["wo"], tp.split(
         "wo", (cfg.n_heads * cfg.head_dim, x.shape[-1])), tp,
         x_part=by_heads)
-    return out, (tp_cache_part((k, v), tp, by_heads) if cache else (k, v))
+    return out, (tp_cache_part((k, v), tp, by_heads, cache_len) if cache
+                 else (k, v))
 
 
-def tp_cache_part(kv, tp, by_heads: bool):
+def tp_cache_part(kv, tp, by_heads: bool, cache_len: int = 0):
     """A prefill's (k, v) (B, S, heads, hd) as the cache's split gives a
     rank its part: every kv head (this rank's heads gathered over
     ``model``, where it attended by heads), and its contiguous share of
-    the sequence where the TP size divides S (else the whole sequence)."""
+    the sequence where the TP size divides the decode cache's length
+    ``cache_len`` (default S), as the reference's ``cache_shardings`` of
+    the decode cache lay out its prefill's output, and S; else the whole
+    sequence."""
     from repro_torch.core.comm import tp_gather
     out = []
     for t in kv:
         if by_heads:
             t = tp_gather(t, tp.group, 2)
-        out.append(tp.seq_split(t.shape, 1).take(t))
+        whole = tuple(t.shape[:1]) + (cache_len or t.shape[1],) + tuple(
+            t.shape[2:])
+        out.append(tp.cache_split(t.shape, 1).take(t)
+                   if tp.cache_split(whole, 1).split else t)
     return tuple(out)
+
+
+def tp_cross_attention_cached(params, x, k, v, cfg, spec, tp):
+    """:func:`cross_attention_cached` under tensor parallelism: ``k``,
+    ``v`` are this rank's part of the cross cache, split along its
+    sequence over ``model`` where ``spec.cross_len`` (the whole length)
+    divides by the TP size, else whole. q takes every head (its columns
+    gathered where ``wq`` splits); over a split cache each rank scores its
+    keys and the softmax partials combine in rank order
+    (:func:`_combined_attention`); ``wo`` as its spec splits it."""
+    from repro_torch.core.comm import tp_gather
+    from repro_torch.models.layers import tp_linear
+    b, sq, d = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q, part = tp_linear(x, params["wq"], tp.split("wq", (d, h * hd)), tp)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(q.dtype)
+    if part:
+        q = tp_gather(q, tp.group)
+    q = q.reshape(b, sq, h, hd)
+    zq = torch.zeros((b, sq), dtype=torch.int32, device=x.device)
+    zk = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
+    if tp.cache_split((b, spec.cross_len, k.shape[2], hd), 1).split:
+        out = _combined_attention(q, k, v, zq, zk, None, tp, causal=False)
+    else:
+        out = direct_attention(q, k, v, zq, zk, causal=False)
+    out, _ = tp_linear(out.reshape(b, sq, -1), params["wo"],
+                       tp.split("wo", (h * hd, d)), tp)
+    return out
 
 
 def cross_attention_cached(params, x, k, v, cfg):
@@ -268,15 +312,32 @@ def cross_attention_cached(params, x, k, v, cfg):
     return out.reshape(b, sq, -1) @ params["wo"]
 
 
-def cross_attention_full(params, x, kv_src, cfg):
+def cross_attention_full(params, x, kv_src, cfg, *, tp=None,
+                         cache: bool = False, cache_len: int = 0):
     """Cross-attention of x (B, Sq, D) to kv_src (B, Skv, D); returns (out,
-    (k, v)) for the cache."""
+    (k, v)) for the cache. Under ``tp`` the projections split as their
+    specs say (by heads, or gathered), the output is the same on every
+    rank, and with ``cache`` (k, v) are this rank's part of the cross
+    cache (:func:`tp_cache_part`; ``cache_len``: the decode's cross
+    length)."""
     b, sq, _ = x.shape
-    q, k, v = _project_qkv(params, x, kv_src, cfg)
+    by_heads = False
+    if tp is None:
+        q, k, v = _project_qkv(params, x, kv_src, cfg)
+    else:
+        q, k, v, by_heads = _tp_project_qkv(params, x, cfg, tp, src=kv_src)
     zeros = torch.zeros((b, 1), dtype=torch.int32, device=x.device)
     out = blockwise_attention(q, k, v, zeros.expand(b, sq),
                               zeros.expand(b, k.shape[1]), causal=False)
-    return out.reshape(b, sq, -1) @ params["wo"], (k, v)
+    out = out.reshape(b, sq, -1)
+    if tp is None:
+        return out @ params["wo"], (k, v)
+    from repro_torch.models.layers import tp_linear
+    out, _ = tp_linear(out, params["wo"], tp.split(
+        "wo", (cfg.n_heads * cfg.head_dim, x.shape[-1])), tp,
+        x_part=by_heads)
+    return out, (tp_cache_part((k, v), tp, by_heads, cache_len) if cache
+                 else (k, v))
 
 
 @dataclasses.dataclass
@@ -287,6 +348,9 @@ class KVCacheSpec:
     window it is the window, and the slots are reused in turn."""
     cache_len: int
     windowed: bool
+    #: the cross-attention cache's whole length (tensor parallelism: a
+    #: rank holds its part)
+    cross_len: int = 0
 
 
 def decode_self_attention(params, x, cache_k, cache_v, pos, cfg,
@@ -339,7 +403,7 @@ def tp_decode_self_attention(params, x, cache_k, cache_v, pos, cfg,
                              spec: KVCacheSpec, tp):
     """:func:`decode_self_attention` under tensor parallelism. ``spec``
     holds the whole cache length; ``cache_k``/``cache_v`` are this rank's
-    part (``tp.seq_split``): ``cache_len / M`` slots of every kv head, or
+    part (``tp.cache_split``): ``cache_len / M`` slots of every kv head, or
     the whole cache where M does not divide it. The new token's q, k, v
     are whole on every rank (the parts gathered over ``model``, one
     collective); the rank owning the token's slot writes it; each rank
@@ -350,7 +414,7 @@ def tp_decode_self_attention(params, x, cache_k, cache_v, pos, cfg,
     from repro_torch.models.layers import tp_linear
     b, d = x.shape[0], x.shape[-1]
     hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    split = tp.seq_split((b, spec.cache_len, kvh, hd), 1)
+    split = tp.cache_split((b, spec.cache_len, kvh, hd), 1)
     q, k, v, by_heads = _tp_project_qkv(params, x, cfg, tp)
     if by_heads:                     # every head, one collective
         (got,) = tp.group.all_gather([torch.cat(
@@ -392,8 +456,9 @@ def tp_decode_self_attention(params, x, cache_k, cache_v, pos, cfg,
     return out, cache_k, cache_v
 
 
-def _combined_attention(q, k, v, pos_q, pos_kv, valid, tp):
-    """Attention of q (B, 1, H, hd) over every rank's slots, from this
+def _combined_attention(q, k, v, pos_q, pos_kv, valid, tp, *,
+                        causal: bool = True):
+    """Attention of q (B, Sq, H, hd) over every rank's slots, from this
     rank's k, v (B, n, KV, hd): the scores as :func:`direct_attention`
     takes them (float32, scaled after the product, the additive mask), the
     rank's max m, sum of exponentials l and weighted values acc, combined
@@ -404,7 +469,7 @@ def _combined_attention(q, k, v, pos_q, pos_kv, valid, tp):
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hd).float()
     s = torch.einsum("bqkrh,bskh->bkrqs", qg, k.float()) * hd ** -0.5
-    s = s + _mask(pos_q, pos_kv, True, 0, valid)[:, None, None]
+    s = s + _mask(pos_q, pos_kv, causal, 0, valid)[:, None, None]
     m = torch.amax(s, dim=-1)                             # (b,kv,rep,q)
     p = torch.exp(s - m[..., None])
     l = torch.sum(p, dim=-1)

@@ -45,11 +45,14 @@ def _act(h1, h3, act: str):
     return F.relu(h1)
 
 
-def mlp_apply(params, x, act: str, tp=None, d_ff: int = 0):
+def mlp_apply(params, x, act: str, tp=None, d_ff: int = 0, path=()):
     """The block's MLP; under ``tp`` (a ``TensorParallel``; ``d_ff`` the
-    whole width) ``w1``/``w3`` column-split and ``w2`` row-split as their
-    specs say, each whole where shape-safety leaves it so: the output is
-    the same on every rank."""
+    whole width) each weight split as its spec says (``path``: the keys
+    above the MLP its specs read, ``("moe", "shared")`` for llama4's
+    shared expert, whose three matrices split along their first
+    dimension): ``w1``/``w3`` column-split (or row-split, their partials
+    summed) and ``w2`` row-split, each whole where shape-safety leaves it
+    so: the output is the same on every rank."""
     if tp is None:
         if act == "swiglu":
             return swiglu(x, params["w1"], params["w3"], params["w2"])
@@ -59,7 +62,7 @@ def mlp_apply(params, x, act: str, tp=None, d_ff: int = 0):
     from repro_torch.core.comm import tp_copy, tp_gather
     d = x.shape[-1]
     names = ("w1", "w3") if act == "swiglu" else ("w1",)
-    splits = [tp.split(n, (d, d_ff)) for n in names]
+    splits = [tp.split(n, (d, d_ff), path) for n in names]
     xc = tp_copy(x, tp.group) if any(sp.split for sp in splits) else None
     hs = [tp_linear(x, params[n], sp, tp, xc=xc)
           for n, sp in zip(names, splits)]
@@ -67,7 +70,7 @@ def mlp_apply(params, x, act: str, tp=None, d_ff: int = 0):
         hs = [(tp_gather(h, tp.group) if part else h, False)
               for h, part in hs]
     a = _act(hs[0][0], hs[-1][0], act)
-    out, _ = tp_linear(a, params["w2"], tp.split("w2", (d_ff, d)), tp,
+    out, _ = tp_linear(a, params["w2"], tp.split("w2", (d_ff, d), path), tp,
                        x_part=hs[0][1])
     return out
 

@@ -189,18 +189,25 @@ def _build_transformer(cfg) -> Model:
                                            scale=0.02, dtype=dtype, device=dev)
         return params
 
-    def _encode(params, batch):
-        """The encoder over the (stubbed) audio frames, non-causal."""
+    def _encode(params, batch, tp=None):
+        """The encoder over the (stubbed) audio frames, non-causal; under
+        ``tp`` its layers split as the decoder's, the output the same on
+        every rank."""
         frames = batch["audio_frames"].to(dtype)            # (B,F,D)
         pos = torch.arange(frames.shape[1],
                            device=frames.device).expand(frames.shape[:2])
+        ctx = {"causal": False}
+        if tp is not None:
+            ctx["tp"] = tp
         h, _, _ = tfm.apply_stack(params["encoder"], _encoder_cfg(cfg),
-                                  frames, pos, ctx={"causal": False})
+                                  frames, pos, ctx=ctx)
         return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
-    def _ctx(params, batch):
+    def _ctx(params, batch, tp=None):
+        """The cross-attention source: the encoder's output, or the image
+        embeddings (a replicated input under ``tp``)."""
         if cfg.is_encdec:
-            return {"cross_src": _encode(params, batch)}
+            return {"cross_src": _encode(params, batch, tp)}
         if cfg.cross_attn_every:
             return {"cross_src": batch["image_embeds"].to(dtype)}
         return {}
@@ -213,7 +220,7 @@ def _build_transformer(cfg) -> Model:
         return tp.split("lm_head", (cfg.d_model, cfg.vocab_size))
 
     def _trunk(params, batch, *, window=0, collect_cache=False,
-               remat="none", batch_group=None, tp=None):
+               remat="none", batch_group=None, tp=None, cache_lens=None):
         tokens = batch["tokens"]
         if tp is None:
             x = params["embed"][tokens.long()].to(dtype)
@@ -222,11 +229,12 @@ def _build_transformer(cfg) -> Model:
                 "embed", (cfg.vocab_size, cfg.d_model)), tp).to(dtype)
         pos = torch.arange(tokens.shape[1],
                            device=tokens.device).expand(tokens.shape)
-        ctx = _ctx(params, batch)
+        ctx = _ctx(params, batch, tp)
         if batch_group is not None:
             ctx["batch_group"] = batch_group
         if tp is not None:
             ctx["tp"] = tp
+            ctx.update(cache_lens or {})
         x, aux, caches = tfm.apply_stack(
             params["blocks"], cfg, x, pos, ctx, window=window,
             collect_cache=collect_cache, encdec_dec=cfg.is_encdec,
@@ -275,14 +283,23 @@ def _build_transformer(cfg) -> Model:
             loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
         return loss + aux, {"xent": loss, "aux": aux}
 
-    def prefill(params, batch, *, window: int = 0, tp=None):
+    def prefill(params, batch, *, window: int = 0, tp=None,
+                batch_group=None, cache_len: int = 0, cross_len: int = 0):
         """Last-position logits and the stacked caches: the attention
         layers' post-RoPE (k, v), the cross-attention layers' (k, v) of the
         image embeddings or the encoder's output (``xkv``), the SSM layers'
         last state. Under ``tp`` the logits are whole on every rank and the
-        (k, v) this rank's part of the sequence-split cache."""
+        caches this rank's parts: (k, v) and ``xkv`` of the sequence-split
+        cache (split where the decode caches of ``cache_len`` and
+        ``cross_len`` split, or, 0, the prefill's own), the SSM state's
+        heads and the conv tail's channels. ``batch_group``: the ranks
+        whose rows make one batch with ``batch``'s (the MoE routes them
+        as one, as ``loss_fn``)."""
         x, _, caches = _trunk(params, batch, window=window,
-                              collect_cache=True, tp=tp)
+                              collect_cache=True, tp=tp,
+                              batch_group=batch_group, cache_lens={
+                                  "cache_len": cache_len,
+                                  "cross_len": cross_len})
         logits = tp_logits(*_head(params, x[:, -1:], tp), tp)
         return logits, caches
 
@@ -319,10 +336,12 @@ def _build_transformer(cfg) -> Model:
         return entries
 
     def decode_step(params, caches, token, pos, *, window: int = 0,
-                    tp=None, cache_len: int = 0):
+                    tp=None, cache_len: int = 0, cross_len: int = 0,
+                    batch_group=None):
         """token: (B,1); pos: (B,). Returns (logits (B,1,V), caches). Under
-        ``tp`` the caches are this rank's parts and ``cache_len`` the whole
-        cache's length."""
+        ``tp`` the caches are this rank's parts, and ``cache_len`` and
+        ``cross_len`` the whole self- and cross-attention caches'
+        lengths. ``batch_group`` as in ``prefill``."""
         if tp is None:
             x = params["embed"][token.long()].to(dtype)
         else:
@@ -332,9 +351,10 @@ def _build_transformer(cfg) -> Model:
         spec = attn_mod.KVCacheSpec(
             cache_len=cache_len or (kv_leaves[0][0].shape[2] if kv_leaves
                                     else 0),
-            windowed=bool(window))
+            windowed=bool(window), cross_len=cross_len)
         x, caches = tfm.decode_stack(params["blocks"], cfg, x, pos, caches,
-                                     spec=spec, tp=tp)
+                                     spec=spec, tp=tp,
+                                     batch_group=batch_group)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return tp_logits(*_head(params, x, tp), tp), caches
 
@@ -378,7 +398,8 @@ def _build_lstm(cfg) -> Model:
                       "aux": torch.zeros((), dtype=torch.float32,
                                          device=loss.device)}
 
-    def prefill(params, batch, *, window: int = 0, tp=None):
+    def prefill(params, batch, *, window: int = 0, tp=None,
+                batch_group=None, cache_len: int = 0, cross_len: int = 0):
         """The state after the prompt, and the logits of its last position:
         the 793k-vocab head runs once, on the last hidden state, not at
         every position. Under ``tp`` the logits are whole on every rank."""
@@ -400,7 +421,8 @@ def _build_lstm(cfg) -> Model:
         return lstm_mod.init_lstm_state(cfg, batch_size, dtype, device)
 
     def decode_step(params, caches, token, pos, *, window: int = 0,
-                    tp=None, cache_len: int = 0):
+                    tp=None, cache_len: int = 0, cross_len: int = 0,
+                    batch_group=None):
         return lstm_mod.lstm_decode_step(params, token, caches, cfg, tp=tp)
 
     return Model(cfg=cfg, init=init, loss_fn=loss_fn, logits_fn=logits_fn,

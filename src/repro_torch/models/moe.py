@@ -22,6 +22,17 @@ per-expert counts a layer). A rank's expert buffers hold only its own
 kept pairs. The group is an argument, not ambient state, so a
 rematerialised layer recomputes the same routing wherever autograd runs
 its backward (on CUDA, a thread of its own).
+
+Under tensor parallelism (``tp``, a ``sharding.partition.TensorParallel``)
+the experts split over ``model`` as their specs say (E / M a rank; the
+router stays whole, so every rank routes the same tokens the same way):
+a rank fills and runs only its experts' buffers, its combine is the
+partial over its own experts' choices, and the partials are summed in
+float32 in rank order and rounded once (at top_k ≤ 2 the terms that meet
+are one or two, so the sum is the one-rank combine's bit for bit). The
+load-balance loss comes from the replicated router, the same on every
+rank. llama4's shared expert follows its specs, row-parallel in all
+three of its matrices (its path holds ``moe``).
 """
 from __future__ import annotations
 
@@ -66,10 +77,7 @@ def _router(params, xt, cfg, group=None):
     t = xt.shape[0]
     e, k = cfg.n_experts, cfg.top_k
     probs = torch.softmax(xt.float() @ params["router"], dim=-1)   # (T,E)
-    # lax.top_k: the larger first, the lower index first among ties
-    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
-                                     stable=True)
-    gate_vals, gate_idx = gate_vals[:, :k], gate_idx[:, :k]
+    gate_vals, gate_idx = _top_k(probs, k)
     if k > 1:
         gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
     flat = F.one_hot(gate_idx, e).reshape(t * k, e)                # (T*k,E)
@@ -87,6 +95,14 @@ def _router(params, xt, cfg, group=None):
                            min=0)
         size = max(int(torch.max(kept)), 1)
     return gate_vals * keep, gate_idx, probs, pos, keep, size
+
+
+def _top_k(probs, k):
+    """The k largest router probabilities of each token and their experts,
+    as lax.top_k orders them: the larger first, the lower index first
+    among ties."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
 
 
 def _rank_counts(group, onehot):
@@ -125,48 +141,67 @@ def _aux_loss(probs, gate_idx, cfg, group=None):
     return cfg.router_aux_loss * e * torch.sum(frac * prob)
 
 
-def moe_apply(params, x, cfg, group=None):
+def moe_apply(params, x, cfg, group=None, tp=None):
     """x: (B, S, D) -> (out, aux_loss). ``group``: the ranks whose rows
     make one batch with ``x``'s (module docstring); None: ``x`` is the
-    batch."""
+    batch. ``tp``: tensor parallelism, the experts over ``model``."""
     if cfg.moe_group_tokens:
-        return moe_apply_grouped(params, x, cfg, group)
-    return moe_apply_einsum(params, x, cfg, group)
+        return moe_apply_grouped(params, x, cfg, group, tp)
+    return moe_apply_einsum(params, x, cfg, group, tp)
 
 
-def moe_apply_grouped(params, x, cfg, group=None):
+def moe_apply_grouped(params, x, cfg, group=None, tp=None):
     """Gather each expert's tokens into an (E, C, D) buffer, run the experts,
     gather each kept (token, choice) output back and sum them, gate-weighted
-    in float32."""
+    in float32. Under ``tp`` a rank's buffers are its experts' (module
+    docstring)."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
     xt = x.reshape(t, d)
     gate_vals, gate_idx, probs, slot, keep, size = _router(params, xt, cfg,
                                                            group)
+    split = None
+    if tp is not None:
+        split = tp.split("w1", (e, d, cfg.d_ff), ("moe",))
+        split = split if split.split else None
+    lo, e_r, mine, w = 0, e, keep, gate_vals
+    if split is not None:             # this rank's experts lo : lo + e_r
+        from repro_torch.core.comm import tp_copy
+        e_r = e // split.parts
+        lo = split.index * e_r
+        mine = keep & (gate_idx >= lo) & (gate_idx < lo + e_r)
+        xt = tp_copy(xt, tp.group)
+        w = tp_copy(gate_vals, tp.group) * mine
 
-    # the buffer slot of each (token, choice); dropped ones go to a sentinel
-    # slot E·C that is sliced away, empty slots read token T: a zero row
-    flat_slot = torch.where(keep, gate_idx * size + slot, e * size)  # (T,k)
+    # the buffer slot of each (token, choice); dropped ones (and under tp
+    # the other ranks' choices) go to a sentinel slot E·C that is sliced
+    # away, empty slots read token T: a zero row
+    flat_slot = torch.where(mine, (gate_idx - lo) * size + slot,
+                            e_r * size)                            # (T,k)
     token_ids = torch.arange(t, device=x.device)[:, None].expand(t, k)
-    buf_token = torch.full((e * size + 1,), t, dtype=torch.long,
+    buf_token = torch.full((e_r * size + 1,), t, dtype=torch.long,
                            device=x.device)
     buf_token[flat_slot.reshape(-1)] = token_ids.reshape(-1)
     xt_fill = torch.cat([xt, xt.new_zeros((1, d))])
-    xin = xt_fill[buf_token[:e * size]].reshape(e, size, d)
-    eout = _expert_ffn(params, xin, cfg).reshape(e * size, d)
+    xin = xt_fill[buf_token[:e_r * size]].reshape(e_r, size, d)
+    eout = _expert_ffn(params, xin, cfg).reshape(e_r * size, d)
 
-    out_tk = eout[torch.where(keep, flat_slot, 0)]                 # (T,k,D)
-    out = torch.sum(out_tk.float() * gate_vals[..., None], dim=1)
+    out_tk = eout[torch.where(mine, flat_slot, 0)]                 # (T,k,D)
+    out = torch.sum(out_tk.float() * w[..., None], dim=1)
+    if split is not None:
+        from repro_torch.core.comm import tp_sum
+        out = tp_sum(out, tp.group, tp.sum_log)
     out = out.to(x.dtype).reshape(b, s, d)
     if cfg.shared_expert:
-        out = out + mlp_apply(params["shared"], x, cfg.act)
+        out = out + mlp_apply(params["shared"], x, cfg.act, tp,
+                              cfg.dense_d_ff, ("moe", "shared"))
     return out, _aux_loss(probs, gate_idx, cfg, group)
 
 
-def moe_apply_einsum(params, x, cfg, group=None):
+def moe_apply_einsum(params, x, cfg, group=None, tp=None):
     """The reference's GShard form, computed by index. Its dispatch tensor
     has at most one 1 in each (expert, slot), so its dispatch einsum is a
     gather; its combine sums at most top_k gate-weighted rows per token in
     float32. Both are what :func:`moe_apply_grouped` computes."""
-    return moe_apply_grouped(params, x, cfg, group)
+    return moe_apply_grouped(params, x, cfg, group, tp)

@@ -76,14 +76,10 @@ def _init_block(gen, cfg, kind: str, dtype, device, *,
         p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
     else:
         if kind == "cross":
-            d_ff = cfg.dense_d_ff or cfg.d_ff
             # tanh(0) = 0: at init the image layers add nothing
             p["gate"] = torch.zeros((1,), dtype=dtype, device=device)
-        elif cfg.is_moe and cfg.moe_every > 1:
-            d_ff = cfg.dense_d_ff
-        else:
-            d_ff = cfg.d_ff
-        p["mlp"] = init_mlp(gen, d, d_ff, cfg.act, dtype, device)
+        p["mlp"] = init_mlp(gen, d, _mlp_width(cfg, kind), cfg.act, dtype,
+                            device)
     if encdec_dec:
         p["xattn"] = attn.init_attention(gen, cfg, dtype, device)
         p["ln3"] = torch.ones((d,), dtype=dtype, device=device)
@@ -113,19 +109,24 @@ def _ffn(bp, cfg, kind, x, batch_group=None, tp=None):
     """The block's second half: x + FFN(ln2(x)). Returns (x, aux_loss).
     ``batch_group``: the ranks whose rows make one batch with ``x``'s (the
     MoE routes them as one, ``moe.moe_apply``); ``tp``: tensor
-    parallelism (the dense MLP's, ``layers.mlp_apply``)."""
+    parallelism (the MoE's experts over ``model``, the dense MLP's
+    ``layers.mlp_apply``)."""
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     if kind == "self_moe":
-        out, aux = moe_mod.moe_apply(bp["moe"], h, cfg, batch_group)
+        out, aux = moe_mod.moe_apply(bp["moe"], h, cfg, batch_group, tp)
         return x + out, aux
-    return x + mlp_apply(bp["mlp"], h, cfg.act, tp, cfg.d_ff), None
+    return x + mlp_apply(bp["mlp"], h, cfg.act, tp, _mlp_width(cfg, kind)), \
+        None
 
 
-def _check_tp(kind: str, tp) -> None:
-    if tp is not None and kind != "self_dense":
-        from repro_torch.sharding.partition import TP_TODO
-        raise NotImplementedError(
-            f"tensor parallelism over a {kind!r} layer is {TP_TODO}")
+def _mlp_width(cfg, kind: str) -> int:
+    """The dense MLP's hidden width in a block of ``kind`` (as
+    :func:`_init_block` draws it)."""
+    if kind == "cross":
+        return cfg.dense_d_ff or cfg.d_ff
+    if cfg.is_moe and cfg.moe_every > 1:
+        return cfg.dense_d_ff
+    return cfg.d_ff
 
 
 def _mean_fusion(bp, cfg, a_out, s_out):
@@ -140,34 +141,41 @@ def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
     """Returns (x, aux_loss or None, cache_entry)."""
     cache: Dict[str, Any] = {}
     tp = ctx.get("tp")
-    _check_tp(kind, tp)
+    # under tensor parallelism the attention returns this rank's part of
+    # the cache, split as the decode cache splits (and the SSM its parts
+    # of the state)
+    kw = xkw = {}
+    if tp is not None:
+        kw = {"tp": tp, "cache": collect_cache,
+              "cache_len": ctx.get("cache_len", 0)}
+        xkw = {**kw, "cache_len": ctx.get("cross_len", 0)}
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     if kind == "ssm":
         if collect_cache:
             out, cache["ssm"] = ssm_mod.ssm_forward(bp["ssm"], h, cfg,
-                                                    return_state=True)
+                                                    return_state=True, tp=tp)
         else:
-            out = ssm_mod.ssm_forward(bp["ssm"], h, cfg)
+            out = ssm_mod.ssm_forward(bp["ssm"], h, cfg, tp=tp)
         return x + out, None, cache
     if kind == "cross":
         out, kv = attn.cross_attention_full(bp["attn"], h, ctx["cross_src"],
-                                            cfg)
+                                            cfg, **xkw)
         if collect_cache:
             cache["xkv"] = kv
         x = x + torch.tanh(bp["gate"].to(out.dtype)) * out
     elif kind == "hybrid":
         # windowed even when scoring and training, as the reference is
         a_out, kv = attn.self_attention(bp["attn"], h, positions, cfg,
-                                        window=window or cfg.sliding_window)
+                                        window=window or cfg.sliding_window,
+                                        **kw)
         # the SSD kernel (ssm_pallas) runs where no state is collected
         s_out = ssm_mod.ssm_forward(bp["ssm"], h, cfg,
-                                    return_state=collect_cache)
+                                    return_state=collect_cache, tp=tp)
         if collect_cache:
             s_out, cache["ssm"] = s_out
             cache["kv"] = kv
         x = x + _mean_fusion(bp, cfg, a_out, s_out)
     else:                                       # self_dense / self_moe
-        kw = {} if tp is None else {"tp": tp, "cache": collect_cache}
         out, kv = attn.self_attention(bp["attn"], h, positions, cfg,
                                       window=window,
                                       causal=ctx.get("causal", True), **kw)
@@ -177,7 +185,7 @@ def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
     if encdec_dec:
         h = rms_norm(x, bp["ln3"], cfg.norm_eps)
         out, xkv = attn.cross_attention_full(bp["xattn"], h,
-                                             ctx["cross_src"], cfg)
+                                             ctx["cross_src"], cfg, **xkw)
         if collect_cache:
             cache["xkv"] = xkv
         x = x + out
@@ -246,9 +254,11 @@ def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
     :func:`_rematerialised`); it applies where autograd records the
     forward and no cache is collected. ``ctx`` holds the cross-attention
     source (``"cross_src"``), ``"causal"``, the ranks whose rows make one
-    batch with ``x``'s (``"batch_group"``) and tensor parallelism
-    (``"tp"``, a ``sharding.partition.TensorParallel``); the groups'
-    functions capture it, so a recomputation sees what the forward saw."""
+    batch with ``x``'s (``"batch_group"``), tensor parallelism (``"tp"``,
+    a ``sharding.partition.TensorParallel``) and the decode caches'
+    lengths whose splits a collected cache follows under it
+    (``"cache_len"``, ``"cross_len"``); the groups' functions capture it,
+    so a recomputation sees what the forward saw."""
     kinds = group_kinds(cfg)
     n_groups = cfg.n_layers // len(kinds)
     ctx = ctx or {}
@@ -289,50 +299,56 @@ def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
     return x, aux, (stack_trees(caches) if collect_cache else None)
 
 
-def _decode_block(bp, cfg, kind, x, pos, cache, spec, tp=None):
-    _check_tp(kind, tp)
+def _decode_block(bp, cfg, kind, x, pos, cache, spec, tp=None,
+                  batch_group=None):
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     if kind == "ssm":
-        out, st = ssm_mod.ssm_decode_step(bp["ssm"], h, cache["ssm"], cfg)
+        out, st = ssm_mod.ssm_decode_step(bp["ssm"], h, cache["ssm"], cfg, tp)
         return x + out, {"ssm": st}
     new_cache: Dict[str, Any] = {}
     if kind == "cross":
         k, v = cache["xkv"]
-        out = attn.cross_attention_cached(bp["attn"], h, k, v, cfg)
+        out = _cross_decode(bp["attn"], h, k, v, cfg, spec, tp)
         new_cache["xkv"] = (k, v)
         x = x + torch.tanh(bp["gate"].to(out.dtype)) * out
-    elif kind == "hybrid":
-        ck, cv = cache["kv"]
-        a_out, nk, nv = attn.decode_self_attention(bp["attn"], h, ck, cv,
-                                                   pos, cfg, spec)
-        s_out, new_cache["ssm"] = ssm_mod.ssm_decode_step(
-            bp["ssm"], h, cache["ssm"], cfg)
-        new_cache["kv"] = (nk, nv)
-        x = x + _mean_fusion(bp, cfg, a_out, s_out)
-    else:                                       # self_dense / self_moe
+    else:                     # self_dense / self_moe / hybrid
         ck, cv = cache["kv"]
         if tp is None:
-            out, nk, nv = attn.decode_self_attention(bp["attn"], h, ck, cv,
-                                                     pos, cfg, spec)
+            a_out, nk, nv = attn.decode_self_attention(bp["attn"], h, ck, cv,
+                                                       pos, cfg, spec)
         else:
-            out, nk, nv = attn.tp_decode_self_attention(
+            a_out, nk, nv = attn.tp_decode_self_attention(
                 bp["attn"], h, ck, cv, pos, cfg, spec, tp)
         new_cache["kv"] = (nk, nv)
-        x = x + out
+        if kind == "hybrid":
+            s_out, new_cache["ssm"] = ssm_mod.ssm_decode_step(
+                bp["ssm"], h, cache["ssm"], cfg, tp)
+            x = x + _mean_fusion(bp, cfg, a_out, s_out)
+        else:
+            x = x + a_out
     if "xkv" in cache and kind != "cross":          # enc-dec decoder
         k, v = cache["xkv"]
         h = rms_norm(x, bp["ln3"], cfg.norm_eps)
-        x = x + attn.cross_attention_cached(bp["xattn"], h, k, v, cfg)
+        x = x + _cross_decode(bp["xattn"], h, k, v, cfg, spec, tp)
         new_cache["xkv"] = (k, v)
-    x, _ = _ffn(bp, cfg, kind, x, tp=tp)   # decode drops the MoE aux loss
+    # decode drops the MoE aux loss
+    x, _ = _ffn(bp, cfg, kind, x, batch_group, tp)
     return x, new_cache
 
 
+def _cross_decode(p, h, k, v, cfg, spec, tp):
+    if tp is None:
+        return attn.cross_attention_cached(p, h, k, v, cfg)
+    return attn.tp_cross_attention_cached(p, h, k, v, cfg, spec, tp)
+
+
 def decode_stack(params, cfg, x, pos, caches, *, spec: attn.KVCacheSpec,
-                 tp=None):
+                 tp=None, batch_group=None):
     """x: (B,1,D); pos: (B,); caches: stacked (n_groups leading). Returns
     (x, caches). Under ``tp`` the caches are this rank's parts and
-    ``spec`` holds the whole cache length."""
+    ``spec`` holds the whole caches' lengths; ``batch_group``: the ranks
+    whose rows make one batch with ``x``'s (the MoE routes them as
+    one)."""
     kinds = group_kinds(cfg)
     n_groups = cfg.n_layers // len(kinds)
     new_caches = []
@@ -342,7 +358,7 @@ def decode_stack(params, cfg, x, pos, caches, *, spec: attn.KVCacheSpec,
         group_caches = []
         for i, kind in enumerate(kinds):
             x, nc = _decode_block(gp[i], cfg, kind, x, pos, gc[i], spec,
-                                  tp)
+                                  tp, batch_group)
             group_caches.append(nc)
         new_caches.append(group_caches)
     return x, stack_trees(new_caches)

@@ -126,7 +126,7 @@ def plane_shard_axes(grid: Mapping[str, int], plan) -> Tuple[str, ...]:
 
 
 #: what a grid with ``model`` > 1 does not build yet
-TP_TODO = "not ported yet (ROADMAP Queue 1 item 9c-2)"
+TP_TODO = "not ported yet (ROADMAP Queue 1 item 9c-2b)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,20 +158,25 @@ class TensorParallel:
         needs it (the weights split along ``model`` alone)."""
         return {a: (self.rank if a == "model" else 0) for a in self.rules.grid}
 
-    def split(self, name: str, shape: Sequence[int]):
+    def split(self, name: str, shape: Sequence[int],
+              path: Sequence[str] = ()):
         """The ``sharding.specs.LeafSplit`` of an (unstacked) weight named
         ``name`` whose whole shape is ``shape``, as
-        ``sharding.specs.param_shardings`` splits it."""
+        ``sharding.specs.param_shardings`` splits it; ``path``: the keys
+        above it that its spec reads (``("moe",)`` for an expert weight,
+        ``("moe", "shared")`` for the shared expert's)."""
         from repro_torch.sharding.specs import (leaf_split, logical_for_leaf,
                                                 shape_safe_spec)
         spec = shape_safe_spec(shape, self.rules.resolve(
-            logical_for_leaf((name,), shape)), self.rules.grid)
+            logical_for_leaf(tuple(path) + (name,), shape)), self.rules.grid)
         return leaf_split(shape, spec, self.rules.grid, self.coords())
 
-    def seq_split(self, shape: Sequence[int], dim: int):
-        """The split of a cache of ``shape`` along its sequence dimension
+    def cache_split(self, shape: Sequence[int], dim: int):
+        """The split of a cache entry of ``shape`` along its dimension
         ``dim`` over ``model`` (the reference's ``cache_shardings``, shape
-        safe; the batch, split over ``data``, is this rank's already)."""
+        safe: a KV cache's sequence, the SSM state's heads, the conv
+        tail's channels; the batch, split over ``data``, is this rank's
+        already)."""
         from repro_torch.sharding.specs import leaf_split, shape_safe_spec
         spec = [None] * len(shape)
         spec[dim] = "model"

@@ -183,7 +183,7 @@ def leaf_split(shape: Sequence[int], spec: Spec, grid: Mapping[str, int],
     safe) on ``grid``, for the rank at ``coords`` (its index along each
     axis). Axes of size 1 split nothing. More than one split dimension is
     tensor parallelism beside FSDP, which the port does not build (ROADMAP
-    Queue 1 item 9c-2): NotImplementedError."""
+    Queue 1 item 9c-2b): NotImplementedError."""
     shape = tuple(int(n) for n in shape)
     found = []
     for d, entry in enumerate(spec):
@@ -199,7 +199,7 @@ def leaf_split(shape: Sequence[int], spec: Spec, grid: Mapping[str, int],
         raise NotImplementedError(
             f"a leaf of shape {shape} split along {len(found)} dimensions "
             f"({spec}): tensor parallelism beside FSDP is not ported yet "
-            "(ROADMAP Queue 1 item 9c-2)")
+            "(ROADMAP Queue 1 item 9c-2b)")
     return found[0] if found else LeafSplit(shape)
 
 

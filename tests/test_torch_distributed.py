@@ -612,13 +612,16 @@ def test_resolve_plan():
     assert sync.local_axes == () and sync.grad_axes == ("data",)
     assert sync.fsdp_axes == ("data",)        # FSDP at every size
     # the paper-style plan splits the flat plane down "model"; per leaf it
-    # is tensor parallelism, for the lstm and dense families (item 9c-1);
-    # another family, or a synchronous run with shards, is item 9c-2
+    # is tensor parallelism, for every family (items 9c-1, 9c-2a);
+    # sequence parallelism, or a synchronous run with shards, is item 9c-2b
     assert plane_shard_count(grid22, mesh.resolve_plan(lstm, grid22)) == 2
     mesh.check_plan(mesh.resolve_plan(lstm, grid22), grid22, flat=True)
     mesh.check_plan(mesh.resolve_plan(lstm, grid22), grid22, flat=False,
                     cfg=lstm)
     ssm = get_arch("mamba2-370m")
+    mesh.check_plan(mesh.resolve_plan(ssm, grid22), grid22, flat=False,
+                    cfg=ssm)
+    ssm = dataclasses.replace(ssm, seq_parallel=True)
     with pytest.raises(NotImplementedError, match="item 9c-2"):
         mesh.check_plan(mesh.resolve_plan(ssm, grid22), grid22, flat=False,
                         cfg=ssm)

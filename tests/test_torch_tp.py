@@ -31,8 +31,8 @@ hold:
   * remat ``"save_tp"`` equals ``"none"`` bit for bit on one rank and on
     two, and issues fewer TP collectives than ``"full"``;
   * a (2, 2) checkpoint resumes bit for bit and restores on one rank;
-  * families and plans outside the slice raise NotImplementedError
-    naming ROADMAP item 9c-2.
+  * plans outside the slice (FSDP beside TP, sequence parallelism, remat
+    "dots" under TP) raise NotImplementedError naming ROADMAP item 9c-2b.
 
 Every spawned group runs under a subprocess timeout and opens its process
 group with a 60 s timeout, so a hung rank fails its fixture, not the suite.
@@ -744,18 +744,60 @@ def test_save_tp_equals_none_on_one_rank(runs):
 # --------------------------------------------------------------------------- #
 # what stays outside the slice
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-370m",
-                                  "hymba-1.5b", "llama-3.2-vision-11b",
-                                  "seamless-m4t-large-v2"])
+#: per arch, what still raises on model ranks (ROADMAP item 9c-2b): the
+#: plans above 20 B parameters (FSDP beside TP), sequence parallelism,
+#: remat "dots" under TP, the synchronous plan, gathered serving weights
+REFUSED = {"phi3.5-moe-42b-a6.6b": "fsdp_plans",
+           "llama4-maverick-400b-a17b": "fsdp_plans",
+           "mamba2-370m": "seq_parallel",
+           "hymba-1.5b": "remat_dots",
+           "llama-3.2-vision-11b": "synchronous",
+           "seamless-m4t-large-v2": "weight_gather_serving"}
+
+
+@pytest.mark.parametrize("arch", list(REFUSED))
 def test_other_families_refused_on_model_ranks(arch):
+    """Every family trains and serves on model ranks at its reduced size
+    (tensor parallelism over its layers); what is left raises naming item
+    9c-2b."""
     cfg = reduced(get_arch(arch))
-    grid = {"data": 2, "model": 2}
-    with pytest.raises(NotImplementedError, match="9c-2"):
-        mesh.check_plan(mesh.resolve_plan(cfg, grid), grid, flat=False,
-                        cfg=cfg)
-    grid = {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match="9c-2"):
-        mesh.check_serve_plan(cfg, serve_plan(cfg, grid), grid)
+    grid, serve_grid = {"data": 2, "model": 2}, {"data": 1, "model": 2}
+    mesh.check_plan(mesh.resolve_plan(cfg, grid), grid, flat=False, cfg=cfg)
+    mesh.check_serve_plan(cfg, serve_plan(cfg, serve_grid), serve_grid)
+    case = REFUSED[arch]
+    if case == "fsdp_plans":          # the full config, > 20 B parameters
+        full = get_arch(arch)
+        with pytest.raises(NotImplementedError, match="9c-2b"):
+            mesh.check_plan(mesh.resolve_plan(full, grid), grid, flat=False,
+                            cfg=full)
+        with pytest.raises(NotImplementedError, match="9c-2b"):
+            mesh.check_serve_plan(full, serve_plan(full, serve_grid),
+                                  serve_grid)
+    elif case == "seq_parallel":
+        sp = dataclasses.replace(cfg, seq_parallel=True)
+        with pytest.raises(NotImplementedError, match="9c-2b"):
+            mesh.check_plan(mesh.resolve_plan(sp, grid), grid, flat=False,
+                            cfg=sp)
+        with pytest.raises(NotImplementedError, match="9c-2b"):
+            mesh.check_serve_plan(sp, serve_plan(sp, serve_grid), serve_grid)
+    elif case == "remat_dots":
+        from repro_torch.models import transformer as tfm
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        x = torch.zeros((1, 4, cfg.d_model))
+        pos = torch.arange(4)[None]
+        with pytest.raises(NotImplementedError, match="9c-2b"):
+            tfm.apply_stack(params["blocks"], cfg, x, pos,
+                            {"tp": object()}, remat="dots")
+    elif case == "synchronous":
+        plan = mesh.resolve_plan(cfg, grid, optimizer="adaalter")
+        with pytest.raises(NotImplementedError, match="9c-2b"):
+            mesh.check_plan(plan, grid, flat=False, cfg=cfg)
+    else:
+        plan = dataclasses.replace(serve_plan(cfg, serve_grid),
+                                   weight_gather_serving=True)
+        with pytest.raises(NotImplementedError, match="9c-2b"):
+            mesh.check_serve_plan(cfg, plan, serve_grid)
 
 
 def test_synchronous_plan_refused_on_model_ranks():
