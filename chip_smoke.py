@@ -237,14 +237,14 @@ raises and exits non-zero:
   train_fsdp_moe  phi3.5-moe at full width cut to 1 of its 32 layers
             (1,562,980,352 parameters, bf16), synchronous AdaAlter under
             its own plan (FSDP over data, remat full), 2 steps over 8 x
-            1024 tokens on two gloo ranks, the batch's rows routed as one
+            512 tokens on two gloo ranks, the batch's rows routed as one
             batch: bit for bit the same run under remat none (each
             recomputed group routes as the forward did, though autograd
             runs the backward on a thread of its own); per rank and
             policy the step walls, the gather's and slice mean's ms,
             allocated and reserved GB; state and wire bytes from the
             specs; no kernel launched
-  serve_tp  full-width qwen2-7b (28 layers, bf16) served on 1 x 2 gloo
+  serve_tp  full-width qwen2-7b (7 of 28 layers, bf16) served on 1 x 2 gloo
             ranks with tensor parallelism over model (build_serve_programs
             and serve_session with a group; the KV cache split along its
             sequence): the one-rank run's weights, each rank its parts; a
@@ -256,7 +256,7 @@ raises and exits non-zero:
             gloo's share); a session (batch 8, 8 replayed positions, 8
             new) whose prefill vs replay holds 5e-2, which a replay with
             each rank scoring its slots as its neighbour's must exceed
-  train_tp  qwen2-7b at full width cut to 4 of 28 layers (2,022,229,504
+  train_tp  qwen2-7b at full width cut to 2 of 28 layers (1,556,113,920
             parameters, bf16), 1 worker x 2 TP shards, Local AdaAlter int8
             + kernels, 4 x 512 tokens, H=2, 4 steps, lr 0.5 without
             warm-up, under remat full and save_tp: losses against the
@@ -271,12 +271,12 @@ raises and exits non-zero:
   biglstm_tp_meta  full-width Big LSTM at model = 2 reckoned on the meta
             device: a rank's parameter and state bytes from the specs; its
             odd vocabulary (793,471) leaves embed, head_w and head_b whole
-  serve_tp_families  in serve_tp's launch, after it: mamba2-370m (48
-            layers; and in float32, its scoring forward only), hymba-1.5b
-            (4 of 32), phi3.5-moe (2 of 32, bf16 with the one-rank runs
+  serve_tp_families  in serve_tp's launch, after it: mamba2-370m (24 of
+            48 layers; and in float32, its scoring forward only), hymba-1.5b
+            (2 of 32), phi3.5-moe (1 of 32, bf16 with the one-rank runs
             replaying the TP run's routing, flips counted; and float32,
             its scoring forward only, unpinned), llama-3.2-vision-11b (5
-            of 40, gate 0.7, image stubs) and seamless-m4t (2 + 2 of 24 +
+            of 40, gate 0.7, image stubs) and seamless-m4t (1 + 1 of 24 +
             24, audio stubs) at full width on 1 x 2 gloo ranks: a rank's weight and cache bytes
             the specs' parts; a scoring forward of 1 x 2048 tokens through
             logits_fn (ssm_pallas: the SSD kernel at 16 of mamba2's 32
@@ -298,6 +298,35 @@ raises and exits non-zero:
             experts' parts among them), row 6 launched
   tp_grid also runs reduced mamba2, hymba, phi3.5-moe, llama-3.2-vision
             and seamless-m4t, 4 steps each, to rtol 3e-5
+  fsdp_tp_meta  the reckoning on the meta device, before the slice-13
+            launch: a rank's weights at rest (tiles) and TP parts for
+            serve_fsdp_tp, a rank's state under FSDP + TP and under the
+            data-replicated TP run for train_fsdp_tp
+  serve_fsdp_tp  llama3-405b at full width cut to 2 of 126 layers
+            (10,578,116,608 parameters, bf16) on 2 x 2 gloo ranks under
+            serve_plan (weight_gather_serving: each rank's tiles at rest,
+            a layer group's TP parts gathered over data as it runs): a
+            prefill of 4 x 512 and 2 decode steps, logits and caches bit
+            for bit the same grid's TP-only serving (freed before); a
+            rank's weight bytes the specs' tiles, the gather's bytes and
+            seconds a forward, prefill and decode ms, peak GB a rank
+  train_fsdp_tp  on 2 x 2 ranks, bf16, 4 x 512 tokens: qwen2-7b (4 of
+            28 layers) under synchronous AdaAlter, 3 steps, bit for bit the
+            data-replicated TP run; phi3.5-moe (1 of 32) under its plan
+            (one-model Local AdaAlter, int8 + kernels, H=2), 2 steps, row 3
+            launched on its tiles (2 a leaf a round); state bytes from the
+            specs, step walls, TP and FSDP collectives a step
+  tp_grid_fsdp_tp  tp_grid's extension, reduced float32 on the same
+            ranks: llama3-405b under synchronous AdaAlter with FSDP + TP
+            (lr 2, 8 steps) against its one-device card and CPU runs to
+            rtol 1e-4, which η 2% off must exceed; seq_parallel = none bit
+            for bit (qwen2-7b, mamba2), remat "dots" = "none" under TP
+            (hymba), phi3.5-moe's FSDP + TP = data-replicated bit for bit;
+            a flat checkpoint restored into a TP per-leaf run (its state
+            the stacked per-leaf restore's); the ranks laid out as 4 x 1
+            for gathered-weight serving at model = 1 (reduced llama3-405b),
+            bit for bit the replicated serving, to rtol 1e-4 of one CPU
+            device
 
 The kernels phase also holds the SSD chunk scan's warp-level 3xTF32
 product helper alone against a float64 product, then the SSD kernels
@@ -316,8 +345,9 @@ train_fsdp_local encodes (unstacked, bf16 params and fp32 B²), the
 largest timed, and rows 1, 3 and 6 on every part shape a train_tp or
 train_tp_families rank updates, encodes and decodes (check_tp_parts: the
 expert part (1, 1, 8, 4096, 6400) among them), and the SSD at a TP rank's
-heads (1, 32, 64, 16, 64), N 128 and (1, 32, 64, 25, 64), N 16. Then the
-script's wall,
+heads (1, 32, 64, 16, 64), N 128 and (1, 32, 64, 25, 64), N 16, and
+row 3 on every tile shape train_fsdp_tp's phi3.5-moe ranks encode in
+place (fsdp_tp_tiles). Then the script's wall,
 the kernels summary
 line (each kernel's launches on its main path, and by phase), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}.
@@ -3038,7 +3068,8 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
     gradients averaged) against one model over 64 x 20, float32, at lr 2
     without warm-up, 6 steps, to rtol 1e-4, which an η 2% larger must
     exceed. Returns (report, launches by phase: rank 0's, the two-rank
-    synchronous run's result)."""
+    synchronous run's result, the FSDP phases' results from its launch:
+    (results, wall s, card's peak MiB))."""
     import torch
     from repro_torch.configs import OptimizerConfig
     from repro_torch.core import comm
@@ -3061,13 +3092,15 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
     report, by_phase = {"nvidia_smi": smi, "workers": R, "backend": "gloo",
                         "runs": {}}, {}
     # both layouts in one launch (RANK_LOOPS: train_loop as the CLI calls
-    # it); the synchronous baseline below goes through the CLI
+    # it), and after them the FSDP phases' runs (fsdp_runs); the
+    # synchronous baseline below goes through the CLI
     opt = dict(name="local_adaalter", lr=0.5, H=4, warmup_steps=100,
                compression="int8", use_kernels=True)
     got, wall, peak_mib = torchrun_train(root, None, nproc=R, runs=[
         dict(arch=cfg.name, workers=R, opt={**opt, "flat": f}, steps=steps,
              batch=shape.global_batch, seq=shape.seq_len)
-        for f in (False, True)], timeout=600)
+        for f in (False, True)] + fsdp_runs(cfg)["runs"], timeout=900)
+    fsdp_launched = (got[2:], wall, peak_mib)
     for (name, stacked), res in zip((("per_leaf", leaf), ("flat", flat)),
                                     got):
         require(same_run(res, stacked), f"train_ranks {name}: the ranks' run "
@@ -3184,7 +3217,7 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
             rep["max_memory_allocated"] / 1e9 for rep in res["ranks"]],
         "card_memory_used_peak_gb": peak_mib * 2**20 / 1e9,
         "torchrun_wall_s": wall}
-    return report, by_phase, res
+    return report, by_phase, res, fsdp_launched
 
 
 def sharded_run(root: Path, cfg, shape, oc, *, workers: int, shards: int,
@@ -3293,17 +3326,18 @@ def grid_phases(root: Path, cfg, smi, want_logits, names) -> dict:
     """The phases of grids with a model axis: serve_tp (its own launch),
     then one launch of two ranks (1 x 2) for train_sharded's run and
     train_tp's two and train_tp_families' three, and one of four (2 x 2)
-    for sharded_grid's two runs and tp_grid's seven, each phase's checks
-    as if it had launched alone; then the full-width Big LSTM TP
+    for sharded_grid's two runs and tp_grid's seven, which then runs slice
+    13's (:func:`fsdp_tp_launch`, :func:`fsdp_tp_phases`), each phase's
+    checks as if it had launched alone; then the full-width Big LSTM TP
     reckoning on the meta device. ``names``: the kernel counters'.
+    Returns the launches by phase (rank 0's).
 
     ``train_sharded``: full-width Big LSTM as 1 worker x 2 shards of the
     flat plane (four ranks of a 2 x 2 grid at full width would need ~4 x
     25 GB), 32 x 20 tokens, H = 2, int8 one-pass with the kernels, 3 steps
     (one round). ``sharded_grid``: reduced Big LSTM as 2 workers x 2
     shards, where the worker sub-group's mean runs, one-pass and
-    three-pass. Each equal to its stacked run bit for bit. Returns the
-    launches by phase (rank 0's)."""
+    three-pass. Each equal to its stacked run bit for bit."""
     from repro_torch.configs import (OptimizerConfig, ShapeConfig, get_arch,
                                      reduced)
     by_phase = {}
@@ -3354,12 +3388,18 @@ def grid_phases(root: Path, cfg, smi, want_logits, names) -> dict:
                       warmup_steps=0, compression="int8", use_kernels=True,
                       flat=True, sync_fused=fused)
            for name, fused in (("one_pass", True), ("three_pass", False))}
-    # both encodes and tp_grid's two models in one launch of four ranks
-    got, wall, peak_mib = torchrun_train(
-        root, None, nproc=4, grid={"data": 2, "model": 2}, timeout=600,
-        runs=[dict(arch=cfg.name, reduced=True, workers=2, opt=opt,
-                   steps=SHARDED_STEPS, batch=8, seq=16)
-              for opt in ocs.values()] + tp_grid_runs())
+    # both encodes and tp_grid's models in the launch of four ranks that
+    # runs slice 13's phases after them (fsdp_tp_launch)
+    launched = fsdp_tp_launch(root, [
+        dict(arch=cfg.name, reduced=True, workers=2, opt=opt,
+             steps=SHARDED_STEPS, batch=8, seq=16)
+        for opt in ocs.values()] + tp_grid_runs())
+    got, wall, peak_mib = (launched[k] for k in ("loops", "wall",
+                                                 "peak_mib"))
+    # slice 13's phases first: their lines give each run's memory a rank
+    # before any check of the launch's card peak
+    by_phase.update(fsdp_tp_phases(launched, smi, names))
+    t0 = time.perf_counter()
     for (name, opt), res in zip(ocs.items(), got):
         grid[name], launches = sharded_run(
             root, small, shape, OptimizerConfig(**opt), workers=2, shards=2,
@@ -3385,9 +3425,10 @@ FSDP_GRID = {"data": 2, "model": 1}
 FSDP_LOCAL_STEPS = 2
 # train_fsdp_moe: phi3.5-moe at full width, 1 of its 32 layers
 # (1,562,980,352 parameters), synchronous AdaAlter in bf16 under its own
-# plan, 8 x 1024 tokens, 2 steps (the second warm)
+# plan, 8 x 512 tokens (cut from 8 x 1024 for time), 2 steps (the second
+# warm)
 MOE_RANKS = dict(arch="phi3.5-moe-42b-a6.6b", layers=1, dtype="bfloat16",
-                 steps=2, batch=8, seq=1024,
+                 steps=2, batch=8, seq=512,
                  opt=dict(name="adaalter", lr=0.5, warmup_steps=100))
 
 
@@ -3513,31 +3554,15 @@ def fsdp_rank(rep: dict, steps: int, splits, entries: int,
         "max_memory_reserved_gb": rep["max_memory_reserved"] / 1e9}
 
 
-def fsdp_phases(root: Path, cfg, smi, fsdp_cli: dict, base_steps: int):
-    """FSDP over the two data ranks on the card, both phases' comparison
-    runs in one torchrun launch (train_loop(plan=...) a run). ``train_fsdp``:
-    the synchronous AdaAlter run of train_ranks (the CLI, full-width Big
-    LSTM, float32, 64 x 20, lr 2), whose plan now shards every leaf over
-    data, against the same run under the replicated plan (fsdp_axes=()):
-    bit for bit (same_run); each rank's state bytes from the specs,
-    fsdp_step_bytes (4 P) a step, its allocation under the replicated
-    run's. ``train_fsdp_local``: Local AdaAlter on full-width Big LSTM in
-    bf16 under phi3.5-moe's plan (one model, FSDP over data, remat full),
-    int8 wire with the kernels, 2 steps, 64 x 20: bit for bit the
-    replicated plan's run, which the FSDP run with η 2% off must fail; row
-    3 launched 2 x 11 times a step (every step syncs) on each rank,
-    nothing else. ``train_fsdp_moe``: phi3.5-moe at full width, cut to 1
-    layer, synchronous AdaAlter in bf16 under its own plan (FSDP over data,
-    remat full), 2 steps over 8 x 1024 tokens: bit for bit the same run
-    under remat none, state and wire bytes from the specs, no kernel
-    launched. Returns the launches by phase (rank 0's)."""
-    from repro_torch.configs import get_arch
-    from repro_torch.core import comm
+def fsdp_runs(cfg) -> dict:
+    """The FSDP phases' runs (RANK_LOOPS' form), in train_ranks' launch of
+    two ranks: the synchronous AdaAlter under the replicated plan (the
+    comparison of train_ranks' CLI run, RANKS_BASELINE_STEPS steps),
+    train_fsdp_local's FSDP, replicated and η 2% off runs, and
+    train_fsdp_moe's (:func:`moe_ranks_runs`); with the plans they ran
+    under."""
     from repro_torch.launch.mesh import resolve_plan
-    from repro_torch.models.counting import count_params
-    t0 = time.perf_counter()
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
-    bf16 = dataclasses.replace(cfg, param_dtype="bfloat16")
     sync_plan = resolve_plan(cfg32, FSDP_GRID, optimizer="adaalter")
     require(sync_plan.fsdp_axes == ("data",),
             f"the synchronous plan {sync_plan}")
@@ -3550,13 +3575,47 @@ def fsdp_phases(root: Path, cfg, smi, fsdp_cli: dict, base_steps: int):
                           warmup_steps=100, compression="int8",
                           use_kernels=True))
     moe_plan, moe_cfg, moe_runs = moe_ranks_runs()
-    (want, got_l, want_l, wrong_l, *moe_res), wall, peak_mib = torchrun_train(
-        root, None, timeout=900.0, runs=[
-            dict(arch=cfg.name, dtype="float32", plan=replicated(sync_plan),
-                 steps=base_steps, batch=64, seq=20,
-                 opt=dict(name="adaalter", lr=2.0, warmup_steps=0)),
-            local, dict(local, plan=replicated(local_plan)),
-            dict(local, opt=dict(local["opt"], lr=0.5 * 1.02)), *moe_runs])
+    return {"sync_plan": sync_plan, "local_plan": local_plan,
+            "moe_plan": moe_plan, "moe_cfg": moe_cfg, "runs": [
+                dict(arch=cfg.name, dtype="float32",
+                     plan=replicated(sync_plan), steps=RANKS_BASELINE_STEPS,
+                     batch=64, seq=20,
+                     opt=dict(name="adaalter", lr=2.0, warmup_steps=0)),
+                local, dict(local, plan=replicated(local_plan)),
+                dict(local, opt=dict(local["opt"], lr=0.5 * 1.02)),
+                *moe_runs]}
+
+
+def fsdp_phases(cfg, smi, fsdp_cli: dict, base_steps: int, launched):
+    """FSDP over the two data ranks on the card, both phases' comparison
+    runs in train_ranks' torchrun launch (:func:`fsdp_runs`, ``launched``:
+    their results, the launch's wall s and the card's peak MiB).
+    ``train_fsdp``:
+    the synchronous AdaAlter run of train_ranks (the CLI, full-width Big
+    LSTM, float32, 64 x 20, lr 2), whose plan now shards every leaf over
+    data, against the same run under the replicated plan (fsdp_axes=()):
+    bit for bit (same_run); each rank's state bytes from the specs,
+    fsdp_step_bytes (4 P) a step, its allocation under the replicated
+    run's. ``train_fsdp_local``: Local AdaAlter on full-width Big LSTM in
+    bf16 under phi3.5-moe's plan (one model, FSDP over data, remat full),
+    int8 wire with the kernels, 2 steps, 64 x 20: bit for bit the
+    replicated plan's run, which the FSDP run with η 2% off must fail; row
+    3 launched 2 x 11 times a step (every step syncs) on each rank,
+    nothing else. ``train_fsdp_moe``: phi3.5-moe at full width, cut to 1
+    layer, synchronous AdaAlter in bf16 under its own plan (FSDP over data,
+    remat full), 2 steps over 8 x 512 tokens: bit for bit the same run
+    under remat none, state and wire bytes from the specs, no kernel
+    launched. Returns the launches by phase (rank 0's)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import comm
+    from repro_torch.models.counting import count_params
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    bf16 = dataclasses.replace(cfg, param_dtype="bfloat16")
+    plans = fsdp_runs(cfg)
+    sync_plan, local_plan, moe_plan, moe_cfg = (plans[k] for k in (
+        "sync_plan", "local_plan", "moe_plan", "moe_cfg"))
+    (want, got_l, want_l, wrong_l, *moe_res), wall, peak_mib = launched
     card_gb = peak_mib * 2**20 / 1e9
     require(card_gb < 80.0, f"fsdp phases: the card used {card_gb} GB")
     shared = {"comparison_runs_torchrun_wall_s": wall,
@@ -3863,7 +3922,10 @@ def train_hybrid_remat(cfg, counters, smi, leaf, n_leaves: int):
 # ---- slice 11: tensor parallelism over the model ranks ------------------ #
 # train_tp: qwen2-7b at full width, 4 of its 28 layers (2,022,229,504
 # parameters), 1 worker x 2 TP shards
-TP_TRAIN_LAYERS = 4
+# train_tp: qwen2-7b cut to 2 of 28 layers (from 4, for time)
+TP_TRAIN_LAYERS = 2
+# serve_tp: qwen2-7b cut to 7 of 28 layers (from 28, for time)
+TP_SERVE_LAYERS = 7
 TP_TRAIN_STEPS = 4
 TP_GRID = {"data": 1, "model": 2}
 # serve_tp: the TP prefill's last logits against the one-rank prefill's,
@@ -3891,29 +3953,31 @@ TP_GRID_STEPS = 8
 # ---- slice 12: tensor parallelism for the other families ---------------- #
 # serve_tp_families: label -> (arch, depth cut and dtype, options), each at
 # full width on 1 x 2 gloo ranks (in serve_tp's launch), cut in depth for
-# time only: mamba2-370m whole (48 layers), hymba-1.5b 4 of 32, phi3.5-moe
-# 2 of 32 (8 experts a rank), llama-3.2-vision 5 of 40 (one cross-attention
-# group), seamless-m4t 2 + 2 of 24 + 24; in bf16 as configured. In bf16 the
+# time only (the earlier cut in brackets): mamba2-370m 24 of 48
+# layers (48), hymba-1.5b 2 of 32 (4), phi3.5-moe 1 of 32 (2; 8 experts a
+# rank), llama-3.2-vision 5 of 40 (one cross-attention group),
+# seamless-m4t 1 + 1 of 24 + 24 (2 + 2); in bf16 as configured. In bf16 the
 # MoE's TP run rounds otherwise than one rank and flips near-tied routing
 # choices, a token's whole output with them (on an H100: 71 of 4,096
 # flipped, scoring 0.137 relative L2 off one rank), so its one-rank runs
 # replay the TP run's choices ("pin": pin_routing) and the flips are
 # counted; in float32 its scoring forward ("score_only") is held unpinned.
-# mamba2 in float32 (its scoring forward) tells bf16 rounding over 48
+# mamba2 in float32 (its scoring forward) tells bf16 rounding over its
 # layers from a fault in the head split: it must hold TP_SERVE_F32_REL_L2
 TP_FAMILIES = {
-    "mamba2-370m": ("mamba2-370m", {}, {}),
-    "mamba2-370m/float32": ("mamba2-370m", {"param_dtype": "float32"},
+    "mamba2-370m": ("mamba2-370m", {"n_layers": 24}, {}),
+    "mamba2-370m/float32": ("mamba2-370m", {"n_layers": 24,
+                                            "param_dtype": "float32"},
                             {"score_only": True}),
-    "hymba-1.5b": ("hymba-1.5b", {"n_layers": 4}, {}),
-    "phi3.5-moe-42b-a6.6b": ("phi3.5-moe-42b-a6.6b", {"n_layers": 2},
+    "hymba-1.5b": ("hymba-1.5b", {"n_layers": 2}, {}),
+    "phi3.5-moe-42b-a6.6b": ("phi3.5-moe-42b-a6.6b", {"n_layers": 1},
                              {"pin": True}),
     "phi3.5-moe-42b-a6.6b/float32": (
-        "phi3.5-moe-42b-a6.6b", {"n_layers": 2, "param_dtype": "float32"},
+        "phi3.5-moe-42b-a6.6b", {"n_layers": 1, "param_dtype": "float32"},
         {"score_only": True}),
     "llama-3.2-vision-11b": ("llama-3.2-vision-11b", {"n_layers": 5}, {}),
     "seamless-m4t-large-v2": ("seamless-m4t-large-v2",
-                              {"n_layers": 2, "n_encoder_layers": 2}, {})}
+                              {"n_layers": 1, "n_encoder_layers": 1}, {})}
 TP_SERVE_F32_REL_L2 = 1e-4
 # a scoring forward of 1 x 2048 tokens (ssm_pallas: the SSD kernel on a
 # rank's heads), a prefill at batch 8 and prompt 512, 8 decode steps from
@@ -4191,7 +4255,7 @@ for label, (arch, cut, opts) in spec["families"].items():
 """
 
 SERVE_TP = r"""
-import json, statistics, sys, time
+import dataclasses, json, statistics, sys, time
 import torch
 from repro_torch.configs import ShapeConfig, get_arch
 from repro_torch.core import comm
@@ -4204,7 +4268,7 @@ from repro_torch.tree import leaves, tree_map
 
 spec = json.load(open(sys.argv[1]))
 group, dev = mesh.init_ranks("gloo", None, grid=spec["grid"])
-cfg = get_arch(spec["arch"])
+cfg = dataclasses.replace(get_arch(spec["arch"]), n_layers=spec["layers"])
 B, P, NEW, REPLAY = spec["batch"], spec["prompt"], spec["new"], spec["replay"]
 M = group.layout.shards
 res = {"rank": group.rank}
@@ -4375,8 +4439,10 @@ def serve_tp_phase(root: Path, want_logits, smi) -> dict:
     import torch
     from repro_torch.models.counting import count_params
     from repro_torch.configs import get_arch
-    qwen = get_arch("qwen2-7b")
-    spec = {"grid": TP_GRID, "arch": qwen.name, "batch": 8,
+    qwen = dataclasses.replace(get_arch("qwen2-7b"),
+                               n_layers=TP_SERVE_LAYERS)
+    spec = {"grid": TP_GRID, "arch": "qwen2-7b", "layers": qwen.n_layers,
+            "batch": 8,
             "prompt": SERVE_PROMPT, "new": TP_SERVE_NEW,
             "replay": TP_SERVE_REPLAY,
             "decode_steps": 4, "fault_replay": TP_FAULT_REPLAY,
@@ -4878,6 +4944,746 @@ def biglstm_tp_reckoning(cfg) -> dict:
             "vocab_leaves_whole": sorted(vocab)}
 
 
+# ---- slice 13: FSDP beside tensor parallelism ---------------------------- #
+FSDP_TP_GRID = {"data": 2, "model": 2}
+# serve_fsdp_tp: llama3-405b at full width cut to 2 of its 126 layers
+# (10,578,116,608 parameters, 21.16 GB in bf16), 2 x 2 gloo ranks under
+# serve_plan (weight_gather_serving: FSDP over data beside TP over model),
+# a prefill of 4 x 512 and 2 decode steps from a zero cache, against the
+# same grid's TP-only serving (the weights whole over data) bit for bit.
+# A rank gathers its peer's half of each TP part a forward through gloo
+# (~5.3 GB at ~0.7 GB/s), so the decode is cut to 2 steps
+FSDP_TP_SERVE = dict(arch="llama3-405b", layers=2, batch=4, prompt=512,
+                     decode=2)
+# train_fsdp_tp: (label, arch, depth cut, optimizer, steps, lr, wire,
+# against the data-replicated TP run) at full width in bf16, 4 x 512
+# tokens: qwen2-7b at 4 of 28 layers under synchronous AdaAlter (Alg. 3,
+# the paper's baseline, its plan: FSDP over data, remat full) bit for bit
+# against the data-replicated TP run (fsdp_axes=()); phi3.5-moe at 1 of 32
+# under its own plan (one-model Local AdaAlter, int8 wire with the
+# kernels, H = 2: row 3 on its tiles). phi3.5-moe's data-replicated TP run
+# does not fit: each of the 4 ranks would hold 14.07 GB of state (56.3 GB
+# in all, on the meta device) beside its gradient, update and encode
+# temporaries (train_tp_families' 1 x 2 run of the same state peaked at
+# 28.90 GB a rank on an H100), so its bitwise pair runs reduced, in
+# tp_grid_fsdp_tp
+FSDP_TP_TRAIN = (
+    ("qwen2-7b", "qwen2-7b", 4, "adaalter", 3, 0.1, "", True),
+    ("phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b", 1, "local_adaalter",
+     2, 0.5, "int8", False))
+# the reduced float32 runs that extend tp_grid on the same ranks: lr 2,
+# 8 steps (llama3-405b's FSDP + TP run against its one-device card and CPU
+# runs to MODEL_RTOL, which η 2% off on the CPU must exceed), 3 steps for
+# the bitwise pairs (seq_parallel against none for qwen2-7b and mamba2,
+# remat "dots" against "none" under TP for hymba)
+FSDP_TP_GRID_STEPS, FSDP_TP_PAIR_STEPS = 8, 3
+FSDP_TP_FLAT_AT = 2
+# gathered-weight serving at model = 1: reduced llama3-405b in float32 on
+# 4 x 1 ranks (the plan's FSDP over data, no model axis), 4 rows of 12
+# prompt tokens, 2 decode steps
+FSDP_TP_MODEL1 = dict(arch="llama3-405b", batch=4, prompt=12, decode=2)
+
+# one launch of 4 gloo ranks on the card: serve_fsdp_tp (the TP-only run,
+# freed, then the gathered one), train_fsdp_tp's runs and tp_grid's new
+# reduced runs (train_loop a run, with the card's memory freed and its
+# peak reset before each), then the ranks laid out as 4 x 1 for
+# gathered-weight serving at model = 1 (reduced llama3-405b, float32)
+FSDP_TP_RANKS = r"""
+import dataclasses, gc, json, math, statistics, sys, time
+import torch
+from repro_torch.configs import (OptimizerConfig, ParallelismPlan,
+                                 ShapeConfig, get_arch, reduced)
+from repro_torch.core import comm
+from repro_torch.data import SyntheticLM
+from repro_torch.launch import mesh
+from repro_torch.launch.serving import build_serve_programs, serve_plan
+from repro_torch.launch.train import train_loop
+from repro_torch.models import build_model
+from repro_torch.sharding import GridLayout, tile_parts
+from repro_torch.tree import leaves, paths, tree_map, unflatten_like
+
+spec = json.load(open(sys.argv[1]))
+group, dev = mesh.init_ranks("gloo", spec.get("device"), grid=spec["grid"],
+                             fsdp_axes=("data",))
+cuda = dev.type == "cuda"
+res = {"rank": group.rank, "serve": {}, "train": [], "grid": {}}
+NORMS = ("ln1", "ln2", "ln3", "final_norm", "enc_norm", "norm_attn",
+         "norm_ssm")
+
+def sync():
+    if cuda:
+        torch.cuda.synchronize(dev)
+
+def free():
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+def peak_gb():
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
+
+def seeded(i, name, t, tp):
+    # this rank's TP part (``tp``, a LeafSplit over model) of leaf i, drawn
+    # on its device from seed 1000 + 64 i + its model index in the leaf's
+    # dtype (the whole leaf is never made): norms 1, embed and head
+    # N(0, 0.02^2), matrices N(0, 1 / the whole leaf's d_in)
+    leaf = name.split("/")[-1]
+    if leaf in NORMS:
+        return torch.ones(tp.part_shape, dtype=t.dtype, device=dev)
+    g = torch.Generator(dev).manual_seed(1000 + 64 * i
+                                         + (tp.index if tp.split else 0))
+    w = torch.randn(tp.part_shape, generator=g, dtype=t.dtype, device=dev)
+    return w.mul_(0.02 if leaf in ("embed", "lm_head")
+                  else t.shape[-2] ** -0.5)
+
+def counts(c):
+    return {"n": c.n, "bytes": c.bytes, "gloo_s": c.seconds["wire"],
+            "gather_s": c.seconds["gather"],
+            "staging_s": c.seconds["d2h"] + c.seconds["h2d"]}
+
+def serve_pair(cfg, plan, B, P, D, *, keep_logits=False):
+    # TP-only serving (the weights whole over data), then under ``plan``
+    # (gathered weights): logits and caches bit for bit
+    shape = ShapeConfig("decode_32k", seq_len=P + D, global_batch=B,
+                        kind="decode")
+    tp_plan = dataclasses.replace(plan, fsdp_axes=(),
+                                  weight_gather_serving=False)
+    model = build_model(cfg)
+    abstract = model.init(None, "meta")
+    names = ["/".join(p) for p in paths(abstract)]
+    item = [t.element_size() for t in leaves(abstract)]
+    out, kept = {}, {}
+    for run, pl in (("tp", tp_plan), ("gather", plan)):
+        free()
+        progs = build_serve_programs(cfg, shape, group, pl)
+        parts = []
+        for i, (n, t, s) in enumerate(zip(names, leaves(abstract),
+                                          progs.param_splits)):
+            tp_s, fsdp_s = tile_parts(s, group.grid)
+            w = seeded(i, n, t, tp_s)
+            parts.append(fsdp_s.take(w) if fsdp_s.split else w)
+            del w
+        params = unflatten_like(abstract, parts)
+        del parts
+        free()
+        rows = progs.rows
+        prompts = torch.from_numpy(SyntheticLM(
+            vocab_size=cfg.vocab_size, seq_len=P, n_workers=1,
+            seed=0).worker_batch(0, 0, B)["tokens"]).to(dev)[rows]
+        meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"),
+                        model.init_cache(B, P + D, device="meta"))
+        cache = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                               device=dev),
+                         progs.cache_parts(meta))
+        r = {"weight_bytes": sum(t.numel() * t.element_size()
+                                 for t in leaves(params)),
+             "weight_bytes_from_specs": sum(
+                 s.part_numel * b for s, b in zip(progs.param_splits, item)),
+             "weight_bytes_whole": sum(math.prod(s.shape) * b for s, b in
+                                       zip(progs.param_splits, item)),
+             "weights_at_rest_gb": peak_gb()}
+        for c in (comm.tp, comm.shard_gather):
+            c.reset()
+        sync(); t0 = time.perf_counter()
+        logits, pcache = progs.prefill(params, {"tokens": prompts})
+        sync()
+        r["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        r["prefill_tp"], r["prefill_gather"] = (counts(comm.tp),
+                                                counts(comm.shard_gather))
+        got = {"prefill_logits": logits.float().cpu(),
+               "prefill_cache": [t.cpu() for t in leaves(pcache)]}
+        del pcache
+        tok, steps = prompts[:, -1:], []
+        for i in range(D):
+            pos = torch.full((tok.shape[0],), P + i, dtype=torch.int32,
+                             device=dev)
+            for c in (comm.tp, comm.shard_gather):
+                c.reset()
+            sync(); t0 = time.perf_counter()
+            lg, cache = progs.decode_step(params, cache, tok, pos)
+            sync()
+            steps.append({"ms": 1e3 * (time.perf_counter() - t0),
+                          "tp": counts(comm.tp),
+                          "gather": counts(comm.shard_gather)})
+            got[f"decode_logits/{i}"] = lg.float().cpu()
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+        got["decode_cache"] = [t.cpu() for t in leaves(cache)]
+        r["decode_steps"] = steps
+        r["decode_ms_per_step"] = statistics.median(s["ms"] for s in steps)
+        r["finite"] = bool(all(torch.isfinite(v).all() for k, v in
+                               got.items() if "logits" in k))
+        r["peak_gb"] = peak_gb()
+        r["peak_reserved_gb"] = (torch.cuda.max_memory_reserved(dev) / 1e9
+                                 if cuda else 0.0)
+        out[run] = r
+        kept[run] = got
+        del params, cache, logits, lg
+    a, b = kept["gather"], kept["tp"]
+    out["equal"] = {k: (all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
+                        if isinstance(a[k], list) else torch.equal(a[k], b[k]))
+                    for k in a}
+    if not all(out["equal"].values()):     # every rank holds its own
+        raise RuntimeError(f"rank {group.rank}: serving with gathered "
+                           f"weights differs from TP-only: {out['equal']}")
+    out["rows"] = [rows.start, rows.stop]
+    if keep_logits:
+        out["logits"] = {k: v.tolist() for k, v in a.items()
+                         if "logits" in k}
+    return out
+
+def cfg_of(run):
+    # RANK_LOOPS' keys: arch, reduced, layers, dtype (and seq_parallel)
+    cfg = get_arch(run["arch"])
+    cfg = reduced(cfg) if run.get("reduced") else cfg
+    kw = {f: run[k] for k, f in (("layers", "n_layers"),
+                                 ("dtype", "param_dtype"),
+                                 ("seq_parallel", "seq_parallel"))
+          if run.get(k) is not None}
+    return dataclasses.replace(cfg, **kw)
+
+def train(run):
+    free()
+    r = train_loop(cfg_of(run), ShapeConfig(
+        "t", seq_len=run["seq"], global_batch=run["batch"], kind="train"),
+        OptimizerConfig(**run["opt"]), steps=run["steps"], seed=0,
+        verbose=False, group=group, n_workers=run.get("workers", 1),
+        device=str(dev), digest=True, plan=(
+            ParallelismPlan(**run["plan"]) if run.get("plan") else None),
+        checkpoint_dir=run.get("checkpoint_dir", ""))
+    out = dataclasses.asdict(r)
+    out["name"] = run.get("name")
+    return out
+
+# runs of other phases that share the launch (RANK_LOOPS' form), first
+res["loops"] = [train(run) for run in spec.get("loops", [])]
+s = spec["serve"]
+if s:
+    cfg = cfg_of(s)
+    res["serve"] = serve_pair(cfg, serve_plan(get_arch(s["arch"]),
+                                              group.grid),
+                              s["batch"], s["prompt"], s["decode"])
+for run in spec["train"]:
+    res["train"].append(train(run))
+for run in spec["grid_runs"]:
+    res["grid"][run["name"]] = train(run)
+m1 = spec.get("serve_model1")
+if m1:
+    group.split(GridLayout(group.world, 1), ("data",))
+    cfg = dataclasses.replace(reduced(get_arch(m1["arch"])),
+                              param_dtype="float32")
+    res["serve_model1"] = serve_pair(
+        cfg, serve_plan(get_arch(m1["arch"]), group.grid), m1["batch"],
+        m1["prompt"], m1["decode"], keep_logits=True)
+mesh.close_ranks()
+if group.rank == 0:
+    json.dump(res, open(sys.argv[2], "w"))
+"""
+
+
+def fsdp_tp_tiles(cfg, plan, grid=FSDP_TP_GRID):
+    """Every rank's split (``LeafSplit`` or ``TileSplit``) of each leaf of
+    ``cfg`` under ``plan`` on ``grid``: [rank][leaf], rank r at (r // M,
+    r % M)."""
+    from repro_torch.models import build_model
+    from repro_torch.sharding import ShardingRules, leaf_split, param_shardings
+    from repro_torch.sharding.partition import rule_overrides
+    from repro_torch.tree import leaves
+    tree = build_model(cfg).init(None, "meta")
+    specs = param_shardings(ShardingRules(grid, plan, rule_overrides(cfg)),
+                            tree)
+    m = grid["model"]
+    return [[leaf_split(t.shape, sp, grid, {"data": r // m, "model": r % m})
+             for t, sp in zip(leaves(tree), specs)]
+            for r in range(grid["data"] * m)]
+
+
+def fsdp_tp_train_cfgs() -> list:
+    """train_fsdp_tp's (label, arch, cut config, optimizer, steps, lr,
+    wire, its plan on FSDP_TP_GRID): the full config's plan (FSDP over
+    data, remat full; no worker axes)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import resolve_plan
+    out = []
+    for label, arch, layers, opt, steps, lr, wire, _ in FSDP_TP_TRAIN:
+        full = get_arch(arch)
+        plan = resolve_plan(full, FSDP_TP_GRID, optimizer=opt)
+        require(plan.local_axes == () and plan.fsdp_axes == ("data",)
+                and plan.remat == "full", f"{arch}'s plan: {plan}")
+        cut = dataclasses.replace(full, n_layers=layers,
+                                  param_dtype="bfloat16")
+        out.append((label, arch, cut, opt, steps, lr, wire, plan))
+    return out
+
+
+def fsdp_tp_reckoning() -> dict:
+    """Each rank's bytes on the meta device, before anything runs:
+    serve_fsdp_tp's weights at rest (its tiles) against TP-only serving's
+    (its TP parts), the largest TP part a gather brings up (a layer
+    group's, the embedding's, the head's); train_fsdp_tp's state per rank
+    (bf16 params; B² for AdaAlter, four float32 entries for Local
+    AdaAlter) under FSDP + TP and under the data-replicated TP run, with
+    the four ranks' sum against the card."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.serving import serve_plan
+    from repro_torch.models import build_model
+    from repro_torch.models.counting import count_params
+    from repro_torch.sharding import tile_parts
+    from repro_torch.tree import leaves, paths
+    s = FSDP_TP_SERVE
+    full = get_arch(s["arch"])
+    cfg = dataclasses.replace(reduced(full) if s.get("reduced") else full,
+                              n_layers=s["layers"], **(
+                                  {"param_dtype": s["dtype"]}
+                                  if "dtype" in s else {}))
+    plan = serve_plan(full, FSDP_TP_GRID)
+    require(plan.weight_gather_serving and plan.fsdp_axes == ("data",),
+            f"llama3-405b's serving plan {plan}")
+    tree = build_model(cfg).init(None, "meta")
+    item = [t.element_size() for t in leaves(tree)]
+    names = ["/".join(p) for p in paths(tree)]
+    tiles = fsdp_tp_tiles(cfg, plan)[0]
+    tp = [tile_parts(t, FSDP_TP_GRID)[0] for t in tiles]
+    by = {"embed": 0, "lm_head": 0, "a layer group": 0}
+    for n, t, b in zip(names, tp, item):
+        key = n if n in by else ("a layer group" if n.startswith("blocks")
+                                 else None)
+        if key:
+            by[key] += t.part_numel * b // (
+                cfg.n_layers if key == "a layer group" else 1)
+    serve = {"params": count_params(cfg),
+             "weight_bytes_whole": sum(math.prod(t.shape) * b
+                                       for t, b in zip(tiles, item)),
+             "tile_bytes_per_rank": sum(t.part_numel * b
+                                        for t, b in zip(tiles, item)),
+             "tp_part_bytes_per_rank": sum(t.part_numel * b
+                                           for t, b in zip(tp, item)),
+             "gathered_tp_part_bytes": by}
+    serve["gather_bytes_per_forward"] = (serve["tp_part_bytes_per_rank"]
+                                         - serve["tile_bytes_per_rank"])
+    serve["card_gb_tp_only_weights"] = 4 * serve[
+        "tp_part_bytes_per_rank"] / 1e9
+    train = {}
+    for label, _, cut, opt, *_rest, plan in fsdp_tp_train_cfgs():
+        tiles = fsdp_tp_tiles(cut, plan)[0]
+        tp = [tile_parts(t, FSDP_TP_GRID)[0] for t in tiles]
+        item = [t.element_size() for t in leaves(
+            build_model(cut).init(None, "meta"))]
+        per = 4 if opt == "local_adaalter" else 1
+        state = lambda parts: sum(p.part_numel * (b + 4 * per)
+                                  for p, b in zip(parts, item))
+        train[label] = {
+            "params": count_params(cut),
+            "state_bytes_per_rank": state(tiles),
+            "state_bytes_per_rank_replicated": state(tp),
+            "card_gb_replicated_states": 4 * state(tp) / 1e9,
+            "tile_leaves": sum(type(t).__name__ == "TileSplit"
+                               for t in tiles),
+            "tile_leaves_whole_blocks": sum(
+                type(t).__name__ == "TileSplit" and t.whole_blocks(256)
+                for t in tiles),
+            "leaves": len(tiles)}
+    return {"grid": FSDP_TP_GRID, "serve_fsdp_tp": serve,
+            "train_fsdp_tp": train}
+
+
+def check_fsdp_tp_parts(gen) -> list:
+    """Row 3 (the one-pass EF encode) on each distinct tile shape a rank
+    of train_fsdp_tp's phi3.5-moe run encodes in place (its tiles whose
+    runs hold whole 256-blocks), unstacked (batch_ndim 0): the bf16
+    params' and the fp32 B²'s, bitwise against the plain version; the
+    largest tile timed beside its bound."""
+    import torch
+    label, _, cut, *_rest, plan = fsdp_tp_train_cfgs()[1]
+    shapes = sorted({t.part_shape for part in fsdp_tp_tiles(cut, plan)
+                     for t in part if type(t).__name__ == "TileSplit"
+                     and t.whole_blocks(256)}, key=math.prod, reverse=True)
+    out = []
+    for i, shape in enumerate(shapes):
+        out.append(check_ef(gen, shape, torch.bfloat16, False,
+                            timed=i == 0, batch_ndim=0))
+        out.append(check_ef(gen, shape, torch.float32, True, timed=i == 0,
+                            batch_ndim=0))
+        torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_tp_runs(flat_dir: str) -> tuple:
+    """The launch's train_fsdp_tp runs (each FSDP + TP run, then, where
+    it fits, its data-replicated TP run) and tp_grid's new reduced runs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import resolve_plan
+    train = []
+    for (label, arch, cut, opt, steps, lr, wire, plan), entry in zip(
+            fsdp_tp_train_cfgs(), FSDP_TP_TRAIN):
+        run = dict(arch=arch, layers=cut.n_layers, dtype=cut.param_dtype,
+                   steps=steps, batch=4, seq=512,
+                   opt=fsdp_tp_opt(opt, lr, wire),
+                   plan=dataclasses.asdict(plan))
+        train.append(dict(run, name=f"{label}/fsdp"))
+        if entry[-1]:
+            train.append(dict(run, name=f"{label}/repl",
+                              plan=dataclasses.asdict(dataclasses.replace(
+                                  plan, fsdp_axes=()))))
+    grid = [fsdp_tp_grid_run("llama3-405b/fsdp_tp", "llama3-405b",
+                             FSDP_TP_GRID_STEPS)]
+    # phi3.5-moe's bitwise pair, reduced: FSDP + TP against the
+    # data-replicated TP run under its plan (int8, the kernels)
+    phi = get_arch("phi3.5-moe-42b-a6.6b")
+    pplan = resolve_plan(phi, FSDP_TP_GRID, optimizer="local_adaalter")
+    for tag, pl in (("fsdp", pplan),
+                    ("repl", dataclasses.replace(pplan, fsdp_axes=()))):
+        grid.append(dict(name=f"phi3.5-moe-42b-a6.6b/{tag}",
+                         arch=phi.name, reduced=True, dtype="float32",
+                         steps=FSDP_TP_PAIR_STEPS, batch=8, seq=16,
+                         plan=dataclasses.asdict(pl),
+                         opt=fsdp_tp_opt("local_adaalter", 0.5, "int8")))
+    for arch in ("qwen2-7b", "mamba2-370m"):
+        for sp in (True, False):
+            grid.append(fsdp_tp_grid_run(f"{arch}/sp_{sp}", arch,
+                                         FSDP_TP_PAIR_STEPS,
+                                         seq_parallel=sp))
+    for remat in ("dots", "none"):
+        grid.append(fsdp_tp_grid_run(f"hymba-1.5b/{remat}", "hymba-1.5b",
+                                     FSDP_TP_PAIR_STEPS, remat=remat))
+    grid.append(dict(name="qwen2-7b/flat_restore", arch="qwen2-7b",
+                     reduced=True, dtype="float32", workers=2,
+                     steps=FSDP_TP_FLAT_AT, batch=8, seq=16,
+                     opt=dict(TP_GRID_OPT), checkpoint_dir=flat_dir))
+    return train, grid
+
+
+def fsdp_tp_opt(name: str, lr: float, wire: str) -> dict:
+    """OptimizerConfig fields of a run on FSDP_TP_GRID: no warm-up, H = 2,
+    the int8 wire with the kernels where ``wire``."""
+    o = dict(name=name, lr=lr, H=2, warmup_steps=0)
+    if wire:
+        o.update(compression=wire, use_kernels=True)
+    return o
+
+
+def fsdp_tp_grid_run(name, arch, steps, *, remat=None, **cfg_kw) -> dict:
+    """A reduced float32 run of synchronous AdaAlter at lr 2 under the
+    full config's plan for it on FSDP_TP_GRID (FSDP over data, beside TP
+    over model)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import resolve_plan
+    plan = resolve_plan(get_arch(arch), FSDP_TP_GRID, optimizer="adaalter")
+    if remat:
+        plan = dataclasses.replace(plan, remat=remat)
+    return dict(name=name, arch=arch, reduced=True, dtype="float32",
+                steps=steps, batch=8, seq=16, plan=dataclasses.asdict(plan),
+                opt=dict(name="adaalter", lr=2.0, warmup_steps=0), **cfg_kw)
+
+
+def fsdp_tp_launch(root: Path, loops=(), *, dev: str = "cuda") -> dict:
+    """The reckoning on the meta device (phase ``fsdp_tp_meta``), then
+    slice 13's launch of 4 gloo ranks on the card (FSDP_TP_RANKS), which
+    first runs ``loops`` (other phases' runs in RANK_LOOPS' form) on the
+    2 x 2 grid: around it the stacked flat run that writes the checkpoint
+    its TP per-leaf run restores, and the stacked per-leaf restore of that
+    checkpoint. Returns the launch: ``loops`` (their results), ``got``
+    (the ranks' results), ``wall``, ``peak_mib``, ``leaf_restore``,
+    ``meta``, ``t0``."""
+    import tempfile
+    from repro_torch.configs import (OptimizerConfig, ShapeConfig, get_arch,
+                                     reduced)
+    from repro_torch.launch.train import train_loop
+    t0 = time.perf_counter()
+    meta = fsdp_tp_reckoning()
+    emit({"phase": "fsdp_tp_meta", **meta})
+    small = dataclasses.replace(reduced(get_arch("qwen2-7b")),
+                                param_dtype="float32")
+    flat_shape = ShapeConfig("flat", seq_len=16, global_batch=8,
+                             kind="train")
+    with tempfile.TemporaryDirectory() as tmp:
+        flat_dir = str(Path(tmp) / "flat")
+        # the flat checkpoint: the stacked 2-worker flat run on the card
+        # (the ranks draw the same seeded weights)
+        train_loop(small, flat_shape, OptimizerConfig(**TP_GRID_OPT,
+                                                      flat=True),
+                   steps=FSDP_TP_FLAT_AT, n_workers=2, verbose=False,
+                   device=dev, checkpoint_dir=flat_dir,
+                   checkpoint_every=FSDP_TP_FLAT_AT)
+        train_runs, grid_runs = fsdp_tp_runs(flat_dir)
+        spec = {"grid": FSDP_TP_GRID, "loops": list(loops),
+                "serve": FSDP_TP_SERVE, "train": train_runs,
+                "grid_runs": grid_runs, "serve_model1": FSDP_TP_MODEL1}
+        if dev != "cuda":
+            spec["device"] = dev
+        got, wall, peak_mib = torchrun_train(
+            root, None, nproc=4, timeout=900.0, script=FSDP_TP_RANKS,
+            spec=spec)
+        # the stacked per-leaf restore of the flat checkpoint on the card
+        leaf_restore = train_loop(small, flat_shape, OptimizerConfig(
+            **TP_GRID_OPT), steps=FSDP_TP_FLAT_AT, n_workers=2,
+            verbose=False, device=dev, checkpoint_dir=flat_dir, digest=True)
+    return {"loops": got.pop("loops"), "got": got, "wall": wall,
+            "peak_mib": peak_mib, "leaf_restore": leaf_restore,
+            "meta": meta, "t0": t0}
+
+
+def fsdp_tp_phases(launched: dict, smi, names, *, dev: str = "cuda") -> dict:
+    """Slice 13's phases from the launch of :func:`fsdp_tp_launch`.
+    ``serve_fsdp_tp``: llama3-405b, 2 of 126 layers, bf16, on 2 x 2 ranks
+    under serve_plan (gathered weights): prefill 4 x 512 and 2 decode
+    steps, logits and caches bit for bit the TP-only run's; a rank's
+    weight bytes at rest against the specs' tiles, the gather's bytes and
+    seconds a forward, prefill and decode ms, peak GB a rank.
+    ``train_fsdp_tp``: qwen2-7b 4/28 under synchronous AdaAlter, bit for
+    bit the data-replicated TP run, and phi3.5-moe 1/32 under its plan
+    (int8, the kernels: row 3 on its tiles); a rank's state bytes from the
+    specs, step walls, TP and FSDP collectives a step.
+    ``tp_grid_fsdp_tp`` (tp_grid's extension): reduced, float32, 2 x 2:
+    llama3-405b under synchronous AdaAlter with FSDP + TP against its
+    one-device card and CPU runs (MODEL_RTOL; η 2% off on the CPU must
+    exceed it), seq_parallel = none bit for bit (qwen2-7b, mamba2), remat
+    "dots" = "none" under TP (hymba), phi3.5-moe's FSDP + TP = its
+    data-replicated TP run, a flat checkpoint restored into a TP per-leaf
+    run (its state the stacked per-leaf restore's digest), gathered-weight
+    serving at model = 1 (4 x 1) bit for bit the replicated serving and
+    to MODEL_RTOL of one CPU device. Returns the launches by phase (rank
+    0's)."""
+    import torch
+    from repro_torch.configs import (OptimizerConfig, ShapeConfig, get_arch,
+                                     reduced)
+    from repro_torch.launch.mesh import resolve_plan
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    got, wall, peak_mib, leaf_restore, meta, t0 = (launched[k] for k in (
+        "got", "wall", "peak_mib", "leaf_restore", "meta", "t0"))
+    by_phase = {}
+    card_gb = peak_mib * 2**20 / 1e9
+    shared = {"torchrun_wall_s": wall, "card_memory_used_peak_gb": card_gb}
+
+    # ---- serve_fsdp_tp --------------------------------------------------- #
+    sv = got["serve"]
+    require(all(sv["equal"].values()), "serve_fsdp_tp: the gathered-weight "
+            f"serving differs from TP-only: {sv['equal']}")
+    g, tp = sv["gather"], sv["tp"]
+    require(g["finite"] and tp["finite"], "serve_fsdp_tp: non-finite logits")
+    require(g["weight_bytes"] == g["weight_bytes_from_specs"]
+            == meta["serve_fsdp_tp"]["tile_bytes_per_rank"],
+            f"serve_fsdp_tp: a rank's weights {g['weight_bytes']} B, the "
+            f"specs' tiles {meta['serve_fsdp_tp']['tile_bytes_per_rank']}")
+    require(g["peak_gb"] < tp["peak_gb"] or dev != "cuda", "serve_fsdp_tp: "
+            f"peak {g['peak_gb']} GB with gathered weights, {tp['peak_gb']} "
+            "GB TP-only")
+    require(g["prefill_gather"]["n"] > 0 and tp["prefill_gather"]["n"] == 0,
+            "serve_fsdp_tp: the gathers")
+    emit({"phase": "serve_fsdp_tp", "nvidia_smi": smi, **FSDP_TP_SERVE,
+          "layers_of_config": get_arch(FSDP_TP_SERVE["arch"]).n_layers,
+          "params": meta["serve_fsdp_tp"]["params"], "grid": FSDP_TP_GRID,
+          "equal_to_tp_only": sv["equal"], "gathered": g, "tp_only": tp,
+          **shared})
+    by_phase["serve_fsdp_tp"] = dict.fromkeys(names, 0)
+
+    # ---- train_fsdp_tp --------------------------------------------------- #
+    runs = {r["name"]: r for r in got["train"]}
+    report, launches = {}, dict.fromkeys(names, 0)
+    for label, _, cut, opt, steps, lr, wire, plan in fsdp_tp_train_cfgs():
+        a, b = runs[f"{label}/fsdp"], runs.get(f"{label}/repl")
+        require(b is None or same_run(a, b), f"train_fsdp_tp {label}: FSDP + "
+                f"TP differs from the data-replicated TP run: losses "
+                f"{a['losses']} vs {b and b['losses']}, digest "
+                f"{a['state_digest']} vs {b and b['state_digest']}")
+        require(all(math.isfinite(v) for v in a["losses"]),
+                f"train_fsdp_tp {label}: losses {a['losses']}")
+        m = meta["train_fsdp_tp"][label]
+        tiles = fsdp_tp_tiles(cut, plan)
+        per = 4 if opt == "local_adaalter" else 1
+        isz = leaf_itemsizes(cut)
+        ranks = []
+        for rep, rep_r in zip(a["ranks"], b["ranks"] if b
+                              else [None] * len(a["ranks"])):
+            state = sum(t.part_numel * (s + 4 * per)
+                        for t, s in zip(tiles[rep["rank"]], isz))
+            require(rep["state_bytes"] == state, f"train_fsdp_tp {label}: "
+                    f"rank {rep['rank']} holds {rep['state_bytes']} B, the "
+                    f"specs {state}")
+            if dev != "cuda":     # the plain versions launch nothing
+                pass
+            elif wire:            # every leaf encoded each round, on its tile
+                rounds = len(a["sync_steps"])
+                require_launches(rep["launches"],
+                                 fused_ef=2 * m["leaves"] * rounds)
+                require(rep["launches"]["fused_ef"]
+                        >= m["tile_leaves_whole_blocks"],
+                        f"train_fsdp_tp {label}: row 3 launches")
+            else:
+                require_launches(rep["launches"])
+            ranks.append({
+                "rank": rep["rank"], "route": rep["route"],
+                "state_bytes": rep["state_bytes"],
+                "state_bytes_from_specs": state,
+                "state_bytes_replicated": rep_r and rep_r["state_bytes"],
+                "step_ms": [1e3 * t for t in rep["step_s"]],
+                "replicated_step_ms": rep_r and [1e3 * t
+                                                 for t in rep_r["step_s"]],
+                "tp_collectives_per_step": rep["tp_collectives"] / steps,
+                "tp_bytes_per_step": rep["tp_bytes"] / steps,
+                "tp_gloo_ms_per_step": 1e3 * rep["tp_s"]["wire"] / steps,
+                "fsdp_collectives_per_step": rep["collectives"] / steps,
+                "fsdp_wire_bytes_per_step": rep["wire_bytes"] / steps,
+                "fsdp_ms_per_step": {k: 1e3 * v / steps
+                                     for k, v in rep["round_s"].items()},
+                "launches": rep["launches"],
+                "max_memory_allocated_gb":
+                    (rep["max_memory_allocated"] or 0) / 1e9,
+                "max_memory_reserved_gb":
+                    (rep["max_memory_reserved"] or 0) / 1e9,
+                "replicated_max_memory_allocated_gb": rep_r and (
+                    rep_r["max_memory_allocated"] or 0) / 1e9})
+        for k, v in a["ranks"][0]["launches"].items():
+            launches[k] += v
+        report[label] = {"layers": cut.n_layers, "params": m["params"],
+                         "optimizer": opt, "wire": wire or "fp32",
+                         "steps": steps, "lr": lr, "tokens_per_step": 4 * 512,
+                         "plan": dataclasses.asdict(plan),
+                         "losses": a["losses"], "sync_steps": a["sync_steps"],
+                         # None: no replicated run (it does not fit)
+                         "equal_to_replicated": True if b else None,
+                         "ranks": ranks}
+    emit({"phase": "train_fsdp_tp", "nvidia_smi": smi, "grid": FSDP_TP_GRID,
+          **report, **shared})
+    by_phase["train_fsdp_tp"] = launches
+
+    # ---- tp_grid's extension -------------------------------------------- #
+    gr = got["grid"]
+    ext = {}
+    llama = dataclasses.replace(reduced(get_arch("llama3-405b")),
+                                param_dtype="float32")
+    shape = ShapeConfig("tp_grid", seq_len=16, global_batch=8, kind="train")
+    lplan = resolve_plan(get_arch("llama3-405b"), FSDP_TP_GRID,
+                         optimizer="adaalter")
+    base = tree_map(lambda t: t.cpu(), build_model(llama).init(
+        torch.Generator(dev).manual_seed(0)))
+
+    def one_device(device, lr):
+        return train_loop(llama, shape, OptimizerConfig(
+            name="adaalter", lr=lr, warmup_steps=0),
+            steps=FSDP_TP_GRID_STEPS, verbose=False, device=device,
+            plan=lplan, init_params=None if device == dev else base).losses
+    ranks_l = gr["llama3-405b/fsdp_tp"]["losses"]
+    errs = {"card_one_device": max_rel(ranks_l, one_device(dev, 2.0)),
+            "cpu": max_rel(ranks_l, one_device("cpu", 2.0)),
+            "cpu_eta_2pct_high": max_rel(ranks_l, one_device("cpu",
+                                                             2.0 * 1.02))}
+    require(errs["card_one_device"] <= MODEL_RTOL
+            and errs["cpu"] <= MODEL_RTOL, f"tp_grid llama3-405b: {errs}")
+    require(errs["cpu_eta_2pct_high"] > MODEL_RTOL,
+            f"tp_grid llama3-405b: η 2% off passes ({errs})")
+    ext["llama3-405b_fsdp_tp"] = {"steps": FSDP_TP_GRID_STEPS,
+                                  "plan": dataclasses.asdict(lplan),
+                                  "losses": ranks_l, "rel_err": errs,
+                                  "tol": MODEL_RTOL}
+    for arch in ("qwen2-7b", "mamba2-370m"):
+        a, b = gr[f"{arch}/sp_True"], gr[f"{arch}/sp_False"]
+        require(same_run(a, b), f"tp_grid {arch}: seq_parallel differs from "
+                f"none: {a['losses']} vs {b['losses']}")
+        ext[f"{arch}_seq_parallel"] = {
+            "equal_to_none": True, "losses": a["losses"],
+            "tp_collectives_per_step": [
+                r["tp_collectives"] / FSDP_TP_PAIR_STEPS
+                for r in (a["ranks"][0], b["ranks"][0])]}
+    a, b = (gr[f"phi3.5-moe-42b-a6.6b/{t}"] for t in ("fsdp", "repl"))
+    require(same_run(a, b), "tp_grid phi3.5-moe: FSDP + TP differs from the "
+            f"data-replicated TP run: {a['losses']} vs {b['losses']}")
+    if dev == "cuda":             # row 3 on its tiles, every leaf a round
+        require(a["ranks"][0]["launches"]["fused_ef"] > 0,
+                f"tp_grid phi3.5-moe: launches {a['ranks'][0]['launches']}")
+    ext["phi3.5-moe_fsdp_tp"] = {"equal_to_replicated": True,
+                                 "losses": a["losses"],
+                                 "launches": a["ranks"][0]["launches"]}
+    a, b = gr["hymba-1.5b/dots"], gr["hymba-1.5b/none"]
+    require(same_run(a, b), f"tp_grid hymba: remat dots differs from none: "
+            f"{a['losses']} vs {b['losses']}")
+    ext["hymba-1.5b_remat_dots"] = {
+        "equal_to_none": True, "losses": a["losses"],
+        "tp_collectives_per_step": [
+            r["tp_collectives"] / FSDP_TP_PAIR_STEPS
+            for r in (a["ranks"][0], b["ranks"][0])]}
+    fr = gr["qwen2-7b/flat_restore"]
+    require(fr["start_step"] == FSDP_TP_FLAT_AT
+            and fr["state_digest"] == leaf_restore.state_digest,
+            f"tp_grid: the flat checkpoint restored into the TP per-leaf run "
+            f"{fr['state_digest']}, the stacked per-leaf restore "
+            f"{leaf_restore.state_digest}")
+    ext["flat_into_tp_per_leaf"] = {"restored_step": fr["start_step"],
+                                    "state_digest": fr["state_digest"]}
+    m1 = got["serve_model1"]
+    require(all(m1["equal"].values()), "tp_grid: gathered-weight serving at "
+            f"model = 1 differs from replicated serving: {m1['equal']}")
+    ext["serve_model1"] = fsdp_tp_model1_check(m1, dev)
+    emit({"phase": "tp_grid_fsdp_tp", "nvidia_smi": smi, **ext, **shared,
+          "seconds": time.perf_counter() - t0})
+    by_phase["tp_grid_fsdp_tp"] = gr["phi3.5-moe-42b-a6.6b/fsdp"]["ranks"][
+        0]["launches"]
+    # checked after the phases' lines, which give each run's peak a rank
+    require(card_gb < 80.0, f"the launch of 4 ranks: the card used "
+            f"{card_gb} GB")
+    free_card()
+    return by_phase
+
+
+def fsdp_tp_model1_check(m1, dev: str = "cuda") -> dict:
+    """Gathered-weight serving of reduced llama3-405b (float32) on 4 x 1
+    ranks (FSDP over data, no model axis) against one CPU device: rank 0's
+    rows' prefill and decode logits to MODEL_RTOL."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, paths, unflatten_like
+    cfg = dataclasses.replace(reduced(get_arch(FSDP_TP_MODEL1["arch"])),
+                              param_dtype="float32")
+    model = build_model(cfg)
+    abstract = model.init(None, "meta")
+    # the ranks' seeded leaves (at model = 1 a TP part is the whole leaf,
+    # seed 1000 + 64 i), drawn on ``dev`` as the ranks drew them (N(0, 1)
+    # on a CUDA generator differs from the CPU's) and moved to the CPU
+    B, P, D = (FSDP_TP_MODEL1[k] for k in ("batch", "prompt", "decode"))
+    rows = slice(*m1["rows"])
+    whole = []
+    for i, (n, t) in enumerate(zip(["/".join(p) for p in paths(abstract)],
+                                   leaves(abstract))):
+        leaf = n.split("/")[-1]
+        if leaf in ("ln1", "ln2", "ln3", "final_norm"):
+            whole.append(torch.ones(t.shape, dtype=t.dtype, device=dev))
+            continue
+        g = torch.Generator(dev).manual_seed(1000 + 64 * i)
+        w = torch.randn(t.shape, generator=g, dtype=t.dtype, device=dev)
+        whole.append(w.mul_(0.02 if leaf in ("embed", "lm_head")
+                            else t.shape[-2] ** -0.5))
+    params = unflatten_like(abstract, [w.cpu() for w in whole])
+    del whole
+    prompts = torch.from_numpy(SyntheticLM(
+        vocab_size=cfg.vocab_size, seq_len=P, n_workers=1,
+        seed=0).worker_batch(0, 0, B)["tokens"])[rows]
+    with torch.inference_mode():
+        logits, _ = model.prefill(params, {"tokens": prompts})
+        cache = model.init_cache(prompts.shape[0], P + D)
+        want = {"prefill_logits": logits}
+        tok = prompts[:, -1:]
+        for i in range(D):
+            pos = torch.full((tok.shape[0],), P + i, dtype=torch.int32)
+            lg, cache = model.decode_step(params, cache, tok, pos)
+            want[f"decode_logits/{i}"] = lg
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+    errs = {k: float((torch.tensor(m1["logits"][k]) - v).abs().max()
+                     / v.abs().max()) for k, v in want.items()}
+    require(max(errs.values()) <= MODEL_RTOL,
+            f"tp_grid: gathered-weight serving at model = 1 vs one CPU "
+            f"device: {errs}")
+    return {"grid": {"data": 4, "model": 1}, "equal_to_replicated": True,
+            "rel_err_vs_cpu": errs, "tol": MODEL_RTOL,
+            "gathers_per_prefill": m1["gather"]["prefill_gather"]["n"],
+            "weight_bytes": m1["gather"]["weight_bytes"],
+            "weight_bytes_replicated": m1["tp"]["weight_bytes"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5008,6 +5814,9 @@ def main() -> int:
     tp_parts = check_tp_parts(gen, tp_train_cfg())
     tp_family_parts = [check_tp_parts(gen, family_cfg(arch, cut))
                        for _, arch, cut, *_ in TP_FAMILY_TRAIN]
+    # row 3 on every tile shape train_fsdp_tp's phi3.5-moe ranks encode in
+    # place (a tile's runs holding whole 256-blocks)
+    fsdp_tp_parts = check_fsdp_tp_parts(gen)
     # row 7 at a TP rank's heads, as serve_tp_families' scoring forward
     # gives them (1 x 2048 tokens; fp32 inputs): mamba2's 16 of 32 heads,
     # N 128, and hymba's 25 of 50, N 16 (a last 8-head group of 1)
@@ -5025,7 +5834,8 @@ def main() -> int:
           "ssd_partial_head_groups": ssd_partial, "ssd_hymba": ssd_hymba,
           "hymba_train": hymba_train, "sharded_subplanes": sharded,
           "fsdp_parts": fsdp_parts, "tp_parts": tp_parts,
-          "tp_family_parts": tp_family_parts, "ssd_tp_heads": ssd_tp,
+          "tp_family_parts": tp_family_parts,
+          "fsdp_tp_tiles": fsdp_tp_parts, "ssd_tp_heads": ssd_tp,
           "ssd_sass_tf32_hmma": sass,
           "plane": {"plane_size": fs.plane_size, "real": fs.n_real,
                     "slots": fs.n_leaves, "buckets": fs.bucket_ranges()}})
@@ -5191,9 +6001,14 @@ def main() -> int:
             scaled_queries(params, 1.02), {"tokens": p})[0]})
     require_launches(serve_n)
     emit({"phase": "serve_dense", "nvidia_smi": smi, **serve})
-    # the one-rank prefill's last logits: serve_tp's reference (its
-    # prompts, the session's at 512, cut to TP_CHECK_PROMPT)
+    del params, model
+    torch.cuda.empty_cache()
+    # the one-rank prefill's last logits: serve_tp's reference (qwen2-7b
+    # cut to TP_SERVE_LAYERS, the same seed; its prompts, the session's at
+    # 512, cut to TP_CHECK_PROMPT)
     from repro_torch.data import SyntheticLM
+    model = build_model(dataclasses.replace(qwen, n_layers=TP_SERVE_LAYERS))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
     with torch.inference_mode():
         tp_want = model.prefill(params, {"tokens": torch.from_numpy(
             SyntheticLM(vocab_size=qwen.vocab_size, seq_len=SERVE_PROMPT,
@@ -5214,12 +6029,12 @@ def main() -> int:
     slice6_phases(counters, smi)
     hybrid_n = slice7_phases(counters, smi)
     t0 = time.perf_counter()
-    ranks, ranks_n, fsdp_cli = train_ranks_phase(root, cfg, shape, smi,
-                                                 leaf, flat)
+    ranks, ranks_n, fsdp_cli, fsdp_launched = train_ranks_phase(
+        root, cfg, shape, smi, leaf, flat)
     emit({"phase": "train_ranks", **ranks,
           "seconds": time.perf_counter() - t0})
-    fsdp_n = fsdp_phases(root, cfg, smi, fsdp_cli,
-                         ranks["baseline_adaalter"]["steps"])
+    fsdp_n = fsdp_phases(cfg, smi, fsdp_cli,
+                         ranks["baseline_adaalter"]["steps"], fsdp_launched)
     grid_n = grid_phases(root, cfg, smi, tp_want, list(counters))
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     by_phase = {"train": leaf_n, "train_flat": flat_n,
@@ -5245,7 +6060,7 @@ def main() -> int:
                   x["update"] for x in hymba_train["leaves"]]), upd[0]),
         entry("fused_ef", "sync_fused.cu", "sync_fused.py:81",
               leaf_n["fused_ef"],
-              max([x["max_abs_err"] for x in ef + fsdp_parts
+              max([x["max_abs_err"] for x in ef + fsdp_parts + fsdp_tp_parts
                    + tp_parts["ef"]
                    + [e for p in tp_family_parts for e in p["ef"]]] + [
                   max(x["ef_params"], x["ef_b2"])

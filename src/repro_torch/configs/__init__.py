@@ -3,9 +3,10 @@
 ``get_arch(name)`` returns a ported architecture's full config,
 ``get_shape(name)`` one of the four assigned input shapes and
 ``reduced(cfg)`` a smoke-test variant. Every architecture of the JAX
-package is registered; llama3-405b (405.9 B parameters) builds on the
-``meta`` device and resolves its plan, and training it waits for several
-cards (ROADMAP Queue 1 item 9c-2b).
+package is registered. llama3-405b (405.9 B parameters) trains and
+serves through the normal entry points under its plan (one model, FSDP
+over ``data`` beside tensor parallelism over ``model``): reduced, or cut
+in depth, on one card.
 """
 from repro_torch.configs import (biglstm, hymba_1_5b, llama3_405b,
                                  llama4_maverick_400b_a17b,

@@ -238,9 +238,10 @@ class ParallelismPlan:
     (``models/transformer.py::apply_stack``); ``fsdp_axes``, over which a
     one-model run splits each leaf and its state (FSDP,
     ``launch/steps.py::_leaf_programs``, leaf by leaf as
-    ``sharding.specs.param_shardings`` says); ``weight_gather_serving``
-    (serving above 20 B parameters: FSDP beside tensor parallelism) is
-    refused on ranks (``launch/mesh.py::check_serve_plan``, item 9c-2b).
+    ``sharding.specs.param_shardings`` says, beside tensor parallelism
+    over ``model``: tiles); ``weight_gather_serving`` (serving above 20 B
+    parameters: each rank's tiles at rest, a layer group's parts gathered
+    over ``data`` as it runs, ``launch/serving.py::WeightGather``).
     """
 
     local_axes: Tuple[str, ...] = ("data",)

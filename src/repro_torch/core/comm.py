@@ -31,7 +31,7 @@ class FabricModel:
                  50 GB/s per GPU (NVIDIA data sheet);
     ``latency``  launch and rendezvous of one collective: an assumption
                  (10 µs), not a measurement. Measuring it needs ranks on
-                 several cards over NCCL (ROADMAP Queue 1 item 9c-2b).
+                 several cards over NCCL.
     """
     ici_bw: float = 450e9
     dcn_bw: float = 50e9
@@ -448,18 +448,14 @@ class RankGroup:
                             .view(d.shape), non_blocking=self.staged)
         return out
 
-    def mean_slices(self, x: torch.Tensor, split,
-                    count: Optional[CollectiveCount] = wire) -> torch.Tensor:
-        """This rank's part (``split``, a ``sharding.specs.LeafSplit``
-        over this group's ranks) of the mean over the ranks of ``x``, each
-        rank's own whole leaf, one all-to-all: part r of every rank's ``x``
-        goes to rank r in float32 (:func:`gather_mean_`'s wire), and each
-        rank takes the :func:`ordered_mean` of the parts it holds, in rank
-        order, cast to ``x``'s dtype: bit for bit its part of
-        ``gather_mean_(x)``. ``all_to_all`` rather than
-        ``reduce_scatter``, which adds in its own order. Returns a new
-        contiguous tensor. ``count`` gets one collective and the bytes
-        this rank sent to the others."""
+    def _exchange_parts(self, x: torch.Tensor, split,
+                        count: Optional[CollectiveCount]) -> dict:
+        """Part r of ``x`` (``split``, a ``sharding.specs.LeafSplit`` over
+        this group's ranks) sent to rank r in float32, one all-to-all:
+        returns every rank's part of its own ``x`` that this rank
+        received, flat, on its device, by rank (this rank's own part
+        stays put). ``count`` gets one collective and the bytes this rank
+        sent to the others."""
         import torch.distributed as dist
         R, me, n = self.world, self.rank, split.part_numel
         host = self.staged or self.device.type == "cpu"
@@ -484,8 +480,39 @@ class RankGroup:
                     for r in range(R) if r != me}
         del recv
         rows[me] = split.part(x).contiguous().view(-1)
+        return rows
+
+    def mean_slices(self, x: torch.Tensor, split,
+                    count: Optional[CollectiveCount] = wire) -> torch.Tensor:
+        """This rank's part (``split``, a ``sharding.specs.LeafSplit``
+        over this group's ranks) of the mean over the ranks of ``x``, each
+        rank's own whole leaf, one all-to-all: part r of every rank's ``x``
+        goes to rank r in float32 (:func:`gather_mean_`'s wire), and each
+        rank takes the :func:`ordered_mean` of the parts it holds, in rank
+        order, cast to ``x``'s dtype: bit for bit its part of
+        ``gather_mean_(x)``. ``all_to_all`` rather than
+        ``reduce_scatter``, which adds in its own order. Returns a new
+        contiguous tensor. ``count`` gets one collective and the bytes
+        this rank sent to the others."""
+        rows = self._exchange_parts(x, split, count)
         out = torch.empty(split.part_shape, dtype=x.dtype, device=x.device)
         return self.mean_(out, lambda r, a, b: rows[r][a:b])
+
+    def sum_slices(self, x: torch.Tensor, dim: int,
+                   count: Optional[CollectiveCount] = None) -> torch.Tensor:
+        """This rank's slice along ``dim`` (the world's equal parts, in
+        rank order) of the sum over the ranks of ``x``, one all-to-all:
+        the float32 sum in rank order, rounded once to ``x``'s dtype, bit
+        for bit this rank's slice of :func:`ordered_sum` (a
+        reduce-scatter). ``count`` defaults to :data:`tp`."""
+        from repro_torch.sharding.specs import LeafSplit
+        split = LeafSplit(tuple(x.shape), dim, self.world, self.rank)
+        rows = self._exchange_parts(x.detach(), split,
+                                    tp if count is None else count)
+        acc = rows[0].clone()
+        for r in range(1, self.world):
+            acc.add_(rows[r])
+        return acc.view(split.part_shape).to(x.dtype)
 
     def gather_stacked(self, tree, *, to_device: bool,
                        count: Optional[CollectiveCount] = side):
@@ -580,6 +607,45 @@ class _Gather(torch.autograd.Function):
                 .contiguous(), None, None)
 
 
+class _SeqSplit(torch.autograd.Function):
+    """This rank's slice along ``dim`` of a tensor whole on every rank
+    forward; the ranks' slices of the gradient gathered backward (each
+    rank's whole gradient, the same bits on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = x.shape[dim] // group.world
+        return x.narrow(dim, group.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.group.all_gather([g.contiguous()], count=tp)
+        return torch.cat(rows.unbind(0), dim=ctx.dim), None, None
+
+
+class _SumScatter(torch.autograd.Function):
+    """:meth:`RankGroup.sum_slices` forward (a reduce-scatter in rank
+    order); the ranks' slices of the gradient gathered backward, each
+    partial's gradient the whole one. With a ``log`` replaying, as
+    :class:`_Sum`."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, log):
+        ctx.group, ctx.dim = group, dim
+        if log is not None and log.replaying:
+            return log.pop().clone()
+        y = group.sum_slices(x, dim)
+        if log is not None:
+            log.push(y.detach())
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.group.all_gather([g.contiguous()], count=tp)
+        return torch.cat(rows.unbind(0), dim=ctx.dim), None, None, None
+
+
 class TPSumLog:
     """The outputs of one rematerialised group's :func:`tp_sum` calls, in
     call order: recorded by its forward, handed back to its recomputation
@@ -620,6 +686,22 @@ def tp_gather(x: torch.Tensor, group: RankGroup, dim: int = -1
     """The ranks' parts of a tensor split along ``dim`` put together; the
     gradient's slice goes back to each part."""
     return _Gather.apply(x, group, dim % x.ndim)
+
+
+def sp_split(x: torch.Tensor, group: RankGroup, dim: int = 1
+             ) -> torch.Tensor:
+    """Sequence parallelism: this rank's slice along ``dim`` of ``x``,
+    whole and the same on every rank; the gradient's slices gathered."""
+    return _SeqSplit.apply(x, group, dim % x.ndim)
+
+
+def sp_sum_scatter(x: torch.Tensor, group: RankGroup, dim: int = 1,
+                   log: Optional[TPSumLog] = None) -> torch.Tensor:
+    """Sequence parallelism's reduce-scatter: the ranks' partial results
+    summed (float32, rank order, rounded once: :func:`tp_sum`'s bits) and
+    this rank's slice along ``dim`` kept; the gradient's slices
+    gathered."""
+    return _SumScatter.apply(x, group, dim % x.ndim, log)
 
 
 def payload_bytes(n_values: int, dtype_bytes: int = 4, compression="",

@@ -15,6 +15,9 @@ one worker; with S > 1 each worker's flat plane is split into S
 sub-planes, one a rank (the paper-style plan shards it down ``tp_axis``),
 or, per leaf, each worker's weights are split over its S ranks as their
 specs say (tensor parallelism, ``sharding.partition.TensorParallel``).
+Under a one-model plan (the synchronous one, and those above 20 B
+parameters) the R rows of ranks share one model: each leaf split over
+``model`` and over the FSDP axes beside it, a tile a rank.
 Serving lays its ranks out as ``{"data": D, "model": N // D}``
 (``launch/serve.py``).
 
@@ -100,41 +103,26 @@ def resolve_plan(cfg: ModelConfig, grid: Union[Dict[str, int], int], *,
 
 
 def check_tp(cfg: ModelConfig, what: str) -> None:
-    """Refuse tensor parallelism over ``model`` for what this port does
-    not split yet (ROADMAP Queue 1 item 9c-2b): sequence parallelism, and
-    a family outside :data:`TP_FAMILIES`."""
-    from repro_torch.sharding.partition import TP_TODO
+    """Refuse tensor parallelism over ``model`` for a family outside
+    :data:`TP_FAMILIES` (none: every family splits its layers)."""
     if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
+        raise ValueError(
             f"{what} of {cfg.name} ({cfg.family}) over model ranks: tensor "
-            f"parallelism beyond the {'/'.join(TP_FAMILIES)} families is "
-            + TP_TODO)
-    if cfg.seq_parallel:
-        raise NotImplementedError(f"sequence parallelism ({cfg.name}) is "
-                                  + TP_TODO)
+            f"parallelism covers the {'/'.join(TP_FAMILIES)} families")
 
 
 def check_plan(plan: ParallelismPlan, grid: Dict[str, int], *,
                flat: bool, cfg: Optional[ModelConfig] = None) -> None:
-    """Refuse, for a run with ranks, what the port cannot build yet. Shards
-    of a worker (``model`` > 1) are a sharded flat plane (``flat``) or,
-    per leaf, tensor parallelism under the paper-style plan (workers along
-    ``local_axes``, no FSDP) for the families :func:`check_tp` admits; a
-    synchronous or one-model plan, or FSDP beside them (a leaf split along
-    two dimensions), is ROADMAP item 9c-2b. Also refused: a grid whose
-    shard axis the plan leaves unused (ranks that would hold the same
-    sub-plane). FSDP over ``fsdp_axes`` builds (per leaf, without
-    ``local_axes``)."""
-    from repro_torch.sharding.partition import TP_TODO
+    """Refuse, for a run with ranks, what the port cannot build. Shards of
+    a worker (``model`` > 1) are a sharded flat plane (``flat``) or, per
+    leaf, tensor parallelism (:func:`check_tp`) under any plan: the
+    paper-style plan's workers, or one model whose gradient is averaged
+    over ``grad_axes``, its leaves split over ``fsdp_axes`` beside
+    ``model`` (tiles). Refused: a grid whose shard axis the plan leaves
+    unused (ranks that would hold the same sub-plane)."""
     from repro_torch.sharding.specs import plane_shard_count
-    if grid.get("model", 1) > 1 and not flat:
-        if not plan.local_axes or plan.fsdp_axes:
-            raise NotImplementedError(
-                f"{grid['model']} model ranks under the plan {plan}: tensor "
-                "parallelism beside one model's gradient mean or FSDP is "
-                + TP_TODO)
-        if cfg is not None:
-            check_tp(cfg, "training")
+    if grid.get("model", 1) > 1 and not flat and cfg is not None:
+        check_tp(cfg, "training")
     shards = plane_shard_count(grid, plan)
     if plan.local_axes and shards != grid.get("model", 1):
         raise ValueError(f"the plan {plan} splits a plane into {shards} "
@@ -143,15 +131,10 @@ def check_plan(plan: ParallelismPlan, grid: Dict[str, int], *,
 
 def check_serve_plan(cfg: ModelConfig, plan: ParallelismPlan,
                      grid: Dict[str, int]) -> None:
-    """Refuse sharded serving the port cannot build yet (ROADMAP item
-    9c-2b): FSDP beside tensor parallelism (``weight_gather_serving``, the
-    plan above 20 B parameters) and, on ``model`` > 1, what
-    :func:`check_tp` refuses."""
-    from repro_torch.sharding.partition import TP_TODO
-    if plan.fsdp_axes or plan.weight_gather_serving:
-        raise NotImplementedError(
-            f"serving {cfg.name} under {plan}: FSDP and the gathered "
-            "weights of the plan above 20 B parameters are " + TP_TODO)
+    """Refuse sharded serving the port cannot build: on ``model`` > 1,
+    what :func:`check_tp` refuses. ``weight_gather_serving`` (the plan
+    above 20 B parameters) holds each rank's tiles at rest and gathers a
+    layer group's parts over ``data`` as it runs (``launch/serving.py``)."""
     if grid.get("model", 1) > 1:
         check_tp(cfg, "serving")
 

@@ -61,7 +61,7 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
                   new_tokens: int = 16, seed: int = 0,
                   device: Optional[str] = None, params=None,
                   verbose: bool = True, stats: Optional[dict] = None,
-                  group=None):
+                  group=None, plan=None):
     """Returns (generated tokens (B, new_tokens), tokens/s), the rate over
     the decode loop (prompt replay included), by a host clock around work
     that ends in a device synchronisation.
@@ -79,12 +79,15 @@ def serve_session(cfg, *, batch: int = 4, prompt_len: int = 32,
     of the batch with its parts of the weights (``params``: its parts, as
     ``programs.param_parts`` cuts them) and of the cache; the logits in
     ``stats`` are its rows', ``stats["programs"]`` the programs, and the
-    returned tokens every row's, gathered over the ranks."""
+    returned tokens every row's, gathered over the ranks. ``plan``: the
+    serving plan (default ``launch.serving.serve_plan`` on the group's
+    grid; above 20 B parameters each rank holds its tiles and gathers the
+    weights as they run)."""
     dev = resolve_device(device)
     cache_len = prompt_len + new_tokens
     shape = ShapeConfig(name="decode_32k", seq_len=cache_len,
                         global_batch=batch, kind="decode")
-    programs = build_serve_programs(cfg, shape, group=group)
+    programs = build_serve_programs(cfg, shape, group=group, plan=plan)
     if params is None:
         params = programs.init_fn(torch.Generator(dev).manual_seed(seed))
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=prompt_len,
@@ -171,12 +174,13 @@ def gather_rows(rows: torch.Tensor, group) -> torch.Tensor:
 def main() -> None:
     ap = argparse.ArgumentParser(
         description=__doc__,
-        epilog="phi3.5-moe-42b-a6.6b holds 83.75 GB of bf16 weights and "
-               "llama4-maverick-400b-a17b 807 GB: more than one 80 GB card. "
-               "Above 20 B parameters serving takes FSDP beside tensor "
-               "parallelism, which is not ported yet (ROADMAP Queue 1 item "
-               "9c-2b): they run --reduced, on one card or over model "
-               "ranks.")
+        epilog="phi3.5-moe-42b-a6.6b holds 83.75 GB of bf16 weights, "
+               "llama4-maverick-400b-a17b 807 GB and llama3-405b 812 GB: "
+               "more than one 80 GB card. Above 20 B parameters serving "
+               "takes the plan with gathered weights (each rank's tiles at "
+               "rest, a layer group's parts gathered over data as it runs); "
+               "on one card they run --reduced, under torchrun with "
+               "--data D the ranks hold their tiles.")
     ap.add_argument("--arch", default="qwen2-7b",
                     help=f"one of {sorted(ARCHS)}")
     ap.add_argument("--reduced", action="store_true")
@@ -194,25 +198,34 @@ def main() -> None:
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="under torchrun (default: nccl on cards, gloo on "
                          "the CPU)")
+    ap.add_argument("--full-plan", action="store_true",
+                    help="under torchrun with --reduced: serve under the "
+                         "full-size architecture's plan (above 20 B "
+                         "parameters: each rank's tiles, the weights "
+                         "gathered over data as they run)")
     args = ap.parse_args()
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     from repro_torch.launch import mesh
-    group, device = None, args.device
+    group, device, plan = None, args.device, None
     world = mesh.world_size()
     if world > 1:
+        from repro_torch.launch.serving import serve_plan
         data = args.data or world
         if world % data:
             ap.error(f"--data {data} does not divide {world} ranks")
-        group, dev = mesh.init_ranks(args.dist_backend, args.device, grid={
-            "data": data, "model": world // data})
+        grid = {"data": data, "model": world // data}
+        plan = serve_plan(get_arch(args.arch) if args.full_plan else cfg,
+                          grid)
+        group, dev = mesh.init_ranks(args.dist_backend, args.device,
+                                     grid=grid, fsdp_axes=plan.fsdp_axes)
         device = str(dev)
     try:
         gen, tps = serve_session(cfg, batch=args.batch,
                                  prompt_len=args.prompt_len,
                                  new_tokens=args.new_tokens, seed=args.seed,
-                                 device=device, group=group,
+                                 device=device, group=group, plan=plan,
                                  verbose=group is None or group.rank == 0)
     finally:
         if group is not None:

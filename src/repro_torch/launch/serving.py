@@ -19,10 +19,13 @@ On a ``group`` of ranks laid out as a ``{"data": D, "model": M}`` grid
 SSM state's heads and the conv tail's channels over ``model`` (shape
 safe), and each rank runs on its parts (``param_parts``,
 ``cache_parts``) and its rows of the batch. The Big LSTM's state is split
-over ``data`` and the same on every ``model`` rank. Every family, up to
-20 B parameters (``launch/mesh.py::check_serve_plan``; FSDP beside
-tensor parallelism, the plan above, is ROADMAP item 9c-2b).
-The programs run eagerly under ``torch.inference_mode()``.
+over ``data`` and the same on every ``model`` rank. Above 20 B parameters
+the plan's ``weight_gather_serving`` adds FSDP over ``data``: each rank
+holds its tiles at rest (the ``data`` part of its ``model`` part of each
+weight) and :class:`WeightGather` gathers a layer group's parts over
+``data`` as the group runs, freeing them after it, in the prefill and in
+each decode step. The programs run eagerly under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelismPlan, ShapeConfig
 from repro_torch.models import build_model
-from repro_torch.sharding.specs import Spec, leaf_split, shape_safe_spec
+from repro_torch.sharding.specs import (LeafSplit, Spec, leaf_split,
+                                        shape_safe_spec, tile_parts)
 from repro_torch.tree import leaves, paths, tree_map, unflatten_like
 
 DEFAULT_LONG_WINDOW = 8192
@@ -138,6 +142,46 @@ def _batch_rows(grid, coords, batch: int) -> slice:
     return slice(idx * per, (idx + 1) * per)
 
 
+class WeightGather:
+    """Serving with gathered weights: a rank's stored parts of the weights
+    (``params``, its tiles) to the parts the layers take (its
+    tensor-parallel parts; the whole weights without ``model``), gathered
+    over the FSDP sub-group ``group`` as each is needed: a top-level
+    weight (:meth:`leaf`), one layer group of a stack (:meth:`stack`,
+    ``models/transformer.py``'s ctx ``"fetch"``), or every weight at once
+    (:meth:`tree`). ``splits``: per leaf (``tree.leaves`` order of
+    ``abstract``) the split of its tensor-parallel part over the FSDP
+    sub-group. Counted in ``comm.shard_gather`` (a params gather)."""
+
+    def __init__(self, abstract, splits, group) -> None:
+        self.group = group
+        self.splits = unflatten_like(abstract, list(splits))
+
+    def _gather(self, xs, splits):
+        from repro_torch.core import comm
+        return self.group.gather_leaves(xs, splits, comm.shard_gather)
+
+    def leaf(self, params, key):
+        """``params[key]``, a leaf, as the layers take it."""
+        return self._gather([params[key]], [self.splits[key]])[0]
+
+    def stack(self, key):
+        """The gather of one group of the stack ``params[key]`` (a group's
+        weights, the stacked leaves indexed at one group)."""
+        per_group = [LeafSplit(s.shape[1:], None if s.dim is None
+                               else s.dim - 1, s.parts, s.index, s.axes)
+                     for s in leaves(self.splits[key])]
+
+        def fetch(gp):
+            return unflatten_like(gp, self._gather(leaves(gp), per_group))
+        return fetch
+
+    def tree(self, params):
+        """Every weight of ``params`` as the layers take it."""
+        return unflatten_like(params, self._gather(leaves(params),
+                                                   leaves(self.splits)))
+
+
 @dataclasses.dataclass
 class ServePrograms:
     init_fn: Any                  # (gen: torch.Generator) -> params
@@ -147,8 +191,9 @@ class ServePrograms:
     window: int
     cross_len: int
     # a group's programs: the grid and this rank's coordinates on it, the
-    # LeafSplits of the params (tree.leaves order), the decode cache's
-    # cache_shardings, and this rank's batch rows
+    # splits of the params (tree.leaves order: LeafSplits, tiles under
+    # weight_gather_serving), the decode cache's cache_shardings, and this
+    # rank's batch rows
     grid: Any = None
     coords: Any = None
     param_splits: Any = None
@@ -198,7 +243,11 @@ def build_serve_programs(cfg: ModelConfig, shape: ShapeConfig, group=None,
     (default :func:`serve_plan`): ``init_fn`` returns this rank's parts,
     ``prefill`` and ``decode_step`` take this rank's parts of the weights
     and of the cache and its rows of the batch, and return the whole
-    vocabulary's logits of those rows and the rank's cache parts."""
+    vocabulary's logits of those rows and the rank's cache parts. Under
+    ``plan.weight_gather_serving`` a rank's parts of the weights are its
+    tiles, gathered over the FSDP axes as each layer group runs
+    (:class:`WeightGather`); the logits and caches are those of the same
+    grid with the weights whole over ``data``, bit for bit."""
     model = build_model(cfg)
     cache_len, window, cross_len = cache_geometry(cfg, shape)
     tp = extra = None
@@ -225,6 +274,13 @@ def build_serve_programs(cfg: ModelConfig, shape: ShapeConfig, group=None,
         if mgroup is not None:
             tp = TensorParallel(mgroup, rules)
             kw = {"tp": tp}
+        # weights split over the FSDP axes (the plan of weight_gather_
+        # serving) are gathered as they run
+        fgroup = group.along(plan.fsdp_axes)
+        if fgroup is not None:
+            kw["gather"] = WeightGather(
+                abstract, [tile_parts(t, grid)[1]
+                           for t in extra["param_splits"]], fgroup)
         # the ranks along data hold one batch's rows: the MoE routes them
         # as one, as the reference's one program over the global batch
         dgroup = group.along(_data_axes(grid))

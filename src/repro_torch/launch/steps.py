@@ -58,11 +58,14 @@ non-local branch does. On one device there is no all-reduce;
 takes its share of the global batch, split over ``grad_axes``, and holds
 each parameter leaf and its state as the plan's per-leaf spec says
 (``sharding/specs.py``): split over the FSDP sub-group (``fsdp_axes``),
-or whole. A step gathers the split leaves, runs the forward and
-backward, frees them, and averages the gradient over the ranks, a split
-leaf's part by an all-to-all of its slices, an unsplit leaf by
-:func:`core.comm.gather_mean_` (fp32 on the wire): bit for bit the
-replicated run's mean, which is the same code under ``fsdp_axes=()``.
+over ``model`` (tensor parallelism, on a grid with ``model`` > 1), over
+both (a tile), or whole. A step gathers the parts over the FSDP
+sub-group into the rank's tensor-parallel parts, runs the forward and
+backward (under ``TensorParallel`` where ``model`` > 1), frees them, and
+averages the gradient over the ``grad_axes`` ranks, a split part's slice
+by an all-to-all, an unsplit one by :func:`core.comm.gather_mean_` (fp32
+on the wire): bit for bit the data-replicated run's mean, which is the
+same code under ``fsdp_axes=()``.
 
 With a ``group`` of workers × S shards and S > 1, per leaf (no ``flat``),
 each rank holds its parts of its worker's leaves, split over the
@@ -174,9 +177,9 @@ def _sq_norms(fn, *trees, layout=None) -> torch.Tensor:
     out = sum((opt_lib.worker_sums(torch.square(fn(*xs))) for xs in picked),
               torch.zeros(leaves(trees[0])[0].shape[:1], device=leaves(
                   trees[0])[0].device))
-    if layout is None or layout.group is None:
+    if layout is None or layout.ranks is None:
         return out
-    return comm.ordered_sum(layout.group, out, comm.side)
+    return comm.ordered_sum(layout.ranks, out, comm.side)
 
 
 def _drift_per_worker(new_params, params, layout=None) -> torch.Tensor:
@@ -271,7 +274,7 @@ class TrainPrograms:
                                  # rank holds (one-model runs, and tensor
                                  # parallelism's parts of a worker)
     tp: Any = None               # sharding.partition.TensorParallel of a
-                                 # per-leaf run with shards
+                                 # per-leaf run on a grid with model > 1
 
 
 def shard_state(fs, shard: int, plane, state):
@@ -338,7 +341,8 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
     model = build_model(cfg)
     tp = layout = None
     if group is not None and not opt_cfg.flat and group.layout.shards > 1:
-        tp, layout = _tp_layout(cfg, plan, group, model)
+        tp, layout = leaf_layout(cfg, plan, group, model.init(None, "meta"),
+                                 worker_axis=True)
         # the clip needs the norm over the worker's parts: applied here
         opt = opt_lib.make_optimizer(dataclasses.replace(opt_cfg,
                                                          grad_clip=0.0))
@@ -468,25 +472,46 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
                          leaf_layout=layout, tp=tp, **flat_fields)
 
 
-def _tp_layout(cfg, plan, group, model):
-    """Tensor parallelism of a per-leaf run with shards: the context the
-    layers take (over ``group.shards``, the worker's ranks in shard order)
-    and the :class:`LeafLayout` of the parts this rank holds of its
-    worker's stacked leaves (a leading worker axis of 1), as
-    ``sharding.specs.param_shardings`` splits the leaves over ``model``."""
+def leaf_layout(cfg, plan, group, abstract, *, worker_axis: bool = False):
+    """The parts of a per-leaf run's parameter leaves (``abstract``, one
+    model's, on the ``meta`` device) that this rank holds, as
+    ``sharding.specs.param_shardings`` splits them under ``plan`` on the
+    grid of ``group`` (None: one device, every leaf whole): the
+    :class:`LeafLayout`, and the ``sharding.partition.TensorParallel`` the
+    layers take where the grid has ``model`` > 1 (None elsewhere).
+
+    ``worker_axis``: the paper-style plan's parts of this rank's worker
+    (its leaves carry a leading worker axis of 1, split over the worker's
+    ranks along ``model``); else one model's tiles over the whole grid,
+    each the part over the FSDP sub-group (``plan.fsdp_axes``) of the
+    rank's part over ``model``."""
     from repro_torch.sharding import (LeafSplit, ShardingRules, leaf_split,
                                       param_shardings)
     from repro_torch.sharding.partition import TensorParallel, rule_overrides
-    rules = ShardingRules(group.grid, plan, rule_overrides(cfg))
-    body = model.init(None, "meta")
-    coords = {"data": 0, "model": group.shard}    # a part of the worker's
-    splits = []
-    for t, spec in zip(leaves(body), param_shardings(rules, body)):
-        s = leaf_split(t.shape, spec, group.grid, coords)
-        splits.append(LeafSplit((1,) + s.shape, None if s.dim is None
-                                else s.dim + 1, s.parts, s.index, s.axes))
-    return TensorParallel(group.shards, rules), LeafLayout(splits,
-                                                           group.shards)
+    grid = group.grid if group is not None else {"data": 1, "model": 1}
+    rules = ShardingRules(grid, plan, rule_overrides(cfg))
+    if group is None:
+        coords = dict.fromkeys(grid, 0)
+    elif worker_axis:                     # a part of the worker's
+        coords = {"data": 0, "model": group.shard}
+    else:
+        coords = group.layout.coords_of(group.rank)
+    tiles = [leaf_split(t.shape, sp, grid, coords)
+             for t, sp in zip(leaves(abstract),
+                              param_shardings(rules, abstract))]
+    if worker_axis:
+        tiles = [LeafSplit((1,) + s.shape, None if s.dim is None
+                           else s.dim + 1, s.parts, s.index, s.axes)
+                 for s in tiles]
+    tp_group = group.along(("model",)) if group is not None else None
+    tp = None if tp_group is None else TensorParallel(tp_group, rules)
+    index = (coords["data"], coords["model"])
+    if worker_axis:
+        return tp, LeafLayout(tiles, tp=tp_group, ranks=tp_group,
+                              index=index, grid=grid)
+    fsdp = group.along(plan.fsdp_axes) if group is not None else None
+    return tp, LeafLayout(tiles, fsdp, tp=tp_group, ranks=group,
+                          index=index, grid=grid)
 
 
 # --------------------------------------------------------------------------- #
@@ -494,60 +519,86 @@ def _tp_layout(cfg, plan, group, model):
 # a plan without worker axes), each leaf held as its spec says
 # --------------------------------------------------------------------------- #
 class LeafLayout:
-    """The part of each parameter leaf a rank holds: ``splits`` (a
-    ``sharding.specs.LeafSplit`` a leaf, in ``tree.leaves`` order) over
-    ``group``, the ranks holding the other parts (a one-model run's FSDP
-    sub-group, or under tensor parallelism the worker's ranks; None: this
-    rank holds every leaf whole). The optimizer state's params-shaped
-    entries are split as the params, its counters whole."""
+    """The part of each parameter leaf a rank holds: ``tiles`` (a
+    ``sharding.specs.LeafSplit`` or ``TileSplit`` of each whole leaf, in
+    ``tree.leaves`` order, on ``grid``: ``sharding.specs.tile_parts``). A
+    rank's part of a leaf is the part over ``fsdp`` (the FSDP sub-group:
+    :attr:`splits`) of its part over ``tp`` (the ``model`` sub-group:
+    :attr:`tp_splits`, tensor parallelism's part, which the layers take);
+    either group None: no split over it. ``ranks``: every rank holding a
+    part of one model (its sums over the parts run over it), this rank at
+    ``index`` (its ``(data, model)`` coordinates among them). The
+    optimizer state's params-shaped entries are split as the params, its
+    counters whole."""
 
-    def __init__(self, splits, group) -> None:
-        self.splits = list(splits)
-        self.group = group
-        self.index = 0 if group is None else group.rank
+    def __init__(self, tiles, fsdp=None, *, tp=None, ranks=None,
+                 index=(0, 0), grid=None) -> None:
+        from repro_torch.sharding import tile_parts
+        self.tiles = list(tiles)
+        parts = [tile_parts(t, grid) for t in self.tiles]
+        self.tp_splits = [t for t, _ in parts]
+        self.splits = [f for _, f in parts]
+        self.group, self.tp_group, self.ranks = fsdp, tp, ranks
+        self._index = tuple(index)
 
     @property
     def sharded(self) -> bool:
-        return any(s.split for s in self.splits)
+        return any(t.split for t in self.tiles)
 
     def owned_leaves(self, tree) -> list:
         """``(index, leaf)`` of each leaf of a params-shaped tree of parts
-        this rank counts in sums over the FSDP sub-group: its part of a
-        split leaf; an unsplit leaf on the sub-group's first rank only."""
-        return [(i, x) for i, (x, s) in enumerate(zip(leaves(tree),
-                                                      self.splits))
-                if s.split or self.index == 0]
+        this rank counts in sums over :attr:`ranks`: each part of a leaf
+        once over both axes (a leaf unsplit along one of them on that
+        axis's first rank only)."""
+        f0, t0 = self._index
+        return [(i, x) for i, (x, f, t) in enumerate(zip(
+            leaves(tree), self.splits, self.tp_splits))
+                if (f.split or f0 == 0) and (t.split or t0 == 0)]
 
     def take(self, tree):
         """This rank's parts of a params-shaped tree of whole leaves."""
         return unflatten_like(tree, [s.take(x) for s, x in
-                                     zip(self.splits, leaves(tree))])
+                                     zip(self.tiles, leaves(tree))])
 
     def gather(self, tree, count=comm.wire):
-        """The whole leaves of a tree of this rank's parts, on its device:
-        one all-gather over the FSDP sub-group (``tree`` itself if no leaf
-        is split)."""
-        if not self.sharded:
+        """The tensor-parallel parts of a tree of this rank's parts (the
+        whole leaves without tensor parallelism), on its device: one
+        all-gather over the FSDP sub-group (``tree`` itself if no leaf is
+        split over it)."""
+        if not any(s.split for s in self.splits):
             return tree
         return unflatten_like(tree, self.group.gather_leaves(
             leaves(tree), self.splits, count))
 
+    def _whole(self, i: int, xs: list, count) -> list:
+        """The whole leaves of tensors ``xs`` split as leaf ``i``, on the
+        device: gathered over the FSDP sub-group, then over ``model``."""
+        for split, group in ((self.splits[i], self.group),
+                             (self.tp_splits[i], self.tp_group)):
+            if split.split:
+                xs = group.gather_leaves(xs, [split] * len(xs), count)
+        return xs
+
+    def gather_whole(self, tree, count=comm.side):
+        """Every leaf of a tree of parts whole on this rank's device, a
+        leaf at a time."""
+        return unflatten_like(tree, [
+            self._whole(i, [x], count)[0]
+            for i, x in enumerate(leaves(tree))])
+
     def whole(self, tree):
-        """Every leaf whole on the host (a checkpoint): one gather over the
-        FSDP sub-group a split leaf, counted in ``comm.side``."""
-        out = []
-        for x, s in zip(leaves(tree), self.splits):
-            if s.split:
-                x = self.group.gather_leaves([x], [s], count=comm.side)[0]
-            out.append(x.cpu())
-        return unflatten_like(tree, out)
+        """Every leaf whole on the host (a checkpoint), a leaf at a time,
+        counted in ``comm.side``."""
+        return unflatten_like(tree, [
+            self._whole(i, [x], comm.side)[0].cpu()
+            for i, x in enumerate(leaves(tree))])
 
     def whole_like(self, tree):
         """``meta`` templates of the whole leaves of a tree of parts (a
         checkpoint's restore template)."""
         return unflatten_like(tree, [
             torch.empty(s.shape, dtype=x.dtype, device="meta")
-            for x, s in zip(leaves(tree), self.splits)])
+            for x, s in zip(leaves(tree), self.tiles)])
 
     def state(self, fn, opt_state):
         """``fn`` applied to every params-shaped entry of an optimizer
@@ -555,36 +606,38 @@ class LeafLayout:
         return {k: v if k in fsp.SCALAR_STATE_KEYS else fn(v)
                 for k, v in opt_state.items()}
 
-    def grad_mean_(self, grads: list, group) -> list:
-        """The gradient mean over ``group`` (the ranks along
-        ``grad_axes``), leaf by leaf, written over ``grads`` (each whole
-        leaf freed as its part replaces it): a split leaf's part by
-        ``RankGroup.mean_slices`` over the FSDP sub-group, an unsplit leaf
-        by ``core.comm.gather_mean_``, fp32 on the wire; bit for bit the
-        replicated run's mean."""
-        for i, s in enumerate(self.splits):
-            grads[i] = (self.group.mean_slices(grads[i], s) if s.split else
-                        gather_mean_(grads[i], group,
-                                     wire_dtype=torch.float32))
-        return grads
+    def grad_mean(self, i: int, g, group):
+        """The mean over ``group`` (the ranks along ``grad_axes``) of leaf
+        ``i``'s tensor-parallel part's gradient ``g``, as this rank's
+        part: split over the FSDP sub-group by ``RankGroup.mean_slices``
+        (a new tensor, its tile), else by ``core.comm.gather_mean_``
+        (written over ``g``), fp32 on the wire; bit for bit the replicated
+        run's mean."""
+        s = self.splits[i]
+        if s.split:
+            return self.group.mean_slices(g, s)
+        return gather_mean_(g, group, wire_dtype=torch.float32)
 
     def sums(self, partials: list) -> list:
         """Per leaf, a float32 sum over the whole leaf from each rank's sum
-        over its part (``partials``, scalars): the split leaves' partials
-        gathered over the FSDP sub-group (one collective, ``comm.side``)
-        and added in part order."""
-        idx = [i for i, s in enumerate(self.splits) if s.split]
-        if not idx:
-            return partials
-        (got,) = self.group.all_gather(
-            [torch.stack([partials[i].float() for i in idx])],
-            count=comm.side)
+        over its part (``partials``, scalars): the parts' partials
+        gathered over the FSDP sub-group, then over ``model`` (one
+        collective each where a leaf splits over it, ``comm.side``), each
+        added in part order."""
         out = list(partials)
-        for j, i in enumerate(idx):
-            acc = got[0, j]
-            for r in range(1, got.shape[0]):
-                acc = acc + got[r, j]
-            out[i] = acc
+        for splits, group in ((self.splits, self.group),
+                              (self.tp_splits, self.tp_group)):
+            idx = [i for i, s in enumerate(splits) if s.split]
+            if not idx:
+                continue
+            (got,) = group.all_gather(
+                [torch.stack([out[i].float() for i in idx])],
+                count=comm.side)
+            for j, i in enumerate(idx):
+                acc = got[0, j]
+                for r in range(1, got.shape[0]):
+                    acc = acc + got[r, j]
+                out[i] = acc
         return out
 
     def norm(self, tree) -> torch.Tensor:
@@ -599,21 +652,21 @@ class LeafLayout:
         error-feedback encode of each whole leaf
         (``core.sync_engine.ef_apply``, quantization blocks of the leaf's
         row-major order, a worker's row at a time with ``batch_ndim`` 1).
-        A part whose runs hold whole blocks (``LeafSplit.whole_blocks``)
-        is encoded in place, block for block the whole leaf's; elsewhere
-        the leaf and its residual are gathered (``comm.side``), encoded
-        whole, and this rank keeps its part (and, asked for the ``codes``,
-        sends the whole leaf's, a :class:`WholePayload`)."""
+        A part or tile whose runs hold whole blocks (``whole_blocks``) is
+        encoded in place, block for block the whole leaf's; elsewhere the
+        leaf and its residual are gathered whole (``comm.side``), encoded
+        whole, and this rank keeps its part (and, asked for the
+        ``codes``, sends the whole leaf's, a :class:`WholePayload`)."""
         from repro_torch.core.sync_engine import ef_apply
         blocked = codec.name == "int8"
 
         def enc(tree, residual, *, clamp_nonneg=False, codes=False):
             wires, res, pays = [], [], []
-            for x, e, s in zip(leaves(tree), leaves(residual), self.splits):
+            for i, (x, e, s) in enumerate(zip(leaves(tree), leaves(residual),
+                                              self.tiles)):
                 whole = s.split and blocked and not s.whole_blocks(block)
                 if whole:
-                    x, e = self.group.gather_leaves([x, e], [s, s],
-                                                    count=comm.side)
+                    x, e = self._whole(i, [x, e], comm.side)
                 w, r, *p = ef_apply(x, e, codec, batch_ndim,
                                     clamp_nonneg=clamp_nonneg, codes=codes)
                 wires.append(s.take(w) if whole else w)
@@ -626,53 +679,54 @@ class LeafLayout:
         return enc
 
 
+#: elements of a leaf a one-model synchronous update takes at a time
+UPDATE_CHUNK = 1 << 25
+
+
 def _leaf_programs(cfg, opt_cfg, device, group, plan) -> TrainPrograms:
     """One model over the global batch, each leaf as its spec over the grid
-    says (``sharding.specs.param_shardings`` under ``plan``): split along a
-    dimension over the FSDP sub-group (``plan.fsdp_axes``), or whole. A
-    synchronous optimizer runs ``opt.update`` every step (the paper's
-    baselines, Algorithms 1 and 3); a local one (the reference's one-model
-    branch) ``opt.local_step`` every step and on the policy's sync steps
-    ``opt.sync`` with the identity mean, whose only work is the
-    error-feedback encode of a lossy wire (:meth:`LeafLayout.encode`).
+    says (``sharding.specs.param_shardings`` under ``plan``): split over
+    the FSDP sub-group (``plan.fsdp_axes``), over ``model`` (tensor
+    parallelism, on a grid with ``model`` > 1), both (a tile: the FSDP
+    part of the rank's tensor-parallel part), or whole
+    (:func:`leaf_layout`). A synchronous optimizer runs ``opt.update``
+    every step (the paper's baselines, Algorithms 1 and 3); a local one
+    (the reference's one-model branch) ``opt.local_step`` every step and
+    on the policy's sync steps ``opt.sync`` with the identity mean, whose
+    only work is the error-feedback encode of a lossy wire
+    (:meth:`LeafLayout.encode`).
 
-    A step, on each rank: the split leaves gathered whole over the FSDP
-    sub-group; the forward and backward on this rank's share of the batch
-    (split over ``grad_axes``); the gathered leaves freed; the gradient's
-    mean over the ``grad_axes`` ranks, a split leaf's part by an
-    all-to-all of its slices (:meth:`LeafLayout.grad_mean_`); the update on
-    the parts, elementwise. Sums over a split leaf (the gradient norm of
-    ``grad_clip`` and ``obs_metrics``) add the parts' partial sums in part
-    order. Under ``fsdp_axes=()`` (or on one device) every leaf is whole
-    and this is the replicated run, whose state the FSDP run's equals bit
+    A step, on each rank: its parts gathered over the FSDP sub-group into
+    its tensor-parallel parts (the whole leaves without ``model``); the
+    forward and backward on this rank's share of the batch (split over
+    ``grad_axes``; the ``model`` ranks of a data row take the same rows),
+    the layers under ``TensorParallel`` on a grid with ``model`` > 1;
+    each leaf's gradient mean over the ``grad_axes`` ranks taken as the
+    backward produces it, a part split over the FSDP sub-group by an
+    all-to-all of its slices (:meth:`LeafLayout.grad_mean`), back to this
+    rank's parts; the gathered parts freed; the update on the parts,
+    elementwise, leaf by leaf. Leaves whole on ``model`` get the
+    same gradient on a data row's ranks (the TP collectives give every
+    rank the same bits), so they stay equal without a mean over
+    ``model``. Sums over a split leaf (the gradient norm of ``grad_clip``
+    and ``obs_metrics``) add the parts' partial sums in part order. Under
+    ``fsdp_axes=()`` (or on one device) no leaf splits over ``data`` and
+    this is the data-replicated run, whose state the FSDP run's equals bit
     for bit; the norm may differ in its last bits. The loss is the mean of
-    the ranks'. No kernel runs but the int8 encode's (row 3) with
+    the data ranks'. No kernel runs but the int8 encode's (row 3) with
     ``use_kernels``, as in the reference's one-model branch."""
-    from repro_torch.sharding import ShardingRules, leaf_split, param_shardings
-    from repro_torch.sharding.partition import rule_overrides
     model = build_model(cfg)
-    abstract = model.init(None, "meta")
     # the clip needs the norm over every rank's parts: it is applied here,
     # not by make_optimizer's with_grad_clip
     opt = opt_lib.make_optimizer(dataclasses.replace(opt_cfg, grad_clip=0.0))
     local = opt_lib.is_local(opt)
-    grid = group.grid if group is not None else {"data": 1, "model": 1}
-    coords = (group.layout.coords_of(group.rank) if group is not None
-              else dict.fromkeys(grid, 0))
-    specs = param_shardings(ShardingRules(grid, plan, rule_overrides(cfg)),
-                            abstract)
-    splits = [leaf_split(t.shape, sp, grid, coords)
-              for t, sp in zip(leaves(abstract), specs)]
+    tp, layout = leaf_layout(cfg, plan, group, model.init(None, "meta"))
     grad_group = group.along(plan.grad_axes) if group is not None else None
-    fsdp = group.along(plan.fsdp_axes) if group is not None else None
-    layout = LeafLayout(splits, fsdp)
-    if layout.sharded and (fsdp is None or fsdp is not grad_group
-                           or fsdp is not group):
-        raise NotImplementedError(
-            f"the plan {plan} on the grid {grid} splits leaves over "
-            f"{sorted({a for sp in splits for a in sp.axes})} beside its "
-            "gradient mean: only FSDP over every rank of grad_axes is "
-            "ported (ROADMAP Queue 1 item 9c-2b)")
+    if layout.group is not None and layout.group is not grad_group:
+        raise ValueError(f"the plan {plan} splits leaves over "
+                         f"{plan.fsdp_axes}, not over every rank of its "
+                         f"gradient mean ({plan.grad_axes})")
+    tp_kw = {} if tp is None else {"tp": tp}
     # Alg. 3 folds g∘g into B²; Alg. 1 and plain SGD never read it, and the
     # reference's compiled step drops it as dead code
     wants_sq = opt_cfg.name == "adaalter"
@@ -692,17 +746,50 @@ def _leaf_programs(cfg, opt_cfg, device, group, plan) -> TrainPrograms:
         params = layout.take(tree_map(lambda x: x.to(device), base))
         return params, opt.init(params)
 
+    # no recomputation reads the gathered leaves again (remat and the
+    # attention's checkpoint re-run the forward from them)
+    recompute_free = plan.remat == "none" and not getattr(cfg, "attn_remat",
+                                                          False)
+
+    def note_storage(saved, t):
+        """A tensor autograd saves for the backward: its storage noted."""
+        saved.add(t.untyped_storage().data_ptr())
+        return t
+
+    def take_grad(grads, i, leaf):
+        """Leaf ``i``'s gradient, taken from the leaf (and freed there):
+        its mean over ``grad_axes`` as this rank's part."""
+        g, leaf.grad = leaf.grad, None
+        grads[i] = (g if grad_group is None
+                    else layout.grad_mean(i, g, grad_group))
+
     def step(params, opt_state, batch, *, do_sync: bool):
-        whole = layout.gather(params)
-        p = tree_map(lambda t: t.detach().requires_grad_(), whole)
-        # the ranks' rows are one batch (the MoE routes them as one)
-        loss, _ = model.loss_fn(p, batch, remat=plan.remat,
-                                batch_group=grad_group)
-        grads = list(torch.autograd.grad(loss, leaves(p)))
-        del whole, p                  # the gathered leaves
+        parts = layout.gather(params)
+        p = tree_map(lambda t: t.detach().requires_grad_(), parts)
+        # each leaf's gradient mean over grad_axes as soon as the backward
+        # has summed it (the same leaf order on every rank): the whole
+        # gradients are never all held beside the gathered parts
+        grads = [None] * len(layout.tiles)
+        hooks = [t.register_post_accumulate_grad_hook(
+            partial(take_grad, grads, i)) for i, t in enumerate(leaves(p))]
+        # the data ranks' rows are one batch (the MoE routes them as one)
+        saved = set()
+        with torch.autograd.graph.saved_tensors_hooks(
+                partial(note_storage, saved), lambda t: t):
+            loss, _ = model.loss_fn(p, batch, remat=plan.remat,
+                                    batch_group=grad_group, **tp_kw)
+        if recompute_free:
+            # a gathered leaf the backward does not read (an embedding
+            # table: its lookup saves the indices) is freed before it
+            for t, s in zip(leaves(p), layout.splits):
+                if s.split and t.untyped_storage().data_ptr() not in saved:
+                    t.untyped_storage().resize_(0)
+        loss.backward()
+        for h in hooks:
+            h.remove()
+        del parts, p                  # the gathered parts
         loss = loss.detach()
-        if grad_group is not None:    # the grad_axes mean, and the loss's
-            grads = layout.grad_mean_(grads, grad_group)
+        if grad_group is not None:    # the loss's mean over grad_axes
             loss = worker_metrics({"loss": loss}, grad_group)["loss"]
         grads = unflatten_like(params, grads)
         metrics = {"loss": loss}
@@ -720,19 +807,54 @@ def _leaf_programs(cfg, opt_cfg, device, group, plan) -> TrainPrograms:
                 new_params, new_state = opt.sync(new_params, new_state,
                                                  **sync_kw)
             return new_params, new_state, metrics
-        sq = None
-        if wants_sq:
-            sq = tree_map(lambda g: torch.square(g.float()), grads)
-            if opt_cfg.grad_clip > 0:
-                sq = tree_map(lambda q: q * torch.square(factor), sq)
-        new_params, new_state = opt.update(applied, sq, opt_state, params)
-        return new_params, new_state, metrics
+        # the update leaf by leaf and a chunk of a leaf at a time (the
+        # optimizers are elementwise): g∘g is made just before its chunk's
+        # update and each gradient dropped once used, so the step holds a
+        # chunk's temporaries beside the old and new state, not a tree of
+        # g∘g and of the update's float32 intermediates
+        g_list, a_list = leaves(grads), leaves(applied)
+        del grads, applied
+        entries = [k for k in opt_state if k not in fsp.SCALAR_STATE_KEYS]
+        new_p, new_s, counters = [], {k: [] for k in entries}, {}
+        for i, p_i in enumerate(leaves(params)):
+            olds = {k: leaves(opt_state[k])[i] for k in entries}
+            out_p = torch.empty_like(p_i)
+            outs = {k: torch.empty_like(v) for k, v in olds.items()}
+            n = p_i.numel()
+            for a in range(0, n, UPDATE_CHUNK):
+                b = min(n, a + UPDATE_CHUNK)
+
+                def cut(t):
+                    return t.reshape(-1)[a:b]
+                sq = None
+                if wants_sq:
+                    sq = [torch.square(cut(g_list[i]).float())]
+                    if opt_cfg.grad_clip > 0:
+                        sq = [sq[0] * torch.square(factor)]
+                one = {k: (v if k in fsp.SCALAR_STATE_KEYS
+                           else [cut(olds[k])]) for k, v in opt_state.items()}
+                np_c, ns_c = opt.update([cut(a_list[i])], sq, one,
+                                        [cut(p_i)])
+                cut(out_p).copy_(np_c[0])
+                for k, v in ns_c.items():
+                    if k in entries:
+                        cut(outs[k]).copy_(v[0])
+                    else:
+                        counters[k] = v
+                del np_c, ns_c, sq
+            g_list[i] = a_list[i] = None
+            new_p.append(out_p)
+            for k in entries:
+                new_s[k].append(outs[k])
+        new_state = {**counters, **{k: unflatten_like(opt_state[k], v)
+                                    for k, v in new_s.items()}}
+        return unflatten_like(params, new_p), new_state, metrics
 
     return TrainPrograms(init_fn=init_fn, local_step=partial(
         step, do_sync=False), sync_step=partial(step, do_sync=True),
         n_workers=1, H=opt.H if local else 1, is_local=False,
-        n_payload_leaves=len(splits), group=group, plan=plan,
-        leaf_layout=layout)
+        n_payload_leaves=len(layout.tiles), group=group, plan=plan,
+        leaf_layout=layout, tp=tp)
 
 
 # --------------------------------------------------------------------------- #

@@ -171,10 +171,6 @@ def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
     disk_flat = is_flat_checkpoint(keys)
     layout = programs.leaf_layout
     sharded = layout is not None and layout.sharded
-    if disk_flat and programs.tp is not None:
-        raise NotImplementedError(
-            "a flat checkpoint into a tensor-parallel per-leaf run: restore "
-            "it on one rank or with --flat, and checkpoint per leaf")
     if disk_flat == programs.is_flat:
         like = (params, opt_state)
         if sharded:                  # the whole leaves, on the host
@@ -214,18 +210,17 @@ def _restore(checkpoint_dir, programs, engine, params, opt_state, dev,
         w = programs.group.worker
         params, opt_state = tree_map(lambda t: t[w:w + 1],
                                      (params, opt_state))
+    if disk_flat and not programs.is_flat:      # whole leaves, on the host
+        params, opt_state = programs.to_legacy(params, opt_state)
+        notes += " (flat -> per-leaf)"
     if sharded:                      # this rank's parts of the leaves
         params = layout.take(params)
         opt_state = layout.state(layout.take, opt_state)
     shard = partial(shard_state, programs.flatspace, programs.shard)
-    if disk_flat and programs.n_shards > 1:     # and this rank's sub-planes
-        params, opt_state = shard(params, opt_state)
+    if disk_flat and programs.is_flat and programs.n_shards > 1:
+        params, opt_state = shard(params, opt_state)   # its sub-planes
     params, opt_state = _place((params, opt_state), dev)
-    if disk_flat and not programs.is_flat:
-        params, opt_state = _place(programs.to_legacy(params, opt_state),
-                                   dev)
-        notes += " (flat -> per-leaf)"
-    elif programs.is_flat and not disk_flat:
+    if programs.is_flat and not disk_flat:
         params, opt_state = programs.to_flat(params, opt_state)
         if programs.n_shards > 1:
             params, opt_state = shard(params, opt_state)
@@ -264,6 +259,8 @@ def state_digest(params, opt_state, *, worker_axis: bool,
             total = s if total is None else total + s
         if total is not None:
             out[key] = [int(v) for v in total.tolist()]
+        elif layout is not None:          # a rank that owns none of them
+            out[key] = [0]
     return out
 
 
@@ -556,9 +553,9 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
             state = (params, opt_state)
             if ranked and sharded:    # whole leaves, every worker's rows
                 state = group.workers.gather_stacked(
-                    (layout.gather(params, comm.side),
-                     layout.state(partial(layout.gather, count=comm.side),
-                                  opt_state)), to_device=False)
+                    (layout.gather_whole(params),
+                     layout.state(layout.gather_whole, opt_state)),
+                    to_device=False)
             elif ranked:              # every worker's rows, stacked
                 state = gather_workers(programs, state, to_device=False)
             elif sharded:             # every leaf whole
@@ -678,10 +675,16 @@ def main(argv=None) -> None:
                          "rank r is worker r // S and holds shard r %% S of "
                          "its flat plane (--flat) or, per leaf, its parts "
                          "of the worker's weights (tensor parallelism over "
-                         "model, the lstm and dense families), so N must "
-                         "divide the world size (a synchronous optimizer "
-                         "keeps one model and spreads --batch over the "
-                         "ranks)")
+                         "model), so N must divide the world size. A "
+                         "one-model plan (a synchronous optimizer, or the "
+                         "plans above 20 B parameters) keeps one model: its "
+                         "N rows of ranks spread --batch, each leaf split "
+                         "over data (FSDP) and model (default: N = world)")
+    ap.add_argument("--full-plan", action="store_true",
+                    help="with --reduced: train under the plan of the "
+                         "full-size architecture (launch.mesh.resolve_plan "
+                         "on its parameter count), e.g. llama3-405b's one "
+                         "model with FSDP over data")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="under torchrun: nccl (the default on the cards, "
                          "one card a rank) or gloo (the default with --device "
@@ -743,22 +746,25 @@ def main(argv=None) -> None:
     R = max(1, args.workers)
     from repro_torch.launch import mesh
     world = mesh.world_size()
+    planned = get_arch(args.arch) if args.full_plan else cfg
     grid = {"data": world, "model": 1}
-    plan = mesh.resolve_plan(cfg, grid, optimizer=args.optimizer)
+    plan = mesh.resolve_plan(planned, grid, optimizer=args.optimizer)
     one_model = args.optimizer in SYNC_OPTIMIZERS or not plan.local_axes
-    if R > 1 and one_model:
+    if R > 1 and one_model and world == 1:
         why = ("is a synchronous optimizer" if args.optimizer in
                SYNC_OPTIMIZERS else "has no worker axes above 20 B "
                "parameters")
         ap.error(f"--workers {R}: {args.optimizer} {why}, trained as one "
                  "model over the global batch (R = 1)")
     if world > 1:
-        if not one_model:        # workers x shards; one model: along data
-            try:
-                grid = mesh.grid_of(world, R)
-            except ValueError as e:
-                ap.error(str(e))
-            plan = mesh.resolve_plan(cfg, grid, optimizer=args.optimizer)
+        try:                     # workers (one model: rows) x shards
+            grid = mesh.grid_of(world, (args.workers or world) if one_model
+                                else R)
+        except ValueError as e:
+            ap.error(str(e))
+        plan = mesh.resolve_plan(planned, grid, optimizer=args.optimizer)
+        if one_model:
+            R = 1
     elif args.dist_backend:
         ap.error("--dist-backend needs a launch with ranks (torchrun)")
     group, device = None, args.device
@@ -772,7 +778,9 @@ def main(argv=None) -> None:
                  if group is None else
                  f"{world} ranks, " + (
                      ("one model, FSDP over data" if plan.fsdp_axes
-                      else "data-parallel") if one_model
+                      else "data-parallel")
+                     + (f" x {grid['model']} TP shards"
+                        if grid["model"] > 1 else "") if one_model
                      else "one worker each" if grid["model"] == 1 else
                      f"{R} workers x {grid['model']} shards")
                  + f"; rank 0: {group.route}")
@@ -787,7 +795,7 @@ def main(argv=None) -> None:
                          device=device, checkpoint_dir=args.checkpoint_dir,
                          checkpoint_every=args.checkpoint_every,
                          trace_out=args.trace, metrics_out=args.metrics,
-                         group=group, digest=bool(args.out))
+                         group=group, digest=bool(args.out), plan=plan)
     finally:
         mesh.close_ranks()
     if not lead:

@@ -211,8 +211,9 @@ def self_attention(params, x, positions, cfg, *, window: int = 0,
                    causal: bool = True, kv_block: int = 1024, tp=None,
                    cache: bool = False, cache_len: int = 0):
     """Full-sequence self-attention; returns (out, (k, v)) for the cache.
-    Under ``tp`` the output is the same on every rank, and with ``cache``
-    (k, v) are this rank's part of the sequence-split cache
+    Under ``tp`` the output is the same on every rank (this rank's slice
+    of its sequence under ``tp.seq``), and with ``cache`` (k, v) are this
+    rank's part of the sequence-split cache
     (:func:`tp_cache_part`; ``cache_len``: the decode cache's length,
     whose split the part follows)."""
     by_heads = False
@@ -245,7 +246,7 @@ def self_attention(params, x, positions, cfg, *, window: int = 0,
     from repro_torch.models.layers import tp_linear
     out, _ = tp_linear(out, params["wo"], tp.split(
         "wo", (cfg.n_heads * cfg.head_dim, x.shape[-1])), tp,
-        x_part=by_heads)
+        x_part=by_heads, final=True)
     return out, (tp_cache_part((k, v), tp, by_heads, cache_len) if cache
                  else (k, v))
 
@@ -317,7 +318,8 @@ def cross_attention_full(params, x, kv_src, cfg, *, tp=None,
     """Cross-attention of x (B, Sq, D) to kv_src (B, Skv, D); returns (out,
     (k, v)) for the cache. Under ``tp`` the projections split as their
     specs say (by heads, or gathered), the output is the same on every
-    rank, and with ``cache`` (k, v) are this rank's part of the cross
+    rank (its slice under ``tp.seq``), and with ``cache`` (k, v) are this
+    rank's part of the cross
     cache (:func:`tp_cache_part`; ``cache_len``: the decode's cross
     length)."""
     b, sq, _ = x.shape
@@ -335,7 +337,7 @@ def cross_attention_full(params, x, kv_src, cfg, *, tp=None,
     from repro_torch.models.layers import tp_linear
     out, _ = tp_linear(out, params["wo"], tp.split(
         "wo", (cfg.n_heads * cfg.head_dim, x.shape[-1])), tp,
-        x_part=by_heads)
+        x_part=by_heads, final=True)
     return out, (tp_cache_part((k, v), tp, by_heads, cache_len) if cache
                  else (k, v))
 

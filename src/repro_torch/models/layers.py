@@ -71,11 +71,12 @@ def mlp_apply(params, x, act: str, tp=None, d_ff: int = 0, path=()):
               for h, part in hs]
     a = _act(hs[0][0], hs[-1][0], act)
     out, _ = tp_linear(a, params["w2"], tp.split("w2", (d_ff, d), path), tp,
-                       x_part=hs[0][1])
+                       x_part=hs[0][1], final=True)
     return out
 
 
-def tp_linear(x, w, split, tp, *, x_part: bool = False, xc=None):
+def tp_linear(x, w, split, tp, *, x_part: bool = False, xc=None,
+              final: bool = False):
     """``x @ w`` where ``w`` is this rank's part of a weight split as
     ``split`` (a ``sharding.specs.LeafSplit`` of the whole (d_in, d_out)
     weight) over ``tp``'s ranks, and ``x`` is the same on every rank, or
@@ -91,21 +92,29 @@ def tp_linear(x, w, split, tp, *, x_part: bool = False, xc=None):
 
     A whole ``x`` enters rank-specific work through ``tp_copy``, which
     sums its gradient over the ranks, so every rank's gradient of it is
-    the whole one (and the same bits)."""
+    the whole one (and the same bits). ``final``: the product is a
+    sub-layer's output, whole (a split ``y`` gathered), and under
+    sequence parallelism (``tp.seq``) this rank's slice of its sequence:
+    the row-parallel sum reduce-scattered (``TensorParallel.out_sum``),
+    a whole product cut (``TensorParallel.out_whole``)."""
     from repro_torch.core.comm import tp_copy, tp_gather, tp_sum
     row = split.split and split.dim == 0
     if x_part and not row:
         x, xc = tp_gather(x, tp.group), None
     if not split.split:
-        return x @ w, False
+        return (tp.out_whole(x @ w) if final else x @ w), False
     xc = xc if xc is not None else tp_copy(x, tp.group)
     if not row:
+        if final:
+            return tp.out_whole(tp_gather(xc @ w, tp.group)), False
         return xc @ w, True
     if not x_part:
         x = xc.narrow(-1, split.index * w.shape[0], w.shape[0])
     elif x.shape[-1] != w.shape[0]:
         raise ValueError(f"a part of {x.shape[-1]} against rows "
                          f"{w.shape[0]} of a row-split weight")
+    if final:
+        return tp.out_sum(x @ w), False
     return tp_sum(x @ w, tp.group, tp.sum_log), False
 
 
@@ -113,16 +122,19 @@ def tp_embed(embed, tokens, split, tp):
     """``embed[tokens]`` from this rank's rows of a vocab-split table: the
     rank looks up the tokens it holds, the others as zeros, and the
     lookups are summed over the ranks (one nonzero term an element: the
-    whole table's rows, bit for bit). ``embed`` whole: the plain lookup."""
-    if tp is None or not split.split:
+    whole table's rows, bit for bit). ``embed`` whole: the plain lookup.
+    Under sequence parallelism (``tp.seq``) this rank's slice of the
+    sequence (dimension 1) of the lookups."""
+    if tp is None:
         return embed[tokens.long()]
-    from repro_torch.core.comm import tp_sum
+    if not split.split:
+        return tp.out_whole(embed[tokens.long()])
     n = embed.shape[0]
     local = tokens.long() - split.index * n
     mine = (local >= 0) & (local < n)
     rows = embed[torch.clamp(local, 0, n - 1)]
     rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-    return tp_sum(rows, tp.group, tp.sum_log)
+    return tp.out_sum(rows)
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str,

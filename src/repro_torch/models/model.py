@@ -189,7 +189,13 @@ def _build_transformer(cfg) -> Model:
                                            scale=0.02, dtype=dtype, device=dev)
         return params
 
-    def _encode(params, batch, tp=None):
+    def _top(params, key, gather):
+        """A top-level weight as the layers take it: ``params[key]``, or
+        gathered by ``gather`` (serving with gathered weights:
+        ``launch/serving.py::WeightGather``)."""
+        return params[key] if gather is None else gather.leaf(params, key)
+
+    def _encode(params, batch, tp=None, gather=None):
         """The encoder over the (stubbed) audio frames, non-causal; under
         ``tp`` its layers split as the decoder's, the output the same on
         every rank."""
@@ -199,15 +205,17 @@ def _build_transformer(cfg) -> Model:
         ctx = {"causal": False}
         if tp is not None:
             ctx["tp"] = tp
+        if gather is not None:
+            ctx["fetch"] = gather.stack("encoder")
         h, _, _ = tfm.apply_stack(params["encoder"], _encoder_cfg(cfg),
                                   frames, pos, ctx=ctx)
-        return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+        return rms_norm(h, _top(params, "enc_norm", gather), cfg.norm_eps)
 
-    def _ctx(params, batch, tp=None):
+    def _ctx(params, batch, tp=None, gather=None):
         """The cross-attention source: the encoder's output, or the image
         embeddings (a replicated input under ``tp``)."""
         if cfg.is_encdec:
-            return {"cross_src": _encode(params, batch, tp)}
+            return {"cross_src": _encode(params, batch, tp, gather)}
         if cfg.cross_attn_every:
             return {"cross_src": batch["image_embeds"].to(dtype)}
         return {}
@@ -220,41 +228,60 @@ def _build_transformer(cfg) -> Model:
         return tp.split("lm_head", (cfg.d_model, cfg.vocab_size))
 
     def _trunk(params, batch, *, window=0, collect_cache=False,
-               remat="none", batch_group=None, tp=None, cache_lens=None):
+               remat="none", batch_group=None, tp=None, cache_lens=None,
+               seq_parallel=False, gather=None):
+        """The decoder stack over the embedded tokens, final-normed.
+        ``seq_parallel`` (training under ``tp``): the residual stream
+        between the blocks is this rank's slice of the sequence (the
+        reference's ``seq_sp`` constraints), where the TP size divides
+        it; the embedding reduce-scattered, the stream gathered whole
+        again before the final norm. ``gather``: the weights gathered as
+        each runs (serving, ``_top``)."""
         tokens = batch["tokens"]
+        sp = (seq_parallel and tp is not None and tp.size > 1
+              and tokens.shape[1] % tp.size == 0)
+        embed = _top(params, "embed", gather)
         if tp is None:
-            x = params["embed"][tokens.long()].to(dtype)
+            x = embed[tokens.long()].to(dtype)
         else:
-            x = tp_embed(params["embed"], tokens, tp.split(
-                "embed", (cfg.vocab_size, cfg.d_model)), tp).to(dtype)
+            x = tp_embed(embed, tokens, tp.split(
+                "embed", (cfg.vocab_size, cfg.d_model)),
+                dataclasses.replace(tp, seq=sp)).to(dtype)
+        del embed
         pos = torch.arange(tokens.shape[1],
                            device=tokens.device).expand(tokens.shape)
-        ctx = _ctx(params, batch, tp)
+        ctx = _ctx(params, batch, tp, gather)
         if batch_group is not None:
             ctx["batch_group"] = batch_group
         if tp is not None:
             ctx["tp"] = tp
+            ctx["seq_parallel"] = sp
             ctx.update(cache_lens or {})
+        if gather is not None:
+            ctx["fetch"] = gather.stack("blocks")
         x, aux, caches = tfm.apply_stack(
             params["blocks"], cfg, x, pos, ctx, window=window,
             collect_cache=collect_cache, encdec_dec=cfg.is_encdec,
             remat=remat)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if sp:
+            from repro_torch.core.comm import tp_gather
+            x = tp_gather(x, tp.group, 1)
+        x = rms_norm(x, _top(params, "final_norm", gather), cfg.norm_eps)
         return x, aux, caches
 
-    def _head(params, x, tp=None):
+    def _head(params, x, tp=None, gather=None):
         """Logits, and whether they are this rank's vocabulary part."""
+        w = _top(params, "embed" if cfg.tie_embeddings else "lm_head",
+                 gather)
         if tp is None:
-            w = (params["embed"].T if cfg.tie_embeddings
-                 else params["lm_head"])
-            return x @ w, False
+            return x @ (w.T if cfg.tie_embeddings else w), False
         split = _vocab_split(tp)
         if cfg.tie_embeddings:       # embed's rows are the head's columns
             if not split.split:
-                return x @ params["embed"].T, False
+                return x @ w.T, False
             from repro_torch.core.comm import tp_copy
-            return tp_copy(x, tp.group) @ params["embed"].T, True
-        return tp_linear(x, params["lm_head"], split, tp)
+            return tp_copy(x, tp.group) @ w.T, True
+        return tp_linear(x, w, split, tp)
 
     def logits_fn(params, batch, tp=None):
         x, _, _ = _trunk(params, batch, tp=tp)
@@ -270,9 +297,11 @@ def _build_transformer(cfg) -> Model:
         them as one (``moe.moe_apply``). ``tp``: tensor parallelism (a
         ``sharding.partition.TensorParallel``; ``params`` this rank's
         parts): the same loss on every rank, vocabulary-parallel where the
-        head splits."""
+        head splits, the decoder's residual stream split along the
+        sequence under ``cfg.seq_parallel`` (``_trunk``)."""
         x, aux, _ = _trunk(params, batch, remat=remat,
-                           batch_group=batch_group, tp=tp)
+                           batch_group=batch_group, tp=tp,
+                           seq_parallel=cfg.seq_parallel)
         logits, part = _head(params, x, tp)
         if part:
             loss = vocab_parallel_xent(logits, batch["labels"], tp,
@@ -284,7 +313,8 @@ def _build_transformer(cfg) -> Model:
         return loss + aux, {"xent": loss, "aux": aux}
 
     def prefill(params, batch, *, window: int = 0, tp=None,
-                batch_group=None, cache_len: int = 0, cross_len: int = 0):
+                batch_group=None, cache_len: int = 0, cross_len: int = 0,
+                gather=None):
         """Last-position logits and the stacked caches: the attention
         layers' post-RoPE (k, v), the cross-attention layers' (k, v) of the
         image embeddings or the encoder's output (``xkv``), the SSM layers'
@@ -294,13 +324,15 @@ def _build_transformer(cfg) -> Model:
         ``cross_len`` split, or, 0, the prefill's own), the SSM state's
         heads and the conv tail's channels. ``batch_group``: the ranks
         whose rows make one batch with ``batch``'s (the MoE routes them
-        as one, as ``loss_fn``)."""
+        as one, as ``loss_fn``). ``gather``: ``params`` are this rank's
+        stored parts, each weight gathered as it runs and freed after it
+        (serving with gathered weights, ``launch/serving.py``)."""
         x, _, caches = _trunk(params, batch, window=window,
                               collect_cache=True, tp=tp,
                               batch_group=batch_group, cache_lens={
                                   "cache_len": cache_len,
-                                  "cross_len": cross_len})
-        logits = tp_logits(*_head(params, x[:, -1:], tp), tp)
+                                  "cross_len": cross_len}, gather=gather)
+        logits = tp_logits(*_head(params, x[:, -1:], tp, gather), tp)
         return logits, caches
 
     def init_cache(batch_size: int, cache_len: int, *, windowed: bool = False,
@@ -337,26 +369,29 @@ def _build_transformer(cfg) -> Model:
 
     def decode_step(params, caches, token, pos, *, window: int = 0,
                     tp=None, cache_len: int = 0, cross_len: int = 0,
-                    batch_group=None):
+                    batch_group=None, gather=None):
         """token: (B,1); pos: (B,). Returns (logits (B,1,V), caches). Under
         ``tp`` the caches are this rank's parts, and ``cache_len`` and
         ``cross_len`` the whole self- and cross-attention caches'
-        lengths. ``batch_group`` as in ``prefill``."""
+        lengths. ``batch_group`` and ``gather`` as in ``prefill``."""
+        embed = _top(params, "embed", gather)
         if tp is None:
-            x = params["embed"][token.long()].to(dtype)
+            x = embed[token.long()].to(dtype)
         else:
-            x = tp_embed(params["embed"], token, tp.split(
+            x = tp_embed(embed, token, tp.split(
                 "embed", (cfg.vocab_size, cfg.d_model)), tp).to(dtype)
+        del embed
         kv_leaves = [v for e in caches for k, v in e.items() if k == "kv"]
         spec = attn_mod.KVCacheSpec(
             cache_len=cache_len or (kv_leaves[0][0].shape[2] if kv_leaves
                                     else 0),
             windowed=bool(window), cross_len=cross_len)
-        x, caches = tfm.decode_stack(params["blocks"], cfg, x, pos, caches,
-                                     spec=spec, tp=tp,
-                                     batch_group=batch_group)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return tp_logits(*_head(params, x, tp), tp), caches
+        x, caches = tfm.decode_stack(
+            params["blocks"], cfg, x, pos, caches, spec=spec, tp=tp,
+            batch_group=batch_group,
+            fetch=None if gather is None else gather.stack("blocks"))
+        x = rms_norm(x, _top(params, "final_norm", gather), cfg.norm_eps)
+        return tp_logits(*_head(params, x, tp, gather), tp), caches
 
     return Model(cfg=cfg, init=init, loss_fn=loss_fn, logits_fn=logits_fn,
                  prefill=prefill, decode_step=decode_step, init_cache=init_cache)
@@ -399,10 +434,14 @@ def _build_lstm(cfg) -> Model:
                                          device=loss.device)}
 
     def prefill(params, batch, *, window: int = 0, tp=None,
-                batch_group=None, cache_len: int = 0, cross_len: int = 0):
+                batch_group=None, cache_len: int = 0, cross_len: int = 0,
+                gather=None):
         """The state after the prompt, and the logits of its last position:
         the 793k-vocab head runs once, on the last hidden state, not at
-        every position. Under ``tp`` the logits are whole on every rank."""
+        every position. Under ``tp`` the logits are whole on every rank.
+        ``gather``: the weights gathered whole for the call."""
+        if gather is not None:
+            params = gather.tree(params)
         tokens = batch["tokens"]
         state = lstm_mod.init_lstm_state(cfg, tokens.shape[0], dtype,
                                          tokens.device)
@@ -422,7 +461,9 @@ def _build_lstm(cfg) -> Model:
 
     def decode_step(params, caches, token, pos, *, window: int = 0,
                     tp=None, cache_len: int = 0, cross_len: int = 0,
-                    batch_group=None):
+                    batch_group=None, gather=None):
+        if gather is not None:
+            params = gather.tree(params)
         return lstm_mod.lstm_decode_step(params, token, caches, cfg, tp=tp)
 
     return Model(cfg=cfg, init=init, loss_fn=loss_fn, logits_fn=logits_fn,

@@ -188,11 +188,12 @@ def moe_apply_grouped(params, x, cfg, group=None, tp=None):
     eout = _expert_ffn(params, xin, cfg).reshape(e_r * size, d)
 
     out_tk = eout[torch.where(mine, flat_slot, 0)]                 # (T,k,D)
-    out = torch.sum(out_tk.float() * w[..., None], dim=1)
-    if split is not None:
-        from repro_torch.core.comm import tp_sum
-        out = tp_sum(out, tp.group, tp.sum_log)
-    out = out.to(x.dtype).reshape(b, s, d)
+    out = torch.sum(out_tk.float() * w[..., None], dim=1).reshape(b, s, d)
+    if split is not None:             # the ranks' partial combines
+        out = tp.out_sum(out)
+    elif tp is not None:
+        out = tp.out_whole(out)
+    out = out.to(x.dtype)
     if cfg.shared_expert:
         out = out + mlp_apply(params["shared"], x, cfg.act, tp,
                               cfg.dense_d_ff, ("moe", "shared"))

@@ -267,15 +267,18 @@ def _tp_out(y, params, cfg, tp, by_heads: bool):
     weight (gathered where split) on every rank's whole y. The partial
     products are taken in float32 and summed in rank order, so the output
     is rounded once to y's dtype, as one rank's product is (a bf16 GEMM
-    would round each partial first)."""
-    from repro_torch.core.comm import tp_gather, tp_sum
+    would round each partial first). Under ``tp.seq`` the output is this
+    rank's slice of the sequence."""
+    from repro_torch.core.comm import tp_gather
     if by_heads:
         part = y.float() @ params["out_proj"].float()
-        return tp_sum(part, tp.group, tp.sum_log).to(y.dtype)
+        return tp.out_sum(part).to(y.dtype)
     w = params["out_proj"]
-    if tp is not None and tp.split("out_proj", (cfg.d_inner, cfg.d_model)).split:
+    if tp is None:
+        return y @ w
+    if tp.split("out_proj", (cfg.d_inner, cfg.d_model)).split:
         w = tp_gather(w, tp.group, 0)
-    return y @ w
+    return tp.out_whole(y @ w)
 
 
 def _tp_norm_weight(params, cfg, tp, by_heads: bool):

@@ -14,6 +14,7 @@ encoder-decoder's decoder blocks also attend to the encoder's output
 """
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Any, Dict, List
 
@@ -105,18 +106,40 @@ def init_stack(gen, cfg, dtype, device="cpu", *,
     return stacked
 
 
-def _ffn(bp, cfg, kind, x, batch_group=None, tp=None):
+class _Stream:
+    """A block's residual stream ``x`` as one sub-layer reads it. Under
+    sequence parallelism (``gather``: the ``model`` ranks' slices of the
+    sequence put together) :attr:`whole` is the gathered stream, which the
+    norm reads, and :meth:`add` adds the sub-layer's output (this rank's
+    slice) to this rank's slice of it, cut only then: the stream's
+    gradient then takes the residual's term before the norm's two, as the
+    unsplit stream's does, and the two runs give the same bits."""
+
+    def __init__(self, x, gather=None, rank: int = 0) -> None:
+        self.x, self.rank = x, rank
+        self.whole = x if gather is None else gather(x)
+
+    def add(self, out):
+        if self.whole is self.x:
+            return self.x + out
+        n = self.x.shape[1]
+        return self.whole.narrow(1, self.rank * n, n) + out
+
+
+def _ffn(bp, cfg, kind, x, batch_group=None, tp=None, gather=None):
     """The block's second half: x + FFN(ln2(x)). Returns (x, aux_loss).
     ``batch_group``: the ranks whose rows make one batch with ``x``'s (the
     MoE routes them as one, ``moe.moe_apply``); ``tp``: tensor
     parallelism (the MoE's experts over ``model``, the dense MLP's
-    ``layers.mlp_apply``)."""
-    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    ``layers.mlp_apply``); ``gather``: sequence parallelism's
+    (:class:`_Stream`)."""
+    st = _Stream(x, gather, tp.rank if gather is not None else 0)
+    h = rms_norm(st.whole, bp["ln2"], cfg.norm_eps)
     if kind == "self_moe":
         out, aux = moe_mod.moe_apply(bp["moe"], h, cfg, batch_group, tp)
-        return x + out, aux
-    return x + mlp_apply(bp["mlp"], h, cfg.act, tp, _mlp_width(cfg, kind)), \
-        None
+        return st.add(out), aux
+    out = mlp_apply(bp["mlp"], h, cfg.act, tp, _mlp_width(cfg, kind))
+    return st.add(out), None
 
 
 def _mlp_width(cfg, kind: str) -> int:
@@ -138,58 +161,75 @@ def _mean_fusion(bp, cfg, a_out, s_out):
 
 def _apply_block(bp, cfg, kind, x, positions, ctx, *, window: int,
                  collect_cache: bool, encdec_dec: bool = False):
-    """Returns (x, aux_loss or None, cache_entry)."""
+    """Returns (x, aux_loss or None, cache_entry). Under sequence
+    parallelism (ctx ``"seq_parallel"``) ``x`` and the result are this
+    rank's slices of the residual stream's sequence: the stream is
+    gathered whole for each norm (:class:`_Stream`), the sub-layers see
+    the whole sequence, and their outputs come back as slices
+    (``TensorParallel.seq``)."""
     cache: Dict[str, Any] = {}
     tp = ctx.get("tp")
+    gather, tp_out, rank = None, tp, 0
+    if ctx.get("seq_parallel"):
+        from repro_torch.core.comm import tp_gather
+        gather = partial(tp_gather, group=tp.group, dim=1)
+        tp_out, rank = dataclasses.replace(tp, seq=True), tp.rank
     # under tensor parallelism the attention returns this rank's part of
     # the cache, split as the decode cache splits (and the SSM its parts
     # of the state)
     kw = xkw = {}
     if tp is not None:
-        kw = {"tp": tp, "cache": collect_cache,
+        kw = {"tp": tp_out, "cache": collect_cache,
               "cache_len": ctx.get("cache_len", 0)}
         xkw = {**kw, "cache_len": ctx.get("cross_len", 0)}
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    st = _Stream(x, gather, rank)
+    h = rms_norm(st.whole, bp["ln1"], cfg.norm_eps)
     if kind == "ssm":
         if collect_cache:
             out, cache["ssm"] = ssm_mod.ssm_forward(bp["ssm"], h, cfg,
-                                                    return_state=True, tp=tp)
+                                                    return_state=True,
+                                                    tp=tp_out)
         else:
-            out = ssm_mod.ssm_forward(bp["ssm"], h, cfg, tp=tp)
-        return x + out, None, cache
+            out = ssm_mod.ssm_forward(bp["ssm"], h, cfg, tp=tp_out)
+        return st.add(out), None, cache
     if kind == "cross":
         out, kv = attn.cross_attention_full(bp["attn"], h, ctx["cross_src"],
                                             cfg, **xkw)
         if collect_cache:
             cache["xkv"] = kv
-        x = x + torch.tanh(bp["gate"].to(out.dtype)) * out
+        x = st.add(torch.tanh(bp["gate"].to(out.dtype)) * out)
     elif kind == "hybrid":
-        # windowed even when scoring and training, as the reference is
+        # windowed even when scoring and training, as the reference is;
+        # both outputs whole (their norms and fusion), then this rank's
+        # slice under sequence parallelism
+        whole_kw = {**kw, "tp": tp} if tp is not None else {}
         a_out, kv = attn.self_attention(bp["attn"], h, positions, cfg,
                                         window=window or cfg.sliding_window,
-                                        **kw)
+                                        **whole_kw)
         # the SSD kernel (ssm_pallas) runs where no state is collected
         s_out = ssm_mod.ssm_forward(bp["ssm"], h, cfg,
                                     return_state=collect_cache, tp=tp)
         if collect_cache:
             s_out, cache["ssm"] = s_out
             cache["kv"] = kv
-        x = x + _mean_fusion(bp, cfg, a_out, s_out)
+        fused = _mean_fusion(bp, cfg, a_out, s_out)
+        x = st.add(fused if gather is None else tp_out.out_whole(fused))
     else:                                       # self_dense / self_moe
         out, kv = attn.self_attention(bp["attn"], h, positions, cfg,
                                       window=window,
                                       causal=ctx.get("causal", True), **kw)
         if collect_cache:
             cache["kv"] = kv
-        x = x + out
+        x = st.add(out)
     if encdec_dec:
-        h = rms_norm(x, bp["ln3"], cfg.norm_eps)
+        st = _Stream(x, gather, rank)
+        h = rms_norm(st.whole, bp["ln3"], cfg.norm_eps)
         out, xkv = attn.cross_attention_full(bp["xattn"], h,
                                              ctx["cross_src"], cfg, **xkw)
         if collect_cache:
             cache["xkv"] = xkv
-        x = x + out
-    x, aux = _ffn(bp, cfg, kind, x, ctx.get("batch_group"), tp)
+        x = st.add(out)
+    x, aux = _ffn(bp, cfg, kind, x, ctx.get("batch_group"), tp_out, gather)
     return x, aux, cache
 
 
@@ -252,22 +292,25 @@ def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
     rematerialises each group in the backward, as the reference's
     ``jax.checkpoint`` of its scanned group does (``"save_tp"`` too:
     :func:`_rematerialised`); it applies where autograd records the
-    forward and no cache is collected. ``ctx`` holds the cross-attention
-    source (``"cross_src"``), ``"causal"``, the ranks whose rows make one
-    batch with ``x``'s (``"batch_group"``), tensor parallelism (``"tp"``,
-    a ``sharding.partition.TensorParallel``) and the decode caches'
-    lengths whose splits a collected cache follows under it
-    (``"cache_len"``, ``"cross_len"``); the groups' functions capture it,
-    so a recomputation sees what the forward saw."""
+    forward and no cache is collected; under tensor parallelism a
+    recomputation issues its TP collectives again (``"full"``,
+    ``"dots"``) or takes their recorded outputs (``"save_tp"``). ``ctx``
+    holds the cross-attention source (``"cross_src"``), ``"causal"``, the
+    ranks whose rows make one batch with ``x``'s (``"batch_group"``),
+    tensor parallelism (``"tp"``, a ``sharding.partition.TensorParallel``),
+    sequence parallelism (``"seq_parallel"``: ``x`` and the result are
+    this rank's slices of the sequence, :func:`_apply_block`), the
+    decode caches' lengths whose splits a collected cache follows under it
+    (``"cache_len"``, ``"cross_len"``) and, serving with gathered weights,
+    ``"fetch"`` (a group's weights as held, stored parts, to the weights
+    the layers take, gathered for the group alone and freed after it);
+    the groups' functions capture it, so a recomputation sees what the
+    forward saw."""
     kinds = group_kinds(cfg)
     n_groups = cfg.n_layers // len(kinds)
     ctx = ctx or {}
     if collect_cache or not torch.is_grad_enabled():
         remat = "none"
-    if remat == "dots" and ctx.get("tp") is not None:
-        from repro_torch.sharding.partition import TP_TODO
-        raise NotImplementedError(f"remat 'dots' under tensor parallelism "
-                                  f"is {TP_TODO}")
 
     def group_fn(x, gp, log=None):
         group_caches = []
@@ -287,13 +330,17 @@ def apply_stack(params, cfg, x, positions, ctx=None, *, window: int = 0,
 
     run = _rematerialised(lambda x, gp, log: group_fn(x, gp, log)[:2], remat)
     caches, group_aux = [], []
+    fetch = ctx.get("fetch")
     for g in range(n_groups):
         gp = tree_map(lambda t: t[g], params)
+        if fetch is not None:
+            gp = fetch(gp)
         if remat == "none":
             x, aux_tot, group_caches = group_fn(x, gp)
             caches.append(group_caches)
         else:
             x, aux_tot = run(x, gp)
+        del gp                    # a gathered group's weights, freed
         group_aux.append(aux_tot)
     aux = torch.sum(torch.stack(group_aux))
     return x, aux, (stack_trees(caches) if collect_cache else None)
@@ -343,22 +390,25 @@ def _cross_decode(p, h, k, v, cfg, spec, tp):
 
 
 def decode_stack(params, cfg, x, pos, caches, *, spec: attn.KVCacheSpec,
-                 tp=None, batch_group=None):
+                 tp=None, batch_group=None, fetch=None):
     """x: (B,1,D); pos: (B,); caches: stacked (n_groups leading). Returns
     (x, caches). Under ``tp`` the caches are this rank's parts and
     ``spec`` holds the whole caches' lengths; ``batch_group``: the ranks
     whose rows make one batch with ``x``'s (the MoE routes them as
-    one)."""
+    one); ``fetch``: as ``apply_stack``'s ctx ``"fetch"``."""
     kinds = group_kinds(cfg)
     n_groups = cfg.n_layers // len(kinds)
     new_caches = []
     for g in range(n_groups):
         gp = tree_map(lambda t: t[g], params)
+        if fetch is not None:
+            gp = fetch(gp)
         gc = tree_map(lambda t: t[g], caches)
         group_caches = []
         for i, kind in enumerate(kinds):
             x, nc = _decode_block(gp[i], cfg, kind, x, pos, gc[i], spec,
                                   tp, batch_group)
             group_caches.append(nc)
+        del gp                    # a gathered group's weights, freed
         new_caches.append(group_caches)
     return x, stack_trees(new_caches)

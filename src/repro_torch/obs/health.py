@@ -30,12 +30,13 @@ comparison pass over the bucket's leaves a step: no sort, no
 concatenation, and no histogram, whose atomic adds would all land in one
 bin (B² is exactly b0² = 1 wherever a gradient was zero).
 
-In a one-model run whose leaves the ranks hold in parts (FSDP,
-``launch/steps.py::LeafLayout``) every rank probes the parts it holds
-(an unsplit leaf on the first rank only), and the ranks' counts, bounds
-and partial sums are combined over the FSDP sub-group: the quantiles stay
-exact (integer counts add), the residual norms add their partial sums in
-part order. Under tensor parallelism (a worker's leaves in parts over its
+In a one-model run whose leaves the ranks hold in parts (FSDP, tensor
+parallelism, or both: tiles; ``launch/steps.py::LeafLayout``) every rank
+probes the parts it holds (each part once over both axes, a leaf unsplit
+along one on that axis's first rank only), and the ranks' counts, bounds
+and partial sums are combined over every rank: the quantiles stay exact
+(integer counts add), the residual norms add their partial sums in part
+order. Under tensor parallelism (a worker's leaves in parts over its
 ranks) they are combined over every rank, all workers' parts together,
 a leaf the specs leave whole counted on its worker's first rank only.
 """
@@ -184,12 +185,13 @@ class SyncHealthProbe:
                  leaf_layout: Any = None, group: Any = None) -> None:
         self.is_flat = bool(is_flat)
         # leaves in parts: each rank probes its own, combined over the
-        # parts' sub-group (or ``group``, where it holds more: every
-        # worker's ranks under tensor parallelism)
+        # ranks holding one model's parts (or ``group``, where it holds
+        # more: every worker's ranks under the paper-style plan's tensor
+        # parallelism), in part order
         self.parts = (leaf_layout if leaf_layout is not None
                       and leaf_layout.sharded else None)
         self.group = (None if self.parts is None
-                      else group or self.parts.group)
+                      else group or self.parts.ranks)
         self.fs = flatspace
         self.engine = engine
         self.n_params = int(n_params)
@@ -208,7 +210,8 @@ class SyncHealthProbe:
             is_flat=programs.is_flat, flatspace=programs.flatspace,
             leaf_dtypes=dtypes, engine=engine, n_params=n_params,
             n_shards=programs.n_shards, leaf_layout=programs.leaf_layout,
-            group=programs.group if programs.tp is not None else None)
+            group=programs.group if programs.is_local
+            and programs.tp is not None else None)
 
     def static_summary(self) -> Dict[str, float]:
         """Run-constant facts: wire bytes and compression ratio of one

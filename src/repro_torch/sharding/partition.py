@@ -125,10 +125,6 @@ def plane_shard_axes(grid: Mapping[str, int], plan) -> Tuple[str, ...]:
     return tuple(out)
 
 
-#: what a grid with ``model`` > 1 does not build yet
-TP_TODO = "not ported yet (ROADMAP Queue 1 item 9c-2b)"
-
-
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """Tensor parallelism over the ``model`` axis: the layers' context.
@@ -139,11 +135,19 @@ class TensorParallel:
     asks :meth:`split` how the spec splits a weight it holds, and moves
     its parts with ``core.comm.tp_copy`` / ``tp_sum`` / ``tp_gather`` over
     the group: shape-safety decides which leaf splits, never the layer.
+    Under FSDP beside it (a leaf split over ``data`` too) the layers take
+    the rank's tensor-parallel parts, gathered over ``data`` from its
+    tiles: :meth:`split` is the split over ``model`` alone.
     ``sum_log`` (a ``core.comm.TPSumLog``) is set inside a group
-    rematerialised under ``"save_tp"``."""
+    rematerialised under ``"save_tp"``. ``seq`` (sequence parallelism,
+    set by ``models/transformer.py`` for a block's sub-layers) makes a
+    sub-layer's output leave it as this rank's slice of the sequence
+    (dimension 1): :meth:`out_sum` reduce-scatters a row-parallel output,
+    :meth:`out_whole` cuts a whole one."""
     group: Any
     rules: ShardingRules
     sum_log: Any = None
+    seq: bool = False
 
     @property
     def size(self) -> int:
@@ -166,10 +170,11 @@ class TensorParallel:
         above it that its spec reads (``("moe",)`` for an expert weight,
         ``("moe", "shared")`` for the shared expert's)."""
         from repro_torch.sharding.specs import (leaf_split, logical_for_leaf,
-                                                shape_safe_spec)
+                                                shape_safe_spec, tile_parts)
         spec = shape_safe_spec(shape, self.rules.resolve(
             logical_for_leaf(tuple(path) + (name,), shape)), self.rules.grid)
-        return leaf_split(shape, spec, self.rules.grid, self.coords())
+        return tile_parts(leaf_split(shape, spec, self.rules.grid,
+                                     self.coords()), self.rules.grid)[0]
 
     def cache_split(self, shape: Sequence[int], dim: int):
         """The split of a cache entry of ``shape`` along its dimension
@@ -185,3 +190,22 @@ class TensorParallel:
 
     def with_log(self, log) -> "TensorParallel":
         return dataclasses.replace(self, sum_log=log)
+
+    def out_sum(self, y):
+        """A row-parallel sub-layer output's partials summed over the
+        ranks (``core.comm.tp_sum``), or under :attr:`seq` reduce-scattered
+        along the sequence (``core.comm.sp_sum_scatter``: the same float32
+        sum in rank order, this rank's slice)."""
+        from repro_torch.core.comm import sp_sum_scatter, tp_sum
+        if self.seq:
+            return sp_sum_scatter(y, self.group, 1, self.sum_log)
+        return tp_sum(y, self.group, self.sum_log)
+
+    def out_whole(self, y):
+        """A sub-layer output that is whole on every rank, or under
+        :attr:`seq` this rank's slice of its sequence
+        (``core.comm.sp_split``)."""
+        if not self.seq:
+            return y
+        from repro_torch.core.comm import sp_split
+        return sp_split(y, self.group, 1)

@@ -10,6 +10,9 @@ reference's ``PartitionSpec`` as a tuple. :class:`LeafSplit` is the
 port's own piece: which dimension of a leaf a spec splits over which
 ranks, into how many parts, which part a rank holds (``take``), and where
 each rank's part lies in the whole leaf (``part``, which a gather writes).
+Where a spec splits two dimensions, one over ``model`` and one over the
+FSDP axes, a rank holds a *tile* (:class:`TileSplit`): the FSDP part of
+its tensor-parallel part (:func:`tile_parts`).
 
 :class:`GridLayout` describes the grid of ranks: rank r is ``r // S``
 along ``data`` and ``r % S`` along ``model``, the row-major device order
@@ -31,6 +34,9 @@ from repro_torch.sharding.partition import (Entry, ShardingRules,
 Spec = Tuple[Entry, ...]
 
 _STACKED_ROOTS = ("blocks", "encoder")
+
+#: the grid axis tensor parallelism splits weights over
+TP_AXIS = "model"
 
 _BY_NAME = {
     "embed": ("vocab", "embed_fsdp"),
@@ -125,6 +131,11 @@ def param_shardings(rules: ShardingRules, params, *,
     return out
 
 
+def _copy(part):
+    """A contiguous copy of ``part`` (a view of a whole leaf)."""
+    return part.clone() if part.is_contiguous() else part.contiguous()
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafSplit:
     """A leaf of ``shape`` split along ``dim`` into ``parts`` equal
@@ -162,9 +173,10 @@ class LeafSplit:
         return whole.narrow(self.dim, i * n, n)
 
     def take(self, whole):
-        """This rank's part of the whole leaf, contiguous (``whole``
-        itself unsplit)."""
-        return self.part(whole).contiguous() if self.split else whole
+        """This rank's part of the whole leaf, a new contiguous tensor
+        that holds no reference to ``whole`` (which can then be freed);
+        ``whole`` itself unsplit."""
+        return _copy(self.part(whole)) if self.split else whole
 
     def whole_blocks(self, block: int) -> bool:
         """Whether every ``block``-element block of the leaf's row-major
@@ -177,13 +189,64 @@ class LeafSplit:
         return run % block == 0
 
 
+@dataclasses.dataclass(frozen=True)
+class TileSplit:
+    """A leaf split along two dimensions: ``tp`` (a :class:`LeafSplit` of
+    the whole leaf over ``model``: this rank's tensor-parallel part) and
+    ``fsdp`` (a :class:`LeafSplit` of that part over the FSDP axes); this
+    rank holds ``fsdp``'s part of ``tp``'s part, its *tile*. The same
+    interface as :class:`LeafSplit` for this rank's tile."""
+    tp: LeafSplit
+    fsdp: LeafSplit
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.tp.shape
+
+    @property
+    def split(self) -> bool:
+        return True
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return self.tp.axes + self.fsdp.axes
+
+    @property
+    def part_shape(self) -> Tuple[int, ...]:
+        return self.fsdp.part_shape
+
+    @property
+    def part_numel(self) -> int:
+        return self.fsdp.part_numel
+
+    def part(self, whole, index=None):
+        """This rank's tile of the whole leaf, a view (``index``, a
+        ``(tp index, fsdp index)`` pair, another rank's)."""
+        t, f = (None, None) if index is None else index
+        return self.fsdp.part(self.tp.part(whole, t), f)
+
+    def take(self, whole):
+        return _copy(self.part(whole))
+
+    def whole_blocks(self, block: int) -> bool:
+        """Whether every ``block``-element block of the whole leaf's
+        row-major order lies in one tile: the runs a tile holds in that
+        order (its innermost split dimension's part, times the dimensions
+        after it) are a multiple of ``block`` long."""
+        inner = max(self.tp.dim, self.fsdp.dim)
+        size = (self.fsdp.part_shape[inner] if inner == self.fsdp.dim
+                else self.tp.part_shape[inner])
+        return (size * math.prod(self.shape[inner + 1:])) % block == 0
+
+
 def leaf_split(shape: Sequence[int], spec: Spec, grid: Mapping[str, int],
-               coords: Mapping[str, int]) -> LeafSplit:
-    """The :class:`LeafSplit` of a leaf of ``shape`` under ``spec`` (shape
-    safe) on ``grid``, for the rank at ``coords`` (its index along each
-    axis). Axes of size 1 split nothing. More than one split dimension is
-    tensor parallelism beside FSDP, which the port does not build (ROADMAP
-    Queue 1 item 9c-2b): NotImplementedError."""
+               coords: Mapping[str, int]):
+    """The split of a leaf of ``shape`` under ``spec`` (shape safe) on
+    ``grid``, for the rank at ``coords`` (its index along each axis): a
+    :class:`LeafSplit` where the spec splits one dimension (over one or
+    several axes) or none, a :class:`TileSplit` where it splits two, one
+    over ``model`` (tensor parallelism) and one over the other axes
+    (FSDP). Axes of size 1 split nothing."""
     shape = tuple(int(n) for n in shape)
     found = []
     for d, entry in enumerate(spec):
@@ -195,12 +258,43 @@ def leaf_split(shape: Sequence[int], spec: Spec, grid: Mapping[str, int],
         for a in axes:                  # row-major over the entry's axes
             index = index * grid[a] + coords[a]
         found.append(LeafSplit(shape, d, parts, index, axes))
-    if len(found) > 1:
-        raise NotImplementedError(
-            f"a leaf of shape {shape} split along {len(found)} dimensions "
-            f"({spec}): tensor parallelism beside FSDP is not ported yet "
-            "(ROADMAP Queue 1 item 9c-2b)")
-    return found[0] if found else LeafSplit(shape)
+    if not found:
+        return LeafSplit(shape)
+    if len(found) == 1:
+        return found[0]
+    tp = [s for s in found if TP_AXIS in s.axes]
+    if len(found) > 2 or len(tp) != 1 or tp[0].axes != (TP_AXIS,):
+        raise ValueError(f"a leaf of shape {shape} split along "
+                         f"{len(found)} dimensions ({spec}): a tile splits "
+                         f"one over {TP_AXIS!r} and one over the others")
+    other = next(s for s in found if s is not tp[0])
+    return TileSplit(tp[0], dataclasses.replace(
+        other, shape=tp[0].part_shape))
+
+
+def tile_parts(split, grid: Optional[Mapping[str, int]] = None
+               ) -> Tuple[LeafSplit, LeafSplit]:
+    """``(tp, fsdp)`` of a rank's split of a whole leaf on ``grid`` (a
+    :class:`LeafSplit` or :class:`TileSplit`): ``tp`` splits the whole
+    leaf over ``model`` (this rank's tensor-parallel part, the part the
+    layers take), ``fsdp`` that part over the other axes (the part this
+    rank holds of it). A dimension over ``model`` and other axes at once
+    (``("model", "data")``, 2-D experts) is a part over ``model`` split
+    again along the same dimension (``grid`` gives ``model``'s size)."""
+    if isinstance(split, TileSplit):
+        return split.tp, split.fsdp
+    if not split.split or TP_AXIS not in split.axes:
+        return LeafSplit(split.shape), split
+    if split.axes == (TP_AXIS,):
+        return split, LeafSplit(split.part_shape)
+    if split.axes[0] != TP_AXIS:
+        raise ValueError(f"a dimension split over {split.axes}: the "
+                         f"{TP_AXIS!r} part must come first")
+    inner = split.parts // grid[TP_AXIS]
+    tp = LeafSplit(split.shape, split.dim, grid[TP_AXIS],
+                   split.index // inner, (TP_AXIS,))
+    return tp, LeafSplit(tp.part_shape, split.dim, inner,
+                         split.index % inner, split.axes[1:])
 
 
 def plane_shard_count(grid: Mapping[str, int], plan) -> int:

@@ -612,8 +612,8 @@ def test_resolve_plan():
     assert sync.local_axes == () and sync.grad_axes == ("data",)
     assert sync.fsdp_axes == ("data",)        # FSDP at every size
     # the paper-style plan splits the flat plane down "model"; per leaf it
-    # is tensor parallelism, for every family (items 9c-1, 9c-2a);
-    # sequence parallelism, or a synchronous run with shards, is item 9c-2b
+    # is tensor parallelism, for every family; sequence parallelism and a
+    # synchronous run with shards (FSDP beside tensor parallelism) pass
     assert plane_shard_count(grid22, mesh.resolve_plan(lstm, grid22)) == 2
     mesh.check_plan(mesh.resolve_plan(lstm, grid22), grid22, flat=True)
     mesh.check_plan(mesh.resolve_plan(lstm, grid22), grid22, flat=False,
@@ -622,11 +622,11 @@ def test_resolve_plan():
     mesh.check_plan(mesh.resolve_plan(ssm, grid22), grid22, flat=False,
                     cfg=ssm)
     ssm = dataclasses.replace(ssm, seq_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 9c-2"):
-        mesh.check_plan(mesh.resolve_plan(ssm, grid22), grid22, flat=False,
-                        cfg=ssm)
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        mesh.check_plan(sync, grid22, flat=False)
+    mesh.check_plan(mesh.resolve_plan(ssm, grid22), grid22, flat=False,
+                    cfg=ssm)
+    mesh.check_plan(sync, grid22, flat=False)
+    mesh.check_plan(mesh.resolve_plan(lstm, grid22, optimizer="adaalter"),
+                    grid22, flat=False, cfg=lstm)
     big = dataclasses.replace(get_arch("qwen2-7b"), n_layers=100)
     assert big.param_count() > 20e9
     for opt in ("local_adaalter", "adaalter"):

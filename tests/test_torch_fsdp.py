@@ -544,9 +544,24 @@ def test_leaf_split_take_and_part(shape, spec, parts, dim, whole):
 
 
 def test_leaf_split_refuses_two_split_dimensions():
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        leaf_split((4, 4), ("data", "model"), {"data": 2, "model": 2},
-                   {"data": 0, "model": 1})
+    """A spec that splits two dimensions, one over ``data`` and one over
+    ``model``, no longer raises: it gives each rank a tile (the ``data``
+    part of its ``model`` part), and the four tiles put back in place are
+    the whole leaf."""
+    from repro_torch.sharding import TileSplit, tile_parts
+    grid = {"data": 2, "model": 2}
+    x = torch.arange(16, dtype=torch.float32).reshape(4, 4)
+    back = torch.zeros_like(x)
+    for d in range(2):
+        for m in range(2):
+            s = leaf_split((4, 4), ("data", "model"), grid,
+                           {"data": d, "model": m})
+            assert isinstance(s, TileSplit) and s.part_shape == (2, 2)
+            tp, fsdp = tile_parts(s, grid)
+            assert (tp.dim, tp.index, fsdp.dim, fsdp.index) == (1, m, 0, d)
+            assert torch.equal(s.take(x), x[2 * d:2 * d + 2, 2 * m:2 * m + 2])
+            s.part(back).copy_(s.take(x))
+    assert torch.equal(back, x)
 
 
 @pytest.mark.parametrize("workers,shards", [(2, 1), (2, 2), (3, 2)])

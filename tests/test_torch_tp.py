@@ -31,8 +31,8 @@ hold:
   * remat ``"save_tp"`` equals ``"none"`` bit for bit on one rank and on
     two, and issues fewer TP collectives than ``"full"``;
   * a (2, 2) checkpoint resumes bit for bit and restores on one rank;
-  * plans outside the slice (FSDP beside TP, sequence parallelism, remat
-    "dots" under TP) raise NotImplementedError naming ROADMAP item 9c-2b.
+  * what this slice refused (FSDP beside TP, sequence parallelism, remat
+    "dots" under TP) passes the checks and runs on a reduced config.
 
 Every spawned group runs under a subprocess timeout and opens its process
 group with a 60 s timeout, so a hung rank fails its fixture, not the suite.
@@ -742,11 +742,13 @@ def test_save_tp_equals_none_on_one_rank(runs):
 
 
 # --------------------------------------------------------------------------- #
-# what stays outside the slice
+# what an earlier slice refused, now built
 # --------------------------------------------------------------------------- #
-#: per arch, what still raises on model ranks (ROADMAP item 9c-2b): the
-#: plans above 20 B parameters (FSDP beside TP), sequence parallelism,
-#: remat "dots" under TP, the synchronous plan, gathered serving weights
+#: per arch, a case that raised on model ranks before FSDP beside tensor
+#: parallelism was ported: the plans above 20 B parameters (FSDP beside
+#: TP), sequence parallelism, remat "dots" under TP, the synchronous plan,
+#: gathered serving weights. Each passes the checks on a (2, 2) grid and
+#: runs on a reduced config (on ranks: tests/test_torch_fsdp_tp.py)
 REFUSED = {"phi3.5-moe-42b-a6.6b": "fsdp_plans",
            "llama4-maverick-400b-a17b": "fsdp_plans",
            "mamba2-370m": "seq_parallel",
@@ -755,61 +757,103 @@ REFUSED = {"phi3.5-moe-42b-a6.6b": "fsdp_plans",
            "seamless-m4t-large-v2": "weight_gather_serving"}
 
 
+def _one_step(cfg, opt, plan):
+    """One step of ``cfg`` under ``plan`` on one device: its finite loss."""
+    r = train_loop(cfg, ShapeConfig("t", seq_len=8, global_batch=2,
+                                    kind="train"), opt, steps=1, seed=0,
+                   verbose=False, device="cpu", plan=plan)
+    assert all(np.isfinite(r.losses))
+    return r
+
+
+def _serve_once(cfg, plan):
+    """The serving programs of ``cfg`` under ``plan`` on one device: a
+    prefill's finite logits."""
+    from repro_torch.launch.serving import build_serve_programs
+    model = build_model(cfg)
+    progs = build_serve_programs(cfg, ShapeConfig(
+        "decode_32k", seq_len=8, global_batch=2, kind="decode"), plan=plan)
+    batch = {"tokens": torch.zeros((2, 6), dtype=torch.int32)}
+    if cfg.cross_attn_every:
+        batch["image_embeds"] = torch.zeros((2, cfg.n_image_tokens,
+                                             cfg.d_model))
+    if cfg.is_encdec:
+        batch["audio_frames"] = torch.zeros((2, 6, cfg.d_model))
+    logits, _ = progs.prefill(model.init(torch.Generator().manual_seed(0)),
+                              batch)
+    assert torch.isfinite(logits).all()
+
+
 @pytest.mark.parametrize("arch", list(REFUSED))
 def test_other_families_refused_on_model_ranks(arch):
     """Every family trains and serves on model ranks at its reduced size
-    (tensor parallelism over its layers); what is left raises naming item
-    9c-2b."""
+    (tensor parallelism over its layers); what an earlier slice refused
+    (it raised naming ROADMAP item 9c-2b) now passes the checks on a
+    (2, 2) grid and runs on the reduced config."""
     cfg = reduced(get_arch(arch))
     grid, serve_grid = {"data": 2, "model": 2}, {"data": 1, "model": 2}
     mesh.check_plan(mesh.resolve_plan(cfg, grid), grid, flat=False, cfg=cfg)
     mesh.check_serve_plan(cfg, serve_plan(cfg, serve_grid), serve_grid)
     case = REFUSED[arch]
+    local = OptimizerConfig.from_sync(SyncConfig(compression="int8"),
+                                      name="local_adaalter", lr=0.5, H=2,
+                                      warmup_steps=0, use_kernels=True)
     if case == "fsdp_plans":          # the full config, > 20 B parameters
         full = get_arch(arch)
-        with pytest.raises(NotImplementedError, match="9c-2b"):
-            mesh.check_plan(mesh.resolve_plan(full, grid), grid, flat=False,
-                            cfg=full)
-        with pytest.raises(NotImplementedError, match="9c-2b"):
-            mesh.check_serve_plan(full, serve_plan(full, serve_grid),
-                                  serve_grid)
+        plan = mesh.resolve_plan(full, grid)
+        assert plan.local_axes == () and plan.fsdp_axes == ("data",)
+        mesh.check_plan(plan, grid, flat=False, cfg=full)
+        mesh.check_serve_plan(full, serve_plan(full, grid), grid)
+        _one_step(cfg, local, plan)
+        _serve_once(cfg, serve_plan(full, grid))
     elif case == "seq_parallel":
         sp = dataclasses.replace(cfg, seq_parallel=True)
-        with pytest.raises(NotImplementedError, match="9c-2b"):
-            mesh.check_plan(mesh.resolve_plan(sp, grid), grid, flat=False,
-                            cfg=sp)
-        with pytest.raises(NotImplementedError, match="9c-2b"):
-            mesh.check_serve_plan(sp, serve_plan(sp, serve_grid), serve_grid)
+        mesh.check_plan(mesh.resolve_plan(sp, grid), grid, flat=False,
+                        cfg=sp)
+        mesh.check_serve_plan(sp, serve_plan(sp, serve_grid), serve_grid)
+        sync = OptimizerConfig(name="adaalter", lr=0.5, warmup_steps=0)
+        plan = mesh.resolve_plan(sp, grid, optimizer="adaalter")
+        a = _one_step(sp, sync, plan)
+        b = _one_step(cfg, sync, plan)
+        assert a.losses == b.losses and a.state_digest == b.state_digest
     elif case == "remat_dots":
         from repro_torch.models import transformer as tfm
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0))
-        x = torch.zeros((1, 4, cfg.d_model))
+        x = torch.randn((1, 4, cfg.d_model),
+                        generator=torch.Generator().manual_seed(1)).to(
+                            getattr(torch, cfg.param_dtype))
         pos = torch.arange(4)[None]
-        with pytest.raises(NotImplementedError, match="9c-2b"):
-            tfm.apply_stack(params["blocks"], cfg, x, pos,
-                            {"tp": object()}, remat="dots")
+        outs = [tfm.apply_stack(params["blocks"], cfg, x, pos,
+                                remat=r)[0] for r in ("dots", "none")]
+        assert torch.equal(*outs)
     elif case == "synchronous":
         plan = mesh.resolve_plan(cfg, grid, optimizer="adaalter")
-        with pytest.raises(NotImplementedError, match="9c-2b"):
-            mesh.check_plan(plan, grid, flat=False, cfg=cfg)
+        mesh.check_plan(plan, grid, flat=False, cfg=cfg)
+        _one_step(cfg, OptimizerConfig(name="adaalter", lr=0.5,
+                                       warmup_steps=0), plan)
     else:
         plan = dataclasses.replace(serve_plan(cfg, serve_grid),
                                    weight_gather_serving=True)
-        with pytest.raises(NotImplementedError, match="9c-2b"):
-            mesh.check_serve_plan(cfg, plan, serve_grid)
+        mesh.check_serve_plan(cfg, plan, serve_grid)
+        _serve_once(cfg, plan)
 
 
 def test_synchronous_plan_refused_on_model_ranks():
+    """The synchronous plan on a (2, 2) grid and the serving plan of a
+    model above 20 B parameters pass the checks (they raised before FSDP
+    beside tensor parallelism was ported); a synchronous run of reduced
+    qwen2-7b under the plan builds and steps on one device."""
     cfg = reduced(get_arch("qwen2-7b"))
     grid = {"data": 2, "model": 2}
     plan = mesh.resolve_plan(cfg, grid, optimizer="adaalter")
-    with pytest.raises(NotImplementedError, match="9c-2"):
-        mesh.check_plan(plan, grid, flat=False, cfg=cfg)
+    mesh.check_plan(plan, grid, flat=False, cfg=cfg)
     big = dataclasses.replace(get_arch("qwen2-7b"), n_layers=100)
-    with pytest.raises(NotImplementedError, match="9c-2"):
-        mesh.check_serve_plan(big, serve_plan(big, grid), grid)
-    # the slice itself passes
+    assert serve_plan(big, grid).weight_gather_serving
+    mesh.check_serve_plan(big, serve_plan(big, grid), grid)
+    _one_step(cfg, OptimizerConfig(name="adaalter", lr=0.5,
+                                   warmup_steps=0), plan)
+    # the earlier slices pass as before
     for arch in ("biglstm", "qwen2-7b", "phi4-mini-3.8b"):
         c = reduced(get_arch(arch))
         mesh.check_plan(mesh.resolve_plan(c, grid), grid, flat=False, cfg=c)
