@@ -244,7 +244,7 @@ raises and exits non-zero:
             policy the step walls, the gather's and slice mean's ms,
             allocated and reserved GB; state and wire bytes from the
             specs; no kernel launched
-  serve_tp  full-width qwen2-7b (7 of 28 layers, bf16) served on 1 x 2 gloo
+  serve_tp  full-width qwen2-7b (4 of 28 layers, bf16) served on 1 x 2 gloo
             ranks with tensor parallelism over model (build_serve_programs
             and serve_session with a group; the KV cache split along its
             sequence): the one-rank run's weights, each rank its parts; a
@@ -271,7 +271,7 @@ raises and exits non-zero:
   biglstm_tp_meta  full-width Big LSTM at model = 2 reckoned on the meta
             device: a rank's parameter and state bytes from the specs; its
             odd vocabulary (793,471) leaves embed, head_w and head_b whole
-  serve_tp_families  in serve_tp's launch, after it: mamba2-370m (24 of
+  serve_tp_families  in serve_tp's launch, after it: mamba2-370m (12 of
             48 layers; and in float32, its scoring forward only), hymba-1.5b
             (2 of 32), phi3.5-moe (1 of 32, bf16 with the one-rank runs
             replaying the TP run's routing, flips counted; and float32,
@@ -292,13 +292,31 @@ raises and exits non-zero:
             32 (bf16, lr 0.2, the one-rank runs replaying the TP run's
             routing; and float32, lr 0.1), 1 worker x 2 TP shards, Local
             AdaAlter int8 + kernels, 4 x 512 tokens, H=2, 4 steps: losses
-            against the one-rank run to rtol 5e-4, which η 2% off must
+            against the one-rank run to rtol 2e-4, which η 2% off must
             exceed; save_tp bit for bit full; state bytes from the specs;
             rows 1 and 3 a launch a leaf a step and two a leaf a round (the
             experts' parts among them), row 6 launched
   tp_grid also runs reduced mamba2, hymba, phi3.5-moe, llama-3.2-vision
             and seamless-m4t, 4 steps each, to rtol 3e-5
-  fsdp_tp_meta  the reckoning on the meta device, before the slice-13
+  dryrun   (slice 14, first, before anything runs) the package's dry-run
+            of five of the runs below on the meta device (the full
+            phase's Big LSTM local and sync step, score_dense's forward,
+            a serve_dense decode step, a train_fsdp_tp qwen2-7b rank from
+            a DryGroup at 2 x 2, a serve_tp decode step at 1 x 2);
+            dryrun_card / dryrun_card_dense hold each one-card call
+            against it: the walk on the card sees the same ops, FLOPs,
+            bytes and kernel launches, the resident bytes equal
+            memory_allocated's rise, the peak within 10% of
+            max_memory_allocated, the measured wall beside the roofline;
+            train_fsdp_tp and serve_tp hold their collectives a step, and
+            a rank's state and weight bytes, to it
+  examples  the four examples of examples/torch/ on the card, started
+            together before the dry-run, the build and the reference phase
+            (which time nothing) and waited for before the kernels phase:
+            quickstart and serve_batched at their defaults,
+            reproduce_paper at 30 steps, train_100m for 10 steps and then
+            resumed from its checkpoint to 20
+  fsdp_tp_meta  the reckoning (the package's dry-run), before the slice-13
             launch: a rank's weights at rest (tiles) and TP parts for
             serve_fsdp_tp, a rank's state under FSDP + TP and under the
             data-replicated TP run for train_fsdp_tp
@@ -354,11 +372,13 @@ nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import inspect
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -366,9 +386,9 @@ import tempfile
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
-TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+# the card's data-sheet rates (repro_torch.hardware.H100: HBM bytes/s, the
+# dense bf16 / TF32 / fp32 peaks), set by main() once the package is found
+H100 = None
 TRAIN_STEPS = 8
 # the synchronous AdaAlter on two ranks (train_ranks) and its FSDP
 # comparison (train_fsdp): at full width an η 2% larger moves the losses
@@ -567,7 +587,7 @@ def check_update(gen, shape, dtype, timed=True):
             ms=cuda_ms(lambda: au.fused_update(x, g, bs, bl, scalars)),
             plain_ms=cuda_ms(lambda: au.fused_update_plain(x, g, bs, bl,
                                                            scalars)),
-            bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+            bytes=nbytes, bound_ms=1e3 * nbytes / H100.hbm_bw)
     return out
 
 
@@ -614,13 +634,13 @@ def check_ef(gen, shape, dtype, clamp, timed=True, batch_ndim=1):
                                                 clamp_nonneg=clamp)),
             plain_ms=cuda_ms(lambda: sf.fused_ef_leaf_plain(
                 x, e, batch_ndim=batch_ndim, clamp_nonneg=clamp)),
-            bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+            bytes=nbytes, bound_ms=1e3 * nbytes / H100.hbm_bw,
             # with the codes and scales written (a rank's wire)
             ms_with_codes=cuda_ms(lambda: sf.fused_ef_leaf(
                 x, e_k, batch_ndim=batch_ndim, clamp_nonneg=clamp,
                 codes=True)),
             bound_ms_with_codes=1e3 * (nbytes + x.numel() * (1 + 4 / 256))
-            / HBM_BYTES_PER_S)
+            / H100.hbm_bw)
     return out
 
 
@@ -729,7 +749,7 @@ def check_flat_update(gen, fs, timed=True, shard=None):
     torch.cuda.empty_cache()
     out.update(plain_ms=cuda_ms(lambda: au.flat_fused_update_plain(
         x, g, bs, bl, scalars, rows), reps=3, warmup=1),
-        bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+        bytes=nbytes, bound_ms=1e3 * nbytes / H100.hbm_bw)
     return out
 
 
@@ -792,7 +812,7 @@ def check_flat_ef(gen, fs, half, timed=True, shard=None):
     torch.cuda.empty_cache()
     out.update(plain_ms=cuda_ms(lambda: sf.flat_ef_blocks_plain(
         x2d, e2d, rnd, low), reps=3, warmup=1),
-        bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+        bytes=nbytes, bound_ms=1e3 * nbytes / H100.hbm_bw)
     return out
 
 
@@ -834,11 +854,11 @@ def check_quantize(gen, shape):
         shape=list(shape), max_abs_err=err,
         quantize=dict(ms=cuda_ms(lambda: qz.quantize_blocks(x2d)),
                       plain_ms=cuda_ms(lambda: quantize_blocks_ref(x2d)),
-                      bytes=qbytes, bound_ms=1e3 * qbytes / HBM_BYTES_PER_S,
+                      bytes=qbytes, bound_ms=1e3 * qbytes / H100.hbm_bw,
                       library_ms=None),
         dequantize=dict(ms=cuda_ms(lambda: qz.dequantize_blocks(q, s)),
                         plain_ms=cuda_ms(lambda: dequantize_blocks_ref(q, s)),
-                        bytes=dbytes, bound_ms=1e3 * dbytes / HBM_BYTES_PER_S,
+                        bytes=dbytes, bound_ms=1e3 * dbytes / H100.hbm_bw,
                         library_ms=cuda_ms(lambda: torch.mul(q, s))))
 
 
@@ -1015,53 +1035,6 @@ def profile_steps(run):
     return out
 
 
-def ssd_bound(b, nz, c, nh, hd, n, in_bytes):
-    """The least time of one SSD chunk scan on the card: bytes (x̄, B, C in
-    the input dtype and dA fp32 read once, y fp32 written once) over the
-    HBM rate, and the least work (C·Bᵀ once per (batch, chunk) and M·x̄ over
-    the lower triangle only, C·S and the state update per head, one FMA = 2
-    operations) three times over, as the kernels' 3xTF32 products do it, over
-    the dense TF32 tensor-core rate; the larger. ``bound_fp32_cores_ms`` is
-    the same work once over the fp32 rate outside the tensor cores, as the
-    earlier CUDA-core kernel was bounded."""
-    tri = c * (c + 1) // 2
-    nbytes = (b * nz * c * (nh * hd + 2 * n) * in_bytes + b * nz * c * nh * 4
-              + b * nz * c * nh * hd * 4)
-    ops = 2 * b * nz * (tri * n + nh * (tri * hd + 2 * c * n * hd))
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * 3 * ops / TF32_FLOP_PER_S
-    return dict(bytes=nbytes, operations=ops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_fp32_cores_ms=max(t_bytes,
-                                        1e3 * ops / FP32_FLOP_PER_S))
-
-
-def device_ms_by_kernel(fn, reps: int = 5, tries: int = 3) -> dict:
-    """Device milliseconds of each kernel that one ``fn()`` launches, by
-    kernel name: ``reps`` warm calls under torch.profiler, the sum over
-    them divided by ``reps``. The script's first profiled window has come
-    back without a device event on one host (the tracer starting), so a
-    window that saw none is profiled again, up to ``tries`` times."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    out = {}
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                out[e.name] = out.get(e.name, 0.0) + (
-                    e.time_range.end - e.time_range.start) / 1e3 / reps
-        if out:
-            break
-    return out
-
-
 def check_mma_selftest(gen):
     """The kernels' warp-level 3xTF32 product helper alone, before any SSD
     check uses it: a (64 × 128)·(128 × 64) product in both operand layouts
@@ -1129,6 +1102,7 @@ def check_ssd(gen, dims, dtype, timed=True):
     import torch
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.roofline.profile import device_ms_by_kernel
     b, nz, c, nh, hd, n = dims
     x = (torch.randn((b, nz, c, nh, hd), generator=gen, device="cuda")
          * 0.2).to(dtype)
@@ -1153,7 +1127,7 @@ def check_ssd(gen, dims, dtype, timed=True):
     out = dict(dtype=str(dtype).replace("torch.", ""), shape=list(dims),
                max_abs_err=err, rejects_dA_2pct_off=True,
                launch_plan=plan,
-               **ssd_bound(b, nz, c, nh, hd, n, x.element_size()))
+               **ssd.ssd_cost(b, nz, c, nh, hd, n, x.element_size()))
     if timed:
         out.update(ms=cuda_ms(lambda: ssd.ssd_scan(x, Bm, Cm, dA)),
                    plain_ms=cuda_ms(lambda: ssd_ref(x, Bm, Cm, dA), reps=5,
@@ -3924,8 +3898,8 @@ def train_hybrid_remat(cfg, counters, smi, leaf, n_leaves: int):
 # parameters), 1 worker x 2 TP shards
 # train_tp: qwen2-7b cut to 2 of 28 layers (from 4, for time)
 TP_TRAIN_LAYERS = 2
-# serve_tp: qwen2-7b cut to 7 of 28 layers (from 28, for time)
-TP_SERVE_LAYERS = 7
+# serve_tp: qwen2-7b cut to 4 of 28 layers (from 7, for time)
+TP_SERVE_LAYERS = 4
 TP_TRAIN_STEPS = 4
 TP_GRID = {"data": 1, "model": 2}
 # serve_tp: the TP prefill's last logits against the one-rank prefill's,
@@ -3953,8 +3927,8 @@ TP_GRID_STEPS = 8
 # ---- slice 12: tensor parallelism for the other families ---------------- #
 # serve_tp_families: label -> (arch, depth cut and dtype, options), each at
 # full width on 1 x 2 gloo ranks (in serve_tp's launch), cut in depth for
-# time only (the earlier cut in brackets): mamba2-370m 24 of 48
-# layers (48), hymba-1.5b 2 of 32 (4), phi3.5-moe 1 of 32 (2; 8 experts a
+# time only (the earlier cut in brackets): mamba2-370m 12 of 48
+# layers (24), hymba-1.5b 2 of 32 (4), phi3.5-moe 1 of 32 (2; 8 experts a
 # rank), llama-3.2-vision 5 of 40 (one cross-attention group),
 # seamless-m4t 1 + 1 of 24 + 24 (2 + 2); in bf16 as configured. In bf16 the
 # MoE's TP run rounds otherwise than one rank and flips near-tied routing
@@ -3965,8 +3939,8 @@ TP_GRID_STEPS = 8
 # mamba2 in float32 (its scoring forward) tells bf16 rounding over its
 # layers from a fault in the head split: it must hold TP_SERVE_F32_REL_L2
 TP_FAMILIES = {
-    "mamba2-370m": ("mamba2-370m", {"n_layers": 24}, {}),
-    "mamba2-370m/float32": ("mamba2-370m", {"n_layers": 24,
+    "mamba2-370m": ("mamba2-370m", {"n_layers": 12}, {}),
+    "mamba2-370m/float32": ("mamba2-370m", {"n_layers": 12,
                                             "param_dtype": "float32"},
                             {"score_only": True}),
     "hymba-1.5b": ("hymba-1.5b", {"n_layers": 2}, {}),
@@ -4480,6 +4454,14 @@ def serve_tp_phase(root: Path, want_logits, smi) -> dict:
                 f"ranks scoring their slots as their neighbours' ({fr})")
         require(ses["generated"] == reps[0]["session"]["generated"],
                 "serve_tp: the ranks gathered different generations")
+        pred = DRY["serve_tp_decode"]
+        moved = {"n": rep["decode_tp_collectives_per_step"],
+                 "bytes": rep["decode_tp_bytes_per_step"]}
+        require(moved == pred["counters"]["tp"]
+                and rep["weight_bytes"] == pred["resident"]["params"],
+                f"serve_tp: rank {r}'s decode step moved {moved} over TP "
+                f"and holds {rep['weight_bytes']} B of weights; the dry-run "
+                f"predicted {pred}")
     gen = torch.tensor(reps[0]["session"]["generated"])
     require(gen.shape == (8, TP_SERVE_NEW) and bool(((gen >= 0)
                                            & (gen < qwen.vocab_size)).all()),
@@ -4922,18 +4904,36 @@ def tp_grid_phase(got, wall: float, peak_mib: int) -> tuple:
 
 
 def biglstm_tp_reckoning(cfg) -> dict:
-    """Full-width Big LSTM under tensor parallelism at model = 2, reckoned
-    on the meta device (not run): a rank's parameter and Local AdaAlter
-    state bytes (bf16 params, four float32 entries) from the specs; the
-    vocabulary (793,471, odd) leaves its embed, head_w and head_b whole."""
+    """Full-width Big LSTM under tensor parallelism at model = 2, from the
+    package's dry-run (not run): rank 0's parameter and Local AdaAlter
+    state bytes (bf16 params, four float32 entries) as its programs hold
+    them on the meta device under a DryGroup, equal to the specs' parts;
+    the vocabulary (793,471, odd) leaves its embed, head_w and head_b
+    whole."""
+    from repro_torch.configs import (OptimizerConfig, ParallelismPlan,
+                                     ShapeConfig)
+    from repro_torch.launch import dryrun
     from repro_torch.models import build_model
     from repro_torch.tree import leaves, paths
     splits = tp_splits(cfg)[0]
+    shape = ShapeConfig("t", seq_len=20, global_batch=64, kind="train")
     body = build_model(cfg).init(None, "meta")
     whole = [(("/".join(n)), s.split) for n, s in zip(paths(body), splits)]
+    oc = OptimizerConfig(name="local_adaalter", compression="int8")
+    plan = ParallelismPlan(local_axes=("data",))
+
+    def state(grid):
+        _, _, resident, (_, largest) = dryrun.train_walks(
+            cfg, shape, oc, grid, plan, variants=())
+        require(sum(resident.values()) == largest,
+                f"Big LSTM at {grid}: rank 0 holds {resident}, the largest "
+                f"rank {largest}")
+        return sum(resident.values())
+    per_rank, total = state(TP_GRID), state({"data": 1, "model": 1})
     item = [t.element_size() for t in leaves(body)]
-    per_rank = sum(s.part_numel * (b + 16) for s, b in zip(splits, item))
-    total = sum(math.prod(s.shape) * (b + 16) for s, b in zip(splits, item))
+    require(per_rank == sum(s.part_numel * (b + 16)
+                            for s, b in zip(splits, item)),
+            "Big LSTM's dry-run state bytes differ from the specs' parts")
     split_values = sum(math.prod(s.shape) for s in splits if s.split)
     vocab = {n: sp for n, sp in whole if n in ("embed", "head_w", "head_b")}
     require(not any(vocab.values()), f"Big LSTM's vocab leaves split: {vocab}")
@@ -5218,14 +5218,18 @@ def fsdp_tp_train_cfgs() -> list:
 
 
 def fsdp_tp_reckoning() -> dict:
-    """Each rank's bytes on the meta device, before anything runs:
-    serve_fsdp_tp's weights at rest (its tiles) against TP-only serving's
-    (its TP parts), the largest TP part a gather brings up (a layer
-    group's, the embedding's, the head's); train_fsdp_tp's state per rank
-    (bf16 params; B² for AdaAlter, four float32 entries for Local
-    AdaAlter) under FSDP + TP and under the data-replicated TP run, with
-    the four ranks' sum against the card."""
-    from repro_torch.configs import get_arch, reduced
+    """Each rank's bytes from the package's dry-run (``launch/dryrun.py``:
+    the rank's programs on the meta device under a DryGroup at
+    FSDP_TP_GRID), before anything runs: serve_fsdp_tp's weights at rest
+    (its tiles) against TP-only serving's (its TP parts), the largest TP
+    part a gather brings up (a layer group's, the embedding's, the
+    head's); train_fsdp_tp's state per rank (bf16 params; B² for
+    AdaAlter, four float32 entries for Local AdaAlter) under FSDP + TP and
+    under the data-replicated TP run, with the four ranks' sum against
+    the card."""
+    from repro_torch.configs import (OptimizerConfig, ShapeConfig, get_arch,
+                                     reduced)
+    from repro_torch.launch import dryrun
     from repro_torch.launch.serving import serve_plan
     from repro_torch.models import build_model
     from repro_torch.models.counting import count_params
@@ -5240,6 +5244,11 @@ def fsdp_tp_reckoning() -> dict:
     plan = serve_plan(full, FSDP_TP_GRID)
     require(plan.weight_gather_serving and plan.fsdp_axes == ("data",),
             f"llama3-405b's serving plan {plan}")
+    shape = ShapeConfig("decode", seq_len=s["prompt"] + s["decode"],
+                        global_batch=s["batch"], kind="decode")
+
+    def weights(pl):
+        return dryrun.serve_setup(cfg, shape, FSDP_TP_GRID, pl)[3]["params"]
     tree = build_model(cfg).init(None, "meta")
     item = [t.element_size() for t in leaves(tree)]
     names = ["/".join(p) for p in paths(tree)]
@@ -5255,35 +5264,42 @@ def fsdp_tp_reckoning() -> dict:
     serve = {"params": count_params(cfg),
              "weight_bytes_whole": sum(math.prod(t.shape) * b
                                        for t, b in zip(tiles, item)),
-             "tile_bytes_per_rank": sum(t.part_numel * b
-                                        for t, b in zip(tiles, item)),
-             "tp_part_bytes_per_rank": sum(t.part_numel * b
-                                           for t, b in zip(tp, item)),
+             "tile_bytes_per_rank": weights(plan),
+             "tp_part_bytes_per_rank": weights(dataclasses.replace(
+                 plan, fsdp_axes=(), weight_gather_serving=False)),
              "gathered_tp_part_bytes": by}
+    require(serve["tile_bytes_per_rank"] == sum(
+        t.part_numel * b for t, b in zip(tiles, item))
+        and serve["tp_part_bytes_per_rank"] == sum(
+            t.part_numel * b for t, b in zip(tp, item)),
+        "serve_fsdp_tp's dry-run weight bytes differ from the specs' parts")
     serve["gather_bytes_per_forward"] = (serve["tp_part_bytes_per_rank"]
                                          - serve["tile_bytes_per_rank"])
     serve["card_gb_tp_only_weights"] = 4 * serve[
         "tp_part_bytes_per_rank"] / 1e9
     train = {}
-    for label, _, cut, opt, *_rest, plan in fsdp_tp_train_cfgs():
+    shape = ShapeConfig("t", seq_len=512, global_batch=4, kind="train")
+    for label, _, cut, opt, _steps, lr, wire, plan in fsdp_tp_train_cfgs():
         tiles = fsdp_tp_tiles(cut, plan)[0]
-        tp = [tile_parts(t, FSDP_TP_GRID)[0] for t in tiles]
-        item = [t.element_size() for t in leaves(
-            build_model(cut).init(None, "meta"))]
-        per = 4 if opt == "local_adaalter" else 1
-        state = lambda parts: sum(p.part_numel * (b + 4 * per)
-                                  for p, b in zip(parts, item))
+        oc = OptimizerConfig(**fsdp_tp_opt(opt, lr, wire))
+
+        def state(pl):
+            _, _, resident, _ = dryrun.train_walks(
+                cut, shape, oc, FSDP_TP_GRID, pl, variants=())
+            return sum(resident.values())
         train[label] = {
             "params": count_params(cut),
-            "state_bytes_per_rank": state(tiles),
-            "state_bytes_per_rank_replicated": state(tp),
-            "card_gb_replicated_states": 4 * state(tp) / 1e9,
+            "state_bytes_per_rank": state(plan),
+            "state_bytes_per_rank_replicated": state(dataclasses.replace(
+                plan, fsdp_axes=())),
             "tile_leaves": sum(type(t).__name__ == "TileSplit"
                                for t in tiles),
             "tile_leaves_whole_blocks": sum(
                 type(t).__name__ == "TileSplit" and t.whole_blocks(256)
                 for t in tiles),
             "leaves": len(tiles)}
+        train[label]["card_gb_replicated_states"] = 4 * train[label][
+            "state_bytes_per_rank_replicated"] / 1e9
     return {"grid": FSDP_TP_GRID, "serve_fsdp_tp": serve,
             "train_fsdp_tp": train}
 
@@ -5503,6 +5519,18 @@ def fsdp_tp_phases(launched: dict, smi, names, *, dev: str = "cuda") -> dict:
             require(rep["state_bytes"] == state, f"train_fsdp_tp {label}: "
                     f"rank {rep['rank']} holds {rep['state_bytes']} B, the "
                     f"specs {state}")
+            pred = DRY["train_fsdp_tp"].get(label)
+            if pred is not None:     # every step alike: Alg. 3's
+                moved = {"wire": {"n": rep["collectives"] / steps,
+                                  "bytes": rep["wire_bytes"] / steps},
+                         "tp": {"n": rep["tp_collectives"] / steps,
+                                "bytes": rep["tp_bytes"] / steps}}
+                want = {k: pred["counters"][k] for k in moved}
+                require(moved == want
+                        and rep["state_bytes"] == pred["state_bytes"],
+                        f"train_fsdp_tp {label}: rank {rep['rank']} moved "
+                        f"{moved} a step; the dry-run predicted {want}, "
+                        f"state {pred['state_bytes']} B")
             if dev != "cuda":     # the plain versions launch nothing
                 pass
             elif wire:            # every leaf encoded each round, on its tile
@@ -5684,6 +5712,372 @@ def fsdp_tp_model1_check(m1, dev: str = "cuda") -> dict:
             "weight_bytes_replicated": m1["tp"]["weight_bytes"]}
 
 
+# ---- slice 14: the dry-run held against the card, and the examples ------ #
+# a prediction's peak of live bytes against the card's max_memory_allocated
+DRYRUN_PEAK_RTOL = 0.10
+# the dry-run's predictions (phase ``dryrun``), read by the later phases
+# that hold them against the card
+DRY = {}
+# serve_dense's decode step and prompt, score_dense's forward
+DENSE_DECODE = dict(batch=8, prompt=512, new=32)
+DENSE_SCORE = dict(batch=2, seq=4096)
+
+
+def _walk_summary(cost, report=None) -> dict:
+    """A StepCost (and its roofline) as the phase lines give it."""
+    out = {"flops": cost.flops, "matmul_flops": cost.matmul_flops,
+           "bytes": cost.bytes, "n_ops": sum(cost.ops.values()),
+           "kernels": dict(cost.kernels),
+           "collectives": {k: v for k, v in cost.coll_counts.items() if v},
+           "resident_bytes": cost.resident_bytes,
+           "peak_bytes": cost.peak_bytes, "walk_s": cost.seconds}
+    if report is not None:
+        out.update(t_compute_ms=1e3 * report.t_compute,
+                   t_memory_ms=1e3 * report.t_memory,
+                   t_collective_ms=1e3 * report.t_collective,
+                   dominant=report.dominant,
+                   roofline_step_ms=1e3 * report.step_time)
+    return out
+
+
+def _roofline(cost, name):
+    from repro_torch.roofline import analyze
+    return analyze(cost, arch=name, shape_name="chip_smoke", mesh_name="1",
+                   n_chips=1, model_flops_total=0.0)
+
+
+def biglstm_programs(device):
+    """The ``full`` phase's per-leaf run (2 workers x 32 x 20 tokens,
+    int8, the kernels) as programs on ``device``, its weights and state,
+    and a batch of its shape."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, get_arch
+    from repro_torch.launch.steps import build_train_programs
+    from repro_torch.models import build_model
+    cfg = get_arch("biglstm")
+    oc = OptimizerConfig(name="local_adaalter", lr=0.5, H=4,
+                         warmup_steps=100, compression="int8",
+                         use_kernels=True)
+    progs = build_train_programs(cfg, oc, n_workers=2, device=device)
+    base = build_model(cfg).init(None, "meta") if device == "meta" else None
+    params, state = progs.init_fn(0, base=base)
+    # int32 tokens, as the synthetic stream draws them
+    tok = (torch.empty((2, 32, 20), dtype=torch.int32, device="meta")
+           if device == "meta" else torch.randint(
+               0, cfg.vocab_size, (2, 32, 20), device=device,
+               dtype=torch.int32,
+               generator=torch.Generator(device).manual_seed(0)))
+    return progs, params, state, {"tokens": tok, "labels": tok}
+
+
+def dense_decode_inputs(cfg, params_device):
+    """serve_dense's decode step: the programs of batch 8 at a cache of
+    prompt 512 + 32 new, a zero cache, one token a sequence at 512."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.serving import build_serve_programs
+    from repro_torch.models import build_model
+    d = DENSE_DECODE
+    shape = ShapeConfig("decode", seq_len=d["prompt"] + d["new"],
+                        global_batch=d["batch"], kind="decode")
+    progs = build_serve_programs(cfg, shape)
+    cache = build_model(cfg).init_cache(d["batch"], progs.cache_len,
+                                        device=params_device)
+    token = torch.zeros((d["batch"], 1), dtype=torch.int32,
+                        device=params_device)
+    pos = torch.full((d["batch"],), d["prompt"], dtype=torch.int32,
+                     device=params_device)
+    return progs, cache, token, pos
+
+
+def dryrun_predictions() -> dict:
+    """The package's dry-run (``roofline.step_cost`` on the meta device,
+    ``launch/dryrun.py`` with a DryGroup for the runs on ranks) of five
+    runs the script makes, before any of them runs: the ``full`` phase's
+    Big LSTM local and sync step; score_dense's qwen2-7b forward (2 x
+    4096); one serve_dense decode step (batch 8, from 512); a
+    train_fsdp_tp qwen2-7b rank (4 of 28 layers, 2 x 2, Alg. 3); one
+    serve_tp decode step on 1 x 2 (4 of 28 layers). Each with its ops,
+    FLOPs, bytes, kernels, resident and peak bytes, and its roofline on
+    the H100 (modeled, from the data sheet)."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, ShapeConfig, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import resolve_plan
+    from repro_torch.launch.serving import serve_plan
+    from repro_torch.models import build_model
+    from repro_torch.roofline import step_cost
+    t0 = time.perf_counter()
+    out = {}
+    progs, params, state, batch = biglstm_programs("meta")
+    for name, fn in (("biglstm_local_step", progs.local_step),
+                     ("biglstm_sync_step", progs.sync_step)):
+        cost = step_cost(fn, params, state, batch)
+        cost.result = None
+        DRY[name] = cost
+        out[name] = _walk_summary(cost, _roofline(cost, "biglstm"))
+    del progs, params, state, batch
+    qwen = get_arch("qwen2-7b")
+    model = build_model(qwen)
+    params = model.init(None, "meta")
+    tok = torch.empty((DENSE_SCORE["batch"], DENSE_SCORE["seq"]),
+                      dtype=torch.int32, device="meta")   # SyntheticLM's
+    with torch.inference_mode():
+        cost = step_cost(model.logits_fn, params, {"tokens": tok})
+        cost.result = None
+        DRY["dense_forward"] = cost
+        out["dense_forward"] = _walk_summary(cost, _roofline(cost, "qwen2-7b"))
+        sprogs, cache, token, pos = dense_decode_inputs(qwen, "meta")
+        cost = step_cost(sprogs.decode_step, params, cache, token, pos)
+        cost.result = None
+        DRY["dense_decode"] = cost
+        out["dense_decode"] = _walk_summary(cost, _roofline(cost,
+                                                            "qwen2-7b"))
+    del params, cache
+    label, _, cut, opt, _steps, lr, wire, plan = fsdp_tp_train_cfgs()[0]
+    walks, _, resident, _ = dryrun.train_walks(
+        cut, ShapeConfig("t", seq_len=512, global_batch=4, kind="train"),
+        OptimizerConfig(**fsdp_tp_opt(opt, lr, wire)), FSDP_TP_GRID, plan,
+        variants=("local_step",))
+    cost, counters, _ = walks["local_step"]
+    DRY["train_fsdp_tp"] = {label: {"counters": counters,
+                                    "state_bytes": sum(resident.values())}}
+    out["train_fsdp_tp"] = {"label": label, "grid": FSDP_TP_GRID,
+                            "counters": counters, "resident": resident,
+                            **_walk_summary(cost)}
+    q_tp = dataclasses.replace(qwen, n_layers=TP_SERVE_LAYERS)
+    shape = ShapeConfig("decode", seq_len=SERVE_PROMPT + TP_SERVE_NEW,
+                        global_batch=8, kind="decode")
+    _, cost, counters, _, _, resident, _ = dryrun.serve_walk(
+        q_tp, shape, TP_GRID, serve_plan(qwen, TP_GRID))
+    DRY["serve_tp_decode"] = {"counters": counters, "resident": resident}
+    out["serve_tp_decode"] = {"grid": TP_GRID, "layers": TP_SERVE_LAYERS,
+                              "counters": counters, "resident": resident,
+                              **_walk_summary(cost)}
+    require(resolve_plan(qwen, FSDP_TP_GRID, optimizer="adaalter") == plan,
+            "train_fsdp_tp's plan moved")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def allocator_slack(args) -> int:
+    """The most the caching allocator counts above the bytes of the card
+    storages in ``args``: each block rounded up to 512 B, and a large
+    block keeping its segment's tail where that is under 1 MiB (the
+    allocator splits off only a remainder of 1 MiB or more)."""
+    import torch
+    from repro_torch.tree import leaves
+    seen = {}
+    for t in leaves(args):
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            st = t.untyped_storage()
+            seen[st._cdata] = st.nbytes()
+    return sum(511 if n < (1 << 20) else (1 << 20) for n in seen.values())
+
+
+def hold_walk(name, pred, fn, *args, resident_measured=None) -> dict:
+    """``fn(*args)`` on the card against its meta-device prediction
+    ``pred`` (a StepCost): a warm call, a timed call with the allocator's
+    peak reset around it, then the call under the walk. The walk on the
+    card must see the prediction's ops, FLOPs, bytes and kernels; the
+    card's resident bytes (``resident_measured``: memory_allocated's rise
+    over the arguments' creation) equal the prediction's to the
+    allocator's rounding (:func:`allocator_slack`); the timed call's peak
+    (the allocator's, less what else was alive) within DRYRUN_PEAK_RTOL
+    of the predicted peak. Reports the walked call's peak beside it, and
+    the measured wall beside the roofline's step time (no gate)."""
+    import torch
+    from repro_torch.roofline import step_cost
+    fn(*args)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    card = step_cost(fn, *args)
+    torch.cuda.synchronize()
+    walked_peak = torch.cuda.max_memory_allocated()
+    card.result = None
+    others = before - card.resident_bytes      # alive beside the arguments
+    measured_peak = peak - others
+    same = {"ops": card.ops == pred.ops, "flops": card.flops == pred.flops,
+            "bytes": card.bytes == pred.bytes,
+            "kernels": card.kernels == pred.kernels}
+    diff = {k: (pred.ops.get(k), card.ops.get(k))
+            for k in set(pred.ops) | set(card.ops)
+            if pred.ops.get(k) != card.ops.get(k)}
+    require(all(same.values()), f"dryrun {name}: the walk on the card "
+            f"differs from the meta walk ({same}; ops meta/card {diff}; "
+            f"flops {pred.flops}/{card.flops}, bytes {pred.bytes}/"
+            f"{card.bytes}, kernels {pred.kernels}/{card.kernels})")
+    require(card.resident_bytes == pred.resident_bytes,
+            f"dryrun {name}: the arguments hold {card.resident_bytes} B on "
+            f"the card, {pred.resident_bytes} predicted")
+    if resident_measured is not None:
+        slack = allocator_slack(args)
+        require(0 <= resident_measured - pred.resident_bytes <= slack,
+                f"dryrun {name}: memory_allocated rose {resident_measured} "
+                f"B over the arguments, {pred.resident_bytes} predicted "
+                f"(the allocator's rounding: at most {slack} B)")
+    err = abs(pred.peak_bytes - measured_peak) / measured_peak
+    require(err <= DRYRUN_PEAK_RTOL,
+            f"dryrun {name}: predicted peak {pred.peak_bytes} B, the card "
+            f"{measured_peak} B ({err:.3f} off)")
+    rep = _roofline(pred, name)
+    return {"ops_flops_bytes_kernels_equal": True,
+            "resident_bytes": pred.resident_bytes,
+            "resident_measured": resident_measured,
+            "peak_bytes_predicted": pred.peak_bytes,
+            "peak_bytes_measured": measured_peak,
+            "max_memory_allocated": peak,
+            "peak_bytes_walked_call": walked_peak - others,
+            "peak_rel_err": err,
+            "peak_tol": DRYRUN_PEAK_RTOL, "wall_ms": 1e3 * wall,
+            "roofline_step_ms": 1e3 * rep.step_time,
+            "dominant": rep.dominant,
+            "roofline_share": rep.step_time / wall if wall else None,
+            "walk_on_card_s": card.seconds}
+
+
+def dryrun_card_biglstm() -> dict:
+    """The Big LSTM predictions held against the card: its programs
+    initialised on the card (memory_allocated's rise against the
+    predicted resident bytes), then the local and the sync step through
+    :func:`hold_walk`."""
+    import torch
+    free_card()
+    m0 = torch.cuda.memory_allocated()
+    progs, params, state, batch = biglstm_programs("cuda")
+    torch.cuda.synchronize()
+    rose = torch.cuda.memory_allocated() - m0
+    out = {}
+    for name, fn in (("biglstm_local_step", progs.local_step),
+                     ("biglstm_sync_step", progs.sync_step)):
+        out[name] = hold_walk(name, DRY[name], fn, params, state, batch,
+                              resident_measured=rose)
+    del progs, params, state, batch
+    free_card()
+    return out
+
+
+def dryrun_card_dense(params, rose) -> dict:
+    """score_dense's forward and one serve_dense decode step held against
+    their predictions on the card (``params``: score_dense's weights,
+    whose creation raised memory_allocated by ``rose``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    qwen = get_arch("qwen2-7b")
+    model = build_model(qwen)
+    tok = torch.from_numpy(SyntheticLM(
+        vocab_size=qwen.vocab_size, seq_len=DENSE_SCORE["seq"],
+        seed=0).worker_batch(0, 0, DENSE_SCORE["batch"])["tokens"]).cuda()
+    out = {}
+    with torch.inference_mode():
+        out["dense_forward"] = hold_walk(
+            "dense_forward", DRY["dense_forward"], model.logits_fn, params,
+            {"tokens": tok}, resident_measured=rose + tok.numel()
+            * tok.element_size())
+        del tok
+        torch.cuda.empty_cache()
+        progs, cache, token, pos = dense_decode_inputs(qwen, "cuda")
+        out["dense_decode"] = hold_walk(
+            "dense_decode", DRY["dense_decode"], progs.decode_step, params,
+            cache, token, pos)
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+EXAMPLE_RUNS = (
+    ("quickstart", ["quickstart.py"]),
+    ("serve_batched", ["serve_batched.py"]),
+    ("reproduce_paper", ["reproduce_paper.py", "--steps", "30"]),
+)
+# train_100m: 10 steps with a checkpoint at 10, then resumed to 20
+EXAMPLE_100M = dict(first=10, resumed=20, every=10)
+
+
+def stop_processes(procs) -> None:
+    """Kill each process of ``procs`` still running (with its session,
+    where it leads one)."""
+    for p in procs:
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, 9)
+            except (ProcessLookupError, PermissionError):
+                p.kill()
+
+
+def start_examples(root: Path) -> dict:
+    """Start the four examples of ``examples/torch/`` on the card, each a
+    process of its own, all together: quickstart and serve_batched at
+    their defaults, reproduce_paper at 30 steps, train_100m for 10 steps
+    with a checkpoint and then resumed to 20 (one shell running the two
+    in turn). They run while the dry-run predicts and the kernels build,
+    and :func:`finish_examples` waits for them before anything is timed
+    on the card."""
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    ex = root / "examples" / "torch"
+    tmp = tempfile.TemporaryDirectory()
+    e = EXAMPLE_100M
+    outs = Path(tmp.name) / "first.json", Path(tmp.name) / "resumed.json"
+    common = [sys.executable, str(ex / "train_100m.py"), "--checkpoint-dir",
+              str(Path(tmp.name) / "ck"), "--checkpoint-every",
+              str(e["every"])]
+    chain = " && ".join(" ".join(map(str, c)) for c in (
+        common + ["--steps", str(e["first"]), "--out", str(outs[0])],
+        common + ["--steps", str(e["resumed"]), "--out", str(outs[1])]))
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ex / args[0]), *args[1:]], env=env,
+        cwd=str(root), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True) for name, args in EXAMPLE_RUNS}
+    procs["train_100m"] = subprocess.Popen(
+        ["bash", "-c", chain], env=env, cwd=str(root),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    # a phase that fails before finish_examples leaves none running
+    atexit.register(stop_processes, procs.values())
+    return {"procs": procs, "tmp": tmp, "outs": outs,
+            "t0": time.perf_counter()}
+
+
+def finish_examples(started: dict) -> dict:
+    """Wait for the examples :func:`start_examples` started: each must
+    exit 0, and train_100m's resumed run must start where the saved one
+    stopped and continue its steps."""
+    logs, waited = {}, time.perf_counter()
+    for name, p in started["procs"].items():
+        try:
+            logs[name], _ = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs[name], _ = p.communicate()
+        require(p.returncode == 0, f"example {name} exited "
+                f"{p.returncode}:\n{logs[name][-3000:]}")
+    first, resumed = (json.loads(x.read_text()) for x in started["outs"])
+    started["tmp"].cleanup()
+    e = EXAMPLE_100M
+    require(first["start_step"] == 0 and first["steps"] == e["first"]
+            and resumed["start_step"] == e["first"]
+            and resumed["steps"] == e["resumed"] - e["first"]
+            and f"restored checkpoint at step {e['first']}"
+            in logs["train_100m"]
+            and all(math.isfinite(v) for v in first["losses"]
+                    + resumed["losses"]),
+            f"train_100m's resume: {first} then {resumed}")
+    now = time.perf_counter()
+    return {"seconds": now - started["t0"], "waited_s": now - waited,
+            "train_100m": {"first": first, "resumed": resumed},
+            "tails": {k: v.strip().splitlines()[-3:]
+                      for k, v in logs.items()}}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5695,7 +6089,12 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
         return 1
+    # the examples run on the card while the dry-run predicts and the
+    # kernels build (finish_examples waits for them before any timing)
+    examples = start_examples(root)
     sys.path.insert(0, str(root / "src"))
+    global H100
+    from repro_torch.hardware import H100
     from repro_torch.configs import (OptimizerConfig, ShapeConfig, get_arch,
                                      reduced)
     from repro_torch.kernels import _build
@@ -5728,6 +6127,9 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    # ---- the dry-run predicts, before anything runs ------------------- #
+    emit({"phase": "dryrun", "nvidia_smi": smi, **dryrun_predictions()})
+
     # ---- build ---------------------------------------------------------- #
     t0 = time.perf_counter()
     log = _build.build()
@@ -5737,9 +6139,48 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(_build.library_path().relative_to(root)),
           "sources": [p.name for p in _build.sources()], "ptxas": ptxas})
+    cfg = get_arch("biglstm")
+
+    # ---- reduced reference: card + kernels vs CPU + plain versions ------ #
+    # (nothing here is timed: it runs beside the examples)
+    # lr 2 makes the losses move enough that a wrong update shows: the same
+    # run on the CPU with η 2% larger must fall outside the tolerance
+    small = dataclasses.replace(reduced(cfg), param_dtype="float32")
+    base = init_lstm(torch.Generator().manual_seed(1), small)
+    shape = ShapeConfig("smoke", seq_len=16, global_batch=8, kind="train")
+
+    def reduced_losses(dev, lr, **kw):
+        oc = OptimizerConfig(compression="int8", use_kernels=True, H=4,
+                             lr=lr, warmup_steps=0, **kw)
+        res = train_loop(small, shape, oc, steps=TRAIN_STEPS, n_workers=2,
+                         verbose=False, device=dev, init_params=base)
+        require(res.sync_steps == [3, 7],
+                f"reduced run {kw} on {dev}: sync steps {res.sync_steps}")
+        return res.losses
+
+    setups = {"per_leaf": {}, "flat": {"flat": True},
+              "per_leaf_unfused": {"sync_fused": False},
+              "flat_unfused": {"flat": True, "sync_fused": False}}
+    rtol, reference = 1e-4, {}
+    for name, kw in setups.items():
+        cuda, cpu = reduced_losses("cuda", 2.0, **kw), reduced_losses(
+            "cpu", 2.0, **kw)
+        rel = max_rel(cuda, cpu)
+        rel_wrong = max_rel(reduced_losses("cpu", 2.0 * 1.02, **kw), cpu)
+        require(rel <= rtol, f"reduced run {name}: losses differ by {rel} "
+                "relative")
+        require(rel_wrong > rtol, f"reduced run {name}: an η 2% off moves "
+                f"the losses by only {rel_wrong}, within the tolerance")
+        reference[name] = {"losses_cuda": cuda, "losses_cpu": cpu,
+                           "max_rel_diff": rel,
+                           "max_rel_diff_eta_2pct_high": rel_wrong}
+    emit({"phase": "reference", "rtol": rtol, "setups": reference})
+
+    # the examples end before anything is timed on the card
+    emit({"phase": "examples", "nvidia_smi": smi,
+          **finish_examples(examples)})
 
     # ---- kernels vs plain, at the full-width shapes of the paths -------- #
-    cfg = get_arch("biglstm")
     V, P = cfg.vocab_size, cfg.lstm_proj
     R, batch, seq = 2, 64, 20
     gen = torch.Generator("cuda").manual_seed(0)
@@ -5839,40 +6280,8 @@ def main() -> int:
           "ssd_sass_tf32_hmma": sass,
           "plane": {"plane_size": fs.plane_size, "real": fs.n_real,
                     "slots": fs.n_leaves, "buckets": fs.bucket_ranges()}})
-
-    # ---- reduced reference: card + kernels vs CPU + plain versions ------ #
-    # lr 2 makes the losses move enough that a wrong update shows: the same
-    # run on the CPU with η 2% larger must fall outside the tolerance
-    small = dataclasses.replace(reduced(cfg), param_dtype="float32")
-    base = init_lstm(torch.Generator().manual_seed(1), small)
-    shape = ShapeConfig("smoke", seq_len=16, global_batch=8, kind="train")
-
-    def reduced_losses(dev, lr, **kw):
-        oc = OptimizerConfig(compression="int8", use_kernels=True, H=4,
-                             lr=lr, warmup_steps=0, **kw)
-        res = train_loop(small, shape, oc, steps=TRAIN_STEPS, n_workers=2,
-                         verbose=False, device=dev, init_params=base)
-        require(res.sync_steps == [3, 7],
-                f"reduced run {kw} on {dev}: sync steps {res.sync_steps}")
-        return res.losses
-
-    setups = {"per_leaf": {}, "flat": {"flat": True},
-              "per_leaf_unfused": {"sync_fused": False},
-              "flat_unfused": {"flat": True, "sync_fused": False}}
-    rtol, reference = 1e-4, {}
-    for name, kw in setups.items():
-        cuda, cpu = reduced_losses("cuda", 2.0, **kw), reduced_losses(
-            "cpu", 2.0, **kw)
-        rel = max_rel(cuda, cpu)
-        rel_wrong = max_rel(reduced_losses("cpu", 2.0 * 1.02, **kw), cpu)
-        require(rel <= rtol, f"reduced run {name}: losses differ by {rel} "
-                "relative")
-        require(rel_wrong > rtol, f"reduced run {name}: an η 2% off moves "
-                f"the losses by only {rel_wrong}, within the tolerance")
-        reference[name] = {"losses_cuda": cuda, "losses_cpu": cpu,
-                           "max_rel_diff": rel,
-                           "max_rel_diff_eta_2pct_high": rel_wrong}
-    emit({"phase": "reference", "rtol": rtol, "setups": reference})
+    emit({"phase": "dryrun_card", "nvidia_smi": smi,
+          **dryrun_card_biglstm()})
 
     # ---- flat = per-leaf on the card ------------------------------------ #
     emit({"phase": "flat_eq", "runs": [flat_equals_per_leaf(small, base, f)
@@ -5985,10 +6394,14 @@ def main() -> int:
     emit({"phase": "reference_lstm_serve", **reference_lstm_serve(counters)})
     torch.cuda.empty_cache()
     qwen = get_arch("qwen2-7b")
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
     params = build_model(qwen).init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    qwen_rose = torch.cuda.memory_allocated() - m0
     torch.cuda.empty_cache()
-    score, score_dense_n = score_model(qwen, params, counters, batch=2,
-                                       seq=4096, ssd_calls=0)
+    score, score_dense_n = score_model(qwen, params, counters,
+                                       **DENSE_SCORE, ssd_calls=0)
     require_launches(score_dense_n)
     emit({"phase": "score_dense", "nvidia_smi": smi, **score})
     model = build_model(qwen)
@@ -5996,11 +6409,13 @@ def main() -> int:
         "one_token_short": lambda p: model.prefill(
             params, {"tokens": p[:, :-1]})[0],
         "queries_rotated_one_ahead": lambda p: rotated_prefill(
-            model, params, p)}, batch=8, prompt=512, new=32, reported={
+            model, params, p)}, **DENSE_DECODE, reported={
         "scores_scaled_2pct": lambda p: model.prefill(
             scaled_queries(params, 1.02), {"tokens": p})[0]})
     require_launches(serve_n)
     emit({"phase": "serve_dense", "nvidia_smi": smi, **serve})
+    emit({"phase": "dryrun_card_dense", "nvidia_smi": smi,
+          **dryrun_card_dense(params, qwen_rose)})
     del params, model
     torch.cuda.empty_cache()
     # the one-rank prefill's last logits: serve_tp's reference (qwen2-7b

@@ -102,6 +102,12 @@ class ModelConfig:
         from repro_torch.models.counting import count_params
         return count_params(self)
 
+    def active_param_count(self) -> int:
+        """Parameters a token passes through (an MoE layer's top_k
+        experts): the ``6·N·D`` of ``roofline.analysis.model_flops``."""
+        from repro_torch.models.counting import count_active_params
+        return count_active_params(self)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

@@ -18,6 +18,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.hardware import H100
+from repro_torch.charges import charge_collective
 from repro_torch.sharding.specs import GridLayout
 
 
@@ -33,8 +35,8 @@ class FabricModel:
                  (10 µs), not a measurement. Measuring it needs ranks on
                  several cards over NCCL.
     """
-    ici_bw: float = 450e9
-    dcn_bw: float = 50e9
+    ici_bw: float = H100.ici_bw
+    dcn_bw: float = H100.dcn_bw
     latency: float = 10e-6
 
     def scaled(self, bw_scale: float = 1.0,
@@ -56,6 +58,16 @@ class FabricModel:
         bw = self.dcn_bw if cross_pod else self.ici_bw
         return (n_collectives * self.latency
                 + 2.0 * (n - 1) / n * n_bytes / bw)
+
+    def allreduce_time(self, bytes_per_replica: float, n: int,
+                       cross_pod: bool = False) -> float:
+        """Ring all-reduce of ``bytes_per_replica`` over ``n`` replicas:
+        :meth:`collective_time` with a single collective."""
+        return self.collective_time(bytes_per_replica, 1, n, cross_pod)
+
+
+def bytes_per_param(dtype_bytes: int = 4) -> int:
+    return dtype_bytes
 
 
 def collective_time(n_bytes: float, n_collectives: int, n_workers: int,
@@ -189,6 +201,10 @@ class RankGroup:
         self.timed = self.backend == "gloo"
         self._round_t0: Optional[float] = None
 
+    #: whether this group's ranks lie in more than one pod (a real group
+    #: spans one host's cards)
+    cross_pod = False
+
     @property
     def grid(self) -> Dict[str, int]:
         """The grid's shape as the reference's mesh shape: ``{"data":
@@ -215,19 +231,12 @@ class RankGroup:
         sub-groups), as ``dist.new_group`` requires of all ranks; a rank
         that did otherwise would hang its peers. A sub-group of every rank
         is this group, one of this rank alone none. Returns ``self``."""
-        import torch.distributed as dist
         if layout.world != self.world:
             raise ValueError(f"a {layout.workers} x {layout.shards} grid on "
                              f"{self.world} ranks")
         self.layout = layout
         self._along = {}
-
-        def sub(ranks):
-            pg = dist.new_group(ranks, backend=self.backend)
-            if self.rank not in ranks:
-                return None
-            return RankGroup(self.device, pg)
-
+        sub = self._new_group
         if layout.shards > 1:
             by_worker = [sub(r) for r in layout.shard_groups()]
             by_shard = [sub(r) for r in layout.worker_groups()]
@@ -244,6 +253,15 @@ class RankGroup:
             mine = [sub(r) for r in groups]
             self._along[axes] = next(g for g in mine if g is not None)
         return self
+
+    def _new_group(self, ranks: List[int]) -> Optional["RankGroup"]:
+        """The sub-group of ``ranks`` (every rank creates every one), or
+        None where this rank is not among them."""
+        import torch.distributed as dist
+        pg = dist.new_group(ranks, backend=self.backend)
+        if self.rank not in ranks:
+            return None
+        return RankGroup(self.device, pg)
 
     def along(self, axes: Sequence[str]) -> Optional["RankGroup"]:
         """The sub-group of the ranks that differ from this one only along
@@ -319,7 +337,6 @@ class RankGroup:
         the wire is staged (pinned), else on the device. ``count`` (None:
         not counted) gets one collective and the buffer's bytes, and the
         seconds of its parts unless not ``timed``."""
-        import torch.distributed as dist
         if self._round_t0 is not None and count is wire:
             wire.seconds["encode"] += self._now() - self._round_t0
             self._round_t0 = None
@@ -339,11 +356,24 @@ class RankGroup:
         out = torch.empty((self.world, total), dtype=torch.uint8,
                           device=buf.device, pin_memory=self.staged)
         with self.part("wire", timing):
-            dist.all_gather(list(out.unbind(0)), buf, group=self.group)
+            self._all_gather(out, buf)
         if count is not None:
             count.n += 1
             count.bytes += total
+        charge_collective("all-gather", out.numel(), self.cross_pod)
         return out
+
+    def _all_gather(self, out: torch.Tensor, buf: torch.Tensor) -> None:
+        """Row r of ``out`` = rank r's ``buf`` (the one call that moves an
+        all-gather's bytes)."""
+        import torch.distributed as dist
+        dist.all_gather(list(out.unbind(0)), buf, group=self.group)
+
+    def _all_to_all(self, recv: torch.Tensor, send: torch.Tensor) -> None:
+        """Row r of ``recv`` = rank r's row ``self.rank`` of ``send`` (the
+        one call that moves an all-to-all's bytes)."""
+        import torch.distributed as dist
+        dist.all_to_all_single(recv, send, group=self.group)
 
     def all_gather(self, parts: Sequence[torch.Tensor],
                    count: Optional[CollectiveCount] = wire,
@@ -456,7 +486,6 @@ class RankGroup:
         received, flat, on its device, by rank (this rank's own part
         stays put). ``count`` gets one collective and the bytes this rank
         sent to the others."""
-        import torch.distributed as dist
         R, me, n = self.world, self.rank, split.part_numel
         host = self.staged or self.device.type == "cpu"
         with self.part("d2h", count if self.staged else None):
@@ -470,10 +499,11 @@ class RankGroup:
         recv = torch.empty((R, n), dtype=torch.float32, device=send.device,
                            pin_memory=self.staged)
         with self.part("wire", count):
-            dist.all_to_all_single(recv, send, group=self.group)
+            self._all_to_all(recv, send)
         if count is not None:
             count.n += 1
             count.bytes += 4 * n * (R - 1)
+        charge_collective("all-to-all", 4 * recv.numel(), self.cross_pod)
         del send
         with self.part("h2d", count if self.staged else None):
             rows = {r: (recv[r].to(self.device) if self.staged else recv[r])
@@ -524,6 +554,86 @@ class RankGroup:
         return tree_map(lambda t: self.all_gather(
             [t], count, to_device=to_device)[0].reshape(
                 (self.world * t.shape[0],) + tuple(t.shape[1:])), tree)
+
+
+class DryGroup(RankGroup):
+    """Rank ``rank`` of a grid of any size, played without a process group:
+    the dry-run's group (``launch/dryrun.py``). The program runs as on a
+    real rank, on ``meta`` tensors; the two calls that move data
+    (:meth:`_all_gather`, :meth:`_all_to_all`) move nothing and leave
+    their outputs as the real collective shapes them, and each collective
+    is recorded in :attr:`log` (shared with the sub-groups
+    :meth:`RankGroup.split` opens, without ``dist.new_group``): its kind,
+    output bytes, the ranks and grid axes it spans, and whether it crosses
+    pods. The counters (:data:`wire`, :data:`tp`, :data:`side`,
+    :data:`shard_gather`) count as in a real run.
+
+    ``grid``: ``{"data": D, "model": M}``, or with ``"pod": P`` in front
+    (the reference's ``(pod, data, model)`` mesh), folded into one ``data``
+    axis of P·D ranks, pod-major, so that a rank holds the part the
+    reference's ``P(("pod", "data"), ...)`` gives it; ranks r and s share a
+    pod where ``r // (D·M) == s // (D·M)``."""
+
+    def __init__(self, grid: Dict[str, int], rank: int = 0,
+                 device="meta") -> None:
+        pods = int(grid.get("pod", 1))
+        data, model = pods * int(grid.get("data", 1)), int(grid.get("model",
+                                                                    1))
+        self.pod_ranks = (data // pods) * model
+        self.log: List[Dict[str, Any]] = []
+        self._setup(list(range(data * model)), rank, device)
+        self.layout = GridLayout(data, model)
+        self.root = self
+
+    def _setup(self, members: List[int], rank: int, device) -> None:
+        self.group, self.backend = None, "dry"
+        self.members, self.world = members, len(members)
+        self.rank = members.index(rank)
+        self.layout = GridLayout(self.world, 1)
+        self.workers, self.shards, self._along = self, None, {}
+        self.device = torch.device(device)
+        self.staged = self.timed = False
+        self._round_t0 = None
+
+    @property
+    def global_rank(self) -> int:
+        return self.members[self.rank]
+
+    @property
+    def cross_pod(self) -> bool:
+        return len({m // self.root.pod_ranks for m in self.members}) > 1
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The grid axes along which this group's ranks differ (``pod``
+        where they lie in several pods)."""
+        lay = self.root.layout
+        coords = [lay.coords_of(m) for m in self.members]
+        out = tuple(a for a in lay.axes if len({c[a] for c in coords}) > 1)
+        if self.cross_pod:
+            out = ("pod",) + out
+        return out
+
+    def _new_group(self, ranks: List[int]) -> Optional["DryGroup"]:
+        if self.rank not in ranks:
+            return None
+        sub = DryGroup.__new__(DryGroup)
+        sub.root, sub.log = self.root, self.log
+        sub._setup([self.members[r] for r in ranks], self.global_rank,
+                   self.device)
+        return sub
+
+    def _record(self, kind: str, out: torch.Tensor) -> None:
+        self.log.append({"kind": kind,
+                         "bytes": out.numel() * out.element_size(),
+                         "world": self.world, "axes": self.axes,
+                         "cross_pod": self.cross_pod})
+
+    def _all_gather(self, out: torch.Tensor, buf: torch.Tensor) -> None:
+        self._record("all-gather", out)
+
+    def _all_to_all(self, recv: torch.Tensor, send: torch.Tensor) -> None:
+        self._record("all-to-all", recv)
 
 
 def gather_mean_(x: torch.Tensor, group: RankGroup, round16=(),
@@ -811,3 +921,21 @@ def sync_bytes_per_step(algorithm: str, n_params: int, H: int = 1,
     if algorithm in ("sgd", "adagrad", "adaalter"):
         return per_round
     return per_round / H
+
+
+def step_time(algorithm: str, n_params: int, compute_time: float,
+              n_workers: int, H: int = 1,
+              fabric: FabricModel = FabricModel(), cross_pod: bool = False,
+              dtype_bytes: int = 4, compression: str = "",
+              block: int = 256) -> float:
+    """The paper's Figure-1 model: a step's wall time = compute + the
+    round's all-reduce time (``sync_round_multiplier`` param-sized tensors
+    over ``fabric``), amortized over H steps for the local optimizers."""
+    if algorithm == "none":
+        return compute_time
+    p = payload_bytes(n_params, dtype_bytes, compression, block)
+    mult = sync_round_multiplier(algorithm)
+    comm = mult * fabric.allreduce_time(p, n_workers, cross_pod)
+    if algorithm in ("local_sgd", "local_adaalter"):
+        comm /= H
+    return compute_time + comm

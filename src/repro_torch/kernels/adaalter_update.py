@@ -14,6 +14,14 @@ The CUDA kernels are in ``csrc/adaalter_update.cu``: :func:`fused_update`
 there. Both evaluate one device expression, so a flat plane and the
 per-leaf tensors get bitwise the same update. η and t'·ε² travel as a
 2-float tensor on the data's device (:func:`update_scalars`).
+
+Each kernel has a cost function (:func:`update_cost`,
+:func:`flat_update_cost`: the bytes it must move and the operations it
+does, the bound of ``PERF.md``'s kernel table) and a ``meta`` route: on
+``meta`` tensors a wrapper returns its outputs as empty ``meta`` tensors
+and charges the cost to the walk in progress (``charges.kernel_call``),
+launching nothing and counting no launch. On the card it charges the same
+cost where it launches.
 """
 from __future__ import annotations
 
@@ -23,11 +31,29 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.tiling import tile_rows
+from repro_torch.charges import kernel_call, route
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the CUDA kernel (the plain version on CPU tensors counts none)
 launches = _build.LaunchCount()
+
+
+#: operations an element: η·g, b2_sync + t'ε², rsqrt, the product, x − it,
+#: g·g and its sum
+UPDATE_OPS = 7
+
+
+def update_cost(n: int, itemsize: int) -> dict:
+    """One leaf's update of ``n`` elements of ``itemsize`` bytes (x and g):
+    reads x, g, b2_sync, b2_local, writes y, b2_local'."""
+    return {"bytes": n * (3 * itemsize + 3 * 4), "operations": UPDATE_OPS * n}
+
+
+def flat_update_cost(n: int) -> dict:
+    """The flat update of ``n`` fp32 plane elements: four planes read, two
+    written."""
+    return {"bytes": n * 6 * 4, "operations": UPDATE_OPS * n}
 
 
 def update_scalars(eta, extra, device) -> torch.Tensor:
@@ -79,16 +105,18 @@ def fused_update(x, g, b2_sync, b2_local, scalars):
     CPU tensors take :func:`fused_update_plain`; CUDA tensors launch the
     kernel. ``scalars`` comes from :func:`update_scalars`."""
     _check(x, g, b2_sync, b2_local, scalars)
-    if x.device.type == "cpu":
+    kind = route(x, "fused_update")
+    if kind == "cpu":
         return fused_update_plain(x, g, b2_sync, b2_local, scalars)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_update runs on cuda or cpu, not {x.device}")
     for name, t in (("x", x), ("g", g), ("b2_sync", b2_sync),
                     ("b2_local", b2_local), ("scalars", scalars)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     y = torch.empty_like(x)
     b2_out = torch.empty_like(b2_local)
+    if kernel_call("adaalter_update",
+                   update_cost(x.numel(), x.element_size()), kind):
+        return y, b2_out
     rc = _kernel()(x.data_ptr(), g.data_ptr(), b2_sync.data_ptr(),
                    b2_local.data_ptr(), scalars.data_ptr(), y.data_ptr(),
                    b2_out.data_ptr(), x.numel(), _DTYPES[x.dtype],
@@ -154,20 +182,21 @@ def flat_fused_update(plane, g_plane, bs_plane, bl_plane, scalars, rnd_rows,
     if rnd_rows.shape not in ((plane.numel() // LANES, 1), (per_row, 1)):
         raise ValueError(f"rnd_rows must be ({plane.numel() // LANES}, 1) or "
                          f"({per_row}, 1), got {tuple(rnd_rows.shape)}")
-    if plane.device.type == "cpu":
+    kind = route(plane, "flat_fused_update")
+    if kind == "cpu":
         y_new, b2_new = flat_fused_update_plain(plane, g_plane, bs_plane,
                                                 bl_plane, scalars, rnd_rows)
         return (y_new if y is None else y.copy_(y_new),
                 b2_new if b2_out is None else b2_out.copy_(b2_new))
-    if plane.device.type != "cuda":
-        raise ValueError(f"flat_fused_update runs on cuda or cpu, not "
-                         f"{plane.device}")
     planes["y"] = y = torch.empty_like(plane) if y is None else y
     planes["b2_out"] = b2_out = (torch.empty_like(bl_plane) if b2_out is None
                                  else b2_out)
     for name, t in {**planes, "rnd_rows": rnd_rows, "scalars": scalars}.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if kernel_call("flat_fused_update", flat_update_cost(plane.numel()),
+                   kind):
+        return y, b2_out
     for name, t in planes.items():        # read and written as float4s
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")

@@ -15,6 +15,12 @@ Their plain versions are ``ref.quantize_blocks_ref`` and
 ``ref.dequantize_blocks_ref`` (``ref.block_quantize``), the numerics the
 one-pass EF kernels share, so the three-pass and one-pass encodes agree
 bitwise.
+
+Each kernel has a cost function (:func:`quantize_cost`,
+:func:`dequantize_cost`) and a ``meta`` route: on ``meta`` tensors a
+wrapper returns its outputs as empty ``meta`` tensors and charges the
+cost to the walk in progress (``charges.kernel_call``), launching nothing;
+on the card it charges the same cost where it launches.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (INV_127, dequantize_blocks_ref,
                                      quantize_blocks_ref)
 from repro_torch.kernels.tiling import from_blocks, to_blocks
+from repro_torch.charges import kernel_call, route
 
 BLOCK = 256               # elements per quantization block (one warp x 8)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -33,6 +40,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: launches of each CUDA kernel (the plain versions on CPU tensors count none)
 quantize_launches = _build.LaunchCount()
 dequantize_launches = _build.LaunchCount()
+
+
+def quantize_cost(nb: int, itemsize: int) -> dict:
+    """Quantizing ``nb`` blocks of ``itemsize``-byte values: read them,
+    write the int8 codes and a fp32 scale a block; a block's max, and a
+    division, rounding and clip an element."""
+    n = nb * BLOCK
+    return {"bytes": n * itemsize + n + nb * 4, "operations": 4 * n}
+
+
+def dequantize_cost(nb: int) -> dict:
+    """Dequantizing ``nb`` blocks: read the codes and scales, write fp32;
+    one product an element."""
+    n = nb * BLOCK
+    return {"bytes": n + nb * 4 + n * 4, "operations": n}
 
 
 def _blocked(name, t, dtypes):
@@ -43,25 +65,23 @@ def _blocked(name, t, dtypes):
         raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
 
 
-def _on(t, fn: str) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{fn} runs on cuda or cpu, not {t.device}")
-    return t.device.type
-
-
 def quantize_blocks(x2d):
     """Quantize a (nblocks, 256) fp32 or bf16 view. Returns (q int8
     (nblocks, 256), scales fp32 (nblocks, 1)).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     _blocked("x2d", x2d, tuple(_DTYPES))
-    if _on(x2d, "quantize_blocks") == "cpu":
+    kind = route(x2d, "quantize_blocks")
+    if kind == "cpu":
         return quantize_blocks_ref(x2d)
     if not x2d.is_contiguous():
         raise ValueError("x2d must be contiguous")
     nb = x2d.shape[0]
     q = torch.empty(x2d.shape, dtype=torch.int8, device=x2d.device)
     scales = torch.empty((nb, 1), dtype=torch.float32, device=x2d.device)
+    if kernel_call("quantize_blocks", quantize_cost(nb, x2d.element_size()),
+                   kind):
+        return q, scales
     fn = _build.load().quantize_blocks
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_void_p]
@@ -84,11 +104,14 @@ def dequantize_blocks(q2d, scales):
                          f"{scales.dtype} {tuple(scales.shape)}")
     if scales.device != q2d.device:
         raise ValueError(f"scales on {scales.device}, q2d on {q2d.device}")
-    if _on(q2d, "dequantize_blocks") == "cpu":
+    kind = route(q2d, "dequantize_blocks")
+    if kind == "cpu":
         return dequantize_blocks_ref(q2d, scales)
     if not (q2d.is_contiguous() and scales.is_contiguous()):
         raise ValueError("q2d and scales must be contiguous")
     y = torch.empty(q2d.shape, dtype=torch.float32, device=q2d.device)
+    if kernel_call("dequantize_blocks", dequantize_cost(q2d.shape[0]), kind):
+        return y
     fn = _build.load().dequantize_blocks
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int

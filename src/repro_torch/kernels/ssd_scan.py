@@ -16,6 +16,12 @@ version is ``ref.ssd_ref``, the composition of the three stages'
 ``ref.ssd_chunk_output_ref``. Like the TPU kernel it is forward-only:
 there is no backward, so the wrapper refuses inputs that autograd would
 record.
+
+:func:`ssd_cost` gives the bytes and operations of one call (the bound of
+``PERF.md``'s kernel table). On ``meta`` tensors the wrapper returns y as
+an empty ``meta`` tensor and charges that cost to the walk in progress
+(``charges.kernel_call``), launching nothing; on the card it charges the
+same cost where it launches.
 """
 from __future__ import annotations
 
@@ -23,8 +29,10 @@ import ctypes
 
 import torch
 
+from repro_torch.hardware import H100
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_ref
+from repro_torch.charges import kernel_call, route
 
 #: the largest chunk, state and head sizes the kernels' tiles hold
 MAX_CHUNK, MAX_STATE, MAX_HEAD_DIM = 64, 128, 64
@@ -33,6 +41,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: calls that launched the CUDA kernels (three launches each; the plain
 #: version on CPU tensors counts none)
 launches = _build.LaunchCount()
+
+
+def ssd_cost(b, nz, c, nh, hd, n, in_bytes) -> dict:
+    """The least work of one SSD chunk scan: bytes (x̄, B, C in the input
+    dtype and dA fp32 read once, y fp32 written once) and operations (C·Bᵀ
+    once per (batch, chunk) and M·x̄ over the lower triangle only, C·S and
+    the state update per head, one FMA = 2 operations); its bound on the
+    H100, the larger of the bytes over the HBM rate and the operations
+    three times over, as the kernels' 3xTF32 products do them, over the
+    dense TF32 tensor-core rate. ``bound_fp32_cores_ms`` is the same work
+    once over the fp32 rate outside the tensor cores."""
+    tri = c * (c + 1) // 2
+    nbytes = (b * nz * c * (nh * hd + 2 * n) * in_bytes + b * nz * c * nh * 4
+              + b * nz * c * nh * hd * 4)
+    ops = 2 * b * nz * (tri * n + nh * (tri * hd + 2 * c * n * hd))
+    t_bytes = 1e3 * nbytes / H100.hbm_bw
+    t_ops = 1e3 * 3 * ops / H100.tf32_flops
+    return dict(bytes=nbytes, operations=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_fp32_cores_ms=max(t_bytes,
+                                        1e3 * ops / H100.fp32_flops))
 
 
 def _check(xbar, Bm, Cm, dA):
@@ -53,15 +82,14 @@ def _check(xbar, Bm, Cm, dA):
                             f"{t.dtype}")
         if t.device != xbar.device:
             raise ValueError(f"{name} on {t.device}, xbar on {xbar.device}")
-    if xbar.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ssd_scan runs on cuda or cpu, not {xbar.device}")
+    kind = route(xbar, "ssd_scan")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xbar, Bm, Cm, dA)):
         raise RuntimeError("ssd_scan has no backward (as the TPU kernel): "
                            "call it under torch.no_grad() or "
                            "torch.inference_mode(), or train with "
                            "ssm_pallas=False")
-    return b, nz, c, nh, hd, n
+    return kind, (b, nz, c, nh, hd, n)
 
 
 def launch_plan(b: int, nz: int, nh: int, hd: int, n: int) -> dict:
@@ -110,8 +138,8 @@ def ssd_scan(xbar, Bm, Cm, dA):
     dA: (B, NZ, c, NH), dt·A (negative). fp32 or bf16 inputs; returns
     y (B, NZ, c, NH, hd) fp32. CPU tensors take the plain version; CUDA
     tensors launch the kernel (c ≤ 64, N ≤ 128, hd ≤ 64)."""
-    b, nz, c, nh, hd, n = _check(xbar, Bm, Cm, dA)
-    if xbar.device.type == "cpu":
+    kind, (b, nz, c, nh, hd, n) = _check(xbar, Bm, Cm, dA)
+    if kind == "cpu":
         return ssd_ref(xbar, Bm, Cm, dA)
     if c > MAX_CHUNK or n > MAX_STATE or hd > MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes c <= {MAX_CHUNK}, N <= "
@@ -125,6 +153,9 @@ def ssd_scan(xbar, Bm, Cm, dA):
     states = torch.empty((b, nz, nh, n, hd), dtype=torch.float32, device=dev)
     decay = torch.empty((b, nz, nh), dtype=torch.float32, device=dev)
     y = torch.empty(xbar.shape, dtype=torch.float32, device=dev)
+    if kernel_call("ssd_scan", ssd_cost(b, nz, c, nh, hd, n,
+                                        xbar.element_size()), kind):
+        return y
     strides = (ctypes.c_longlong * 17)(*xbar.stride(), *Bm.stride(),
                                        *Cm.stride(), *dA.stride())
     fn = _build.load().ssd_scan

@@ -22,6 +22,12 @@ the lower clamp and the bf16 wire rounding) replaces ``flat_ef_blocks``
 there. Both write the new residual over ``e`` in place (the sync round
 drops the old residual anyway; at full Big LSTM width that saves about
 13 GB).
+
+Each kernel has a cost function (:func:`ef_cost`) and a ``meta`` route:
+on ``meta`` tensors a wrapper returns its outputs as empty ``meta``
+tensors and charges the cost to the walk in progress
+(``charges.kernel_call``), launching nothing; on the card it charges the
+same cost where it launches.
 """
 from __future__ import annotations
 
@@ -36,12 +42,27 @@ from repro_torch.kernels.ref import (INV_127, dequantize_blocks_ref,
 from repro_torch.kernels.tiling import (from_blocks, lead_body,
                                         round_through_bf16, tile_rows,
                                         to_blocks)
+from repro_torch.charges import kernel_call, route
 
 BLOCK = 256               # elements per quantization block (one warp x 8)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the CUDA kernel (the plain version on CPU tensors counts none)
 launches = _build.LaunchCount()
+
+#: operations an element: x + e, |v|'s block max, v / s, the rounding, the
+#: clip, q·s, the clamp and v − wire
+EF_OPS = 8
+
+
+def ef_cost(n: int, itemsize: int, codes: bool = False) -> dict:
+    """One encode of ``n`` elements (x and the wire of ``itemsize``
+    bytes, the residual fp32): reads x and e, writes the wire and e', and
+    with ``codes`` the int8 codes and a scale a 256-block."""
+    nbytes = n * (2 * itemsize + 2 * 4)
+    if codes:
+        nbytes += n + 4 * -(-n // BLOCK)
+    return {"bytes": nbytes, "operations": EF_OPS * n}
 
 
 def fused_ef_leaf_plain(x, e, *, block: int = BLOCK, batch_ndim: int = 0,
@@ -89,14 +110,13 @@ def fused_ef_leaf(x, e, *, block: int = BLOCK, batch_ndim: int = 0,
     if e.shape != x.shape or e.device != x.device:
         raise ValueError(f"e {tuple(e.shape)} on {e.device} must match x "
                          f"{tuple(x.shape)} on {x.device}")
-    if x.device.type == "cpu":
+    kind = route(x, "fused_ef_leaf")
+    if kind == "cpu":
         w, r, *qs = fused_ef_leaf_plain(
             x, e, block=block, batch_ndim=batch_ndim,
             clamp_nonneg=clamp_nonneg, codes=codes)
         e.copy_(r)
         return (w, e, *qs)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ef_leaf runs on cuda or cpu, not {x.device}")
     if block != BLOCK:
         raise ValueError(f"the CUDA kernel quantizes {BLOCK}-element blocks, "
                          f"got block={block}")
@@ -105,6 +125,9 @@ def fused_ef_leaf(x, e, *, block: int = BLOCK, batch_ndim: int = 0,
     lead, body = lead_body(x.shape, min(batch_ndim, x.ndim))
     wire = torch.empty_like(x)
     qs = _codes_like(lead, body, x.device) if codes else (None, None)
+    if kernel_call("fused_ef", ef_cost(x.numel(), x.element_size(), codes),
+                   kind):
+        return (wire, e, qs) if codes else (wire, e)
     rc = _kernel()(x.data_ptr(), e.data_ptr(), wire.data_ptr(),
                    *(t.data_ptr() if codes else None for t in qs), lead,
                    body, _DTYPES[x.dtype], int(clamp_nonneg), INV_127,
@@ -167,17 +190,18 @@ def flat_ef_blocks(x2d, e2d, rnd, low, codes: bool = False):
                              "blocks")
     if rnd.shape != low.shape:
         raise ValueError(f"rnd {tuple(rnd.shape)} != low {tuple(low.shape)}")
-    if x2d.device.type == "cpu":
+    kind = route(x2d, "flat_ef_blocks")
+    if kind == "cpu":
         w, r, *qs = flat_ef_blocks_plain(x2d, e2d, rnd, low, codes)
         e2d.copy_(r)
         return (w, e2d, *qs)
-    if x2d.device.type != "cuda":
-        raise ValueError(f"flat_ef_blocks runs on cuda or cpu, not {x2d.device}")
     for name, t in (("x2d", x2d), ("e2d", e2d), ("rnd", rnd), ("low", low)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     wire = torch.empty_like(x2d)
     qs = _codes_like(nb, BLOCK, x2d.device) if codes else (None, None)
+    if kernel_call("flat_ef", ef_cost(x2d.numel(), 4, codes), kind):
+        return (wire, e2d, qs) if codes else (wire, e2d)
     fn = _build.load().flat_ef
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [
         ctypes.c_float, ctypes.c_void_p]

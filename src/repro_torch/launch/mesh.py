@@ -81,25 +81,29 @@ def resolve_plan(cfg: ModelConfig, grid: Union[Dict[str, int], int], *,
     fully synchronous plan (``grad_axes=fsdp_axes=("data",)``: one model
     whose gradient is averaged every step, its state FSDP-sharded over
     ``data``) for the baselines and above 100 B; between them, workers as
-    pods with ZeRO over ``data`` (the grid has no pod axis, so no worker
-    axis: one model). Every plan takes ``remat="full"`` above 1e9
-    parameters."""
+    pods with ZeRO over ``data`` (without a pod axis no worker axis: one
+    model). Every plan takes ``remat="full"`` above 1e9 parameters. A
+    grid with ``"pod"`` (the dry-run's ``(pod, data, model)`` production
+    grid; the training entry points never pass one) gives the reference's
+    plans on it: ``pod`` beside ``data`` in each, and for the 20-100 B
+    plan each pod a worker (``local_axes=("pod",)``)."""
     if isinstance(grid, int):
         grid = {"data": grid, "model": 1}
+    pod = ("pod",) if "pod" in grid else ()
     n_params = cfg.param_count()
     local = optimizer in ("local_adaalter", "local_sgd")
     remat = "full" if n_params > 1e9 else "none"
     big = n_params > _POD_WORKER_THRESHOLD
     if n_params > _SYNC_ONLY_THRESHOLD or not local:
-        return ParallelismPlan(local_axes=(), grad_axes=("data",),
-                               fsdp_axes=("data",), remat=remat,
-                               weight_gather_serving=big)
-    if big:        # workers = pods (no pod axis here); ZeRO over "data"
-        return ParallelismPlan(local_axes=(), grad_axes=("data",),
+        dp = pod + ("data",)
+        return ParallelismPlan(local_axes=(), grad_axes=dp, fsdp_axes=dp,
+                               remat=remat, weight_gather_serving=big)
+    if big:        # workers = pods (none without a pod axis); ZeRO over data
+        return ParallelismPlan(local_axes=pod, grad_axes=("data",),
                                fsdp_axes=("data",), remat="full",
                                weight_gather_serving=True)
-    return ParallelismPlan(local_axes=("data",), grad_axes=(), fsdp_axes=(),
-                           remat=remat)
+    return ParallelismPlan(local_axes=pod + ("data",), grad_axes=(),
+                           fsdp_axes=(), remat=remat)
 
 
 def check_tp(cfg: ModelConfig, what: str) -> None:

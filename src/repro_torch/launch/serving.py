@@ -130,14 +130,16 @@ def rank_parts(tree, specs, grid, coords):
 
 
 def _batch_rows(grid, coords, batch: int) -> slice:
-    """This rank's rows of a batch split over the data axes."""
+    """This rank's rows of a batch split over the data axes; every row
+    where the ranks do not divide the batch (the reference's shape-safe
+    spec then leaves the batch whole, as a single 500k-token sequence)."""
     n = 1
     idx = 0
     for a in _data_axes(grid):
         idx = idx * grid[a] + coords[a]
         n *= grid[a]
     if batch % n:
-        raise ValueError(f"batch {batch} does not split over {n} ranks")
+        return slice(0, batch)
     per = batch // n
     return slice(idx * per, (idx + 1) * per)
 
@@ -284,7 +286,8 @@ def build_serve_programs(cfg: ModelConfig, shape: ShapeConfig, group=None,
         # the ranks along data hold one batch's rows: the MoE routes them
         # as one, as the reference's one program over the global batch
         dgroup = group.along(_data_axes(grid))
-        if dgroup is not None:
+        if dgroup is not None and extra["rows"].stop - extra[
+                "rows"].start < shape.global_batch:
             kw["batch_group"] = dgroup
 
     @torch.inference_mode()

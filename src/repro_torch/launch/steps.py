@@ -1106,3 +1106,30 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
 
     return (init_fn, partial(step, do_sync=False),
             partial(step, do_sync=True))
+
+
+# --------------------------------------------------------------------------- #
+# abstract input specs (TensorSpecs: never allocated)
+# --------------------------------------------------------------------------- #
+def train_batch_specs(cfg, shape, n_workers: int = 0):
+    """The reference's ``train_batch_specs``: ``TensorSpec``s of a train
+    batch, with a leading worker axis of per-worker slices where
+    ``n_workers`` > 0."""
+    from repro_torch.launch.serving import TensorSpec
+    S = shape.seq_len
+    if n_workers:
+        if shape.global_batch % n_workers:
+            raise ValueError(f"{shape.global_batch} rows over {n_workers} "
+                             "workers")
+        lead = (n_workers, shape.global_batch // n_workers)
+    else:
+        lead = (shape.global_batch,)
+    toks = TensorSpec(lead + (S,), torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.cross_attn_every:
+        batch["image_embeds"] = TensorSpec(
+            lead + (cfg.n_image_tokens, cfg.d_model), torch.bfloat16)
+    if cfg.is_encdec:
+        batch["audio_frames"] = TensorSpec(lead + (S, cfg.d_model),
+                                           torch.bfloat16)
+    return batch

@@ -93,7 +93,11 @@ def _router(params, xt, cfg, group=None):
         keep = pos + offset[gate_idx] < cap
         kept = torch.clamp(torch.minimum(counts[group.rank], cap - offset),
                            min=0)
-        size = max(int(torch.max(kept)), 1)
+        # on meta (the dry-run) the rows are not known: a rank's share of
+        # the capacity, the buffers of routing that spreads evenly
+        size = (_capacity(t, e, k, cfg.capacity_factor)
+                if kept.device.type == "meta"
+                else max(int(torch.max(kept)), 1))
     return gate_vals * keep, gate_idx, probs, pos, keep, size
 
 

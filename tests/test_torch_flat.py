@@ -47,7 +47,7 @@ from repro.kernels.ref import flat_fused_update_ref as jax_flat_update_ref
 from repro.kernels.sync_fused import flat_ef_blocks as jax_flat_ef_blocks
 from repro.kernels.sync_fused import flat_ef_plane as jax_flat_ef_plane
 from repro.models import build_model
-from repro_torch import convert
+from repro_torch import charges, convert
 from repro_torch.configs import (OptimizerConfig, ShapeConfig, SyncConfig,
                                  get_arch, reduced)
 from repro_torch.core import flatspace as fsp
@@ -457,10 +457,26 @@ def test_flat_wrappers_take_plain_versions_and_count_no_launch(monkeypatch):
             sync_fused.flat_launches.n) == before
 
 
-def test_flat_wrappers_raise_rather_than_fall_back():
+def test_flat_wrappers_raise_rather_than_fall_back(monkeypatch):
+    """Off the CPU the flat wrappers never take their plain versions: on
+    ``meta`` tensors (the dry-run's route) they return empty ``meta``
+    outputs and launch nothing; another device and bad operands raise."""
+    def no_plain(*a, **k):
+        raise AssertionError("a meta tensor reached the plain version")
+
+    monkeypatch.setattr(adaalter_update, "flat_fused_update_plain", no_plain)
+    monkeypatch.setattr(sync_fused, "flat_ef_blocks_plain", no_plain)
     m = torch.empty(2, 256, device="meta")
     side = torch.empty(2, 1, device="meta")
     sc = torch.empty(2, device="meta")
+    before = (adaalter_update.flat_launches.n, sync_fused.flat_launches.n)
+    y, b2 = adaalter_update.flat_fused_update(m, m, m, m, sc, side)
+    w, e = sync_fused.flat_ef_blocks(m, m, side, side)
+    assert {t.device.type for t in (y, b2, w, e)} == {"meta"} and e is m
+    assert (adaalter_update.flat_launches.n,
+            sync_fused.flat_launches.n) == before
+    # a device a wrapper does not take raises (meta, once it is not one)
+    monkeypatch.setattr(charges, "DEVICES", ("cpu", "cuda"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         adaalter_update.flat_fused_update(m, m, m, m, sc, side)
     with pytest.raises(ValueError, match="cuda or cpu"):

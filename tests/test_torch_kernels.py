@@ -38,7 +38,7 @@ from repro.kernels.sync_fused import fused_ef_blocks as jax_ef_blocks
 from repro.kernels.sync_fused import fused_ef_leaf as jax_ef_leaf
 from repro.kernels.tiling import pad_rows as jax_pad_rows
 from repro.kernels.tiling import to_blocks as jax_to_blocks
-from repro_torch import convert
+from repro_torch import charges, convert
 from repro_torch.kernels import _build, adaalter_update, ref, sync_fused
 from repro_torch.kernels.tiling import from_blocks, pad_rows, to_blocks
 
@@ -209,9 +209,24 @@ def test_cpu_wrappers_take_plain_versions_and_count_no_launch(monkeypatch):
     assert (adaalter_update.launches.n, sync_fused.launches.n) == before
 
 
-def test_wrappers_raise_rather_than_fall_back():
+def test_wrappers_raise_rather_than_fall_back(monkeypatch):
+    """Off the CPU a wrapper never takes its plain version: on ``meta``
+    tensors (the dry-run's route) it returns empty ``meta`` outputs and
+    launches nothing; another device and bad operands raise."""
+    def no_plain(*a, **k):
+        raise AssertionError("a meta tensor reached the plain version")
+
+    monkeypatch.setattr(adaalter_update, "fused_update_plain", no_plain)
+    monkeypatch.setattr(sync_fused, "fused_ef_leaf_plain", no_plain)
     m = torch.empty(8, device="meta")
     s = torch.empty(2, device="meta")
+    before = (adaalter_update.launches.n, sync_fused.launches.n)
+    y, b2 = adaalter_update.fused_update(m, m, m, m, s)
+    w, e = sync_fused.fused_ef_leaf(m, m)
+    assert {t.device.type for t in (y, b2, w, e)} == {"meta"} and e is m
+    assert (adaalter_update.launches.n, sync_fused.launches.n) == before
+    # a device a wrapper does not take raises (meta, once it is not one)
+    monkeypatch.setattr(charges, "DEVICES", ("cpu", "cuda"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         adaalter_update.fused_update(m, m, m, m, s)
     with pytest.raises(ValueError, match="cuda or cpu"):

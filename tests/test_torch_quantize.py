@@ -24,7 +24,7 @@ from repro.core.sync_engine import ef_apply as jax_ef_apply
 from repro.kernels import quantize as jq
 from repro.kernels.ref import dequantize_blocks_ref as jax_dequantize_ref
 from repro.kernels.ref import quantize_blocks_ref as jax_quantize_ref
-from repro_torch import convert
+from repro_torch import charges, convert
 from repro_torch.core.codecs import get_codec
 from repro_torch.core.sync_engine import ef_apply
 from repro_torch.kernels import _build
@@ -167,7 +167,26 @@ def test_cpu_wrappers_take_plain_versions_and_count_no_launch(monkeypatch):
     assert (qz.quantize_launches.n, qz.dequantize_launches.n) == before
 
 
-def test_wrappers_raise_rather_than_fall_back():
+def test_wrappers_raise_rather_than_fall_back(monkeypatch):
+    """Off the CPU the wrappers never take their plain versions: on
+    ``meta`` tensors (the dry-run's route) they return empty ``meta``
+    outputs and launch nothing; another device and bad operands raise."""
+    def no_plain(*a, **k):
+        raise AssertionError("a meta tensor reached the plain version")
+
+    monkeypatch.setattr(qz, "quantize_blocks_ref", no_plain)
+    monkeypatch.setattr(qz, "dequantize_blocks_ref", no_plain)
+    before = (qz.quantize_launches.n, qz.dequantize_launches.n)
+    q, s = qz.quantize_blocks(torch.empty(4, 256, device="meta"))
+    y = qz.dequantize_blocks(torch.empty(4, 256, dtype=torch.int8,
+                                         device="meta"),
+                             torch.empty(4, 1, device="meta"))
+    assert (q.dtype, tuple(s.shape), y.dtype) == (torch.int8, (4, 1),
+                                                 torch.float32)
+    assert {t.device.type for t in (q, s, y)} == {"meta"}
+    assert (qz.quantize_launches.n, qz.dequantize_launches.n) == before
+    # a device a wrapper does not take raises (meta, once it is not one)
+    monkeypatch.setattr(charges, "DEVICES", ("cpu", "cuda"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         qz.quantize_blocks(torch.empty(4, 256, device="meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):

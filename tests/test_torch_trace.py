@@ -597,6 +597,75 @@ def test_hlo_meta_malformed_falls_back_to_warm_means():
         assert r.sync_overhead_s == pytest.approx(4.0)
 
 
+def _stalled_trace(steps=16, H=3, stall_at=1, stall=6.0, sync_steps=None):
+    """A 16-step stream at H = 3 on two workers: local steps of 1.0 s,
+    sync steps of 1.05 s, one local step (not the first) stalled ``stall``
+    times by the host, which lifts the warm local estimate above the warm
+    sync mean. ``sync_steps``: the measured schedule recorded in meta (the
+    spans' own by default)."""
+    rec = TraceRecorder(meta={
+        "kind": "train", "algorithm": "local_adaalter", "n_params": 1000,
+        "n_workers": 2, "steps": steps, "start_step": 0, "H": H,
+        "is_local": True, "flat": False,
+        "sync": {"policy": "fixed_h", "threshold": 0.0, "h_min": 1,
+                 "h_max": 4 * H, "compression": "", "block": 256},
+        "n_payload_leaves": 4,
+        "fabric": dataclasses.asdict(comm.FabricModel()),
+        "clock": "perf_counter", "sync_state0": {"since": 0, "drift": 0.0}})
+    t, local_seen, synced_at = 0.0, 0, []
+    for step in range(steps):
+        synced = (step + 1) % H == 0
+        if synced:
+            dur = 1.05
+            synced_at.append(step)
+        else:
+            dur = stall if local_seen == stall_at else 1.0
+            local_seen += 1
+        for w in range(2):
+            rec.add("local_step", worker=w, step=step, t0=t, dur=dur,
+                    synced=synced, loss=1.0, drift=0.5)
+        t += dur
+    trace = rec.freeze()
+    got = synced_at if sync_steps is None else sync_steps
+    trace.meta["measured"] = {"wall_s": t, "sync_count": len(got),
+                              "sync_steps": got}
+    return trace
+
+
+def test_validate_exact_where_the_clamp_binds():
+    """One stalled local step: the warm local estimate (1.5 s) exceeds the
+    warm sync mean (1.05 s), the clamp binds, and the prediction exceeds
+    the warm wall (21.75 s) by clamp_s = 5 × 0.45 s. The gate holds predicted −
+    clamp_s to the warm wall exactly; the unrepaired ratio (~1.10) is
+    outside DEFAULT_TOL."""
+    from repro_torch.trace.replay import DEFAULT_TOL
+    trace = _stalled_trace()
+    v = validate(trace)
+    assert v["priced_from"] == "warm_means"
+    assert v["clamp_s"] == pytest.approx(5 * (1.5 - 1.05))
+    assert v["measured_warm_wall_s"] == pytest.approx(21.75)
+    assert v["predicted_wall_s"] / v["measured_warm_wall_s"] \
+        > 1.0 + DEFAULT_TOL                  # the parent's ratio, 1.103
+    assert v["ratio"] == pytest.approx(1.0, rel=1e-12)
+    assert v["ok"] and v["wall_ok"] and v["sync_count_ok"]
+    assert DEFAULT_TOL == 0.1
+
+
+def test_validate_still_fails_a_wrong_schedule_or_wall():
+    """The repaired gate on the stalled stream still trips on model
+    drift: a measured schedule other than the replayed one, and a round
+    priced (from HLO costs) off by more than ``tol``."""
+    wrong = _stalled_trace(sync_steps=[2, 5, 8, 11])
+    v = validate(wrong)
+    assert not v["sync_count_ok"] and not v["ok"]
+    moved = _stalled_trace(sync_steps=[3, 6, 9, 12, 15])
+    assert not validate(moved)["ok"]
+    off = _with_hlo(_stalled_trace(), local_s=1e-3, sync_s=3e-3)
+    v = validate(off)
+    assert v["priced_from"] == "hlo_regions" and v["clamp_s"] == 0.0
+    assert abs(v["ratio"] - 1.0) > v["tol"] and not v["ok"]
+
+
 # --------------------------------------------------------------------------- #
 # across the packages
 # --------------------------------------------------------------------------- #
@@ -607,12 +676,35 @@ def test_reference_reads_and_validates_port_trace(cross, which, fixed_h_run,
     round trip take a port trace, and give the port's own results."""
     _, trace, _ = fixed_h_run if which == "fixed_h" else adaptive_run
     theirs = cross["port"][which]
-    assert theirs["validate"]["ok"], theirs["validate"]
     assert theirs["chrome_lossless"]
     mine = _jsonish(_results(trace))
-    for key in ("replays", "validate", "sweep_workers", "sweep_H",
-                "sweep_codecs"):
+    for key in ("replays", "sweep_workers", "sweep_H", "sweep_codecs"):
         assert theirs[key] == mine[key], key
+    _check_validate_against_reference(theirs["validate"], mine["validate"])
+
+
+def _check_validate_against_reference(theirs, mine):
+    """The port's validate against the reference's on one trace: the
+    port's gate passes; where the warm sync mean fell below the local
+    estimate (``clamp_s`` > 0, the clamp both packages apply) the
+    reference's prediction exceeds the warm wall by exactly ``clamp_s``
+    and its ratio is 1 + clamp_s / warm wall; elsewhere the reference's
+    keys hold the same values and its gate passes too."""
+    assert mine["ok"], mine
+    clamp = mine["clamp_s"]
+    assert clamp >= 0.0
+    if clamp > 0.0:
+        assert mine["priced_from"] == "warm_means"
+        warm = theirs["measured_warm_wall_s"]
+        assert theirs["ratio"] == pytest.approx(1.0 + clamp / warm,
+                                                rel=1e-12, abs=0.0)
+        assert theirs["predicted_wall_s"] == mine["predicted_wall_s"]
+        for key in ("measured_warm_wall_s", "sync_count_ok",
+                    "measured_sync_count", "replayed_sync_count"):
+            assert theirs[key] == mine[key], key
+        return
+    assert theirs["ok"], theirs
+    assert {k: mine[k] for k in theirs} == theirs
 
 
 @pytest.mark.parametrize("which", ["fixed_h", "adaptive"])
@@ -623,9 +715,12 @@ def test_port_replays_reference_trace_exactly(cross, which):
     assert "hlo_cost" in trace.meta
     theirs = cross["ref"][which]
     mine = _jsonish(_results(trace))
-    for key in ("replays", "validate", "sweep_workers", "sweep_H",
-                "sweep_codecs"):
+    for key in ("replays", "sweep_workers", "sweep_H", "sweep_codecs"):
         assert theirs[key] == mine[key], key
+    # HLO-priced: the clamp of the warm means never applies
+    assert mine["validate"]["clamp_s"] == 0.0
+    assert {k: mine["validate"][k] for k in theirs["validate"]} \
+        == theirs["validate"]
     assert mine["replays"][0]["priced_from"] == "hlo_regions"
     assert from_chrome(json.loads(json.dumps(to_chrome(trace)))).to_dict() \
         == trace.to_dict()

@@ -343,10 +343,17 @@ IMPORT_PATTERN = r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)"
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     """Nor ``ml_dtypes``: the port reads and writes bfloat16 checkpoints
     through 16-bit integer views. Every module is imported, the
-    checkpoint, obs and trace subpackages included."""
+    checkpoint, obs, trace and roofline subpackages and the dry-run
+    included, and so is each of the port's examples."""
     import re
     files = list((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    examples = sorted((REPO / "examples" / "torch").glob("*.py"))
+    assert [f.name for f in examples] == ["quickstart.py",
+                                          "reproduce_paper.py",
+                                          "serve_batched.py",
+                                          "train_100m.py"]
+    files += examples
     assert len(files) > 10
     bad = [f"{f}:{i}: {line}" for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -356,10 +363,14 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
-            "need = {'repro_torch.checkpoint.store', 'repro_torch.obs.health', 'repro_torch.obs.metrics', 'repro_torch.trace.events', 'repro_torch.trace.chrome', 'repro_torch.trace.replay', 'repro_torch.hardware'}\n"
+            "need = {'repro_torch.checkpoint.store', 'repro_torch.obs.health', 'repro_torch.obs.metrics', 'repro_torch.trace.events', 'repro_torch.trace.chrome', 'repro_torch.trace.replay', 'repro_torch.hardware', 'repro_torch.charges', 'repro_torch.roofline.analysis', 'repro_torch.roofline.cost', 'repro_torch.roofline.profile', 'repro_torch.launch.dryrun'}\n"
             "assert need <= set(names), need - set(names)\n"
+            "import runpy, glob\n"
+            "for f in sorted(glob.glob(sys.argv[1] + '/*.py')):\n"
+            "    runpy.run_path(f, run_name='example')\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
-    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+    subprocess.run([sys.executable, "-c", code,
+                    str(REPO / "examples" / "torch")], check=True, env=env,
                    timeout=120)
