@@ -320,8 +320,8 @@ raises and exits non-zero:
             launch: a rank's weights at rest (tiles) and TP parts for
             serve_fsdp_tp, a rank's state under FSDP + TP and under the
             data-replicated TP run for train_fsdp_tp
-  serve_fsdp_tp  llama3-405b at full width cut to 2 of 126 layers
-            (10,578,116,608 parameters, bf16) on 2 x 2 gloo ranks under
+  serve_fsdp_tp  llama3-405b at full width cut to 1 of 126 layers
+            (7,390,412,800 parameters, bf16) on 2 x 2 gloo ranks under
             serve_plan (weight_gather_serving: each rank's tiles at rest,
             a layer group's TP parts gathered over data as it runs): a
             prefill of 4 x 512 and 2 decode steps, logits and caches bit
@@ -345,6 +345,26 @@ raises and exits non-zero:
             for gathered-weight serving at model = 1 (reduced llama3-405b),
             bit for bit the replicated serving, to rtol 1e-4 of one CPU
             device
+  train_pods  (slice 15, in the same launch, the group re-split onto pod
+            grids) workers as pods under phi3.5-moe's plan (local_axes=
+            ('pod',), FSDP over a pod's data ranks): mamba2-370m at full
+            width, 24 of 48 layers, bf16, on 2 pods x 2 data ranks, 8 x
+            512 tokens, int8 + kernels, H = 2, 4 steps, bit for bit its
+            data-replicated run; each rank held to the dry-run's
+            prediction made first (in the dryrun phase, a DryGroup on the
+            pod grid): collectives and bytes a run and a round exact (the
+            round the whole-block wire of its tiles), rows 1, 3 and 6
+            launched as predicted, peak within 10%; the round's parts
+            (encode, d2h, gloo, h2d, dequantize + sum); the flat twin
+            (6 layers, float32) bit for bit its per-leaf run, rows 2, 4
+            and 6 launched; reduced phi3.5-moe in float32 under its plan
+            on 2 x 2 x 1 and 2 x 1 x 2 against the stacked CPU run to rtol
+            1e-4, which η 2% off must exceed
+
+The instrumented phase's trace carries the steps' cost tables (the
+package's meta walk, priced on the H100: meta["hlo_cost"]), their FLOPs
+and bytes equal to a fresh meta walk's; the replay priced from them is
+reported, and the gate holds the trace without them.
 
 The kernels phase also holds the SSD chunk scan's warp-level 3xTF32
 product helper alone against a float64 product, then the SSD kernels
@@ -365,7 +385,9 @@ train_tp_families rank updates, encodes and decodes (check_tp_parts: the
 expert part (1, 1, 8, 4096, 6400) among them), and the SSD at a TP rank's
 heads (1, 32, 64, 16, 64), N 128 and (1, 32, 64, 25, 64), N 16, and
 row 3 on every tile shape train_fsdp_tp's phi3.5-moe ranks encode in
-place (fsdp_tp_tiles). Then the script's wall,
+place (fsdp_tp_tiles), and rows 1, 3 and 6 on every tile shape of a
+train_pods rank, rows 2 and 4 on its flat twin's sub-planes
+(pod_tiles). Then the script's wall,
 the kernels summary
 line (each kernel's launches on its main path, and by phase), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}.
@@ -2470,11 +2492,18 @@ def instrumented_phase(cfg, shape, oc, counters, leaf, leaf_n,
     same launches, one metrics row a step, the residual fields appearing at
     the first sync round and changing only on sync rounds, the span counts,
     the replay gate, the Chrome export; step walls and the probe's seconds
-    beside the uninstrumented run's."""
+    beside the uninstrumented run's. The trace carries the steps' cost
+    tables (``meta["hlo_cost"]``): their FLOPs and bytes must equal a walk
+    of the same programs on the meta device, the local steps' spans carry
+    ``hlo_optimal_s`` and the encode spans ``hlo_extra_optimal_s``; the
+    replay priced from the tables gives its predicted / warm-wall ratio
+    (reported, not gated), and the gate holds the trace without them (the
+    warm means) as before."""
     import shutil
     import tempfile
     import torch
-    from repro_torch.launch.train import train_loop
+    from repro_torch.launch.steps import build_train_programs
+    from repro_torch.launch.train import step_cost_tables, train_loop
     from repro_torch.trace import Trace
     from repro_torch.trace.chrome import export
     from repro_torch.trace.replay import validate
@@ -2511,11 +2540,40 @@ def instrumented_phase(cfg, shape, oc, counters, leaf, leaf_n,
                            "ef_encode": workers * 2,
                            "collective": workers * 2, "eval": 0, "ckpt": 0},
                 f"span counts {counts}")
+        tables = trace.meta.get("hlo_cost")
+        require(isinstance(tables, dict) and set(tables) == {
+            "local_step", "sync_step", "hw"}, "the card's trace carries no "
+            f"cost table: {sorted(trace.meta)}")
+        oc_obs = dataclasses.replace(oc, obs_metrics=True)
+        tok = torch.empty((workers, shape.global_batch // workers,
+                           shape.seq_len), dtype=torch.int32, device="meta")
+        want = step_cost_tables(cfg, oc_obs, build_train_programs(
+            cfg, oc_obs, n_workers=workers, device="meta"),
+            {"tokens": tok, "labels": tok})
+        same = {k: (tables[k]["flops"], tables[k]["bytes"]) == (
+            want[k]["flops"], want[k]["bytes"])
+            for k in ("local_step", "sync_step")}
+        require(all(same.values()), f"the trace's cost tables differ from "
+                f"the meta walk's: {same}")
+        require(all("hlo_optimal_s" in s.args
+                    for s in trace.by_name("local_step"))
+                and all("hlo_extra_optimal_s" in s.args
+                        for s in trace.by_name("ef_encode")),
+                "the spans lack the tables' optimal walls")
+        priced = validate(trace)
+        require(priced["priced_from"] == "hlo_regions",
+                f"the replay did not price from the tables: {priced}")
+        del trace.meta["hlo_cost"]
         gate = validate(trace)
         require(gate["ok"], f"replay gate: {gate}")
         doc = export(str(t_path), str(root / "run.chrome.json"))
         return {"launches": launches, "span_counts": counts,
-                "validate": gate, "chrome_events": len(doc["traceEvents"]),
+                "validate": gate, "validate_priced_from_tables": priced,
+                "cost_tables": {k: {f: tables[k][f] for f in (
+                    "flops", "bytes", "optimal_s", "n_regions")}
+                    for k in ("local_step", "sync_step")},
+                "cost_tables_equal_meta_walk": same,
+                "chrome_events": len(doc["traceEvents"]),
                 "chrome_bytes": (root / "run.chrome.json").stat().st_size,
                 "metrics_rows": len(rows) - 1,
                 "probe_ms": [1e3 * t for t in res.probe_s],
@@ -4946,14 +5004,15 @@ def biglstm_tp_reckoning(cfg) -> dict:
 
 # ---- slice 13: FSDP beside tensor parallelism ---------------------------- #
 FSDP_TP_GRID = {"data": 2, "model": 2}
-# serve_fsdp_tp: llama3-405b at full width cut to 2 of its 126 layers
-# (10,578,116,608 parameters, 21.16 GB in bf16), 2 x 2 gloo ranks under
-# serve_plan (weight_gather_serving: FSDP over data beside TP over model),
-# a prefill of 4 x 512 and 2 decode steps from a zero cache, against the
-# same grid's TP-only serving (the weights whole over data) bit for bit.
-# A rank gathers its peer's half of each TP part a forward through gloo
-# (~5.3 GB at ~0.7 GB/s), so the decode is cut to 2 steps
-FSDP_TP_SERVE = dict(arch="llama3-405b", layers=2, batch=4, prompt=512,
+# serve_fsdp_tp: llama3-405b at full width cut to 1 of its 126 layers
+# (7,390,412,800 parameters, 14.78 GB in bf16; 2 before train_pods joined
+# the launch), 2 x 2 gloo ranks under serve_plan (weight_gather_serving:
+# FSDP over data beside TP over model), a prefill of 4 x 512 and 2 decode
+# steps from a zero cache, against the same grid's TP-only serving (the
+# weights whole over data) bit for bit. A rank gathers its peer's half of
+# each TP part a forward through gloo (~3.7 GB at ~0.35-0.7 GB/s), so the
+# decode is cut to 2 steps
+FSDP_TP_SERVE = dict(arch="llama3-405b", layers=1, batch=4, prompt=512,
                      decode=2)
 # train_fsdp_tp: (label, arch, depth cut, optimizer, steps, lr, wire,
 # against the data-replicated TP run) at full width in bf16, 4 x 512
@@ -5150,7 +5209,9 @@ def train(run):
         OptimizerConfig(**run["opt"]), steps=run["steps"], seed=0,
         verbose=False, group=group, n_workers=run.get("workers", 1),
         device=str(dev), digest=True, plan=(
-            ParallelismPlan(**run["plan"]) if run.get("plan") else None),
+            ParallelismPlan(**{k: tuple(v) if isinstance(v, list) else v
+                               for k, v in run["plan"].items()})
+            if run.get("plan") else None),
         checkpoint_dir=run.get("checkpoint_dir", ""))
     out = dataclasses.asdict(r)
     out["name"] = run.get("name")
@@ -5176,6 +5237,39 @@ if m1:
     res["serve_model1"] = serve_pair(
         cfg, serve_plan(get_arch(m1["arch"]), group.grid), m1["batch"],
         m1["prompt"], m1["decode"], keep_logits=True)
+if spec.get("pods"):
+    # slice 15: the ranks laid out as pod grids. A sync round's
+    # collectives, bytes and parts are counted apart: everything
+    # comm.wire counts inside RankGroup.round_ (the sync)
+    import contextlib
+    import torch.distributed as dist
+    ROUND = comm.CollectiveCount()
+    real_round = comm.RankGroup.round_
+
+    @contextlib.contextmanager
+    def counted_round(self):
+        w0 = comm.wire.snapshot()
+        with real_round(self):
+            yield
+        w1 = comm.wire.snapshot()
+        ROUND.n += w1["n"] - w0["n"]
+        ROUND.bytes += w1["bytes"] - w0["bytes"]
+        for k, v in w1["seconds"].items():
+            ROUND.seconds[k] += v - w0["seconds"][k]
+    comm.RankGroup.round_ = counted_round
+    res["pods"] = {}
+    for run in spec["pods"]:
+        if group.grid != run["grid"]:
+            group.split(GridLayout.of(run["grid"]), ("data",))
+        free()
+        ROUND.reset()
+        start = torch.cuda.memory_allocated(dev) if cuda else 0
+        out = train(dict(run, workers=run["grid"]["pod"]))
+        mine = {"round": ROUND.snapshot(), "allocated_at_start": start}
+        every = [None] * group.world
+        dist.all_gather_object(every, mine)
+        out["rank_rounds"] = every
+        res["pods"][run["name"]] = out
 mesh.close_ranks()
 if group.rank == 0:
     json.dump(res, open(sys.argv[2], "w"))
@@ -5425,7 +5519,8 @@ def fsdp_tp_launch(root: Path, loops=(), *, dev: str = "cuda") -> dict:
         train_runs, grid_runs = fsdp_tp_runs(flat_dir)
         spec = {"grid": FSDP_TP_GRID, "loops": list(loops),
                 "serve": FSDP_TP_SERVE, "train": train_runs,
-                "grid_runs": grid_runs, "serve_model1": FSDP_TP_MODEL1}
+                "grid_runs": grid_runs, "serve_model1": FSDP_TP_MODEL1,
+                "pods": pod_runs()}
         if dev != "cuda":
             spec["device"] = dev
         got, wall, peak_mib = torchrun_train(
@@ -5442,7 +5537,7 @@ def fsdp_tp_launch(root: Path, loops=(), *, dev: str = "cuda") -> dict:
 
 def fsdp_tp_phases(launched: dict, smi, names, *, dev: str = "cuda") -> dict:
     """Slice 13's phases from the launch of :func:`fsdp_tp_launch`.
-    ``serve_fsdp_tp``: llama3-405b, 2 of 126 layers, bf16, on 2 x 2 ranks
+    ``serve_fsdp_tp``: llama3-405b, 1 of 126 layers, bf16, on 2 x 2 ranks
     under serve_plan (gathered weights): prefill 4 x 512 and 2 decode
     steps, logits and caches bit for bit the TP-only run's; a rank's
     weight bytes at rest against the specs' tiles, the gather's bytes and
@@ -5649,6 +5744,10 @@ def fsdp_tp_phases(launched: dict, smi, names, *, dev: str = "cuda") -> dict:
           "seconds": time.perf_counter() - t0})
     by_phase["tp_grid_fsdp_tp"] = gr["phi3.5-moe-42b-a6.6b/fsdp"]["ranks"][
         0]["launches"]
+    # slice 15's runs, the ranks laid out as pod grids in the same launch
+    line, pods_n = pods_phase(got["pods"], wall, peak_mib, smi, dev)
+    emit({"phase": "train_pods", **line})
+    by_phase.update(pods_n)
     # checked after the phases' lines, which give each run's peak a rank
     require(card_gb < 80.0, f"the launch of 4 ranks: the card used "
             f"{card_gb} GB")
@@ -5710,6 +5809,320 @@ def fsdp_tp_model1_check(m1, dev: str = "cuda") -> dict:
             "gathers_per_prefill": m1["gather"]["prefill_gather"]["n"],
             "weight_bytes": m1["gather"]["weight_bytes"],
             "weight_bytes_replicated": m1["tp"]["weight_bytes"]}
+
+
+# ---- slice 15: workers as pods ----------------------------------------- #
+POD_GRID = {"pod": 2, "data": 2, "model": 1}
+POD_GRID_TP = {"pod": 2, "data": 1, "model": 2}
+# the plan whose workers are the pods: phi3.5-moe's (20-100 B parameters),
+# passed as plan= to the runs that train another architecture under it
+POD_PLAN_ARCH = "phi3.5-moe-42b-a6.6b"
+# train_pods: mamba2-370m at full width (bf16), cut to 24 of its 48 layers
+# for the script's time (at 48 the runs (a) and (b) took 52 s of gloo on
+# an H100, the prediction 16 s), on 2 pods x 2 data ranks sharing the
+# card, 8 x 512 tokens (a rank's 2 rows of its pod's 4), Local AdaAlter
+# H = 2, int8 wire with the kernels, 4 steps (2 rounds): the pod run (a),
+# its data-replicated run (b, fsdp_axes=()), and the flat twin (c) at
+# POD_FLAT_LAYERS beside its per-leaf run at that depth, both in float32
+# (the digests then compare the same bits: a bf16 leaf's plane slot holds
+# its value in float32)
+POD_RUN = dict(arch="mamba2-370m", layers=24, dtype="bfloat16", steps=4,
+               batch=8, seq=512)
+POD_FLAT_LAYERS = 6
+POD_OPT = dict(name="local_adaalter", lr=0.5, H=2, warmup_steps=0,
+               compression="int8", use_kernels=True)
+# runs (d): reduced phi3.5-moe in float32 under its own plan on both pod
+# grids, 4 steps, against the stacked run of 2 workers on the CPU (the
+# plain versions) to MODEL_RTOL, which η 2% larger on the CPU must exceed
+POD_PHI = dict(arch=POD_PLAN_ARCH, reduced=True, dtype="float32", steps=4,
+               batch=8, seq=16)
+
+
+def pod_plan(grid=POD_GRID):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import resolve_plan
+    plan = resolve_plan(get_arch(POD_PLAN_ARCH), grid)
+    require(tuple(plan.local_axes) == ("pod",)
+            and tuple(plan.fsdp_axes) == ("data",),
+            f"{POD_PLAN_ARCH}'s plan on {grid}: {plan}")
+    return plan
+
+
+def pod_cfg(layers=None):
+    import dataclasses as dc
+    from repro_torch.configs import get_arch
+    return dc.replace(get_arch(POD_RUN["arch"]),
+                      param_dtype=POD_RUN["dtype"],
+                      n_layers=layers or POD_RUN["layers"])
+
+
+def pod_runs() -> list:
+    """train_pods' runs in FSDP_TP_RANKS' form: (a), (b), the flat twin and
+    its per-leaf run, and the reduced phi3.5-moe runs (d)."""
+    plan = dataclasses.asdict(pod_plan())
+    repl = dict(plan, fsdp_axes=())
+    base = dict(POD_RUN, grid=POD_GRID, opt=dict(POD_OPT))
+    runs = [dict(base, name="mamba2/fsdp", plan=plan),
+            dict(base, name="mamba2/repl", plan=repl),
+            dict(base, name="mamba2_flat/fsdp", plan=plan,
+                 layers=POD_FLAT_LAYERS, dtype="float32"),
+            dict(base, name="mamba2_flat/flat", plan=plan,
+                 layers=POD_FLAT_LAYERS, dtype="float32",
+                 opt=dict(POD_OPT, flat=True))]
+    for grid in (POD_GRID, POD_GRID_TP):
+        runs.append(dict(POD_PHI, name="phi/" + "x".join(
+            str(v) for v in grid.values()), grid=grid,
+            plan=dataclasses.asdict(pod_plan(grid)), opt=dict(POD_OPT)))
+    return runs
+
+
+def pod_tiles(cfg, plan=None, grid=POD_GRID):
+    """Rank 0's split of each leaf of ``cfg``'s worker under the pod plan
+    (its tiles over its pod's data ranks)."""
+    from repro_torch.models import build_model
+    from repro_torch.sharding import ShardingRules, leaf_split, param_shardings
+    from repro_torch.sharding.partition import rule_overrides
+    from repro_torch.tree import leaves
+    plan = plan or pod_plan(grid)
+    tree = build_model(cfg).init(None, "meta")
+    specs = param_shardings(ShardingRules(grid, plan, rule_overrides(cfg)),
+                            tree)
+    coords = dict.fromkeys(grid, 0)
+    return [leaf_split(t.shape, sp, grid, coords)
+            for t, sp in zip(leaves(tree), specs)]
+
+
+def pod_prediction() -> dict:
+    """Run (a)'s rank 0 on the meta device before anything runs (the
+    package's dry-run: ``launch/dryrun.py::train_walks`` under a DryGroup
+    on POD_GRID, the pods as workers): its collectives, bytes and kernels
+    a local step and a sync step, its state and its peak of live bytes.
+    Every rank holds tiles of one shape (the splits are even), so the
+    other ranks are held to rank 0's."""
+    from repro_torch.configs import OptimizerConfig, ShapeConfig
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    cfg, plan = pod_cfg(), pod_plan()
+    shape = ShapeConfig("t", seq_len=POD_RUN["seq"],
+                        global_batch=POD_RUN["batch"], kind="train")
+    walks, progs, resident, spec_bytes = dryrun.train_walks(
+        cfg, shape, OptimizerConfig(**POD_OPT), POD_GRID, plan)
+    require(spec_bytes[0] == spec_bytes[1], "train_pods: the ranks' state "
+            f"differs by rank {spec_bytes}")
+    out = {"state_bytes": sum(resident.values()), "resident": resident,
+           "spec_state_bytes": spec_bytes[0],
+           "payload_leaves": progs.n_payload_leaves}
+    for name, (cost, counters, log) in walks.items():
+        out[name] = {"counters": counters, "kernels": dict(cost.kernels),
+                     "peak_bytes": cost.peak_bytes,
+                     "cross_pod_collectives": sum(e["cross_pod"]
+                                                  for e in log),
+                     "flops": cost.flops, "bytes": cost.bytes}
+    out["peak_bytes"] = max(out[k]["peak_bytes"] for k in walks)
+    # a round: the sync step's collectives beyond its local step's
+    out["round"] = {k: out["sync_step"]["counters"]["wire"][k]
+                    - out["local_step"]["counters"]["wire"][k]
+                    for k in ("n", "bytes")}
+    # the accounting of what a rank sends a round (params and B², one
+    # collective each a leaf): its tile, or the whole leaf where the tile's
+    # runs straddle a 256-block; the wire carries whole blocks (a leaf's
+    # last block padded), int8 codes and an fp32 scale each
+    from repro_torch.core.comm import payload_bytes
+    tiles = pod_tiles(cfg, plan)
+    sent = [s.part_numel if s.whole_blocks(256) else math.prod(s.shape)
+            for s in tiles]
+    out["round_accounting"] = {
+        "n": 2 * len(tiles),
+        "bytes": sum(2 * payload_bytes(n, 4, "int8") for n in sent),
+        "wire_bytes_whole_blocks": sum(2 * -(-n // 256) * (256 + 4)
+                                       for n in sent),
+        "tile_values": sum(s.part_numel for s in tiles),
+        "leaves_encoded_whole": sum(not s.whole_blocks(256) for s in tiles)}
+    acc = out["round_accounting"]
+    require(out["round"] == {"n": acc["n"],
+                             "bytes": acc["wire_bytes_whole_blocks"]},
+            f"train_pods: the walked round {out['round']} differs from the "
+            f"accounting of a rank's tiles {acc}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_pod_parts(gen) -> dict:
+    """Rows 1, 3 and 6 on each distinct tile shape a train_pods rank
+    updates and encodes (a worker axis of 1), as check_tp_parts does; rows
+    2 and 4 on each of a pod's sub-planes of the flat twin's plane (its
+    D x M = 2 shards)."""
+    import torch
+    tiles = pod_tiles(pod_cfg())
+    shapes = sorted({(1,) + s.part_shape for s in tiles if
+                     s.whole_blocks(256)}, key=math.prod, reverse=True)
+    upd, ef = [], []
+    for i, shape in enumerate(shapes):
+        upd.append(check_update(gen, shape, torch.bfloat16, timed=i == 0))
+        ef.append(check_ef(gen, shape, torch.bfloat16, False, timed=i == 0))
+        ef.append(check_ef(gen, shape, torch.float32, True, timed=i == 0))
+        torch.cuda.empty_cache()
+    codes = check_subplane_codes(gen, math.prod(shapes[0]))
+    fs = full_plane(dataclasses.replace(pod_cfg(POD_FLAT_LAYERS),
+                                        param_dtype="float32"), 1, shards=2)
+    flat_upd = [check_flat_update(gen, fs, timed=False, shard=s)
+                for s in range(fs.shards)]
+    torch.cuda.empty_cache()
+    flat_ef = [check_flat_ef(gen, fs, half, timed=False, shard=s)
+               for s in range(fs.shards) for half in ("params", "b2")]
+    torch.cuda.empty_cache()
+    return {"arch": POD_RUN["arch"], "shapes": [list(s) for s in shapes],
+            "update": upd, "ef": ef, "codes": codes,
+            "flat_update": flat_upd, "flat_ef": flat_ef}
+
+
+def pods_phase(got: dict, wall: float, peak_mib: int, smi,
+               dev: str = "cuda") -> tuple:
+    """``train_pods`` from the launch's pod runs: (a) = (b) bit for bit,
+    the flat twin = its per-leaf run bit for bit, each rank of (a) held to
+    the meta prediction (collectives and bytes a run and a round exact, the
+    kernels' launches exact, the peak within DRYRUN_PEAK_RTOL), the
+    round's parts, and (d) against the stacked CPU run of the plain
+    versions (MODEL_RTOL; η 2% off must exceed it). Returns the phase's
+    line and the launches by phase (rank 0's)."""
+    import torch
+    from repro_torch.configs import (OptimizerConfig, ShapeConfig, get_arch,
+                                     reduced)
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    pred = DRY["train_pods"]
+    a, b = got["mamba2/fsdp"], got["mamba2/repl"]
+    require(same_run(a, b), "train_pods: the pod run differs from its "
+            f"data-replicated run: {a['losses']} vs {b['losses']}, "
+            f"{a['state_digest']} vs {b['state_digest']}")
+    require(all(math.isfinite(v) for v in a["losses"])
+            and a["sync_steps"] == [1, 3] and a["n_workers"] == 2,
+            f"train_pods: losses {a['losses']}, syncs {a['sync_steps']}")
+    fa, ff = got["mamba2_flat/fsdp"], got["mamba2_flat/flat"]
+    require(same_run(fa, ff), "train_pods: the flat twin differs from its "
+            f"per-leaf run: {fa['losses']} vs {ff['losses']}")
+    steps = POD_RUN["steps"]
+    rounds = len(a["sync_steps"])
+    local = steps - rounds
+    lp, sp = pred["local_step"], pred["sync_step"]
+    ranks = []
+    for rep, rnd, rep_b in zip(a["ranks"], a["rank_rounds"], b["ranks"]):
+        moved = {"wire": {"n": rep["collectives"], "bytes": rep["wire_bytes"]},
+                 "side": {"n": rep["side_collectives"],
+                          "bytes": rep["side_bytes"]}}
+        want = {k: {q: local * lp["counters"][k][q]
+                    + rounds * sp["counters"][k][q] for q in ("n", "bytes")}
+                for k in ("wire", "side")}
+        require(moved == want, f"train_pods: rank {rep['rank']} moved "
+                f"{moved}; the dry-run predicted {want}")
+        r = rnd["round"]
+        require({"n": r["n"] / rounds, "bytes": r["bytes"] / rounds}
+                == pred["round"], f"train_pods: rank {rep['rank']}'s round "
+                f"moved {r['n']} collectives, {r['bytes']} B in {rounds} "
+                f"rounds; predicted {pred['round']} a round")
+        kernels = {}
+        for v, n in ((lp, local), (sp, rounds)):
+            for k, c in v["kernels"].items():
+                kernels[k] = kernels.get(k, 0) + n * c
+        if dev == "cuda":
+            require_launches(rep["launches"], **kernels)
+        require(rep["state_bytes"] == pred["state_bytes"],
+                f"train_pods: rank {rep['rank']} holds {rep['state_bytes']}"
+                f" B of state, predicted {pred['state_bytes']}")
+        peak = (rep["max_memory_allocated"] or 0) - rnd["allocated_at_start"]
+        err = abs(pred["peak_bytes"] - peak) / max(peak, 1)
+        if dev == "cuda":
+            require(err <= DRYRUN_PEAK_RTOL, f"train_pods: rank "
+                    f"{rep['rank']} peaked at {peak} B, predicted "
+                    f"{pred['peak_bytes']} ({err:.3f} off)")
+        sync_ms = [1e3 * rep["step_s"][i] for i in a["sync_steps"]]
+        ranks.append({
+            "rank": rep["rank"], "worker": rep["worker"],
+            "route": rep["route"],
+            "step_ms": [1e3 * t for t in rep["step_s"]],
+            "sync_step_ms": sync_ms,
+            "replicated_step_ms": [1e3 * t for t in rep_b["step_s"]],
+            "collectives": moved, "collectives_predicted": want,
+            "round_collectives": r["n"] / rounds,
+            "round_wire_bytes": r["bytes"] / rounds,
+            "round_ms": {k: 1e3 * v / rounds for k, v in r["seconds"].items()
+                         if k != "gather"},
+            "fsdp_gather_ms_per_step": 1e3 * (rep["round_s"]["gather"]
+                                              / steps),
+            "grad_mean_ms_per_step": {
+                k: 1e3 * (rep["round_s"][k] - r["seconds"][k]) / steps
+                for k in ("d2h", "wire", "h2d", "decode_sum")},
+            "launches": rep["launches"], "launches_predicted": kernels,
+            "state_bytes": rep["state_bytes"],
+            "replicated_state_bytes": rep_b["state_bytes"],
+            "max_memory_allocated_gb": peak / 1e9,
+            "peak_predicted_gb": pred["peak_bytes"] / 1e9,
+            "peak_rel_err": err,
+            "replicated_max_memory_allocated_gb":
+                (rep_b["max_memory_allocated"] or 0) / 1e9})
+    # (d): reduced phi3.5-moe against the stacked run on the CPU
+    phi = {}
+    small = dataclasses.replace(reduced(get_arch(POD_PLAN_ARCH)),
+                                param_dtype="float32")
+    base = tree_map(lambda t: t.cpu(), build_model(small).init(
+        torch.Generator(dev).manual_seed(0)))
+    shape = ShapeConfig("t", seq_len=POD_PHI["seq"],
+                        global_batch=POD_PHI["batch"], kind="train")
+
+    def stacked(lr):
+        return train_loop(small, shape, OptimizerConfig(**dict(
+            POD_OPT, lr=lr)), steps=POD_PHI["steps"], n_workers=2,
+            verbose=False, device="cpu", init_params=base).losses
+    cpu, cpu_wrong = stacked(POD_OPT["lr"]), stacked(POD_OPT["lr"] * 1.02)
+    wrong = max_rel(cpu_wrong, cpu)
+    for name in ("phi/2x2x1", "phi/2x1x2"):
+        r = got[name]
+        err = max_rel(r["losses"], cpu)
+        require(err <= MODEL_RTOL, f"train_pods {name}: the card's losses "
+                f"{r['losses']} vs the CPU's {cpu} ({err})")
+        require(max_rel(r["losses"], cpu_wrong) > MODEL_RTOL,
+                f"train_pods {name}: η 2% off passes")
+        if dev == "cuda":
+            require(r["ranks"][0]["launches"]["fused_ef"] > 0,
+                    f"train_pods {name}: {r['ranks'][0]['launches']}")
+        phi[name] = {"losses": r["losses"], "rel_err_vs_cpu": err,
+                     "sync_steps": r["sync_steps"],
+                     "launches": r["ranks"][0]["launches"]}
+    flat_launches = ff["ranks"][0]["launches"]
+    if dev == "cuda":
+        require(all(flat_launches[k] > 0 for k in (
+            "flat_fused_update", "flat_ef", "dequantize_blocks")),
+            f"train_pods flat: launches {flat_launches}")
+    line = {"grid": POD_GRID, "plan": dataclasses.asdict(pod_plan()),
+            "arch": POD_RUN["arch"], "params": pod_param_count(),
+            "dtype": POD_RUN["dtype"], "tokens_per_step":
+                POD_RUN["batch"] * POD_RUN["seq"], "steps": steps,
+            "losses": a["losses"], "sync_steps": a["sync_steps"],
+            "equal_to_replicated": True, "state_digest": a["state_digest"],
+            "comm_bytes_total": a["comm_bytes_total"], "ranks": ranks,
+            "flat": {"layers": POD_FLAT_LAYERS, "equal_to_per_leaf": True,
+                     "losses": ff["losses"], "launches": flat_launches,
+                     "step_ms": [1e3 * t for t in ff["ranks"][0]["step_s"]],
+                     "per_leaf_step_ms": [1e3 * t for t in
+                                          fa["ranks"][0]["step_s"]]},
+            "phi_reduced": {"runs": phi, "cpu_losses": cpu,
+                            "cpu_eta_2pct_high_rel": wrong,
+                            "tol": MODEL_RTOL},
+            "prediction": {k: pred[k] for k in ("state_bytes", "peak_bytes",
+                                                "round", "round_accounting")},
+            "launch_wall_s": wall,
+            "card_memory_used_peak_gb": peak_mib * 2**20 / 1e9,
+            "nvidia_smi": smi, "seconds": time.perf_counter() - t0}
+    by_phase = {"train_pods": a["ranks"][0]["launches"],
+                "train_pods_flat": flat_launches}
+    return line, by_phase
+
+
+def pod_param_count() -> int:
+    from repro_torch.models.counting import count_params
+    return count_params(pod_cfg())
 
 
 # ---- slice 14: the dry-run held against the card, and the examples ------ #
@@ -5856,6 +6269,8 @@ def dryrun_predictions() -> dict:
                               **_walk_summary(cost)}
     require(resolve_plan(qwen, FSDP_TP_GRID, optimizer="adaalter") == plan,
             "train_fsdp_tp's plan moved")
+    DRY["train_pods"] = pod_prediction()
+    out["train_pods"] = {"grid": POD_GRID, **DRY["train_pods"]}
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -6258,6 +6673,9 @@ def main() -> int:
     # row 3 on every tile shape train_fsdp_tp's phi3.5-moe ranks encode in
     # place (a tile's runs holding whole 256-blocks)
     fsdp_tp_parts = check_fsdp_tp_parts(gen)
+    # rows 1, 3 and 6 on every tile shape a train_pods rank holds, rows 2
+    # and 4 on the flat twin's sub-planes
+    pod_parts = check_pod_parts(gen)
     # row 7 at a TP rank's heads, as serve_tp_families' scoring forward
     # gives them (1 x 2048 tokens; fp32 inputs): mamba2's 16 of 32 heads,
     # N 128, and hymba's 25 of 50, N 16 (a last 8-head group of 1)
@@ -6276,7 +6694,8 @@ def main() -> int:
           "hymba_train": hymba_train, "sharded_subplanes": sharded,
           "fsdp_parts": fsdp_parts, "tp_parts": tp_parts,
           "tp_family_parts": tp_family_parts,
-          "fsdp_tp_tiles": fsdp_tp_parts, "ssd_tp_heads": ssd_tp,
+          "fsdp_tp_tiles": fsdp_tp_parts, "pod_tiles": pod_parts,
+          "ssd_tp_heads": ssd_tp,
           "ssd_sass_tf32_hmma": sass,
           "plane": {"plane_size": fs.plane_size, "real": fs.n_real,
                     "slots": fs.n_leaves, "buckets": fs.bucket_ranges()}})
@@ -6471,12 +6890,13 @@ def main() -> int:
         entry("adaalter_update", "adaalter_update.cu", "adaalter_update.py:55",
               leaf_n["adaalter_update"],
               max([x["max_abs_err"] for x in upd + tp_parts["update"]
+                   + pod_parts["update"]
                    + [u for p in tp_family_parts for u in p["update"]]] + [
                   x["update"] for x in hymba_train["leaves"]]), upd[0]),
         entry("fused_ef", "sync_fused.cu", "sync_fused.py:81",
               leaf_n["fused_ef"],
               max([x["max_abs_err"] for x in ef + fsdp_parts + fsdp_tp_parts
-                   + tp_parts["ef"]
+                   + tp_parts["ef"] + pod_parts["ef"]
                    + [e for p in tp_family_parts for e in p["ef"]]] + [
                   max(x["ef_params"], x["ef_b2"])
                   for x in hymba_train["leaves"]]), ef[0]),
@@ -6485,12 +6905,13 @@ def main() -> int:
               max([flat_upd["max_abs_err"],
                    hymba_train["flat_update"]["max_abs_err"]]
                   + [x["max_abs_err"] for x in sharded["update"]
-                     + sharded["grid_update"]]),
+                     + sharded["grid_update"] + pod_parts["flat_update"]]),
               flat_upd),
         entry("flat_ef", "sync_fused.cu", "sync_fused.py:164",
               flat_n["flat_ef"], max(x["max_abs_err"] for x in
                                      flat_ef + hymba_train["flat_ef"]
-                                     + sharded["ef"] + sharded["grid_ef"]),
+                                     + sharded["ef"] + sharded["grid_ef"]
+                                     + pod_parts["flat_ef"]),
               flat_ef[0]),
         entry("quantize_blocks", "quantize.cu", "quantize.py:75",
               unfused_n["quantize_blocks"],
@@ -6501,7 +6922,7 @@ def main() -> int:
               unfused_n["dequantize_blocks"],
               max(x["max_abs_err"]["dequantize"] for x in [quant]
                   + sharded["codes"] + sharded["grid_codes"]
-                  + [tp_parts["codes"]]
+                  + [tp_parts["codes"], pod_parts["codes"]]
                   + [p["codes"] for p in tp_family_parts]),
               quant["dequantize"], quant["dequantize"]["library_ms"]),
         # no single PyTorch call computes the SSD chunk scan

@@ -200,16 +200,20 @@ class RankGroup:
                              "--dist-backend gloo")
         self.timed = self.backend == "gloo"
         self._round_t0: Optional[float] = None
+        self._cross_pod = False
 
-    #: whether this group's ranks lie in more than one pod (a real group
-    #: spans one host's cards)
-    cross_pod = False
+    @property
+    def cross_pod(self) -> bool:
+        """Whether this group's ranks lie in more than one pod of the grid
+        :meth:`split` laid out (its collectives would cross the inter-node
+        link)."""
+        return self._cross_pod
 
     @property
     def grid(self) -> Dict[str, int]:
         """The grid's shape as the reference's mesh shape: ``{"data":
-        workers, "model": shards}``."""
-        return {"data": self.layout.workers, "model": self.layout.shards}
+        workers, "model": shards}``, or with ``"pod"`` in front."""
+        return self.layout.shape
 
     @property
     def worker(self) -> int:
@@ -221,21 +225,27 @@ class RankGroup:
 
     def split(self, layout, fsdp_axes: Sequence[str] = ()) -> "RankGroup":
         """Lay the ranks out as ``layout`` (a
-        ``sharding.specs.GridLayout``: rank r is worker r // S, shard r % S)
-        and open its sub-groups: :attr:`workers`, the ranks of this rank's
-        shard index (the sync mean's), :attr:`shards`, the ranks of this
-        rank's worker (the params gather's), and the FSDP sub-group, the
-        ranks that differ only along ``fsdp_axes`` (:meth:`along`). Every
-        rank creates every sub-group, in one order (the shard sub-groups by
-        worker, the worker sub-groups by shard index, then the FSDP
-        sub-groups), as ``dist.new_group`` requires of all ranks; a rank
-        that did otherwise would hang its peers. A sub-group of every rank
-        is this group, one of this rank alone none. Returns ``self``."""
+        ``sharding.specs.GridLayout``: rank r is worker r // S, shard r % S;
+        on ``(pod, data, model)`` the workers are the pods) and open its
+        sub-groups: :attr:`workers`, the ranks of this rank's shard index
+        (the sync mean's: along ``pod`` where the pods are the workers),
+        :attr:`shards`, the ranks of this rank's worker (the params
+        gather's), on three axes each of a worker's axes alone (``data``,
+        the FSDP and gradient mean's inside a pod, and ``model``, tensor
+        parallelism's), and the FSDP sub-group, the ranks that differ only
+        along ``fsdp_axes`` (:meth:`along`). Every rank creates every
+        sub-group, in one order (the shard sub-groups by worker, the worker
+        sub-groups by shard index, a worker's axes in grid order, then the
+        FSDP sub-groups), as ``dist.new_group`` requires of all ranks; a
+        rank that did otherwise would hang its peers. A sub-group of every
+        rank is this group, one of this rank alone none. Returns
+        ``self``."""
         if layout.world != self.world:
-            raise ValueError(f"a {layout.workers} x {layout.shards} grid on "
-                             f"{self.world} ranks")
+            raise ValueError(f"a {'x'.join(map(str, layout.sizes))} grid "
+                             f"on {self.world} ranks")
         self.layout = layout
         self._along = {}
+        self._cross_pod = self._spans_pods(range(self.world))
         sub = self._new_group
         if layout.shards > 1:
             by_worker = [sub(r) for r in layout.shard_groups()]
@@ -246,13 +256,24 @@ class RankGroup:
                            layout.axes[:1]: self.workers}
         else:
             self.workers, self.shards = self, None
-        axes = tuple(sorted(a for a in fsdp_axes if a in layout.axes))
-        groups = layout.groups_along(axes)
-        if (axes and axes not in self._along and len(groups) > 1
-                and len(groups[0]) > 1):
-            mine = [sub(r) for r in groups]
-            self._along[axes] = next(g for g in mine if g is not None)
+        inner = layout.axes[1:]
+        wanted = [(a,) for a in inner] if len(inner) > 1 else []
+        wanted.append(tuple(sorted(a for a in fsdp_axes
+                                   if a in layout.axes)))
+        for axes in wanted:
+            groups = layout.groups_along(axes)
+            if (axes and axes not in self._along and len(groups) > 1
+                    and len(groups[0]) > 1):
+                mine = [sub(r) for r in groups]
+                self._along[axes] = next(g for g in mine if g is not None)
         return self
+
+    def _spans_pods(self, ranks) -> bool:
+        """Whether ``ranks`` (of this group's layout) lie in several
+        pods."""
+        if "pod" not in self.layout.axes:
+            return False
+        return len({self.layout.coords_of(r)["pod"] for r in ranks}) > 1
 
     def _new_group(self, ranks: List[int]) -> Optional["RankGroup"]:
         """The sub-group of ``ranks`` (every rank creates every one), or
@@ -261,7 +282,9 @@ class RankGroup:
         pg = dist.new_group(ranks, backend=self.backend)
         if self.rank not in ranks:
             return None
-        return RankGroup(self.device, pg)
+        out = RankGroup(self.device, pg)
+        out._cross_pod = self._spans_pods(ranks)
+        return out
 
     def along(self, axes: Sequence[str]) -> Optional["RankGroup"]:
         """The sub-group of the ranks that differ from this one only along
@@ -569,20 +592,19 @@ class DryGroup(RankGroup):
     :data:`shard_gather`) count as in a real run.
 
     ``grid``: ``{"data": D, "model": M}``, or with ``"pod": P`` in front
-    (the reference's ``(pod, data, model)`` mesh), folded into one ``data``
-    axis of P·D ranks, pod-major, so that a rank holds the part the
-    reference's ``P(("pod", "data"), ...)`` gives it; ranks r and s share a
-    pod where ``r // (D·M) == s // (D·M)``."""
+    (the reference's ``(pod, data, model)`` mesh), laid out as
+    ``GridLayout.of(grid)`` until :meth:`RankGroup.split` lays it out
+    again (``launch/dryrun.py`` folds the pods into ``data`` where they
+    are not the workers). Ranks r and s share a pod where
+    ``r // (D·M) == s // (D·M)``."""
 
     def __init__(self, grid: Dict[str, int], rank: int = 0,
                  device="meta") -> None:
-        pods = int(grid.get("pod", 1))
-        data, model = pods * int(grid.get("data", 1)), int(grid.get("model",
-                                                                    1))
-        self.pod_ranks = (data // pods) * model
+        self.pod_ranks = int(grid.get("data", 1)) * int(grid.get("model", 1))
         self.log: List[Dict[str, Any]] = []
-        self._setup(list(range(data * model)), rank, device)
-        self.layout = GridLayout(data, model)
+        self._setup(list(range(int(grid.get("pod", 1)) * self.pod_ranks)),
+                    rank, device)
+        self.layout = GridLayout.of(grid)
         self.root = self
 
     def _setup(self, members: List[int], rank: int, device) -> None:
@@ -610,7 +632,7 @@ class DryGroup(RankGroup):
         lay = self.root.layout
         coords = [lay.coords_of(m) for m in self.members]
         out = tuple(a for a in lay.axes if len({c[a] for c in coords}) > 1)
-        if self.cross_pod:
+        if self.cross_pod and "pod" not in out:
             out = ("pod",) + out
         return out
 

@@ -19,12 +19,12 @@ FLOPs, bytes, collectives and the peak of live bytes, priced on the H100
 Grids: ``{"data": 16, "model": 16}`` (single) and ``{"pod": 2, "data": 16,
 "model": 16}`` (multi), the reference's ``make_production_mesh``; the
 multi-pod grid folds ``pod`` x ``data`` into one ``data`` axis of 32
-ranks, pod-major (``DryGroup``). One plan is not run as a program there:
-phi3.5-moe's Local AdaAlter plan makes each pod a worker
-(``local_axes=("pod",)``, ROADMAP 9b-2); its ``local_step`` is one pod's
-one-model FSDP + TP program on the (16, 16) grid, and its ``sync_step``
-is modeled (the accounting's bytes of the rank's tiles over the pod pair,
-priced on the inter-node link), and the record says so.
+ranks, pod-major (:func:`fold`), except under a plan whose workers are
+the pods (phi3.5-moe's Local AdaAlter plan, ``local_axes=("pod",)``):
+there the grid keeps its three axes, a rank walks its pod's worker (its
+tiles over the pod's ``data`` and ``model`` ranks) and its ``sync_step``
+walks the round over the ``pod`` sub-group, whose collectives cross pods
+and are priced on the inter-node link.
 
 In place of ``memory_analysis()`` each record carries ``memory``: the
 rank's resident bytes by kind (params, optimizer state, EF residuals,
@@ -80,20 +80,21 @@ OPT_FLAGS = dict(attn_tp_pad=True, attn_remat=True, fused_xent=True,
 #: the counters a record reports (``core.comm``)
 COUNTERS = ("wire", "tp", "side", "shard_gather")
 
-#: what a modeled record says of itself
-POD_ROUND_NOTE = (
-    "modeled, not run: the workers are the two pods (local_axes=('pod',), "
-    "ROADMAP 9b-2); a round moves this rank's tiles' accounting bytes to "
-    "its peer rank in the other pod over the inter-node link (dcn_bw)")
-
 
 def mesh_name(grid: Dict[str, int]) -> str:
     return "x".join(str(n) for n in grid.values())
 
 
-def fold(grid: Dict[str, int]) -> Dict[str, int]:
-    """The two-axis grid a ``DryGroup`` lays out: ``pod`` x ``data``
-    folded into ``data``."""
+def pod_workers(plan) -> bool:
+    """Whether ``plan``'s workers are the pods (the grid keeps ``pod``)."""
+    return tuple(plan.local_axes) == ("pod",)
+
+
+def fold(grid: Dict[str, int], plan=None) -> Dict[str, int]:
+    """The grid a ``DryGroup`` lays out for ``plan``: ``pod`` x ``data``
+    folded into ``data``, unless the plan's workers are the pods."""
+    if plan is not None and pod_workers(plan):
+        return dict(grid)
     return {"data": grid.get("pod", 1) * grid["data"], "model": grid["model"]}
 
 
@@ -108,11 +109,11 @@ def fold_plan(plan):
 
 
 def dry_group(grid: Dict[str, int], plan, rank: int = 0) -> DryGroup:
-    """Rank ``rank`` of ``grid`` (``pod`` folded), split as ``init_ranks``
-    splits a real launch: the grid's sub-groups and the FSDP ones."""
+    """Rank ``rank`` of ``grid`` (``pod`` folded unless ``plan``'s workers
+    are the pods), split as ``init_ranks`` splits a real launch: the
+    grid's sub-groups and the FSDP ones."""
     group = DryGroup(grid, rank)
-    f = fold(grid)
-    group.split(GridLayout(f["data"], f["model"]), plan.fsdp_axes)
+    group.split(GridLayout.of(fold(grid, plan)), plan.fsdp_axes)
     return group
 
 
@@ -146,21 +147,24 @@ def _counters() -> Dict[str, Dict[str, int]]:
 def rank_param_bytes(cfg, plan, grid: Dict[str, int], *, workers: bool,
                      extra_per_value: int = 0) -> List[int]:
     """Every rank's bytes of its parameter parts under ``plan`` on
-    ``grid`` (folded), in rank order, each value also charged
-    ``extra_per_value`` bytes (its optimizer state), from the specs:
-    ``sharding.specs.param_shardings`` and ``leaf_split``. ``workers``:
-    the paper-style plan, whose ``data`` ranks each hold a worker's
-    parts over ``model``."""
-    f = fold(grid)
+    ``grid`` (folded unless the pods are the workers), in rank order,
+    each value also charged ``extra_per_value`` bytes (its optimizer
+    state), from the specs: ``sharding.specs.param_shardings`` and
+    ``leaf_split``. ``workers``: a local plan, whose ranks each hold
+    parts of their worker's leaves (along the worker axes every rank
+    holds part 0 of its own worker's)."""
+    f = fold(grid, plan)
+    lay = GridLayout.of(f)
     tree = build_model(cfg).init(None, "meta")
     specs = param_shardings(ShardingRules(f, plan, rule_overrides(cfg)),
                             tree)
     sizes = [(t.shape, t.element_size() + extra_per_value)
              for t in leaves(tree)]
     per_rank = []
-    for r in range(f["data"] * f["model"]):
-        coords = {"data": 0 if workers else r // f["model"],
-                  "model": r % f["model"]}
+    for r in range(lay.world):
+        coords = lay.coords_of(r)
+        if workers:
+            coords.update(dict.fromkeys(plan.local_axes, 0))
         per_rank.append(sum(leaf_split(s, sp, f, coords).part_numel * b
                             for (s, b), sp in zip(sizes, specs)))
     return per_rank
@@ -187,22 +191,25 @@ def _memory(resident: Dict[str, int], cost, largest: int) -> Dict[str, Any]:
 
 def train_walks(cfg, shape, opt_cfg, grid: Dict[str, int], plan, *,
                 variants=("local_step", "sync_step")):
-    """Rank 0's train programs on ``grid`` (``plan``: its folded plan)
-    walked on ``meta``: ``{variant: (StepCost, counters, dry log)}``, the
-    programs, the rank's resident bytes by kind and its parameter and
-    state bytes from the specs (rank 0's, the largest rank's)."""
+    """Rank 0's train programs on ``grid`` (``plan``: its folded plan, or
+    the plan whose workers are the pods) walked on ``meta``: ``{variant:
+    (StepCost, counters, dry log)}``, the programs, the rank's resident
+    bytes by kind and its parameter and state bytes from the specs (rank
+    0's, the largest rank's)."""
     group = dry_group(grid, plan)
-    f = fold(grid)
     local = bool(plan.local_axes)
-    n_workers = f["data"] if local else 1
+    n_workers = group.layout.workers if local else 1
     programs = build_train_programs(cfg, opt_cfg, n_workers=n_workers,
                                     device="meta", group=group, plan=plan)
     params, state = programs.init_fn(0, base=build_model(cfg).init(
         None, "meta"))
     specs = train_batch_specs(cfg, shape, n_workers if programs.is_local
                               else 0)
-    if programs.is_local:              # this rank's worker's rows
-        batch = {k: _empty(v, (1, v.shape[1])) for k, v in specs.items()}
+    if programs.is_local:              # this rank's rows of its worker's
+        split = group.along(plan.grad_axes)
+        batch = {k: _empty(v, (1, v.shape[1] // (split.world if split
+                                                  else 1)))
+                 for k, v in specs.items()}
     else:                              # this rank's rows of the batch
         rows = shape.global_batch // (
             group.along(plan.grad_axes).world
@@ -271,20 +278,6 @@ def serve_walk(cfg, shape, grid: Dict[str, int], plan):
             spec_bytes)
 
 
-def _modeled_pod_round(opt_cfg, n_values: int) -> Dict[str, Any]:
-    """phi3.5-moe's pod round on (2, 16, 16): what a rank sends its peer
-    in the other pod, by the accounting (``SyncEngine.round_bytes`` of the
-    ``n_values`` parameter values of its tiles), over ``dcn_bw``."""
-    from repro_torch.core.sync_engine import make_sync_engine
-    engine = make_sync_engine(opt_cfg, is_local=True, H=opt_cfg.H)
-    wire = engine.round_bytes(n_values)
-    return {"variant": "sync_step", "modeled": True, "note": POD_ROUND_NOTE,
-            "n_values": n_values, "collective_bytes_per_chip": 0.0,
-            "cross_pod_bytes": wire,
-            "t_collective_s": comm.FabricModel().allreduce_time(
-                wire, 2, cross_pod=True)}
-
-
 def dryrun_pair(arch: str, shape_name: str, *, multi_pod: bool,
                 opt_name: str = "local_adaalter", H: int = 4,
                 compression: str = "", verbose: bool = True,
@@ -319,7 +312,7 @@ def dryrun_pair(arch: str, shape_name: str, *, multi_pod: bool,
         if recorder is not None:
             t_now = recorder.now()
             tag = f"{arch}/{shape_name}/{name}"
-            walk_s = cost.seconds if cost is not None else 0.0
+            walk_s = cost.seconds
             recorder.add("eval", step=len(records) - 1, t0=t_now - walk_s,
                          dur=walk_s, pair=tag, variant=vname, phase="compile")
             modeled = (max(rec["t_compute_s"], rec["t_memory_s"])
@@ -349,26 +342,18 @@ def dryrun_pair(arch: str, shape_name: str, *, multi_pod: bool,
         plan = resolve_plan(cfg, grid, optimizer=opt_name)
         if optimized and plan.remat == "none":
             plan = dataclasses.replace(plan, remat="full")
-        pod_workers = plan.local_axes == ("pod",)
-        if pod_workers:               # one pod's program; the round modeled
-            run_grid, run_plan = SINGLE, dataclasses.replace(
-                plan, local_axes=())
-        else:
-            run_grid, run_plan = grid, fold_plan(plan)
         walks, programs, resident, (_, largest) = train_walks(
-            cfg, shape, opt_cfg, run_grid, run_plan)
-        is_local = programs.is_local or pod_workers
-        n_workers = 2 if pod_workers else programs.n_workers
+            cfg, shape, opt_cfg, grid,
+            plan if pod_workers(plan) else fold_plan(plan))
+        is_local = programs.is_local
+        n_workers = programs.n_workers
         H_ = opt_cfg.H if is_local else 1
         n_params = cfg.param_count()
         engine = make_sync_engine(opt_cfg, is_local=is_local,
                                   H=H_ if is_local else 1)
         n_leaves = programs.n_payload_leaves
         per_leaf_colls = comm.round_collectives(opt_name, n_leaves)
-        variants = list(walks)
-        if pod_workers:
-            variants.append("sync_step")
-        for vname in variants:
+        for vname in walks:
             modeled = engine.round_bytes(n_params) if vname == "sync_step" \
                 else 0.0
             coll_model = None
@@ -383,36 +368,16 @@ def dryrun_pair(arch: str, shape_name: str, *, multi_pod: bool,
                              "time_s": comm.collective_time(
                                  modeled, 1, n_workers,
                                  cross_pod=multi_pod)}}
-            cost = None
-            if vname in walks:
-                cost, counters, log = walks[vname]
-                rep = analyze(cost, arch=arch, shape_name=shape_name,
-                              mesh_name=name, n_chips=n_chips,
-                              model_flops_total=model_flops(cfg, shape))
-                rec = rep.to_dict()
-                rec.update(counters=counters,
-                           memory=_memory(resident, cost, largest),
-                           kernels=dict(cost.kernels),
-                           walk_s=cost.seconds)
-            else:                     # phi3.5-moe's pod round, modeled
-                pod = _modeled_pod_round(opt_cfg, sum(
-                    t.part_numel for t in programs.leaf_layout.tiles))
-                local = records[0]
-                rec = {k: local[k] for k in ("arch", "shape", "mesh",
-                                             "n_chips", "model_flops_total")}
-                rec.update({
-                    "hlo_flops_per_chip": 0.0, "hlo_bytes_per_chip": 0.0,
-                    "collective_bytes_per_chip": 0.0,
-                    "cross_pod_bytes": pod["cross_pod_bytes"],
-                    "collectives": {}, "collective_counts": {},
-                    "bytes_per_device": local["bytes_per_device"],
-                    "xla_flops": None, "xla_bytes": None,
-                    "t_compute_s": 0.0, "t_memory_s": 0.0,
-                    "t_collective_s": pod["t_collective_s"],
-                    "dominant": "collective", "useful_flop_ratio": 0.0,
-                    "mfu_at_roofline": 0.0, "memory": local["memory"],
-                    "modeled": True, "note": POD_ROUND_NOTE,
-                    "modeled_round": pod})
+            cost, counters, log = walks[vname]
+            rep = analyze(cost, arch=arch, shape_name=shape_name,
+                          mesh_name=name, n_chips=n_chips,
+                          model_flops_total=model_flops(cfg, shape))
+            rec = rep.to_dict()
+            rec.update(counters=counters,
+                       memory=_memory(resident, cost, largest),
+                       kernels=dict(cost.kernels), walk_s=cost.seconds,
+                       cross_pod_collectives=sum(e["cross_pod"]
+                                                 for e in log))
             rec.update(variant=vname, plan=dataclasses.asdict(plan),
                        n_workers=n_workers, H=H_, optimizer=opt_name,
                        compression=opt_cfg.compression, flat=flat,
@@ -451,8 +416,7 @@ def _summary(rec) -> str:
             f"mem={rec['t_memory_s'] * 1e3:.3f}ms "
             f"coll={rec['t_collective_s'] * 1e3:.3f}ms "
             f"dom={rec['dominant']} peak={mem['walk_peak_bytes'] / 1e9:.2f}GB "
-            f"fits={mem['fits']}" + (" (modeled round)"
-                                     if rec.get("modeled") else ""))
+            f"fits={mem['fits']}")
 
 
 def main(argv: Optional[list] = None) -> None:

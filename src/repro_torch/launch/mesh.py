@@ -17,7 +17,13 @@ or, per leaf, each worker's weights are split over its S ranks as their
 specs say (tensor parallelism, ``sharding.partition.TensorParallel``).
 Under a one-model plan (the synchronous one, and those above 20 B
 parameters) the R rows of ranks share one model: each leaf split over
-``model`` and over the FSDP axes beside it, a tile a rank.
+``model`` and over the FSDP axes beside it, a tile a rank. A grid with
+``pod`` (``init_ranks(grid={"pod": P, "data": D, "model": M})``, the
+reference's ``(pod, data, model)`` mesh, pod-major) trains under the
+20-100 B plan, whose workers are the pods: each pod one Local AdaAlter
+worker of D × M ranks, its leaves split over ``data`` (FSDP) and
+``model`` (tiles), its gradient averaged over ``data`` every step and
+its state over the pods on the sync steps.
 Serving lays its ranks out as ``{"data": D, "model": N // D}``
 (``launch/serve.py``).
 
@@ -83,10 +89,10 @@ def resolve_plan(cfg: ModelConfig, grid: Union[Dict[str, int], int], *,
     ``data``) for the baselines and above 100 B; between them, workers as
     pods with ZeRO over ``data`` (without a pod axis no worker axis: one
     model). Every plan takes ``remat="full"`` above 1e9 parameters. A
-    grid with ``"pod"`` (the dry-run's ``(pod, data, model)`` production
-    grid; the training entry points never pass one) gives the reference's
-    plans on it: ``pod`` beside ``data`` in each, and for the 20-100 B
-    plan each pod a worker (``local_axes=("pod",)``)."""
+    grid with ``"pod"`` (the reference's ``(pod, data, model)`` mesh: the
+    dry-run's production grid, or ``init_ranks(grid=)`` with pods) gives
+    the reference's plans on it: ``pod`` beside ``data`` in each, and for
+    the 20-100 B plan each pod a worker (``local_axes=("pod",)``)."""
     if isinstance(grid, int):
         grid = {"data": grid, "model": 1}
     pod = ("pod",) if "pod" in grid else ()
@@ -122,15 +128,45 @@ def check_plan(plan: ParallelismPlan, grid: Dict[str, int], *,
     leaf, tensor parallelism (:func:`check_tp`) under any plan: the
     paper-style plan's workers, or one model whose gradient is averaged
     over ``grad_axes``, its leaves split over ``fsdp_axes`` beside
-    ``model`` (tiles). Refused: a grid whose shard axis the plan leaves
+    ``model`` (tiles). A grid with pods trains under the plan whose
+    workers are the pods (``local_axes=("pod",)``), a worker's leaves
+    split over ``fsdp_axes=("data",)`` and ``model`` (tiles), its gradient
+    averaged over ``data``; per leaf, or its flat plane split over the
+    pod's ``data`` × ``model`` ranks. Refused: a pod grid under another
+    plan (fold the pods into ``data``), workers along any axis but the
+    grid's first, a worker's gradient or FSDP split over axes other than
+    ``data``, and a flat plane on a grid whose shard axes the plan leaves
     unused (ranks that would hold the same sub-plane)."""
     from repro_torch.sharding.specs import plane_shard_count
     if grid.get("model", 1) > 1 and not flat and cfg is not None:
         check_tp(cfg, "training")
+    if "pod" in grid and tuple(plan.local_axes) != ("pod",):
+        raise ValueError(
+            f"the plan {plan} on a grid with pods {grid}: the port trains a "
+            "pod grid under the plan whose workers are the pods "
+            "(local_axes=('pod',), the reference's 20-100 B plan); for this "
+            f"plan fold the pods into data ({grid['pod'] * grid['data']} "
+            "data ranks)")
+    if not plan.local_axes:
+        return
+    lead = GridLayout.of(grid).axes[0]
+    if tuple(plan.local_axes) != (lead,):
+        raise ValueError(f"the plan {plan} makes workers of "
+                         f"{plan.local_axes}: on the grid {grid} the workers "
+                         f"run along its first axis, {lead!r}")
+    if not (set(plan.fsdp_axes) <= set(plan.grad_axes) <= {"data"}) or (
+            plan.grad_axes and lead == "data"):
+        raise ValueError(f"the plan {plan}: a worker's gradient mean and "
+                         "FSDP split run over the data ranks inside a pod, "
+                         "and nowhere else")
+    inner = 1
+    for a, n in grid.items():
+        inner *= 1 if a == lead else n
     shards = plane_shard_count(grid, plan)
-    if plan.local_axes and shards != grid.get("model", 1):
-        raise ValueError(f"the plan {plan} splits a plane into {shards} "
-                         f"shards on a grid of {grid['model']}")
+    if flat and shards != inner:
+        raise ValueError(f"the plan {plan} splits a worker's plane into "
+                         f"{shards} shards on a grid of {inner} ranks a "
+                         "worker")
 
 
 def check_serve_plan(cfg: ModelConfig, plan: ParallelismPlan,
@@ -180,8 +216,10 @@ def init_ranks(backend: Optional[str] = None, device: Optional[str] = None,
                fsdp_axes: Tuple[str, ...] = ()
                ) -> Tuple[RankGroup, torch.device]:
     """Open the process group of this ``torchrun`` launch, laid out as
-    ``grid`` (default: one worker a rank), with the FSDP sub-groups along
-    ``fsdp_axes`` (the plan's; ``RankGroup.split``). Returns the
+    ``grid`` (``{"data": R, "model": S}`` or ``{"pod": P, "data": D,
+    "model": M}``, pod-major; default: one worker a rank), with the FSDP
+    sub-groups along ``fsdp_axes`` (the plan's; ``RankGroup.split``).
+    Returns the
     :class:`~repro_torch.core.comm.RankGroup` and this rank's device."""
     import torch.distributed as dist
     backend = backend or default_backend(device)
@@ -200,7 +238,7 @@ def init_ranks(backend: Optional[str] = None, device: Optional[str] = None,
         seconds=timeout_s), **kw)
     group = RankGroup(dev)
     if grid is not None:
-        group.split(GridLayout(grid["data"], grid["model"]), fsdp_axes)
+        group.split(GridLayout.of(grid), fsdp_axes)
     return group, dev
 
 

@@ -81,6 +81,24 @@ drift statistics add the parts' partial sums in shard order, a leaf the
 specs leave whole counted once. Replicated leaves stay equal on a
 worker's ranks: the collectives give every rank the same bits.
 
+With a ``group`` on a grid with pods (``{"pod": P, "data": D, "model":
+M}``) under the 20-100 B plan (``local_axes=("pod",)``, ``grad_axes =
+fsdp_axes = ("data",)``) each pod is one Local AdaAlter worker, as the
+reference's vmapped worker ``spmd_axis_name=("pod",)`` is. A rank holds
+its tiles of its pod's worker (a leading worker axis of 1: the part over
+``data`` of its part over ``model``, :func:`leaf_layout`), gathers them
+over the pod's ``data`` ranks into its tensor-parallel parts, runs the
+forward and backward on its rows of its pod's batch, takes each leaf's
+gradient mean over the pod's ``data`` ranks back to its tiles
+(:meth:`LeafLayout.grad_mean`), and runs the update (row 1) on the
+tiles. A sync round averages each tile over the ``pod`` sub-group (the
+ranks at its ``(data, model)`` coordinates in every pod): the stacked
+mean of P workers, bit for bit. Under ``fsdp_axes=()`` no leaf splits
+over ``data``: the pod's data-replicated run, equal bit for bit. With
+``flat`` a pod's planes split over its D × M ranks (the sharded plane
+below), the gradient taken as the per-leaf run takes it: its state equals
+the per-leaf run's bit for bit.
+
 With ``OptimizerConfig.obs_metrics`` every step also returns
 ``metrics['grad_norm']``: the L2 norm of the raw (pre-clip) gradients, one
 per worker on the local paths, a scalar on the one-model one.
@@ -340,12 +358,24 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
     device = torch.device(device)
     model = build_model(cfg)
     tp = layout = None
-    if group is not None and not opt_cfg.flat and group.layout.shards > 1:
+    # a worker of several ranks (the pods): its gradient averaged over
+    # their data ranks every step; a pod of one rank is one worker a rank
+    pods = group is not None and bool(plan.grad_axes) and (
+        group.layout.shards > 1)
+    grad_group = group.along(plan.grad_axes) if pods else None
+    if group is not None and group.layout.shards > 1 and (
+            pods or not opt_cfg.flat):
         tp, layout = leaf_layout(cfg, plan, group, model.init(None, "meta"),
                                  worker_axis=True)
         # the clip needs the norm over the worker's parts: applied here
         opt = opt_lib.make_optimizer(dataclasses.replace(opt_cfg,
                                                          grad_clip=0.0))
+    pod = None
+    if pods:
+        pod = PodGrads(model, layout, tp, grad_group, plan.remat,
+                       _freeable(plan, cfg, layout))
+        if opt_cfg.flat:      # planes: the parts serve the gradient alone
+            layout = None
     mean_fn = mean_over_workers
     sync_kw = {}
     if group is not None:
@@ -386,8 +416,11 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
         return params, opt.init(params, workers=R)
 
     def step(params, opt_state, batch, *, do_sync: bool):
-        loss, grads = worker_grads(params, batch, model, remat=plan.remat,
-                                   tp=tp)
+        if pod is None:
+            loss, grads = worker_grads(params, batch, model,
+                                       remat=plan.remat, tp=tp)
+        else:
+            loss, grads = pod.tiles(params, batch)
         stats = {"loss": loss}
         norm = None
         if opt_cfg.obs_metrics or (layout is not None
@@ -460,7 +493,7 @@ def build_train_programs(cfg, opt_cfg, *, n_workers: int, device,
         if opt_cfg.flat:
             init_fn, local_step, sync_step = _flat_programs(
                 fs, model, opt_cfg, opt, abstract, base_params, device,
-                group, plan.remat)
+                group, plan.remat, pod)
     if layout is not None:
         n_shards = group.layout.shards
     return TrainPrograms(init_fn=init_fn, local_step=local_step,
@@ -480,38 +513,47 @@ def leaf_layout(cfg, plan, group, abstract, *, worker_axis: bool = False):
     :class:`LeafLayout`, and the ``sharding.partition.TensorParallel`` the
     layers take where the grid has ``model`` > 1 (None elsewhere).
 
-    ``worker_axis``: the paper-style plan's parts of this rank's worker
-    (its leaves carry a leading worker axis of 1, split over the worker's
-    ranks along ``model``); else one model's tiles over the whole grid,
-    each the part over the FSDP sub-group (``plan.fsdp_axes``) of the
-    rank's part over ``model``."""
-    from repro_torch.sharding import (LeafSplit, ShardingRules, leaf_split,
-                                      param_shardings)
+    ``worker_axis``: the parts of this rank's worker (its leaves carry a
+    leading worker axis of 1), split over the worker's ranks: along
+    ``model`` under the paper-style plan, as tiles over a pod's ``data``
+    (``plan.fsdp_axes``) and ``model`` ranks where the pods are the
+    workers; else one model's tiles over the whole grid, each the part
+    over the FSDP sub-group (``plan.fsdp_axes``) of the rank's part over
+    ``model``."""
+    from repro_torch.sharding import ShardingRules, leaf_split, param_shardings
     from repro_torch.sharding.partition import TensorParallel, rule_overrides
     grid = group.grid if group is not None else {"data": 1, "model": 1}
     rules = ShardingRules(grid, plan, rule_overrides(cfg))
-    if group is None:
-        coords = dict.fromkeys(grid, 0)
-    elif worker_axis:                     # a part of the worker's
-        coords = {"data": 0, "model": group.shard}
-    else:
+    coords = dict.fromkeys(grid, 0)
+    if group is not None:
         coords = group.layout.coords_of(group.rank)
+        if worker_axis:                   # a part of the worker's
+            coords.update(dict.fromkeys(plan.local_axes, 0))
     tiles = [leaf_split(t.shape, sp, grid, coords)
              for t, sp in zip(leaves(abstract),
                               param_shardings(rules, abstract))]
     if worker_axis:
-        tiles = [LeafSplit((1,) + s.shape, None if s.dim is None
-                           else s.dim + 1, s.parts, s.index, s.axes)
-                 for s in tiles]
+        tiles = [_with_worker_axis(s) for s in tiles]
     tp_group = group.along(("model",)) if group is not None else None
     tp = None if tp_group is None else TensorParallel(tp_group, rules)
     index = (coords["data"], coords["model"])
-    if worker_axis:
-        return tp, LeafLayout(tiles, tp=tp_group, ranks=tp_group,
-                              index=index, grid=grid)
     fsdp = group.along(plan.fsdp_axes) if group is not None else None
-    return tp, LeafLayout(tiles, fsdp, tp=tp_group, ranks=group,
+    ranks = (None if group is None else group.shards if worker_axis
+             else group)
+    return tp, LeafLayout(tiles, fsdp, tp=tp_group, ranks=ranks,
                           index=index, grid=grid)
+
+
+def _with_worker_axis(split):
+    """``split`` (a ``LeafSplit`` or ``TileSplit`` of one worker's leaf)
+    of the leaf with a leading worker axis of 1."""
+    from repro_torch.sharding import LeafSplit, TileSplit
+    if isinstance(split, TileSplit):
+        return TileSplit(_with_worker_axis(split.tp),
+                         _with_worker_axis(split.fsdp))
+    return LeafSplit((1,) + split.shape, None if split.dim is None
+                     else split.dim + 1, split.parts, split.index,
+                     split.axes)
 
 
 # --------------------------------------------------------------------------- #
@@ -683,6 +725,123 @@ class LeafLayout:
 UPDATE_CHUNK = 1 << 25
 
 
+def _freeable(plan, cfg, layout) -> list:
+    """Per leaf, whether a gathered part may be freed before the backward
+    (:func:`backward_means`): where no recomputation reads it again (remat
+    and the attention's checkpoint re-run the forward from it)."""
+    if plan.remat != "none" or getattr(cfg, "attn_remat", False):
+        return []
+    return [s.split for s in layout.splits]
+
+
+def _note_storage(saved, t):
+    """A tensor autograd saves for the backward: its storage noted."""
+    saved.add(t.untyped_storage().data_ptr())
+    return t
+
+
+def backward_means(model, p, batch, *, remat: str, batch_group, tp,
+                   reduce: Callable, free=()):
+    """The loss and gradient of one model's parameters ``p`` (leaves that
+    require grad: this rank's tensor-parallel parts) on this rank's rows
+    ``batch``, each leaf's gradient handed to ``reduce(i, g)`` as soon as
+    the backward has summed it (the same leaf order on every rank), so the
+    whole gradients are never all held beside the parameters: returns
+    (the loss, averaged over ``batch_group``, the ranks whose rows form
+    one batch, the MoE routing them as one; the list of ``reduce``'s
+    results). ``free``: per leaf, whether its storage (a gathered part)
+    may be freed before the backward if autograd saved none of it (an
+    embedding table: its lookup saves the indices)."""
+    grads = [None] * len(leaves(p))
+
+    def take(i, leaf):
+        g, leaf.grad = leaf.grad, None
+        grads[i] = reduce(i, g)
+    hooks = [t.register_post_accumulate_grad_hook(partial(take, i))
+             for i, t in enumerate(leaves(p))]
+    saved = set()
+    kw = {} if tp is None else {"tp": tp}
+    with torch.autograd.graph.saved_tensors_hooks(
+            partial(_note_storage, saved), lambda t: t):
+        loss, _ = model.loss_fn(p, batch, remat=remat,
+                                batch_group=batch_group, **kw)
+    for t, f in zip(leaves(p), free):
+        if f and t.untyped_storage().data_ptr() not in saved:
+            t.untyped_storage().resize_(0)
+    loss.backward()
+    for h in hooks:
+        h.remove()
+    loss = loss.detach()
+    if batch_group is not None:       # the loss's mean over the ranks
+        loss = worker_metrics({"loss": loss}, batch_group)["loss"]
+    return loss, grads
+
+
+@dataclasses.dataclass
+class PodGrads:
+    """The gradient of a worker whose rows split over several ``data``
+    ranks (a pod, under the 20-100 B plan): the reference's vmapped
+    worker over ``spmd_axis_name=("pod",)``, its batch split over
+    ``grad_axes``. ``layout`` (a :class:`LeafLayout` of the worker's
+    leaves with their leading worker axis of 1) gives this rank's parts,
+    ``tp`` the ``model`` sub-group's context, ``group`` the pod's ``data``
+    ranks (None: one); ``remat`` the plan's, ``free`` the gathered parts
+    :func:`backward_means` may free (:func:`_freeable`)."""
+    model: Any
+    layout: Any
+    tp: Any
+    group: Any
+    remat: str
+    free: list
+
+    def _backward(self, parts, batch, reduce, free=()):
+        p = tree_map(lambda t: t[0].detach().requires_grad_(), parts)
+        loss, grads = backward_means(
+            self.model, p, {k: v[0] for k, v in batch.items()},
+            remat=self.remat, batch_group=self.group, tp=self.tp,
+            reduce=reduce, free=free)
+        return loss.reshape(1), grads
+
+    def tiles(self, params, batch):
+        """(the worker's loss (1,), this rank's tiles of the worker's
+        gradient mean) from its tiles ``params``: gathered over the pod's
+        ``data`` ranks into tensor-parallel parts, each leaf's gradient
+        mean over them back to tiles (:meth:`LeafLayout.grad_mean`)."""
+        lay = self.layout
+
+        def reduce(i, g):
+            g = g[None]
+            return g if self.group is None else lay.grad_mean(i, g,
+                                                              self.group)
+        loss, grads = self._backward(lay.gather(params), batch, reduce,
+                                     self.free)
+        return loss, unflatten_like(params, grads)
+
+    def into(self, whole, batch, dests):
+        """The worker's loss (1,), its gradient mean written whole into
+        ``dests`` (its leaves, e.g. float32 views of a gradient plane),
+        from its whole leaves ``whole``: the forward and backward on this
+        rank's tensor-parallel parts, each leaf's gradient averaged over
+        the pod's ``data`` ranks (``gather_mean_``: bit for bit the part
+        :meth:`tiles` takes) and gathered over ``model``."""
+        lay = self.layout
+        parts = unflatten_like(whole, [s.take(w) for s, w in zip(
+            lay.tp_splits, leaves(whole))])
+
+        def reduce(i, g):
+            g = g[None]
+            return g if self.group is None else gather_mean_(
+                g, self.group, wire_dtype=torch.float32)
+        loss, means = self._backward(parts, batch, reduce)
+        del parts
+        if lay.tp_group is not None:
+            means = lay.tp_group.gather_leaves(means, lay.tp_splits,
+                                               comm.side)
+        for d, m in zip(leaves(dests), means):
+            d.copy_(m)
+        return loss
+
+
 def _leaf_programs(cfg, opt_cfg, device, group, plan) -> TrainPrograms:
     """One model over the global batch, each leaf as its spec over the grid
     says (``sharding.specs.param_shardings`` under ``plan``): split over
@@ -726,7 +885,6 @@ def _leaf_programs(cfg, opt_cfg, device, group, plan) -> TrainPrograms:
         raise ValueError(f"the plan {plan} splits leaves over "
                          f"{plan.fsdp_axes}, not over every rank of its "
                          f"gradient mean ({plan.grad_axes})")
-    tp_kw = {} if tp is None else {"tp": tp}
     # Alg. 3 folds g∘g into B²; Alg. 1 and plain SGD never read it, and the
     # reference's compiled step drops it as dead code
     wants_sq = opt_cfg.name == "adaalter"
@@ -746,51 +904,21 @@ def _leaf_programs(cfg, opt_cfg, device, group, plan) -> TrainPrograms:
         params = layout.take(tree_map(lambda x: x.to(device), base))
         return params, opt.init(params)
 
-    # no recomputation reads the gathered leaves again (remat and the
-    # attention's checkpoint re-run the forward from them)
-    recompute_free = plan.remat == "none" and not getattr(cfg, "attn_remat",
-                                                          False)
+    free = _freeable(plan, cfg, layout)
 
-    def note_storage(saved, t):
-        """A tensor autograd saves for the backward: its storage noted."""
-        saved.add(t.untyped_storage().data_ptr())
-        return t
-
-    def take_grad(grads, i, leaf):
-        """Leaf ``i``'s gradient, taken from the leaf (and freed there):
-        its mean over ``grad_axes`` as this rank's part."""
-        g, leaf.grad = leaf.grad, None
-        grads[i] = (g if grad_group is None
-                    else layout.grad_mean(i, g, grad_group))
+    def reduce(i, g):
+        """Leaf ``i``'s gradient mean over ``grad_axes`` as this rank's
+        part."""
+        return g if grad_group is None else layout.grad_mean(i, g,
+                                                             grad_group)
 
     def step(params, opt_state, batch, *, do_sync: bool):
-        parts = layout.gather(params)
-        p = tree_map(lambda t: t.detach().requires_grad_(), parts)
-        # each leaf's gradient mean over grad_axes as soon as the backward
-        # has summed it (the same leaf order on every rank): the whole
-        # gradients are never all held beside the gathered parts
-        grads = [None] * len(layout.tiles)
-        hooks = [t.register_post_accumulate_grad_hook(
-            partial(take_grad, grads, i)) for i, t in enumerate(leaves(p))]
-        # the data ranks' rows are one batch (the MoE routes them as one)
-        saved = set()
-        with torch.autograd.graph.saved_tensors_hooks(
-                partial(note_storage, saved), lambda t: t):
-            loss, _ = model.loss_fn(p, batch, remat=plan.remat,
-                                    batch_group=grad_group, **tp_kw)
-        if recompute_free:
-            # a gathered leaf the backward does not read (an embedding
-            # table: its lookup saves the indices) is freed before it
-            for t, s in zip(leaves(p), layout.splits):
-                if s.split and t.untyped_storage().data_ptr() not in saved:
-                    t.untyped_storage().resize_(0)
-        loss.backward()
-        for h in hooks:
-            h.remove()
-        del parts, p                  # the gathered parts
-        loss = loss.detach()
-        if grad_group is not None:    # the loss's mean over grad_axes
-            loss = worker_metrics({"loss": loss}, grad_group)["loss"]
+        p = tree_map(lambda t: t.detach().requires_grad_(),
+                     layout.gather(params))
+        loss, grads = backward_means(model, p, batch, remat=plan.remat,
+                                     batch_group=grad_group, tp=tp,
+                                     reduce=reduce, free=free)
+        del p                         # the gathered parts
         grads = unflatten_like(params, grads)
         metrics = {"loss": loss}
         norm = None
@@ -876,7 +1004,7 @@ def _bf16_ef(x, e, lower: float, round16=()):
 
 
 def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
-                   group=None, remat: str = "none"):
+                   group=None, remat: str = "none", pod=None):
     """Local AdaAlter over FlatSpace planes: the update is ONE launch over
     the parameter plane, and the sync round one EF encode of each half of
     the ``[params ‖ B²]`` payload and one mean of each (the halves are
@@ -904,6 +1032,13 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
     over the shard sub-group in shard order. The state equals the
     replicated run's bit for bit; the drift, summed in another order, may
     differ in its last bits, as in the reference.
+
+    With ``pod`` (a :class:`PodGrads`: the pods as workers) the worker's
+    ranks are a pod's ``data`` × ``model`` ranks, and the gradient is
+    taken as the per-leaf pod run takes it (each rank's rows, its
+    tensor-parallel parts, the mean over the pod's ``data`` ranks), then
+    gathered whole over ``model``: the state equals the per-leaf pod
+    run's bit for bit.
 
     The update writes the new b2_local over the old one unless b2_sync
     shares its tensor (right after a sync), and the new parameters over the
@@ -1053,9 +1188,13 @@ def _flat_programs(fs, model, opt_cfg, opt, abstract, base_params, device,
         # the whole fp32 gradient plane, then this rank's slice of it
         g_full = torch.zeros(fs.batch_shape + (psize,), dtype=torch.float32,
                              device=plane.device)
-        loss, _ = worker_grads(leaf_params(plane), batch, model,
-                               grads=fs.unpack(g_full, dtype=torch.float32),
-                               remat=remat)
+        dests = fs.unpack(g_full, dtype=torch.float32)
+        if pod is None:
+            loss, _ = worker_grads(leaf_params(plane), batch, model,
+                                   grads=dests, remat=remat)
+        else:
+            loss = pod.into(leaf_params(plane), batch, dests)
+        del dests
         stats = {"loss": loss}
         if opt_cfg.obs_metrics:       # over the per-leaf views, leaf by leaf
             stats["grad_norm"] = opt_lib.global_norm(

@@ -61,6 +61,7 @@ Runs on the CUDA device unless ``device='cpu'`` / ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import math
@@ -264,6 +265,52 @@ def state_digest(params, opt_state, *, worker_axis: bool,
     return out
 
 
+def step_cost_tables(cfg, opt_cfg, programs, batch, *, seed: int = 0,
+                     group=None) -> dict:
+    """The reference's ``meta["hlo_cost"]``: the region table
+    (``roofline.region_table``, priced on ``hardware.H100``) of the run's
+    local step and of its sync step, each walked once by
+    ``roofline/cost.py::step_cost`` on the ``meta`` device (nothing
+    computed or allocated), rebuilt there from ``programs``' plan, with
+    ``batch`` (its shapes and dtypes; any device) and, for a run with
+    ranks, a ``core.comm.DryGroup`` playing this rank of ``group``'s grid.
+    ``{"local_step": table, "sync_step": table, "hw": {"peak_flops",
+    "hbm_bw"}}``; a synchronous run's sync step is its local step."""
+    from repro_torch.core import comm
+    from repro_torch.core.comm import DryGroup
+    from repro_torch.hardware import H100
+    from repro_torch.models import build_model
+    from repro_torch.roofline import region_table
+    from repro_torch.roofline.cost import step_cost
+    from repro_torch.sharding.specs import GridLayout
+    dry = None
+    if group is not None:
+        dry = DryGroup(group.grid, group.rank)
+        dry.split(GridLayout.of(group.grid), programs.plan.fsdp_axes)
+    meta = build_train_programs(cfg, opt_cfg, n_workers=programs.n_workers,
+                                device="meta", group=dry, plan=programs.plan)
+    params, state = meta.init_fn(seed, build_model(cfg).init(None, "meta"))
+    batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+             for k, v in batch.items()}
+    # the dry group's collectives count as a real rank's: the run's
+    # counters are put back after the walks
+    counters = [getattr(comm, k) for k in ("wire", "side", "tp",
+                                           "shard_gather")]
+    kept = [copy.deepcopy(vars(c)) for c in counters]
+    out = {}
+    try:
+        for key, fn in (("local_step", meta.local_step),
+                        ("sync_step", meta.sync_step)):
+            out[key] = region_table(step_cost(fn, params, state, batch),
+                                    peak_flops=H100.peak_flops,
+                                    hbm_bw=H100.hbm_bw)
+    finally:
+        for c, v in zip(counters, kept):
+            vars(c).update(v)
+    out["hw"] = {"peak_flops": H100.peak_flops, "hbm_bw": H100.hbm_bw}
+    return out
+
+
 def _launch_counts() -> dict:
     """Each kernel wrapper's launch count so far, by kernel."""
     from repro_torch.kernels import adaalter_update, quantize, ssd_scan
@@ -371,24 +418,42 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
                                     device=dev, group=group, plan=plan)
     # a rank draws its worker's batches (every shard of a worker the same),
     # or its share of a one-model run's global batch, split over grad_axes
-    rank = None
+    # a worker of several data ranks (the pods): rank (i, n) of its rows
+    rank = rows = None
     if group is not None:
-        rank = ((group.worker, programs.n_workers) if programs.is_local
-                else group.layout.index_along(group.rank,
-                                              programs.plan.grad_axes))
-        if not programs.is_local and shape.global_batch % rank[1]:
-            raise ValueError(f"global batch {shape.global_batch} does not "
-                             f"split over {rank[1]} ranks")
+        along = group.layout.index_along(group.rank, programs.plan.grad_axes)
+        rank = (group.worker, programs.n_workers) if programs.is_local \
+            else along
+        per = shape.global_batch // (programs.n_workers if programs.is_local
+                                     else 1)
+        if programs.is_local and along[1] > 1:
+            rows = along
+        if per % along[1]:
+            raise ValueError(f"a batch of {per} rows does not split over "
+                             f"{along[1]} ranks")
     layout = programs.leaf_layout
-    sharded = layout is not None and layout.sharded
-    lead = group is None or group.rank == 0   # writes the run's files
-    verbose = verbose and lead
     # a worker axis spread over ranks: the state is gathered to rank 0
     ranked = group is not None and programs.is_local
+    # leaves in parts: each rank holds its own (a worker's, where ranked)
+    sharded = layout is not None and (layout.sharded or ranked)
+    lead = group is None or group.rank == 0   # writes the run's files
+    verbose = verbose and lead
     R = programs.n_workers
     batch_workers = R if programs.is_local else 0
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
                      n_workers=R, seed=seed, non_iid=non_iid)
+
+    def batch_at(step: int) -> dict:
+        """This rank's batch of ``step``, on its device."""
+        batch = make_train_batch(cfg, shape, ds, step,
+                                 n_workers=batch_workers, rank=rank)
+        if rows is not None:       # this rank's rows of its worker's
+            i, n = rows
+            batch = {k: v[:, i * (v.shape[1] // n):(i + 1) * (
+                v.shape[1] // n)] for k, v in batch.items()}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in batch.items()}
+
     params, opt_state = programs.init_fn(seed, init_params)
     # a one-model run syncs every step (the reference's H = 1 engine)
     engine = make_sync_engine(opt_cfg, is_local=programs.is_local,
@@ -459,6 +524,22 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
                             "drift": float(st0.drift)},
         })
 
+    # ---- the steps' cost tables (roofline.region_table), on the card -- #
+    # Each step walked once on the meta device and priced on the H100's
+    # roofline: the replay prices a sync round from the tables'
+    # sync / local ratio, and every local_step span carries its step's
+    # optimal wall. A run off the card has no table (the reference's own
+    # fallback where it cannot lower one): its replay prices from the warm
+    # means, since an H100 roofline would be held to another device's walls
+    hlo_local_s = hlo_extra_s = None
+    if recorder is not None and dev.type == "cuda":
+        tabs = step_cost_tables(cfg, opt_cfg, programs, batch_at(start_step),
+                                seed=seed, group=group)
+        recorder.meta["hlo_cost"] = tabs
+        hlo_local_s = float(tabs["local_step"]["optimal_s"])
+        hlo_extra_s = max(0.0, float(tabs["sync_step"]["optimal_s"])
+                          - hlo_local_s)
+
     def now() -> float:
         return recorder.now() if recorder is not None else time.perf_counter()
 
@@ -477,10 +558,7 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
     losses, ppls, step_s, probe_s = [], [], [], []
     t0 = time.perf_counter()
     for step in range(start_step, steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in
-                 make_train_batch(cfg, shape, ds, step,
-                                  n_workers=batch_workers,
-                                  rank=rank).items()}
+        batch = batch_at(step)
         do_sync = engine.want_sync(step)
         t_step = now()
         fn = programs.sync_step if do_sync else programs.local_step
@@ -512,6 +590,10 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
             from repro_torch.trace.events import health_span_args
             t_end = t_step + dur
             health = health_span_args(summary)
+            if hlo_local_s is not None:
+                health["hlo_optimal_s"] = hlo_local_s
+            enc_args = ({} if hlo_extra_s is None
+                        else {"hlo_extra_optimal_s": hlo_extra_s})
             for w in range(R):
                 recorder.add("local_step", worker=w, step=step, t0=t_step,
                              dur=dur, synced=do_sync, loss=loss,
@@ -520,7 +602,8 @@ def train_loop(cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig, *,
                 if do_sync:
                     recorder.add("ef_encode", worker=w, step=step, t0=t_end,
                                  dur=enc_t, modeled=True,
-                                 hbm_bytes=enc_bytes, codec=engine.codec.name)
+                                 hbm_bytes=enc_bytes, codec=engine.codec.name,
+                                 **enc_args)
                     recorder.add("collective", worker=w, step=step,
                                  t0=t_end + enc_t, dur=wire_t, modeled=True,
                                  wire_bytes=round_b,

@@ -189,7 +189,8 @@ class SyncHealthProbe:
         # more: every worker's ranks under the paper-style plan's tensor
         # parallelism), in part order
         self.parts = (leaf_layout if leaf_layout is not None
-                      and leaf_layout.sharded else None)
+                      and (leaf_layout.sharded or group is not None)
+                      else None)
         self.group = (None if self.parts is None
                       else group or self.parts.ranks)
         self.fs = flatspace
@@ -211,7 +212,7 @@ class SyncHealthProbe:
             leaf_dtypes=dtypes, engine=engine, n_params=n_params,
             n_shards=programs.n_shards, leaf_layout=programs.leaf_layout,
             group=programs.group if programs.is_local
-            and programs.tp is not None else None)
+            and programs.leaf_layout is not None else None)
 
     def static_summary(self) -> Dict[str, float]:
         """Run-constant facts: wire bytes and compression ratio of one

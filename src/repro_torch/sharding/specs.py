@@ -14,13 +14,16 @@ Where a spec splits two dimensions, one over ``model`` and one over the
 FSDP axes, a rank holds a *tile* (:class:`TileSplit`): the FSDP part of
 its tensor-parallel part (:func:`tile_parts`).
 
-:class:`GridLayout` describes the grid of ranks: rank r is ``r // S``
-along ``data`` and ``r % S`` along ``model``, the row-major device order
-of the reference's ``(R, S)`` mesh; the ranks that differ only along some
-axes form a sub-group (:meth:`GridLayout.groups_along`): along ``data``
-the worker sub-groups (the sync mean's, or a synchronous plan's FSDP
-sub-group), along ``model`` the shard sub-groups (a sharded flat plane's
-params gather).
+:class:`GridLayout` describes the grid of ranks: on ``(data, model)``
+rank r is ``r // S`` along ``data`` and ``r % S`` along ``model``, the
+row-major device order of the reference's ``(R, S)`` mesh, and on
+``(pod, data, model)`` the reference's production mesh, pod-major. The
+ranks that differ only along some axes form a sub-group
+(:meth:`GridLayout.groups_along`): along the first axis the worker
+sub-groups (the sync mean's: ``data``'s, or ``pod``'s where the pods are
+the workers), along the rest a worker's ranks (a sharded flat plane's
+params gather), along ``data`` alone the FSDP sub-groups and along
+``model`` alone tensor parallelism's.
 """
 from __future__ import annotations
 
@@ -305,23 +308,58 @@ def plane_shard_count(grid: Mapping[str, int], plan) -> int:
     return n
 
 
-@dataclasses.dataclass(frozen=True)
+#: the grid axes in the order a grid lays them out (the reference's
+#: ``(pod, data, model)`` production mesh)
+GRID_AXES = ("pod", "data", "model")
+
+
+@dataclasses.dataclass(frozen=True, init=False)
 class GridLayout:
-    """``workers`` × ``shards`` ranks, row-major, along the grid axes
-    ``axes`` (``("data", "model")``, the reference's mesh axes): rank r is
-    ``r // shards`` along the first and ``r % shards`` along the second."""
-    workers: int
-    shards: int
-    axes: Tuple[str, str] = ("data", "model")
+    """Ranks laid out row-major along the grid axes ``axes`` with sizes
+    ``sizes``: ``GridLayout(R, S)`` is the reference's ``("data",
+    "model")`` mesh of R × S, ``GridLayout(P, D, M)`` its ``("pod",
+    "data", "model")`` mesh, pod-major, so that rank r holds the part the
+    reference's ``P(("pod", "data"), ...)`` gives it. The first axis
+    indexes the *workers* (``data`` on two axes, ``pod`` on three), the
+    rest a worker's *shards*: rank r is worker ``r // shards`` and shard
+    ``r % shards``."""
+    sizes: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    def __init__(self, *sizes: int, axes: Optional[Sequence[str]] = None):
+        sizes = tuple(int(n) for n in sizes)
+        axes = tuple(axes) if axes is not None else GRID_AXES[-len(sizes):]
+        if len(axes) != len(sizes) or not 2 <= len(sizes) <= 3:
+            raise ValueError(f"a grid of {sizes} along {axes}")
+        object.__setattr__(self, "sizes", sizes)
+        object.__setattr__(self, "axes", axes)
+
+    @classmethod
+    def of(cls, grid: Mapping[str, int]) -> "GridLayout":
+        """The layout of a grid given as the reference's mesh shape
+        (``{"data": R, "model": S}``, or with ``"pod"``)."""
+        unknown = set(grid) - set(GRID_AXES)
+        if unknown:
+            raise ValueError(f"the grid has no axes {sorted(unknown)}")
+        axes = tuple(a for a in GRID_AXES if a in grid or a != "pod")
+        return cls(*(grid.get(a, 1) for a in axes), axes=axes)
+
+    @property
+    def workers(self) -> int:
+        return self.sizes[0]
+
+    @property
+    def shards(self) -> int:
+        return math.prod(self.sizes[1:])
 
     @property
     def world(self) -> int:
-        return self.workers * self.shards
+        return math.prod(self.sizes)
 
     @property
     def shape(self) -> Dict[str, int]:
         """The grid's shape as the reference's mesh shape."""
-        return dict(zip(self.axes, (self.workers, self.shards)))
+        return dict(zip(self.axes, self.sizes))
 
     def coords(self, rank: int) -> Tuple[int, int]:
         """(worker, shard) of ``rank``."""
@@ -329,7 +367,10 @@ class GridLayout:
 
     def coords_of(self, rank: int) -> Dict[str, int]:
         """``rank``'s index along each axis."""
-        return dict(zip(self.axes, self.coords(rank)))
+        out = {}
+        for a, n in zip(self.axes[::-1], self.sizes[::-1]):
+            rank, out[a] = divmod(rank, n)
+        return {a: out[a] for a in self.axes}
 
     def rank(self, worker: int, shard: int) -> int:
         return worker * self.shards + shard
@@ -338,8 +379,7 @@ class GridLayout:
         """The ranks that differ only along ``axes``: one list a
         combination of the other axes' indices (row-major), each in
         row-major order of ``axes``."""
-        sizes = self.shape
-        unknown = set(axes) - set(sizes)
+        unknown = set(axes) - set(self.axes)
         if unknown:
             raise ValueError(f"the grid has no axes {sorted(unknown)}")
         groups: Dict[Tuple[int, ...], List[int]] = {}

@@ -279,3 +279,60 @@ def test_cli_writes_out_trace_metrics(tmp_path, capsys):
     rows = [json.loads(line) for line in metrics.read_text().splitlines()]
     assert [r["step"] for r in rows if "step" in r] == [0, 1]   # a pair each
     assert (tmp_path / "m.prom").exists()
+
+
+def test_pod_round_is_walked():
+    """Under the plan whose workers are the pods a rank of a pod grid
+    walks its round: reduced phi3.5-moe on (2, 2, 2) under its full
+    config's plan, int8 wire. Its ``sync_step`` adds, to its local step's
+    collectives, one all-gather a payload leaf over the ``pod`` sub-group
+    (crossing pods), each the accounting's bytes for the leaf's part this
+    rank sends (its tile, or the whole leaf where a tile's runs straddle a
+    256-block); the local step crosses pods only with the step's
+    statistics (one gather of a few scalars, as the reference's mean over
+    the workers' losses)."""
+    from repro_torch.core.comm import payload_bytes
+    full = get_arch("phi3.5-moe-42b-a6.6b")
+    grid = {"pod": 2, "data": 2, "model": 2}
+    plan = resolve_plan(full, grid)
+    assert plan.local_axes == ("pod",)
+    cfg = dataclasses.replace(reduced(full), param_dtype="float32")
+    shape = ShapeConfig("t", seq_len=16, global_batch=8, kind="train")
+    opt_cfg = OptimizerConfig(name="local_adaalter", H=2,
+                              compression="int8")
+    walks, programs, _, _ = dryrun.train_walks(cfg, shape, opt_cfg, grid,
+                                               plan)
+    assert programs.n_workers == 2 and programs.is_local
+    local_log, sync_log = walks["local_step"][2], walks["sync_step"][2]
+    stats = [e for e in local_log if e["cross_pod"]]
+    assert len(stats) == 1 and stats[0]["bytes"] <= 64
+    pod = [e for e in sync_log if e["cross_pod"]][len(stats):]
+    assert len(pod) == 2 * programs.n_payload_leaves
+    assert all(e["axes"] == ("pod",) and e["world"] == 2 for e in pod)
+    sent = [math.prod(s.shape) if not s.whole_blocks(256) else s.part_numel
+            for s in programs.leaf_layout.tiles]
+    want = sorted(2 * payload_bytes(n, 4, "int8") for n in sent for _ in "pb")
+    assert sorted(e["bytes"] for e in pod) == want
+    # the rest is the local step's
+    assert len(sync_log) - len(pod) >= len(local_log)
+
+
+def test_pod_record_walks_its_round():
+    """phi3.5-moe's (2, 16, 16) train record: the ``sync_step`` is a walk
+    (no modeled round, no note), its cross-pod bytes priced on the
+    inter-node link."""
+    res = dryrun.dryrun_pair("phi3.5-moe-42b-a6.6b", "train_4k",
+                             multi_pod=True, verbose=False)
+    recs = {r["variant"]: r for r in res["records"]}
+    assert set(recs) == {"local_step", "sync_step"}
+    for rec in recs.values():
+        assert "modeled" not in rec and "note" not in rec
+        assert rec["plan"]["local_axes"] == ("pod",)
+        assert rec["n_workers"] == 2
+    local, sync = recs["local_step"], recs["sync_step"]
+    assert local["cross_pod_collectives"] == 1          # the statistics
+    assert local["cross_pod_bytes"] <= 64
+    assert sync["cross_pod_bytes"] > 1e9
+    assert sync["cross_pod_collectives"] == 1 + 2 * sync[
+        "sync_collective_model"]["n_payload_leaves"]
+    assert sync["t_collective_s"] > local["t_collective_s"]
