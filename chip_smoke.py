@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. Phases, one JSON line each; any failure
-raises and exits non-zero:
+raises and exits non-zero. The script's budget is 600 s, half the
+1,200 s it may take: the wall line gives each phase's seconds (phases_s)
+and each torchrun launch's start-up and runs (launches):
 
   device    the card's name and power limit (nvidia-smi), torch's view of it
   build     the CUDA kernels compiled from src/repro_torch/kernels/csrc/,
@@ -24,7 +26,16 @@ raises and exits non-zero:
             sync, per-leaf and flat, one-pass and three-pass encode: the
             card with the kernels against the CPU with their plain versions,
             same initial weights (losses to rtol 1e-4, which the CPU run
-            with η 2% larger must exceed)
+            with η 2% larger must exceed). The CPU runs of this phase,
+            reference_train_families' and tp_grid's run in turn in a
+            process of their own (with the script's torch thread count),
+            and reference_dense in another, from the script's start,
+            beside the examples, the dry-run and the build (side work:
+            start_side); all end before the kernels phase. flat_eq and
+            the other reference_* phases below, which time nothing, run
+            there too, after this one. The launches of two and of four
+            ranks start there as well: their ranks import what they run
+            and wait for their phases' go (start_launch)
   flat_eq   flat = per-leaf on the card: reduced size, kernels on, a local,
             a sync and a local step; params, both B² and both residuals
             bitwise, for the one-pass and the three-pass int8 encode
@@ -69,9 +80,10 @@ raises and exits non-zero:
             version, prefill and 8 decode steps card against CPU, and on the
             card decode by the recurrence against the kernel forward,
             position by position (all to rtol 1e-4, atol 1e-5)
-  score     full-width mamba2-370m (419,714,560 parameters, bf16,
-            ssm_pallas): logits_fn and loss_fn over 8 x 2048 tokens, 3 times,
-            48 SSD calls a forward (the SSD counter counts wrapper calls,
+  score     mamba2-370m at full width, cut to 24 of its 48 layers
+            (261,344,512 parameters, bf16, ssm_pallas; 48 before the 600 s
+            budget): logits_fn and loss_fn over 8 x 2048 tokens, 3 times,
+            24 SSD calls a forward (the SSD counter counts wrapper calls,
             three kernel launches each); one warm forward under
             torch.profiler
   serve     full-width serve_session: batch 8, 32 new tokens, the prompt
@@ -93,10 +105,11 @@ raises and exits non-zero:
   reference_lstm_serve  reduced Big LSTM in float32: prefill's last logits
             against lstm_logits' last position on each device, prefill and
             8 decode steps card against CPU (same tolerance)
-  score_dense  full-width qwen2-7b (7,615,616,512 parameters, bf16):
+  score_dense  qwen2-7b at full width, cut to 7 of its 28 layers
+            (2,721,402,880 parameters, bf16; 28 before the 600 s budget):
             logits_fn and loss_fn over 2 x 4096 tokens, 3 times, losses
             within 1.5 nats of ln V; one warm forward under torch.profiler
-  serve_dense  full-width qwen2-7b serve_session as serve (batch 8, 32
+  serve_dense  the same qwen2-7b's serve_session as serve (batch 8, 32
             new tokens; numbers at prompt 512, the session's replay over 128
             positions): the prefill's last logits against their replay
             through decode_step, to a relative L2 of 5e-2 that a prefill one
@@ -122,22 +135,26 @@ raises and exits non-zero:
             (equal on the direct path; over 2,500 frames the difference the
             padded keys make is reported); the gate ignored and a causal
             encoder must fail the card-vs-CPU check
-  score_moe  phi3.5-moe at full width, 4 of its 32 layers (32 do not fit
-            one 80 GB card): logits_fn, loss_fn over 2 x 4096 tokens
+  score_moe  phi3.5-moe at full width, 2 of its 32 layers (32 do not fit
+            one 80 GB card; 4 before the 600 s budget): logits_fn, loss_fn
+            over 2 x 4096 tokens
             (capacity 1,280), the share of choices capacity drops; one
             forward profiled by layer (attention, MoE, expert GEMMs)
   serve_moe  serve_session on it, batch 8, prompt 512, 32 new tokens;
             capacity drops at prefill and decode; prefill vs replay with
             capacity unbounded (128 positions, relative L2 5e-2, which a
             prefill one token short and one with un-renormalised gates must
-            exceed), the reference's bounded prefill vs replay reported;
-            one decode step profiled by layer
-  score_vlm / serve_vlm  llama-3.2-vision-11b at full width, 10 of its 40
-            layers (2 of 8 cross; 1,601 image tokens, gate 0.7): scoring over 2
+            exceed; in float32 over the same 2 layers), the reference's
+            bounded prefill vs replay reported; one decode step profiled
+            by layer
+  score_vlm / serve_vlm  llama-3.2-vision-11b at full width, 5 of its 40
+            layers (1 of 8 cross; 10 before the 600 s budget; 1,601 image
+            tokens, gate 0.7): scoring over 2
             x 4096 tokens with the reference's image stubs; serve_session
             as serve_dense (zero image embeddings, as the reference's)
-  score_audio / serve_audio  seamless-m4t-large-v2 at full width, 6 + 6
-            of its 24 + 24 layers (vocab 256,206) over 4,096 audio frames;
+  score_audio / serve_audio  seamless-m4t-large-v2 at full width, 3 + 3
+            of its 24 + 24 layers (6 + 6 before the 600 s budget; vocab
+            256,206) over 4,096 audio frames;
             serving as serve_dense (one fault: with as many KV heads as heads,
             rotating the queries rotates the keys too)
   The slice-6 phases launch none of the seven kernels either.
@@ -154,10 +171,10 @@ raises and exits non-zero:
             H=4, lr 2, 8 steps), the card with the kernels against the CPU
             with their plain versions: losses to rtol 1e-4, which η 2% off
             must exceed; schedule and comm bytes equal; launch counts
-  score_hybrid  hymba-1.5b at full width, 8 of its 32 layers
-            (1,640,820,096 counted parameters at 32, bf16, ssm_pallas):
-            logits_fn and loss_fn over 2 x 4096 tokens, 16 SSD calls a
-            forward (50 heads: the last 8-head
+  score_hybrid  hymba-1.5b at full width, 4 of its 32 layers (8 before
+            the 600 s budget; 1,640,820,096 counted parameters at 32, bf16,
+            ssm_pallas): logits_fn and loss_fn over 2 x 4096 tokens, 8 SSD
+            calls a forward (50 heads: the last 8-head
             group holds 2); one forward profiled by layer (self-attention,
             SSM, SSD kernel, MLP)
   serve_hybrid  serve_session on it, batch 8, prompt 512, 32 new (the
@@ -166,9 +183,10 @@ raises and exits non-zero:
             the check crosses two state hand-offs; a prefill one token
             short must exceed it; the SSM half dropped and a sum fusion
             reported); no SSD launch
-  train_hybrid / train_hybrid_flat  hymba at full width cut to 4 of its
-            32 layers (294,706,712 counted parameters, 294,713,112 in the
-            tree), bf16, 2 workers x 4 sequences of 512 tokens, Local
+  train_hybrid / train_hybrid_flat  hymba at full width cut to 2 of its
+            32 layers (198,555,756 counted parameters, 198,558,956 in the
+            tree; 4 before the 600 s budget), bf16, 2 workers x 4
+            sequences of 512 tokens, Local
             AdaAlter H=4, int8 wire, kernels on, through train_loop: 8
             steps per leaf (168 update and 84 EF launches over its 21
             leaves; then 4 steps profiled) and 8 over the flat plane (8 and
@@ -176,7 +194,10 @@ raises and exits non-zero:
   train_ranks  the train phase's runs with one worker a rank: torchrun
             --nproc-per-node 2 (two ranks time-sharing the one card, the
             wire staged through host memory; train_loop a run, per leaf
-            and flat in one launch), 8 steps each: losses,
+            and flat in the one launch of two ranks, TWO_RANKS, that also
+            runs the FSDP phases', serve_tp's, train_sharded's and the TP
+            phases' work, the ranks re-laid out as 1 x 2 after the FSDP
+            runs), 8 steps each: losses,
             schedule, comm bytes and a digest of the final state (params,
             both B², both residuals) equal to the stacked train /
             train_flat runs bit for bit, which a stacked run with η 2% off
@@ -204,7 +225,8 @@ raises and exits non-zero:
             card at the run's peak bytes a parameter (derived, not run)
   train_sharded  full-width Big LSTM with its flat plane split in two: 1
             worker x 2 shards, two gloo ranks on the card through torchrun
-            (one launch with train_tp's runs), 32 x 20 tokens, H=2, int8, 3
+            (in the two-rank launch, with train_tp's runs), 32 x 20
+            tokens, H=2, int8, 3
             steps (one round): equal to the stacked 1-worker flat run bit
             for bit, which the stacked run with η 2% off must fail; per
             rank rows 2, 4 and 6 launched 3, 2 and 2 x ceil((P/2)/2^26)
@@ -224,8 +246,8 @@ raises and exits non-zero:
             wire bytes a step (fsdp_step_bytes), less allocated than the
             replicated rank; step walls, the params gather's and the slice
             mean's ms, allocated and reserved GB. Its replicated run,
-            train_fsdp_local's three runs and train_fsdp_moe's two share
-            one torchrun launch
+            train_fsdp_local's three runs and train_fsdp_moe's two run in
+            the two-rank launch
   train_fsdp_local  full-width Big LSTM in bf16 under the plan
             resolve_plan gives phi3.5-moe on 2 x 1 ranks (no worker axes,
             FSDP over data, remat full): one-model Local AdaAlter, int8
@@ -244,7 +266,8 @@ raises and exits non-zero:
             policy the step walls, the gather's and slice mean's ms,
             allocated and reserved GB; state and wire bytes from the
             specs; no kernel launched
-  serve_tp  full-width qwen2-7b (4 of 28 layers, bf16) served on 1 x 2 gloo
+  serve_tp  full-width qwen2-7b (2 of 28 layers, bf16; 4 before the 600 s
+            budget) served on 1 x 2 gloo
             ranks with tensor parallelism over model (build_serve_programs
             and serve_session with a group; the KV cache split along its
             sequence): the one-rank run's weights, each rank its parts; a
@@ -271,8 +294,9 @@ raises and exits non-zero:
   biglstm_tp_meta  full-width Big LSTM at model = 2 reckoned on the meta
             device: a rank's parameter and state bytes from the specs; its
             odd vocabulary (793,471) leaves embed, head_w and head_b whole
-  serve_tp_families  in serve_tp's launch, after it: mamba2-370m (12 of
-            48 layers; and in float32, its scoring forward only), hymba-1.5b
+  serve_tp_families  in serve_tp's launch, after it: mamba2-370m (6 of
+            48 layers, 12 before the 600 s budget; and in float32, its
+            scoring forward only), hymba-1.5b
             (2 of 32), phi3.5-moe (1 of 32, bf16 with the one-rank runs
             replaying the TP run's routing, flips counted; and float32,
             its scoring forward only, unpinned), llama-3.2-vision-11b (5
@@ -314,8 +338,9 @@ raises and exits non-zero:
             together before the dry-run, the build and the reference phase
             (which time nothing) and waited for before the kernels phase:
             quickstart and serve_batched at their defaults,
-            reproduce_paper at 30 steps, train_100m for 10 steps and then
-            resumed from its checkpoint to 20
+            reproduce_paper at 16 steps (30 before the 600 s budget; its
+            H = 16 run syncs once), train_100m for 4 steps and then
+            resumed from its checkpoint to 8 (10 and 20 before)
   fsdp_tp_meta  the reckoning (the package's dry-run), before the slice-13
             launch: a rank's weights at rest (tiles) and TP parts for
             serve_fsdp_tp, a rank's state under FSDP + TP and under the
@@ -324,12 +349,14 @@ raises and exits non-zero:
             (7,390,412,800 parameters, bf16) on 2 x 2 gloo ranks under
             serve_plan (weight_gather_serving: each rank's tiles at rest,
             a layer group's TP parts gathered over data as it runs): a
-            prefill of 4 x 512 and 2 decode steps, logits and caches bit
+            prefill of 4 x 512 and 2 decode steps (the second reads the
+            cache the first wrote), logits and caches bit
             for bit the same grid's TP-only serving (freed before); a
             rank's weight bytes the specs' tiles, the gather's bytes and
             seconds a forward, prefill and decode ms, peak GB a rank
-  train_fsdp_tp  on 2 x 2 ranks, bf16, 4 x 512 tokens: qwen2-7b (4 of
-            28 layers) under synchronous AdaAlter, 3 steps, bit for bit the
+  train_fsdp_tp  on 2 x 2 ranks, bf16, 4 x 512 tokens: qwen2-7b (1 of
+            28 layers; 4 before the 600 s budget) under synchronous
+            AdaAlter, 3 steps, bit for bit the
             data-replicated TP run; phi3.5-moe (1 of 32) under its plan
             (one-model Local AdaAlter, int8 + kernels, H=2), 2 steps, row 3
             launched on its tiles (2 a leaf a round); state bytes from the
@@ -348,15 +375,17 @@ raises and exits non-zero:
   train_pods  (slice 15, in the same launch, the group re-split onto pod
             grids) workers as pods under phi3.5-moe's plan (local_axes=
             ('pod',), FSDP over a pod's data ranks): mamba2-370m at full
-            width, 24 of 48 layers, bf16, on 2 pods x 2 data ranks, 8 x
-            512 tokens, int8 + kernels, H = 2, 4 steps, bit for bit its
+            width, 12 of 48 layers (24 before the 600 s budget), bf16, on
+            2 pods x 2 data ranks, 8 x 512 tokens, int8 + kernels, H = 2,
+            3 steps (4 before), bit for bit its
             data-replicated run; each rank held to the dry-run's
             prediction made first (in the dryrun phase, a DryGroup on the
             pod grid): collectives and bytes a run and a round exact (the
             round the whole-block wire of its tiles), rows 1, 3 and 6
             launched as predicted, peak within 10%; the round's parts
             (encode, d2h, gloo, h2d, dequantize + sum); the flat twin
-            (6 layers, float32) bit for bit its per-leaf run, rows 2, 4
+            (3 layers, float32; 6 before) bit for bit its per-leaf run,
+            rows 2, 4
             and 6 launched; reduced phi3.5-moe in float32 under its plan
             on 2 x 2 x 1 and 2 x 1 x 2 against the stacked CPU run to rtol
             1e-4, which η 2% off must exceed
@@ -387,7 +416,17 @@ heads (1, 32, 64, 16, 64), N 128 and (1, 32, 64, 25, 64), N 16, and
 row 3 on every tile shape train_fsdp_tp's phi3.5-moe ranks encode in
 place (fsdp_tp_tiles), and rows 1, 3 and 6 on every tile shape of a
 train_pods rank, rows 2 and 4 on its flat twin's sub-planes
-(pod_tiles). Then the script's wall,
+(pod_tiles). Then
+
+  regress   the port's bench-regression gate (python -m
+            repro_torch.obs.regress) on this run's own rows, one a phase
+            line (its kernels' launches, sync steps, collective and byte
+            counts, walls): the rows as baseline and as fresh run (exit 0),
+            one launch count one higher (exit 1, that field named in the
+            report), every wall doubled (exit 0), one row dropped (exit
+            1, "missing"); nothing under benchmarks/ is read
+
+the script's wall (with phases_s and launches),
 the kernels summary
 line (each kernel's launches on its main path, and by phase), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}.
@@ -405,6 +444,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -433,17 +473,20 @@ SSD_PARTIAL_GROUP_SHAPES = [(1, 2, 8, 2, 16, 8), (2, 4, 16, 4, 32, 16),
 SERVE_REL_L2 = 5e-2
 CROSS_GATE = 0.7               # the VLM's tanh gate in the checks (0 at init)
 # phi3.5-moe's 32 layers hold 83.75 GB of bf16 weights, more than one 80 GB
-# card: the MoE phases run its first 4 at full width (cut further as the
-# script neared its time limit)
-MOE_LAYERS = 4
-# depth cuts that keep the script under its 1,200 s limit, every check
-# kept: llama-3.2-vision at 10 of its 40 layers (2 of 8 cross-attention
-# groups), seamless-m4t at 6 + 6 of 24 + 24, hymba scored and served at
-# 8 of 32
-DEPTH_CUTS = {"llama-3.2-vision-11b": {"n_layers": 10},
-              "seamless-m4t-large-v2": {"n_layers": 6,
-                                        "n_encoder_layers": 6},
-              "hymba-1.5b": {"n_layers": 8}}
+# card: the MoE phases run its first 2 at full width (4 before the script
+# was cut to its 600 s budget; its float32 prefill-vs-replay check too)
+MOE_LAYERS = 2
+# depth cuts that keep the script within its 600 s budget, every check
+# kept (the cut before it in brackets): llama-3.2-vision at 5 of its 40
+# layers (10; 1 of 8 cross-attention groups), seamless-m4t at 3 + 3 of
+# 24 + 24 (6 + 6), hymba scored and served at 4 of 32 (8), qwen2-7b scored
+# and served at 7 of 28 (28), mamba2-370m at 24 of 48 (48)
+DEPTH_CUTS = {"llama-3.2-vision-11b": {"n_layers": 5},
+              "seamless-m4t-large-v2": {"n_layers": 3,
+                                        "n_encoder_layers": 3},
+              "hymba-1.5b": {"n_layers": 4},
+              "qwen2-7b": {"n_layers": 7},
+              "mamba2-370m": {"n_layers": 24}}
 SERVE_PROMPT = 512             # the serve phases' prompt length
 # the prompt each serve phase's serve_session replays through decode_step
 # (the serving numbers are timed at SERVE_PROMPT): two of mamba2's 64-token
@@ -451,7 +494,7 @@ SERVE_PROMPT = 512             # the serve phases' prompt length
 # chunked prefill's state hand-offs, three (two hand-offs)
 SERVE_REPLAY = 128
 HYBRID_SERVE_REPLAY = 192
-HYMBA_TRAIN_LAYERS = 4         # hymba-1.5b trained at full width, 4 of 32
+HYMBA_TRAIN_LAYERS = 2         # hymba-1.5b trained at full width, 2 of 32
 # train_sharded / sharded_grid: H = 2, one round (step 1) and a warm local
 # step after it (two rounds took the whole script past 650 s)
 SHARDED_STEPS = 3
@@ -468,6 +511,9 @@ def free_card() -> None:
 
 
 T_START = time.perf_counter()
+# every phase line emitted so far, in order (the regress phase's rows and
+# the wall line's phases_s are made from them)
+PHASE_LINES = []
 
 
 def emit(obj) -> None:
@@ -475,7 +521,18 @@ def emit(obj) -> None:
     script started (``t_s``)."""
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - T_START}
+        PHASE_LINES.append(obj)
     print(json.dumps(obj), flush=True)
+
+
+def phases_s() -> dict:
+    """Each phase's seconds: its line's ``t_s`` less the previous line's
+    (the first counts from the script's start; a name seen twice adds)."""
+    out, last = {}, 0.0
+    for line in PHASE_LINES:
+        out[line["phase"]] = out.get(line["phase"], 0.0) + line["t_s"] - last
+        last = line["t_s"]
+    return out
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2167,14 +2224,14 @@ def serve_moe(cfg, params, counters, *, batch, prompt, new) -> dict:
     (capacity_factor E / top_k: capacity T), over the first 128 positions:
     in bf16 the two paths' rounding flips some top-2 choices, reported by
     layer with the relative L2; the check runs in float32, at full width
-    over 4 layers (22 GB) with weights of its own, to
+    over MOE_LAYERS layers with weights of its own, to
     SERVE_REL_L2, which a prefill one token short and one with
     un-renormalised gates must exceed. One profiled decode step, by label.
     Returns (report, launches)."""
     import torch
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
-    check_len, check_layers = 128, 4
+    check_len, check_layers = 128, MOE_LAYERS
     out, launches, stats = serve_run(cfg, params, counters, batch=batch,
                                      prompt=prompt, new=new)
     model = build_model(cfg)
@@ -2261,14 +2318,20 @@ def baseline_stats(res, batch: int, seq: int) -> dict:
 
 
 def state_digests(directory: Path) -> dict:
-    """sha256 of every array of the latest checkpoint under ``directory``."""
+    """sha256 of every array of the latest checkpoint under ``directory``
+    (each array read in turn, the hashes computed side by side on
+    threads: hashlib lets go of the interpreter over large buffers)."""
     import hashlib
+    from concurrent.futures import ThreadPoolExecutor
     import numpy as np
     from repro_torch.checkpoint import latest_step
     step = latest_step(str(directory))
-    with np.load(directory / f"step_{step}" / "arrays.npz") as z:
-        return {k: hashlib.sha256(z[k].tobytes()).hexdigest()
-                for k in z.files}
+    digest = lambda a: hashlib.sha256(
+        np.ascontiguousarray(a).view(np.uint8)).hexdigest()
+    with np.load(directory / f"step_{step}" / "arrays.npz") as z, \
+            ThreadPoolExecutor(max_workers=8) as pool:
+        futures = {k: pool.submit(digest, z[k]) for k in z.files}
+        return {k: f.result() for k, f in futures.items()}
 
 
 def timed_checkpoints():
@@ -2591,21 +2654,14 @@ def instrumented_phase(cfg, shape, oc, counters, leaf, leaf_n,
 
 
 def slice6_phases(counters, smi: str) -> None:
-    """The MoE, VLM and encoder-decoder phases: reduced card-vs-CPU checks,
-    then scoring and serving at full width, each freeing its weights
-    before the next loads. Every kernel counter must read 0."""
+    """The MoE, VLM and encoder-decoder phases: scoring and serving at full
+    width, each freeing its weights before the next loads (their reduced
+    card-vs-CPU checks ran beside the examples). Every kernel counter must
+    read 0."""
     import torch
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.data import SyntheticLM, make_train_batch
     from repro_torch.models import build_model
-
-    t0 = time.perf_counter()
-    emit({"phase": "reference_moe", **reference_moe(counters),
-          "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    emit({"phase": "reference_cross", **reference_cross(counters),
-          "seconds": time.perf_counter() - t0})
-    free_card()
 
     # phi3.5-moe at full width, MOE_LAYERS of its 32 layers (one card)
     t0 = time.perf_counter()
@@ -2762,45 +2818,30 @@ def reference_train_families(counters) -> dict:
     initial weights: losses to rtol 1e-4, which the CPU run with η 2%
     larger must exceed; sync steps and comm bytes exactly equal; the card's
     launches of the fused update and the EF encode one per leaf a step and
-    two per leaf a round."""
-    import torch
-    from repro_torch.configs import OptimizerConfig, ShapeConfig, get_arch
-    from repro_torch.configs import reduced
-    from repro_torch.launch.train import train_loop
-    from repro_torch.models import build_model
-    from repro_torch.tree import leaves
-    rtol, lr = 1e-4, 2.0
-    shape = ShapeConfig("smoke", seq_len=16, global_batch=8, kind="train")
+    two per leaf a round. The CPU runs ran beside the examples
+    (SIDE["train_families"])."""
+    from repro_torch.configs import get_arch, reduced
+    rtol, lr = 1e-4, REFERENCE_LR
     out = {"rtol": rtol, "lr": lr, "steps": TRAIN_STEPS, "workers": 2,
            "runs": {}}
-    for arch in ("hymba-1.5b", "qwen2-7b", "phi3.5-moe-42b-a6.6b"):
-        cfg = dataclasses.replace(reduced(get_arch(arch)),
-                                  param_dtype="float32")
-        model = build_model(cfg)
-        base = model.init(torch.Generator().manual_seed(1))
-        n_leaves = len(leaves(base))
-
-        def run(dev, eta):
-            oc = OptimizerConfig(compression="int8", use_kernels=True, H=4,
-                                 lr=eta, warmup_steps=0)
-            return train_loop(cfg, shape, oc, steps=TRAIN_STEPS, n_workers=2,
-                              verbose=False, device=dev, init_params=base)
-
+    for arch in TRAIN_FAMILIES:
+        cfg = reduced(get_arch(arch))
         for c in counters.values():
             c.reset()
-        cuda = run("cuda", lr)
+        cuda, n_leaves = family_run(arch, "cuda", lr)
         launches = require_launches(
             read_counts(counters), adaalter_update=n_leaves * TRAIN_STEPS,
             fused_ef=2 * n_leaves * 2)
-        cpu, wrong = run("cpu", lr), run("cpu", lr * 1.02)
+        cpu = SIDE["train_families"][arch]
         for key in ("sync_steps", "comm_bytes_total", "comm_bytes_modeled"):
-            require(getattr(cuda, key) == getattr(cpu, key),
+            require(getattr(cuda, key) == cpu[key],
                     f"reduced {arch}: {key} {getattr(cuda, key)} on the "
-                    f"card, {getattr(cpu, key)} on the CPU")
+                    f"card, {cpu[key]} on the CPU")
         require(cuda.sync_steps == [3, 7], f"reduced {arch}: sync steps "
                 f"{cuda.sync_steps}")
-        rel, rel_wrong = (max_rel(cuda.losses, cpu.losses),
-                          max_rel(wrong.losses, cpu.losses))
+        rel, rel_wrong = (max_rel(cuda.losses, cpu["losses"]),
+                          max_rel(cpu["losses_eta_2pct_high"],
+                                  cpu["losses"]))
         require(all(math.isfinite(x) for x in cuda.losses),
                 f"reduced {arch}: non-finite loss {cuda.losses}")
         require(rel <= rtol, f"reduced {arch}: losses differ by {rel} "
@@ -2809,7 +2850,7 @@ def reference_train_families(counters) -> dict:
                 f"losses by only {rel_wrong}, within the tolerance")
         out["runs"][cfg.name] = {
             "leaves": n_leaves, "losses_cuda": cuda.losses,
-            "losses_cpu": cpu.losses, "max_rel_diff": rel,
+            "losses_cpu": cpu["losses"], "max_rel_diff": rel,
             "max_rel_diff_eta_2pct_high": rel_wrong,
             "sync_steps": cuda.sync_steps,
             "comm_bytes_total": cuda.comm_bytes_total, "launches": launches}
@@ -2817,10 +2858,10 @@ def reference_train_families(counters) -> dict:
 
 
 def hymba_train_cfg():
-    """hymba-1.5b at full width, cut to 4 of its 32 layers: two workers'
-    parameters, B², EF residuals and gradients of all 32 (1.64 G
-    parameters) would not fit one card, and the script's time limit takes
-    the rest."""
+    """hymba-1.5b at full width, cut to HYMBA_TRAIN_LAYERS of its 32
+    layers: two workers' parameters, B², EF residuals and gradients of all
+    32 (1.64 G parameters) would not fit one card, and the script's time
+    budget takes the rest."""
     from repro_torch.configs import get_arch
     return dataclasses.replace(get_arch("hymba-1.5b"),
                                n_layers=HYMBA_TRAIN_LAYERS)
@@ -2877,25 +2918,17 @@ def train_hybrid(cfg, counters, smi, *, steps, flat):
 
 
 def slice7_phases(counters, smi: str) -> dict:
-    """The hybrid family: reduced card-vs-CPU checks of the model and of
-    training three families; hymba-1.5b scored and served at full width
+    """The hybrid family (its reduced card-vs-CPU checks, of the model and
+    of training three families, ran beside the examples): hymba-1.5b
+    scored and served at full width
     and depth, the SSD kernel on the scoring forward (one call a layer, 50
-    heads) and on no serving path; hymba at full width and 4 of its 32
-    layers trained per leaf and over the flat plane. Returns the launch
+    heads) and on no serving path; hymba at full width and
+    HYMBA_TRAIN_LAYERS of its 32 layers trained per leaf and over the flat plane. Returns the launch
     counts of the full-width runs by phase."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
     from repro_torch.tree import leaves
-    t0 = time.perf_counter()
-    emit({"phase": "reference_hybrid", **reference_hybrid(counters),
-          "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    emit({"phase": "reference_train_families",
-          **reference_train_families(counters),
-          "seconds": time.perf_counter() - t0})
-    free_card()
-
     t0 = time.perf_counter()
     config_layers = get_arch("hymba-1.5b").n_layers
     hymba = dataclasses.replace(get_arch("hymba-1.5b"), ssm_pallas=True,
@@ -2960,116 +2993,211 @@ def slice7_phases(counters, smi: str) -> dict:
 # train_loop runs as gloo ranks on the card, one process group (one launch)
 # for all: a run's plan may be given (the CLI has no --plan); rank 0 writes
 # the results
-RANK_LOOPS = r"""
-import contextlib, dataclasses, gc, json, sys
+# the modules a rank program's first run would load (a launch held for its
+# go has them loaded before it)
+WARM_IMPORTS = r"""
+import torch._dynamo
+import repro_torch.kernels.ops, repro_torch.launch.steps
+import repro_torch.obs.health, repro_torch.obs.metrics
+"""
+# a rank's loop over training runs (dicts of arch, reduced, dtype, workers,
+# opt, plan, steps, batch, seq, a depth cut: layers; record_routing), a
+# train_loop a run with the card's memory freed and its peak reset before
+# each; rank 0 prints a line as each run ends (torchrun_train's marks)
+RANK_LOOPS_HEAD = r"""
+import contextlib, dataclasses, gc, json, os, statistics, sys, time
 import torch
+import torch.distributed as dist
 from repro_torch.configs import (OptimizerConfig, ParallelismPlan,
                                  ShapeConfig, get_arch, reduced)
+from repro_torch.core import comm
+from repro_torch.data import SyntheticLM
 from repro_torch.launch import mesh
+from repro_torch.launch.serve import serve_session
+from repro_torch.launch.serving import build_serve_programs, decode_cache_specs
 from repro_torch.launch.train import train_loop
-""" + "\n".join(inspect.getsource(f) for f in (require, pin_routing)) + r"""
+from repro_torch.models import attention, build_model, layers
+from repro_torch.sharding import GridLayout
+from repro_torch.tree import leaves, tree_map
+""" + WARM_IMPORTS + "\n".join(inspect.getsource(f) for f in (require, pin_routing)) + r"""
+
+def run_loops(runs):
+    out = []
+    for run in runs:
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = get_arch(run["arch"])
+        cfg = reduced(cfg) if run.get("reduced") else cfg
+        if run.get("layers"):
+            cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+        if run.get("dtype"):
+            cfg = dataclasses.replace(cfg, param_dtype=run["dtype"])
+        shape = ShapeConfig("ranks", seq_len=run["seq"],
+                            global_batch=run["batch"], kind="train")
+        plan = ParallelismPlan(**run["plan"]) if run.get("plan") else None
+        # record_routing: the MoE's choices kept, for a one-rank run to
+        # replay
+        routing = [] if run.get("record_routing") else None
+        with (pin_routing(record=routing) if routing is not None
+              else contextlib.nullcontext()):
+            r = train_loop(cfg, shape, OptimizerConfig(**run["opt"]),
+                           steps=run["steps"], seed=0, verbose=False,
+                           group=group, n_workers=run.get("workers", 1),
+                           device=str(dev), digest=True, plan=plan)
+        out.append(dataclasses.asdict(r))
+        if routing is not None:
+            out[-1]["routing"] = [t.tolist() for t in routing]
+        if group.rank == 0:
+            print(f"chip_smoke: run {cfg.name} {run['steps']} steps "
+                  f"{time.perf_counter() - t0:.3f} s, train_loop "
+                  f"{r.wall_s:.3f} s", flush=True)
+    return out
 
 spec = json.load(open(sys.argv[1]))
+if os.environ.get("RANK") == "0":
+    print("chip_smoke: imported", flush=True)
+while spec["go"] and not os.path.exists(spec["go"]):
+    time.sleep(0.05)
 group, dev = mesh.init_ranks("gloo", None, grid=spec["grid"])
-res = []
-for run in spec["runs"]:
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    cfg = get_arch(run["arch"])
-    cfg = reduced(cfg) if run.get("reduced") else cfg
-    if run.get("layers"):
-        cfg = dataclasses.replace(cfg, n_layers=run["layers"])
-    if run.get("dtype"):
-        cfg = dataclasses.replace(cfg, param_dtype=run["dtype"])
-    shape = ShapeConfig("ranks", seq_len=run["seq"],
-                        global_batch=run["batch"], kind="train")
-    plan = ParallelismPlan(**run["plan"]) if run.get("plan") else None
-    # record_routing: the MoE's choices kept, for a one-rank run to replay
-    routing = [] if run.get("record_routing") else None
-    with (pin_routing(record=routing) if routing is not None
-          else contextlib.nullcontext()):
-        r = train_loop(cfg, shape, OptimizerConfig(**run["opt"]),
-                       steps=run["steps"], seed=0, verbose=False,
-                       group=group, n_workers=run.get("workers", 1),
-                       device=str(dev), digest=True, plan=plan)
-    res.append(dataclasses.asdict(r))
-    if routing is not None:
-        res[-1]["routing"] = [t.tolist() for t in routing]
+if group.rank == 0:
+    print("chip_smoke: ready", flush=True)
+out = {"runs": run_loops(spec["runs"])}
+"""
+RANK_TAIL = r"""
 mesh.close_ranks()
 if group.rank == 0:
-    json.dump(res, open(sys.argv[2], "w"))
+    json.dump(out, open(sys.argv[2], "w"))
 """
 
 
-def torchrun_train(root: Path, args, *, nproc: int = 2,
-                   timeout: float = 420.0, runs=None, grid=None,
-                   script=None, spec=None):
-    """``python -m torch.distributed.run --standalone --nproc-per-node
-    <nproc> -m repro_torch.launch.train --dist-backend gloo <args>``:
-    ``nproc`` ranks on the one card, as a subprocess in a session of its
-    own (killed with every process it started past ``timeout``), the
-    card's used memory sampled from nvidia-smi twice a second. Returns
-    (TrainResult as a dict, wall seconds, peak MiB used on the card). With
-    ``runs`` (dicts of arch, reduced, dtype, workers, opt, plan, steps,
-    batch, seq, and a depth cut: layers) the ranks run :data:`RANK_LOOPS`
-    instead, laid out as
-    ``grid`` (default: ``nproc`` along data), a ``train_loop`` a run, and
-    the result is the list of TrainResults. With ``script`` (a rank's
-    program: ``script spec.json result.json``) the ranks run it on
-    ``spec``, and the result is what it writes."""
-    import os
+# every torchrun launch so far: its wall from its go, the seconds from its
+# start at which its ranks had imported what they run and stood ready
+# (process group opened, CUDA context), and its marked lines
+LAUNCHES = []
+
+
+def start_launch(root: Path, args=(), *, nproc: int = 2, script=None,
+                 spec=None, what: str = "", hold: bool = False) -> dict:
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc-per-node <nproc>``: ``nproc`` ranks on the one card, as a
+    subprocess in a session of its own (killed at the script's exit if it
+    is still running), running ``-m repro_torch.launch.train --dist-backend
+    gloo <args>``, or with ``script`` (a rank's program: ``script
+    spec.json result.json``) that program on ``spec``. With ``hold`` (a
+    program's launch) its ranks import what they run and then wait, before
+    they open the process group or touch the card, for
+    :func:`finish_launch`'s go: a launch started while nothing is timed
+    has its start-up behind it when its phase begins. Rank 0's lines are
+    read as they come, each with its second since the start."""
     import signal
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        out, log_path = Path(tmp) / "result.json", Path(tmp) / "log.txt"
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(nproc)]
-        if script is not None:
-            path, spec_path = Path(tmp) / "rank.py", Path(tmp) / "spec.json"
-            path.write_text(script)
-            spec_path.write_text(json.dumps(spec))
-            cmd += [str(path), str(spec_path), str(out)]
-        elif runs is None:
-            cmd += ["-m", "repro_torch.launch.train", "--dist-backend", "gloo",
-                    "--out", str(out), *args]
-        else:
-            script, spec = Path(tmp) / "ranks.py", Path(tmp) / "runs.json"
-            script.write_text(RANK_LOOPS)
-            spec.write_text(json.dumps({"grid": grid or {
-                "data": nproc, "model": 1}, "runs": runs}))
-            cmd += [str(script), str(spec), str(out)]
-        # two processes share the card: segments that grow in place keep
-        # each allocator's cache from holding freed blocks the other needs
-        env = {**os.environ, "PYTHONPATH": str(root / "src"),
-               "OMP_NUM_THREADS": "4",
-               "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
-        t0 = time.perf_counter()
-        peak = 0
-        with open(log_path, "w") as log:
-            proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=log,
-                                    stderr=subprocess.STDOUT,
-                                    start_new_session=True)
-            try:
-                while proc.poll() is None:
-                    if time.perf_counter() - t0 > timeout:
-                        raise RuntimeError(f"chip_smoke: torchrun {args} ran "
-                                           f"past {timeout} s")
-                    used = subprocess.run(
-                        ["nvidia-smi", "--query-gpu=memory.used",
-                         "--format=csv,noheader,nounits"], capture_output=True,
-                        text=True, timeout=30).stdout.split()
-                    peak = max([peak] + [int(v) for v in used[:1]])
-                    time.sleep(0.5)
-            finally:
-                if proc.poll() is None:
-                    os.killpg(proc.pid, signal.SIGKILL)
-                    proc.wait()
-        wall = time.perf_counter() - t0
-        text = log_path.read_text()
-        require(proc.returncode == 0, f"torchrun {args or runs} exited "
-                f"{proc.returncode}:\n{text[-4000:]}")
-        return json.loads(out.read_text()), wall, peak
+    tmp = tempfile.TemporaryDirectory()
+    out = Path(tmp.name) / "result.json"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc)]
+    if script is not None:
+        path, spec_path = Path(tmp.name) / "rank.py", Path(tmp.name) / \
+            "spec.json"
+        go = Path(tmp.name) / "go"
+        path.write_text(script)
+        spec_path.write_text(json.dumps({**spec, "go": str(go) if hold
+                                         else None}))
+        cmd += [str(path), str(spec_path), str(out)]
+    else:
+        require(not hold, "a launch of the CLI is not held")
+        cmd += ["-m", "repro_torch.launch.train", "--dist-backend", "gloo",
+                "--out", str(out), *args]
+    # two processes share the card: segments that grow in place keep each
+    # allocator's cache from holding freed blocks the other needs
+    env = {**os.environ, "PYTHONPATH": str(root / "src"),
+           "OMP_NUM_THREADS": "4",
+           "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    t0 = time.perf_counter()
+    log = open(Path(tmp.name) / "log.txt", "w")
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    # the launch's lines as they come, each with its second: where the
+    # ranks finished their imports and stood ready (start-up) and where
+    # each run ended (its work)
+    marks = []
+
+    def pump():
+        for line in proc.stdout:
+            log.write(line)
+            if line.startswith(("chip_smoke: ", "training ", "done in ")):
+                marks.append((time.perf_counter() - t0, line.strip()))
+        log.close()
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+
+    def kill():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    atexit.register(kill)
+    return {"tmp": tmp, "out": out, "proc": proc, "reader": reader,
+            "marks": marks, "kill": kill, "t0": t0, "hold": hold,
+            "what": what, "nproc": nproc, "args": args,
+            "started_s": t0 - T_START}
+
+
+def finish_launch(launch: dict, timeout: float = 420.0):
+    """Let a launch :func:`start_launch` started run (its go, where it was
+    held) and wait for it: killed past ``timeout`` seconds from then, the
+    card's used memory sampled from nvidia-smi twice a second. Returns
+    (what rank 0 wrote: the CLI's TrainResult as a dict, or a program's
+    result; the wall seconds from the go; the peak MiB used on the card).
+    The launch's files stay until ``launch["tmp"]`` is cleaned up."""
+    proc, marks = launch["proc"], launch["marks"]
+    t0 = time.perf_counter()
+    if launch["hold"]:
+        (Path(launch["tmp"].name) / "go").touch()
+    peak = 0
+    try:
+        while proc.poll() is None:
+            if time.perf_counter() - t0 > timeout:
+                raise RuntimeError(f"chip_smoke: torchrun {launch['what']} "
+                                   f"ran past {timeout} s")
+            used = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=30).stdout.split()
+            peak = max([peak] + [int(v) for v in used[:1]])
+            time.sleep(0.5)
+    finally:
+        launch["kill"]()
+        launch["reader"].join(timeout=60)
+    wall = time.perf_counter() - t0
+    text = (Path(launch["tmp"].name) / "log.txt").read_text()
+    require(proc.returncode == 0, f"torchrun {launch['what']} "
+            f"{list(launch['args'])} exited {proc.returncode}:\n"
+            f"{text[-4000:]}")
+    first = lambda *tags: next((t for t, m in marks
+                                if m.startswith(tags)), None)
+    LAUNCHES.append({
+        "what": launch["what"], "nproc": launch["nproc"],
+        "started_s": launch["started_s"], "held": launch["hold"],
+        "go_s": t0 - launch["t0"], "wall_s": wall,
+        "imported_s": first("chip_smoke: imported"),
+        "ready_s": first("chip_smoke: ready", "training "),
+        "marks": [[t, m] for t, m in marks if not m.startswith(
+            ("chip_smoke: ready", "chip_smoke: imported"))]})
+    emit({"launch": LAUNCHES[-1]})
+    return json.loads(launch["out"].read_text()), wall, peak
+
+
+def torchrun_train(root: Path, args=(), *, nproc: int = 2,
+                   timeout: float = 420.0, script=None, spec=None,
+                   what: str = ""):
+    """:func:`start_launch` and :func:`finish_launch` at once."""
+    launch = start_launch(root, args, nproc=nproc, script=script, spec=spec,
+                          what=what)
+    try:
+        return finish_launch(launch, timeout)
+    finally:
+        launch["tmp"].cleanup()
 
 
 def same_run(a: dict, b: dict) -> bool:
@@ -3088,7 +3216,65 @@ def rank_walls(rep: dict, sync_steps, steps: int) -> dict:
             "sync_step_ms_median": statistics.median(sync)}
 
 
-def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
+def ranks_runs(cfg, shape) -> list:
+    """train_ranks' two runs in run_loops' form: the train phase's run
+    with one worker a rank, per leaf and over the flat plane."""
+    opt = dict(name="local_adaalter", lr=0.5, H=4, warmup_steps=100,
+               compression="int8", use_kernels=True)
+    return [dict(arch=cfg.name, workers=2, opt={**opt, "flat": f},
+                 steps=TRAIN_STEPS, batch=shape.global_batch,
+                 seq=shape.seq_len) for f in (False, True)]
+
+
+def sharded_opt() -> dict:
+    """train_sharded's optimizer (and sharded_grid's one-pass one)."""
+    return dict(name="local_adaalter", lr=0.5, H=SHARDED_H,
+                warmup_steps=100, compression="int8", use_kernels=True,
+                flat=True)
+
+
+def start_two_ranks(root: Path, cfg, shape) -> dict:
+    """Start the one torchrun launch of two gloo ranks on the card
+    (:data:`TWO_RANKS`, held for its go: :func:`start_launch`): on data
+    2 x 1 train_ranks' runs (:func:`ranks_runs`) and the FSDP phases'
+    (:func:`fsdp_runs`), then on 1 x 2 (TP_GRID) serve_tp and
+    serve_tp_families, then train_sharded's run and train_tp's and
+    train_tp_families' (:func:`tp_train_runs`,
+    :func:`tp_family_train_runs`). Each phase checks its part as if it
+    had launched alone."""
+    data_runs = ranks_runs(cfg, shape) + fsdp_runs(cfg)["runs"]
+    tp_runs = [dict(arch=cfg.name, workers=1, opt=sharded_opt(),
+                    steps=SHARDED_STEPS, batch=32, seq=20)] + \
+        tp_train_runs() + tp_family_train_runs()
+    tmp = tempfile.TemporaryDirectory()
+    serve = serve_tp_spec(str(Path(tmp.name) / "serve"))
+    launch = start_launch(
+        root, nproc=2, script=TWO_RANKS, spec={
+            "grid": {"data": 2, "model": 1}, "runs": data_runs,
+            "serve": serve, "tp_runs": tp_runs},
+        what="two ranks: train_ranks, fsdp, serve_tp, train_sharded, "
+             "train_tp", hold=True)
+    launch.update(serve_tmp=tmp, serve_out=serve["out"])
+    return launch
+
+
+def two_rank_launch(launch: dict) -> dict:
+    """Let :func:`start_two_ranks`' launch run and wait for it. Returns
+    the parts (``runs``, ``serve`` and the prefill logits rank 0 saved,
+    ``tp_runs``), the launch's wall s and the card's peak MiB."""
+    import torch
+    try:
+        got, wall, peak_mib = finish_launch(launch, timeout=900)
+        got["prefill"] = torch.load(launch["serve_out"] + ".prefill.pt")
+        got["prefill_fault"] = torch.load(launch["serve_out"]
+                                          + ".prefill_fault.pt")
+    finally:
+        launch["tmp"].cleanup()
+        launch["serve_tmp"].cleanup()
+    return {**got, "wall": wall, "peak_mib": peak_mib}
+
+
+def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat, launched):
     """Local AdaAlter with one worker a rank: two gloo ranks on the one
     card through torchrun, at the train phase's configuration, per leaf
     and over the flat plane, each equal to the stacked run (losses,
@@ -3099,7 +3285,8 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
     GB. Then the synchronous AdaAlter on two ranks (32 x 20 each, the
     gradients averaged) against one model over 64 x 20, float32, at lr 2
     without warm-up, 6 steps, to rtol 1e-4, which an η 2% larger must
-    exceed. Returns (report, launches by phase: rank 0's, the two-rank
+    exceed. ``launched``: the two-rank launch (:func:`two_rank_launch`).
+    Returns (report, launches by phase: rank 0's, the two-rank
     synchronous run's result, the FSDP phases' results from its launch:
     (results, wall s, card's peak MiB))."""
     import torch
@@ -3123,15 +3310,11 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
     plane = FlatSpace.build(abstract, batch_ndim=0, eps=oc.eps).plane_size
     report, by_phase = {"nvidia_smi": smi, "workers": R, "backend": "gloo",
                         "runs": {}}, {}
-    # both layouts in one launch (RANK_LOOPS: train_loop as the CLI calls
-    # it), and after them the FSDP phases' runs (fsdp_runs); the
+    # both layouts in the two-rank launch (run_loops: train_loop as the
+    # CLI calls it), and after them the FSDP phases' runs (fsdp_runs); the
     # synchronous baseline below goes through the CLI
-    opt = dict(name="local_adaalter", lr=0.5, H=4, warmup_steps=100,
-               compression="int8", use_kernels=True)
-    got, wall, peak_mib = torchrun_train(root, None, nproc=R, runs=[
-        dict(arch=cfg.name, workers=R, opt={**opt, "flat": f}, steps=steps,
-             batch=shape.global_batch, seq=shape.seq_len)
-        for f in (False, True)] + fsdp_runs(cfg)["runs"], timeout=900)
+    got, wall, peak_mib = (launched[k] for k in ("runs", "wall",
+                                                 "peak_mib"))
     fsdp_launched = (got[2:], wall, peak_mib)
     for (name, stacked), res in zip((("per_leaf", leaf), ("flat", flat)),
                                     got):
@@ -3214,7 +3397,7 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
         "--arch", cfg.name, "--param-dtype", "float32", "--optimizer",
         "adaalter", "--lr", "2", "--warmup", "0", "--batch",
         str(shape.global_batch), "--seq", str(shape.seq_len), "--steps",
-        str(base_steps)])
+        str(base_steps)], what="the training CLI: synchronous AdaAlter")
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     one = {}
     for lr in (2.0, 2.0 * 1.02):
@@ -3252,11 +3435,11 @@ def train_ranks_phase(root: Path, cfg, shape, smi, leaf, flat):
     return report, by_phase, res, fsdp_launched
 
 
-def sharded_run(root: Path, cfg, shape, oc, *, workers: int, shards: int,
-                cli, what: str, launched=None):
+def sharded_run(cfg, shape, oc, *, workers: int, shards: int, what: str,
+                launched):
     """One sharded flat run as ``workers`` x ``shards`` gloo ranks on the
-    card through torchrun (``cli``: its arguments; or ``launched``, the
-    (result, wall, peak MiB) of a launch that ran it), against the stacked
+    card through torchrun (``launched``: the (result, wall, peak MiB) of
+    the launch that ran it), against the stacked
     flat run of ``workers`` workers in this process (the same weights and
     batches): equal bit for bit (``same_run``), which the stacked run with
     η 2% off must fail. Per rank: rows 2, 4 (or 5) and 6 launched as the
@@ -3288,8 +3471,7 @@ def sharded_run(root: Path, cfg, shape, oc, *, workers: int, shards: int,
     require(not same_run(off, want), f"{what}: a stacked run with η 2% off "
             "passes the bitwise comparison")
     free_card()
-    res, wall, peak_mib = launched or torchrun_train(root, cli,
-                                                     nproc=workers * shards)
+    res, wall, peak_mib = launched
     require(same_run(res, want), f"{what}: the {workers} x {shards} grid's "
             f"run differs from the stacked one: losses {res['losses']} vs "
             f"{want['losses']}, digest {res['state_digest']} vs "
@@ -3354,15 +3536,31 @@ def sharded_run(root: Path, cfg, shape, oc, *, workers: int, shards: int,
     return report, res["ranks"][0]["launches"]
 
 
-def grid_phases(root: Path, cfg, smi, want_logits, names) -> dict:
-    """The phases of grids with a model axis: serve_tp (its own launch),
-    then one launch of two ranks (1 x 2) for train_sharded's run and
-    train_tp's two and train_tp_families' three, and one of four (2 x 2)
-    for sharded_grid's two runs and tp_grid's seven, which then runs slice
-    13's (:func:`fsdp_tp_launch`, :func:`fsdp_tp_phases`), each phase's
-    checks as if it had launched alone; then the full-width Big LSTM TP
-    reckoning on the meta device. ``names``: the kernel counters'.
-    Returns the launches by phase (rank 0's).
+def four_rank_loops(cfg) -> tuple:
+    """sharded_grid's two runs (reduced Big LSTM, 2 x 2, one-pass and
+    three-pass) and tp_grid's, first in the launch of four ranks: (the
+    sharded runs' optimizers by name, the runs)."""
+    ocs = {name: dict(name="local_adaalter", lr=0.5, H=SHARDED_H,
+                      warmup_steps=0, compression="int8", use_kernels=True,
+                      flat=True, sync_fused=fused)
+           for name, fused in (("one_pass", True), ("three_pass", False))}
+    return ocs, [dict(arch=cfg.name, reduced=True, workers=2, opt=opt,
+                      steps=SHARDED_STEPS, batch=8, seq=16)
+                 for opt in ocs.values()] + tp_grid_runs()
+
+
+def grid_phases(root: Path, cfg, smi, want_logits, names,
+                launched, four=None) -> dict:
+    """The phases of grids with a model axis: serve_tp, serve_tp_families,
+    train_sharded, train_tp and train_tp_families from the two-rank launch
+    (``launched``, :func:`two_rank_launch`: on 1 x 2 after train_ranks'
+    runs), and one launch of four (2 x 2) for sharded_grid's two runs and
+    tp_grid's seven, which then runs slice 13's (:func:`fsdp_tp_launch`,
+    :func:`fsdp_tp_phases`), each phase's checks as if it had launched
+    alone; then the full-width Big LSTM TP reckoning on the meta device.
+    ``names``: the kernel counters'; ``four``: the launch of four ranks
+    where :func:`start_fsdp_tp_launch` started it already. Returns the
+    launches by phase (rank 0's).
 
     ``train_sharded``: full-width Big LSTM as 1 worker x 2 shards of the
     flat plane (four ranks of a 2 x 2 grid at full width would need ~4 x
@@ -3374,7 +3572,7 @@ def grid_phases(root: Path, cfg, smi, want_logits, names) -> dict:
                                      reduced)
     by_phase = {}
     t0 = time.perf_counter()
-    serve, reps = serve_tp_phase(root, want_logits, smi)
+    serve, reps = serve_tp_phase(launched, want_logits)
     emit({"phase": "serve_tp", "nvidia_smi": smi, **serve,
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -3385,18 +3583,13 @@ def grid_phases(root: Path, cfg, smi, want_logits, names) -> dict:
     free_card()
 
     t0 = time.perf_counter()
-    opt = dict(name="local_adaalter", lr=0.5, H=SHARDED_H,
-               warmup_steps=100, compression="int8", use_kernels=True,
-               flat=True)
-    got, wall, peak_mib = torchrun_train(
-        root, None, nproc=2, grid=TP_GRID, timeout=900, runs=[
-            dict(arch=cfg.name, workers=1, opt=opt, steps=SHARDED_STEPS,
-                 batch=32, seq=20)] + tp_train_runs()
-        + tp_family_train_runs())
+    opt = sharded_opt()
+    got, wall, peak_mib = (launched[k] for k in ("tp_runs", "wall",
+                                                 "peak_mib"))
     shape = ShapeConfig("sharded", seq_len=20, global_batch=32, kind="train")
     full, by_phase["train_sharded"] = sharded_run(
-        root, cfg, shape, OptimizerConfig(**opt), workers=1, shards=2,
-        what="train_sharded", cli=None, launched=(got[0], wall, peak_mib))
+        cfg, shape, OptimizerConfig(**opt), workers=1, shards=2,
+        what="train_sharded", launched=(got[0], wall, peak_mib))
     emit({"phase": "train_sharded", "nvidia_smi": smi, **full,
           "seconds": time.perf_counter() - t0})
     free_card()
@@ -3416,27 +3609,19 @@ def grid_phases(root: Path, cfg, smi, want_logits, names) -> dict:
     small = reduced(cfg)
     shape = ShapeConfig("grid", seq_len=16, global_batch=8, kind="train")
     grid = {}
-    ocs = {name: dict(name="local_adaalter", lr=0.5, H=SHARDED_H,
-                      warmup_steps=0, compression="int8", use_kernels=True,
-                      flat=True, sync_fused=fused)
-           for name, fused in (("one_pass", True), ("three_pass", False))}
+    ocs, loops = four_rank_loops(cfg)
     # both encodes and tp_grid's models in the launch of four ranks that
     # runs slice 13's phases after them (fsdp_tp_launch)
-    launched = fsdp_tp_launch(root, [
-        dict(arch=cfg.name, reduced=True, workers=2, opt=opt,
-             steps=SHARDED_STEPS, batch=8, seq=16)
-        for opt in ocs.values()] + tp_grid_runs())
-    got, wall, peak_mib = (launched[k] for k in ("loops", "wall",
-                                                 "peak_mib"))
+    four = fsdp_tp_launch(root, loops, started=four)
+    got, wall, peak_mib = (four[k] for k in ("loops", "wall", "peak_mib"))
     # slice 13's phases first: their lines give each run's memory a rank
     # before any check of the launch's card peak
-    by_phase.update(fsdp_tp_phases(launched, smi, names))
+    by_phase.update(fsdp_tp_phases(four, smi, names))
     t0 = time.perf_counter()
     for (name, opt), res in zip(ocs.items(), got):
         grid[name], launches = sharded_run(
-            root, small, shape, OptimizerConfig(**opt), workers=2, shards=2,
-            what=f"sharded_grid {name}", cli=None,
-            launched=(res, wall, peak_mib))
+            small, shape, OptimizerConfig(**opt), workers=2, shards=2,
+            what=f"sharded_grid {name}", launched=(res, wall, peak_mib))
         by_phase["sharded_grid" if opt["sync_fused"]
                  else "sharded_grid_three_pass"] = launches
     emit({"phase": "sharded_grid", "nvidia_smi": smi, "arch": small.name,
@@ -3587,7 +3772,7 @@ def fsdp_rank(rep: dict, steps: int, splits, entries: int,
 
 
 def fsdp_runs(cfg) -> dict:
-    """The FSDP phases' runs (RANK_LOOPS' form), in train_ranks' launch of
+    """The FSDP phases' runs (run_loops' form), in train_ranks' launch of
     two ranks: the synchronous AdaAlter under the replicated plan (the
     comparison of train_ranks' CLI run, RANKS_BASELINE_STEPS steps),
     train_fsdp_local's FSDP, replicated and η 2% off runs, and
@@ -3844,8 +4029,8 @@ def memory_peak_sites(run, top: int = 8) -> dict:
 
 
 def train_hybrid_remat(cfg, counters, smi, leaf, n_leaves: int):
-    """``train_hybrid``'s configuration (hymba at full width, 8 of 32
-    layers, 2 workers x 4 x 512, H = 4, int8, rows 1 and 3 per leaf) for
+    """``train_hybrid``'s configuration (hymba at full width,
+    HYMBA_TRAIN_LAYERS of 32 layers, 2 workers x 4 x 512, H = 4, int8, rows 1 and 3 per leaf) for
     4 steps with the plan's ``remat="full"`` (each layer group recomputed
     in the backward), against the same 4 steps without: losses and the
     final state's digest bit for bit where they are, else the losses to
@@ -3952,12 +4137,12 @@ def train_hybrid_remat(cfg, counters, smi, leaf, n_leaves: int):
 
 
 # ---- slice 11: tensor parallelism over the model ranks ------------------ #
-# train_tp: qwen2-7b at full width, 4 of its 28 layers (2,022,229,504
-# parameters), 1 worker x 2 TP shards
-# train_tp: qwen2-7b cut to 2 of 28 layers (from 4, for time)
+# train_tp: qwen2-7b at full width, 1 worker x 2 TP shards, cut to 2 of
+# its 28 layers (from 4, for time; at 1 layer and lr 0.5 its losses climb
+# past 20 and the TP run parts from one rank's by 2e-2, over the rtol)
 TP_TRAIN_LAYERS = 2
-# serve_tp: qwen2-7b cut to 4 of 28 layers (from 7, for time)
-TP_SERVE_LAYERS = 4
+# serve_tp: qwen2-7b cut to 2 of 28 layers (from 4, for time)
+TP_SERVE_LAYERS = 2
 TP_TRAIN_STEPS = 4
 TP_GRID = {"data": 1, "model": 2}
 # serve_tp: the TP prefill's last logits against the one-rank prefill's,
@@ -3985,8 +4170,8 @@ TP_GRID_STEPS = 8
 # ---- slice 12: tensor parallelism for the other families ---------------- #
 # serve_tp_families: label -> (arch, depth cut and dtype, options), each at
 # full width on 1 x 2 gloo ranks (in serve_tp's launch), cut in depth for
-# time only (the earlier cut in brackets): mamba2-370m 12 of 48
-# layers (24), hymba-1.5b 2 of 32 (4), phi3.5-moe 1 of 32 (2; 8 experts a
+# time only (the earlier cut in brackets): mamba2-370m 6 of 48
+# layers (12), hymba-1.5b 2 of 32 (4), phi3.5-moe 1 of 32 (2; 8 experts a
 # rank), llama-3.2-vision 5 of 40 (one cross-attention group),
 # seamless-m4t 1 + 1 of 24 + 24 (2 + 2); in bf16 as configured. In bf16 the
 # MoE's TP run rounds otherwise than one rank and flips near-tied routing
@@ -3997,8 +4182,8 @@ TP_GRID_STEPS = 8
 # mamba2 in float32 (its scoring forward) tells bf16 rounding over its
 # layers from a fault in the head split: it must hold TP_SERVE_F32_REL_L2
 TP_FAMILIES = {
-    "mamba2-370m": ("mamba2-370m", {"n_layers": 12}, {}),
-    "mamba2-370m/float32": ("mamba2-370m", {"n_layers": 12,
+    "mamba2-370m": ("mamba2-370m", {"n_layers": 6}, {}),
+    "mamba2-370m/float32": ("mamba2-370m", {"n_layers": 6,
                                             "param_dtype": "float32"},
                             {"score_only": True}),
     "hymba-1.5b": ("hymba-1.5b", {"n_layers": 2}, {}),
@@ -4286,20 +4471,14 @@ for label, (arch, cut, opts) in spec["families"].items():
     torch.cuda.empty_cache()
 """
 
-SERVE_TP = r"""
-import dataclasses, json, statistics, sys, time
-import torch
-from repro_torch.configs import ShapeConfig, get_arch
-from repro_torch.core import comm
-from repro_torch.data import SyntheticLM
-from repro_torch.launch import mesh
-from repro_torch.launch.serve import serve_session
-from repro_torch.launch.serving import build_serve_programs, decode_cache_specs
-from repro_torch.models import attention, build_model, layers
-from repro_torch.tree import leaves, tree_map
-
-spec = json.load(open(sys.argv[1]))
-group, dev = mesh.init_ranks("gloo", None, grid=spec["grid"])
+# the one launch of two ranks: train_ranks' and the FSDP phases' runs on
+# data 2 x 1 (RANK_LOOPS_HEAD), then the same ranks re-laid out as
+# TP_GRID for serve_tp and serve_tp_families (spec["serve"]), then
+# train_sharded's, train_tp's and train_tp_families' runs (spec["tp_runs"])
+TWO_RANKS = RANK_LOOPS_HEAD + r"""
+full_spec, t_serve = spec, time.perf_counter()
+spec = full_spec["serve"]
+group.split(GridLayout.of(spec["grid"]), ())
 cfg = dataclasses.replace(get_arch(spec["arch"]), n_layers=spec["layers"])
 B, P, NEW, REPLAY = spec["batch"], spec["prompt"], spec["new"], spec["replay"]
 M = group.layout.shards
@@ -4444,16 +4623,30 @@ res["max_memory_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
 """ + r"""
 del params, progs, short, want, lg, c, prompts
 """ + SERVE_FAMILIES + r"""
-import torch.distributed as dist
 everyone = [None] * group.world
 dist.all_gather_object(everyone, res)
-mesh.close_ranks()
+out["serve"] = everyone
 if group.rank == 0:
-    json.dump(everyone, open(sys.argv[2], "w"))
-"""
+    print(f"chip_smoke: run serve_tp and serve_tp_families "
+          f"{time.perf_counter() - t_serve:.3f} s", flush=True)
+out["tp_runs"] = run_loops(full_spec["tp_runs"])
+""" + RANK_TAIL
 
 
-def serve_tp_phase(root: Path, want_logits, smi) -> dict:
+def serve_tp_spec(out: str) -> dict:
+    """serve_tp's and serve_tp_families' part of the two-rank launch
+    (:data:`TWO_RANKS`' ``spec["serve"]``); rank 0 writes the prefill's
+    logits and the fault's under ``out``."""
+    return {"grid": TP_GRID, "arch": "qwen2-7b", "layers": TP_SERVE_LAYERS,
+            "batch": 8, "prompt": SERVE_PROMPT, "new": TP_SERVE_NEW,
+            "replay": TP_SERVE_REPLAY, "decode_steps": 4,
+            "fault_replay": TP_FAULT_REPLAY,
+            "check_prompt": TP_CHECK_PROMPT, "families": TP_FAMILIES,
+            "gate": CROSS_GATE, "score_seq": TP_FAMILY_SCORE_SEQ,
+            "decode": TP_FAMILY_DECODE, "out": out}
+
+
+def serve_tp_phase(launched: dict, want_logits) -> dict:
     """Full-width qwen2-7b served on 1 x 2 gloo ranks (tensor parallelism
     over model, the KV cache's sequence split over it) through
     ``build_serve_programs(group=)`` / ``serve_session(group=)``: the
@@ -4467,26 +4660,16 @@ def serve_tp_phase(root: Path, want_logits, smi) -> dict:
     position 512, the TP collectives and bytes a decode step and gloo's
     share of it. The same launch serves TP_FAMILIES after it
     (:func:`serve_tp_families_phase` reads their part of ``reps``).
-    Returns (report, the ranks' results)."""
+    ``launched``: the two-rank launch (:func:`two_rank_launch`). Returns
+    (report, the ranks' results)."""
     import torch
     from repro_torch.models.counting import count_params
     from repro_torch.configs import get_arch
     qwen = dataclasses.replace(get_arch("qwen2-7b"),
                                n_layers=TP_SERVE_LAYERS)
-    spec = {"grid": TP_GRID, "arch": "qwen2-7b", "layers": qwen.n_layers,
-            "batch": 8,
-            "prompt": SERVE_PROMPT, "new": TP_SERVE_NEW,
-            "replay": TP_SERVE_REPLAY,
-            "decode_steps": 4, "fault_replay": TP_FAULT_REPLAY,
-            "check_prompt": TP_CHECK_PROMPT, "families": TP_FAMILIES,
-            "gate": CROSS_GATE, "score_seq": TP_FAMILY_SCORE_SEQ,
-            "decode": TP_FAMILY_DECODE}
-    with tempfile.TemporaryDirectory() as tmp:
-        spec["out"] = str(Path(tmp) / "serve")
-        reps, wall, peak_mib = torchrun_train(
-            root, None, nproc=2, script=SERVE_TP, spec=spec, timeout=600)
-        got = torch.load(spec["out"] + ".prefill.pt")
-        bad = torch.load(spec["out"] + ".prefill_fault.pt")
+    reps, got, bad = (launched[k] for k in ("serve", "prefill",
+                                            "prefill_fault"))
+    wall, peak_mib = launched["wall"], launched["peak_mib"]
     err, fault = rel_l2(got, want_logits), rel_l2(bad, want_logits)
     require(err <= TP_SERVE_REL_L2, f"serve_tp: prefill logits off the "
             f"one-rank run's by {err} (relative L2)")
@@ -4592,7 +4775,7 @@ TP_TRAIN_OPT = dict(name="local_adaalter", lr=0.5, H=2, warmup_steps=0,
 
 
 def tp_train_runs() -> list:
-    """train_tp's runs (RANK_LOOPS) on TP_GRID: remat "full" (the plan's),
+    """train_tp's runs (run_loops) on TP_GRID: remat "full" (the plan's),
     then "save_tp"."""
     return [dict(arch="qwen2-7b", layers=TP_TRAIN_LAYERS, workers=1,
                  opt=TP_TRAIN_OPT, steps=TP_TRAIN_STEPS, batch=4, seq=512,
@@ -4601,7 +4784,8 @@ def tp_train_runs() -> list:
 
 
 def train_tp_phase(got, wall: float, peak_mib: int) -> tuple:
-    """qwen2-7b at full width cut to 4 of 28 layers, Local AdaAlter, int8
+    """qwen2-7b at full width cut to TP_TRAIN_LAYERS of 28 layers, Local
+    AdaAlter, int8
     wire with the kernels, as 1 worker x 2 TP shards (two gloo ranks on
     the card), 4 x 512 tokens, H = 2, 4 steps: ``got``, the results of
     :func:`tp_train_runs` (remat "full", then "save_tp"), against the
@@ -4759,7 +4943,7 @@ def serve_tp_families_phase(reps, names) -> tuple:
 
 
 def tp_family_train_runs() -> list:
-    """train_tp_families' runs (RANK_LOOPS) on TP_GRID, in
+    """train_tp_families' runs (run_loops) on TP_GRID, in
     TP_FAMILY_TRAIN's order."""
     return [dict(arch=arch, layers=cut["n_layers"],
                  dtype=cut.get("param_dtype"), workers=1,
@@ -4898,7 +5082,7 @@ def tp_grid_rtol(arch: str) -> float:
 
 
 def tp_grid_runs() -> list:
-    """tp_grid's runs (RANK_LOOPS) on a 2 x 2 grid: reduced, float32."""
+    """tp_grid's runs (run_loops) on a 2 x 2 grid: reduced, float32."""
     return [dict(arch=a, reduced=True, dtype="float32", workers=2,
                  opt=TP_GRID_OPT, steps=tp_grid_steps(a), batch=8, seq=16)
             for a in TP_GRID_ARCHS]
@@ -4912,35 +5096,26 @@ def tp_grid_phase(got, wall: float, peak_mib: int) -> tuple:
     CPU run of the same weights to the tolerance, which the CPU run with
     η 2% larger must exceed. Returns (report, rank 0's launches of the
     last run)."""
-    import torch
     from repro_torch.configs import (OptimizerConfig, ShapeConfig, get_arch,
                                      reduced)
     from repro_torch.launch.train import train_loop
-    from repro_torch.models import build_model
-    from repro_torch.tree import tree_map
     opt = TP_GRID_OPT
     shape = ShapeConfig("tp_grid", seq_len=16, global_batch=8, kind="train")
     report = {}
     for arch, res in zip(TP_GRID_ARCHS, got):
         cfg = dataclasses.replace(reduced(get_arch(arch)),
                                   param_dtype="float32")
-        # the ranks' and the stacked card run's weights (the same seed)
-        cpu_base = tree_map(lambda t: t.cpu(), build_model(cfg).init(
-            torch.Generator("cuda").manual_seed(0)))
+        # the ranks' and the stacked card run's weights (the same seed);
+        # the CPU runs ran beside the examples (tp_grid_cpu)
         steps = tp_grid_steps(arch)
         card = train_loop(cfg, shape, OptimizerConfig(**opt),
                           steps=steps, n_workers=2, verbose=False,
                           device="cuda")
-        cpu = {lr: train_loop(cfg, shape, OptimizerConfig(**{**opt,
-                                                             "lr": lr}),
-                              steps=steps, n_workers=2,
-                              verbose=False, device="cpu",
-                              init_params=cpu_base)
-               for lr in (opt["lr"], opt["lr"] * 1.02)}
+        cpu = SIDE["tp_grid"][arch]
         g = res["losses"]
         errs = {"card_stacked": max_rel(g, card.losses),
-                "cpu": max_rel(g, cpu[opt["lr"]].losses),
-                "cpu_eta_2pct_high": max_rel(g, cpu[opt["lr"] * 1.02].losses)}
+                "cpu": max_rel(g, cpu["lr"]),
+                "cpu_eta_2pct_high": max_rel(g, cpu["eta_2pct_high"])}
         rtol = tp_grid_rtol(arch)
         require(errs["card_stacked"] <= rtol and errs["cpu"] <= rtol,
                 f"tp_grid {arch}: {errs}")
@@ -5010,15 +5185,17 @@ FSDP_TP_GRID = {"data": 2, "model": 2}
 # FSDP over data beside TP over model), a prefill of 4 x 512 and 2 decode
 # steps from a zero cache, against the same grid's TP-only serving (the
 # weights whole over data) bit for bit. A rank gathers its peer's half of
-# each TP part a forward through gloo (~3.7 GB at ~0.35-0.7 GB/s), so the
-# decode is cut to 2 steps
+# each TP part a forward (~3.7 GB), so the decode is cut to 2 steps: the
+# second reads the cache the first wrote under gathered weights
 FSDP_TP_SERVE = dict(arch="llama3-405b", layers=1, batch=4, prompt=512,
                      decode=2)
 # train_fsdp_tp: (label, arch, depth cut, optimizer, steps, lr, wire,
 # against the data-replicated TP run) at full width in bf16, 4 x 512
-# tokens: qwen2-7b at 4 of 28 layers under synchronous AdaAlter (Alg. 3,
-# the paper's baseline, its plan: FSDP over data, remat full) bit for bit
-# against the data-replicated TP run (fsdp_axes=()); phi3.5-moe at 1 of 32
+# tokens: qwen2-7b at 1 of 28 layers (4 before the 600 s budget) under
+# synchronous AdaAlter (Alg. 3, the paper's baseline, its plan: FSDP over
+# data, remat full), 3 steps (a round in each), bit for bit against the
+# data-replicated TP run (fsdp_axes=());
+# phi3.5-moe at 1 of 32
 # under its own plan (one-model Local AdaAlter, int8 wire with the
 # kernels, H = 2: row 3 on its tiles). phi3.5-moe's data-replicated TP run
 # does not fit: each of the 4 ranks would hold 14.07 GB of state (56.3 GB
@@ -5027,7 +5204,7 @@ FSDP_TP_SERVE = dict(arch="llama3-405b", layers=1, batch=4, prompt=512,
 # 28.90 GB a rank on an H100), so its bitwise pair runs reduced, in
 # tp_grid_fsdp_tp
 FSDP_TP_TRAIN = (
-    ("qwen2-7b", "qwen2-7b", 4, "adaalter", 3, 0.1, "", True),
+    ("qwen2-7b", "qwen2-7b", 1, "adaalter", 3, 0.1, "", True),
     ("phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b", 1, "local_adaalter",
      2, 0.5, "int8", False))
 # the reduced float32 runs that extend tp_grid on the same ranks: lr 2,
@@ -5048,7 +5225,7 @@ FSDP_TP_MODEL1 = dict(arch="llama3-405b", batch=4, prompt=12, decode=2)
 # peak reset before each), then the ranks laid out as 4 x 1 for
 # gathered-weight serving at model = 1 (reduced llama3-405b, float32)
 FSDP_TP_RANKS = r"""
-import dataclasses, gc, json, math, statistics, sys, time
+import dataclasses, gc, json, math, os, statistics, sys, time
 import torch
 from repro_torch.configs import (OptimizerConfig, ParallelismPlan,
                                  ShapeConfig, get_arch, reduced)
@@ -5060,11 +5237,28 @@ from repro_torch.launch.train import train_loop
 from repro_torch.models import build_model
 from repro_torch.sharding import GridLayout, tile_parts
 from repro_torch.tree import leaves, paths, tree_map, unflatten_like
+""" + WARM_IMPORTS + r"""
 
 spec = json.load(open(sys.argv[1]))
+if os.environ.get("RANK") == "0":
+    print("chip_smoke: imported", flush=True)
+while spec.get("go") and not os.path.exists(spec["go"]):
+    time.sleep(0.05)
 group, dev = mesh.init_ranks("gloo", spec.get("device"), grid=spec["grid"],
                              fsdp_axes=("data",))
 cuda = dev.type == "cuda"
+T0 = time.perf_counter()
+
+def mark(what, extra=""):
+    # rank 0's line as a part ends (torchrun_train's marks)
+    global T0
+    if group.rank == 0:
+        print(f"chip_smoke: run {what} {time.perf_counter() - T0:.3f} s"
+              f"{extra}", flush=True)
+    T0 = time.perf_counter()
+
+if group.rank == 0:
+    print("chip_smoke: ready", flush=True)
 res = {"rank": group.rank, "serve": {}, "train": [], "grid": {}}
 NORMS = ("ln1", "ln2", "ln3", "final_norm", "enc_norm", "norm_attn",
          "norm_ssm")
@@ -5193,7 +5387,7 @@ def serve_pair(cfg, plan, B, P, D, *, keep_logits=False):
     return out
 
 def cfg_of(run):
-    # RANK_LOOPS' keys: arch, reduced, layers, dtype (and seq_parallel)
+    # run_loops' keys: arch, reduced, layers, dtype (and seq_parallel)
     cfg = get_arch(run["arch"])
     cfg = reduced(cfg) if run.get("reduced") else cfg
     kw = {f: run[k] for k, f in (("layers", "n_layers"),
@@ -5215,9 +5409,11 @@ def train(run):
         checkpoint_dir=run.get("checkpoint_dir", ""))
     out = dataclasses.asdict(r)
     out["name"] = run.get("name")
+    mark(f"{run.get('name') or run['arch']} {run['steps']} steps",
+         f", train_loop {r.wall_s:.3f} s")
     return out
 
-# runs of other phases that share the launch (RANK_LOOPS' form), first
+# runs of other phases that share the launch (run_loops' form), first
 res["loops"] = [train(run) for run in spec.get("loops", [])]
 s = spec["serve"]
 if s:
@@ -5225,6 +5421,7 @@ if s:
     res["serve"] = serve_pair(cfg, serve_plan(get_arch(s["arch"]),
                                               group.grid),
                               s["batch"], s["prompt"], s["decode"])
+    mark("serve_fsdp_tp")
 for run in spec["train"]:
     res["train"].append(train(run))
 for run in spec["grid_runs"]:
@@ -5237,6 +5434,7 @@ if m1:
     res["serve_model1"] = serve_pair(
         cfg, serve_plan(get_arch(m1["arch"]), group.grid), m1["batch"],
         m1["prompt"], m1["decode"], keep_logits=True)
+    mark("serve_model1")
 if spec.get("pods"):
     # slice 15: the ranks laid out as pod grids. A sync round's
     # collectives, bytes and parts are counted apart: everything
@@ -5487,16 +5685,39 @@ def fsdp_tp_grid_run(name, arch, steps, *, remat=None, **cfg_kw) -> dict:
                 opt=dict(name="adaalter", lr=2.0, warmup_steps=0), **cfg_kw)
 
 
-def fsdp_tp_launch(root: Path, loops=(), *, dev: str = "cuda") -> dict:
+def start_fsdp_tp_launch(root: Path, loops=(), *, dev: str = "cuda",
+                         hold: bool = False) -> dict:
+    """Start slice 13's launch of 4 gloo ranks on the card (FSDP_TP_RANKS,
+    :func:`start_launch`; ``hold``: its ranks wait for the go), which
+    first runs ``loops`` (other phases' runs in run_loops' form) on the
+    2 x 2 grid; its TP per-leaf run restores the flat checkpoint that
+    :func:`fsdp_tp_launch` writes before the go, under
+    ``launch["flat_dir"]``."""
+    tmp = tempfile.TemporaryDirectory()
+    flat_dir = str(Path(tmp.name) / "flat")
+    train_runs, grid_runs = fsdp_tp_runs(flat_dir)
+    spec = {"grid": FSDP_TP_GRID, "loops": list(loops),
+            "serve": FSDP_TP_SERVE, "train": train_runs,
+            "grid_runs": grid_runs, "serve_model1": FSDP_TP_MODEL1,
+            "pods": pod_runs()}
+    if dev != "cuda":
+        spec["device"] = dev
+    launch = start_launch(root, nproc=4, script=FSDP_TP_RANKS, spec=spec,
+                          what="four ranks: sharded_grid, tp_grid, "
+                               "fsdp_tp, train_pods", hold=hold)
+    launch.update(flat_tmp=tmp, flat_dir=flat_dir)
+    return launch
+
+
+def fsdp_tp_launch(root: Path, loops=(), *, dev: str = "cuda",
+                   started=None) -> dict:
     """The reckoning on the meta device (phase ``fsdp_tp_meta``), then
-    slice 13's launch of 4 gloo ranks on the card (FSDP_TP_RANKS), which
-    first runs ``loops`` (other phases' runs in RANK_LOOPS' form) on the
-    2 x 2 grid: around it the stacked flat run that writes the checkpoint
-    its TP per-leaf run restores, and the stacked per-leaf restore of that
-    checkpoint. Returns the launch: ``loops`` (their results), ``got``
-    (the ranks' results), ``wall``, ``peak_mib``, ``leaf_restore``,
-    ``meta``, ``t0``."""
-    import tempfile
+    slice 13's launch of 4 gloo ranks (``started``, where
+    :func:`start_fsdp_tp_launch` started it already): around it the
+    stacked flat run that writes the checkpoint its TP per-leaf run
+    restores, and the stacked per-leaf restore of that checkpoint. Returns
+    the launch: ``loops`` (their results), ``got`` (the ranks' results),
+    ``wall``, ``peak_mib``, ``leaf_restore``, ``meta``, ``t0``."""
     from repro_torch.configs import (OptimizerConfig, ShapeConfig, get_arch,
                                      reduced)
     from repro_torch.launch.train import train_loop
@@ -5507,8 +5728,9 @@ def fsdp_tp_launch(root: Path, loops=(), *, dev: str = "cuda") -> dict:
                                 param_dtype="float32")
     flat_shape = ShapeConfig("flat", seq_len=16, global_batch=8,
                              kind="train")
-    with tempfile.TemporaryDirectory() as tmp:
-        flat_dir = str(Path(tmp) / "flat")
+    launch = started or start_fsdp_tp_launch(root, loops, dev=dev)
+    flat_dir = launch["flat_dir"]
+    try:
         # the flat checkpoint: the stacked 2-worker flat run on the card
         # (the ranks draw the same seeded weights)
         train_loop(small, flat_shape, OptimizerConfig(**TP_GRID_OPT,
@@ -5516,20 +5738,14 @@ def fsdp_tp_launch(root: Path, loops=(), *, dev: str = "cuda") -> dict:
                    steps=FSDP_TP_FLAT_AT, n_workers=2, verbose=False,
                    device=dev, checkpoint_dir=flat_dir,
                    checkpoint_every=FSDP_TP_FLAT_AT)
-        train_runs, grid_runs = fsdp_tp_runs(flat_dir)
-        spec = {"grid": FSDP_TP_GRID, "loops": list(loops),
-                "serve": FSDP_TP_SERVE, "train": train_runs,
-                "grid_runs": grid_runs, "serve_model1": FSDP_TP_MODEL1,
-                "pods": pod_runs()}
-        if dev != "cuda":
-            spec["device"] = dev
-        got, wall, peak_mib = torchrun_train(
-            root, None, nproc=4, timeout=900.0, script=FSDP_TP_RANKS,
-            spec=spec)
+        got, wall, peak_mib = finish_launch(launch, 900.0)
         # the stacked per-leaf restore of the flat checkpoint on the card
         leaf_restore = train_loop(small, flat_shape, OptimizerConfig(
             **TP_GRID_OPT), steps=FSDP_TP_FLAT_AT, n_workers=2,
             verbose=False, device=dev, checkpoint_dir=flat_dir, digest=True)
+    finally:
+        launch["tmp"].cleanup()
+        launch["flat_tmp"].cleanup()
     return {"loops": got.pop("loops"), "got": got, "wall": wall,
             "peak_mib": peak_mib, "leaf_restore": leaf_restore,
             "meta": meta, "t0": t0}
@@ -5538,11 +5754,12 @@ def fsdp_tp_launch(root: Path, loops=(), *, dev: str = "cuda") -> dict:
 def fsdp_tp_phases(launched: dict, smi, names, *, dev: str = "cuda") -> dict:
     """Slice 13's phases from the launch of :func:`fsdp_tp_launch`.
     ``serve_fsdp_tp``: llama3-405b, 1 of 126 layers, bf16, on 2 x 2 ranks
-    under serve_plan (gathered weights): prefill 4 x 512 and 2 decode
-    steps, logits and caches bit for bit the TP-only run's; a rank's
-    weight bytes at rest against the specs' tiles, the gather's bytes and
+    under serve_plan (gathered weights): prefill 4 x 512 and
+    FSDP_TP_SERVE["decode"] decode steps, logits and caches bit for bit
+    the TP-only run's; a rank's weight bytes at rest against the specs'
+    tiles, the gather's bytes and
     seconds a forward, prefill and decode ms, peak GB a rank.
-    ``train_fsdp_tp``: qwen2-7b 4/28 under synchronous AdaAlter, bit for
+    ``train_fsdp_tp``: qwen2-7b 1/28 under synchronous AdaAlter, bit for
     bit the data-replicated TP run, and phi3.5-moe 1/32 under its plan
     (int8, the kernels: row 3 on its tiles); a rank's state bytes from the
     specs, step walls, TP and FSDP collectives a step.
@@ -5817,18 +6034,19 @@ POD_GRID_TP = {"pod": 2, "data": 1, "model": 2}
 # the plan whose workers are the pods: phi3.5-moe's (20-100 B parameters),
 # passed as plan= to the runs that train another architecture under it
 POD_PLAN_ARCH = "phi3.5-moe-42b-a6.6b"
-# train_pods: mamba2-370m at full width (bf16), cut to 24 of its 48 layers
-# for the script's time (at 48 the runs (a) and (b) took 52 s of gloo on
-# an H100, the prediction 16 s), on 2 pods x 2 data ranks sharing the
-# card, 8 x 512 tokens (a rank's 2 rows of its pod's 4), Local AdaAlter
-# H = 2, int8 wire with the kernels, 4 steps (2 rounds): the pod run (a),
+# train_pods: mamba2-370m at full width (bf16), cut to 12 of its 48 layers
+# for the script's time (24 before its 600 s budget; at 48 the runs (a)
+# and (b) took 52 s of gloo on an H100, the prediction 16 s), on 2 pods x
+# 2 data ranks sharing the card, 8 x 512 tokens (a rank's 2 rows of its
+# pod's 4), Local AdaAlter H = 2, int8 wire with the kernels, 3 steps (a
+# round and a local step after it; 4 before): the pod run (a),
 # its data-replicated run (b, fsdp_axes=()), and the flat twin (c) at
 # POD_FLAT_LAYERS beside its per-leaf run at that depth, both in float32
 # (the digests then compare the same bits: a bf16 leaf's plane slot holds
 # its value in float32)
-POD_RUN = dict(arch="mamba2-370m", layers=24, dtype="bfloat16", steps=4,
+POD_RUN = dict(arch="mamba2-370m", layers=12, dtype="bfloat16", steps=3,
                batch=8, seq=512)
-POD_FLAT_LAYERS = 6
+POD_FLAT_LAYERS = 3
 POD_OPT = dict(name="local_adaalter", lr=0.5, H=2, warmup_steps=0,
                compression="int8", use_kernels=True)
 # runs (d): reduced phi3.5-moe in float32 under its own plan on both pod
@@ -5998,7 +6216,9 @@ def pods_phase(got: dict, wall: float, peak_mib: int, smi,
             f"data-replicated run: {a['losses']} vs {b['losses']}, "
             f"{a['state_digest']} vs {b['state_digest']}")
     require(all(math.isfinite(v) for v in a["losses"])
-            and a["sync_steps"] == [1, 3] and a["n_workers"] == 2,
+            and a["sync_steps"] == list(range(
+                POD_OPT["H"] - 1, POD_RUN["steps"], POD_OPT["H"]))
+            and a["n_workers"] == 2,
             f"train_pods: losses {a['losses']}, syncs {a['sync_steps']}")
     fa, ff = got["mamba2_flat/fsdp"], got["mamba2_flat/flat"]
     require(same_run(fa, ff), "train_pods: the flat twin differs from its "
@@ -6209,8 +6429,10 @@ def dryrun_predictions() -> dict:
     runs the script makes, before any of them runs: the ``full`` phase's
     Big LSTM local and sync step; score_dense's qwen2-7b forward (2 x
     4096); one serve_dense decode step (batch 8, from 512); a
-    train_fsdp_tp qwen2-7b rank (4 of 28 layers, 2 x 2, Alg. 3); one
-    serve_tp decode step on 1 x 2 (4 of 28 layers). Each with its ops,
+    train_fsdp_tp qwen2-7b rank (FSDP_TP_TRAIN's depth, 2 x 2, Alg. 3);
+    one serve_tp decode step on 1 x 2 (TP_SERVE_LAYERS of 28 layers); the
+    forward and the decode step at score_dense's depth (DEPTH_CUTS). Each
+    with its ops,
     FLOPs, bytes, kernels, resident and peak bytes, and its roofline on
     the H100 (modeled, from the data sheet)."""
     import torch
@@ -6231,7 +6453,8 @@ def dryrun_predictions() -> dict:
         out[name] = _walk_summary(cost, _roofline(cost, "biglstm"))
     del progs, params, state, batch
     qwen = get_arch("qwen2-7b")
-    model = build_model(qwen)
+    dense = dataclasses.replace(qwen, **DEPTH_CUTS["qwen2-7b"])
+    model = build_model(dense)
     params = model.init(None, "meta")
     tok = torch.empty((DENSE_SCORE["batch"], DENSE_SCORE["seq"]),
                       dtype=torch.int32, device="meta")   # SyntheticLM's
@@ -6240,7 +6463,7 @@ def dryrun_predictions() -> dict:
         cost.result = None
         DRY["dense_forward"] = cost
         out["dense_forward"] = _walk_summary(cost, _roofline(cost, "qwen2-7b"))
-        sprogs, cache, token, pos = dense_decode_inputs(qwen, "meta")
+        sprogs, cache, token, pos = dense_decode_inputs(dense, "meta")
         cost = step_cost(sprogs.decode_step, params, cache, token, pos)
         cost.result = None
         DRY["dense_decode"] = cost
@@ -6387,7 +6610,8 @@ def dryrun_card_dense(params, rose) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
-    qwen = get_arch("qwen2-7b")
+    qwen = dataclasses.replace(get_arch("qwen2-7b"),
+                               **DEPTH_CUTS["qwen2-7b"])
     model = build_model(qwen)
     tok = torch.from_numpy(SyntheticLM(
         vocab_size=qwen.vocab_size, seq_len=DENSE_SCORE["seq"],
@@ -6409,13 +6633,330 @@ def dryrun_card_dense(params, rose) -> dict:
     return out
 
 
+# ---- side work: what times nothing, beside the examples ----------------- #
+# The CPU halves of the card-against-CPU checks depend only on seeds, and
+# reference_dense (card and CPU) times nothing, so they run in processes
+# of their own while the examples run and the kernels build (nothing is
+# timed then), and the phases hold their card halves to them (SIDE, filled
+# by finish_side before the kernels phase): a process a group, its parts in
+# turn. They run with the torch thread count this script has (its
+# intra-op default): a CPU reduction's last bits depend on it, and the
+# tolerances were set on runs with it
+SIDE_GROUPS = (("reference", "train_families", "tp_grid"),
+               ("reference_dense",))
+SIDE = {}
+# the reference phase's setups: reduced Big LSTM per leaf and flat, with
+# the one-pass and the three-pass encode
+REFERENCE_SETUPS = {"per_leaf": {}, "flat": {"flat": True},
+                    "per_leaf_unfused": {"sync_fused": False},
+                    "flat_unfused": {"flat": True, "sync_fused": False}}
+REFERENCE_LR = 2.0
+TRAIN_FAMILIES = ("hymba-1.5b", "qwen2-7b", "phi3.5-moe-42b-a6.6b")
+
+
+def reduced_losses(dev, lr, **kw) -> list:
+    """The reference phase's run: reduced Big LSTM in float32 (weights
+    from seed 1 on the CPU), 2 workers, int8 H = 4 with the kernels, 8
+    steps at ``lr`` on ``dev``: its losses."""
+    import torch
+    from repro_torch.configs import (OptimizerConfig, ShapeConfig,
+                                     get_arch, reduced)
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.lstm import init_lstm
+    small = dataclasses.replace(reduced(get_arch("biglstm")),
+                                param_dtype="float32")
+    base = init_lstm(torch.Generator().manual_seed(1), small)
+    shape = ShapeConfig("smoke", seq_len=16, global_batch=8, kind="train")
+    oc = OptimizerConfig(compression="int8", use_kernels=True, H=4,
+                         lr=lr, warmup_steps=0, **kw)
+    res = train_loop(small, shape, oc, steps=TRAIN_STEPS, n_workers=2,
+                     verbose=False, device=dev, init_params=base)
+    require(res.sync_steps == [3, 7],
+            f"reduced run {kw} on {dev}: sync steps {res.sync_steps}")
+    return res.losses
+
+
+def family_run(arch: str, dev, eta):
+    """reference_train_families' run of reduced ``arch`` in float32
+    (weights from seed 1 on the CPU): Local AdaAlter, 2 workers, int8 H =
+    4 with the kernels, 8 steps at ``eta`` on ``dev``. Returns (its
+    TrainResult, its leaf count)."""
+    import torch
+    from repro_torch.configs import (OptimizerConfig, ShapeConfig,
+                                     get_arch, reduced)
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(reduced(get_arch(arch)), param_dtype="float32")
+    base = build_model(cfg).init(torch.Generator().manual_seed(1))
+    shape = ShapeConfig("smoke", seq_len=16, global_batch=8, kind="train")
+    oc = OptimizerConfig(compression="int8", use_kernels=True, H=4,
+                         lr=eta, warmup_steps=0)
+    return train_loop(cfg, shape, oc, steps=TRAIN_STEPS, n_workers=2,
+                      verbose=False, device=dev,
+                      init_params=base), len(leaves(base))
+
+
+def tp_grid_cpu(arch: str) -> dict:
+    """tp_grid's CPU runs of reduced ``arch`` in float32 from the ranks'
+    weights (seed 0 on the card's generator), at TP_GRID_OPT's lr and 2%
+    above it: their losses."""
+    import torch
+    from repro_torch.configs import (OptimizerConfig, ShapeConfig,
+                                     get_arch, reduced)
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    opt = TP_GRID_OPT
+    cfg = dataclasses.replace(reduced(get_arch(arch)), param_dtype="float32")
+    cpu_base = tree_map(lambda t: t.cpu(), build_model(cfg).init(
+        torch.Generator("cuda").manual_seed(0)))
+    shape = ShapeConfig("tp_grid", seq_len=16, global_batch=8, kind="train")
+    return {key: train_loop(cfg, shape, OptimizerConfig(**{**opt, "lr": lr}),
+                            steps=tp_grid_steps(arch), n_workers=2,
+                            verbose=False, device="cpu",
+                            init_params=cpu_base).losses
+            for key, lr in (("lr", opt["lr"]),
+                            ("eta_2pct_high", opt["lr"] * 1.02))}
+
+
+def side_work(name: str) -> dict:
+    """One group's side work, JSON-able."""
+    if name == "reference":
+        return {setup: {"cpu": reduced_losses("cpu", REFERENCE_LR, **kw),
+                        "cpu_eta_2pct_high": reduced_losses(
+                            "cpu", REFERENCE_LR * 1.02, **kw)}
+                for setup, kw in REFERENCE_SETUPS.items()}
+    if name == "train_families":
+        out = {}
+        for arch in TRAIN_FAMILIES:
+            cpu, _ = family_run(arch, "cpu", REFERENCE_LR)
+            wrong, _ = family_run(arch, "cpu", REFERENCE_LR * 1.02)
+            out[arch] = {"losses": cpu.losses,
+                         "losses_eta_2pct_high": wrong.losses,
+                         **{k: getattr(cpu, k) for k in (
+                             "sync_steps", "comm_bytes_total",
+                             "comm_bytes_modeled")}}
+        return out
+    if name == "tp_grid":
+        return {arch: tp_grid_cpu(arch) for arch in TP_GRID_ARCHS}
+    if name == "reference_dense":      # with this process's counters
+        from repro_torch.kernels import (adaalter_update as au, quantize as
+                                         qz, ssd_scan, sync_fused as sf)
+        return reference_dense({
+            "adaalter_update": au.launches, "fused_ef": sf.launches,
+            "flat_fused_update": au.flat_launches,
+            "flat_ef": sf.flat_launches,
+            "quantize_blocks": qz.quantize_launches,
+            "dequantize_blocks": qz.dequantize_launches,
+            "ssd_scan": ssd_scan.launches})
+    raise KeyError(name)
+
+
+def side_main(names: str, out: str) -> int:
+    """``python3 chip_smoke.py --side NAME[,NAME] OUT``: the named side
+    work in turn, each into ``OUT.NAME.json`` as it ends (run by
+    start_side)."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
+    torch.backends.cuda.matmul.allow_tf32 = False     # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    for name in names.split(","):
+        t0 = time.perf_counter()
+        got = {"result": side_work(name),
+               "seconds": time.perf_counter() - t0}
+        part = Path(f"{out}.{name}.json")
+        part.with_suffix(".tmp").write_text(json.dumps(got))
+        part.with_suffix(".tmp").rename(part)
+    return 0
+
+
+def start_side(root: Path, threads: int) -> dict:
+    """Start a process for each group of SIDE_GROUPS, each with
+    ``threads`` torch threads (the card's work goes on meanwhile);
+    :func:`finish_side` waits for their parts."""
+    tmp = tempfile.TemporaryDirectory()
+    # threads that wait sleep: the window's processes share 8 cores
+    env = {**os.environ, "OMP_NUM_THREADS": str(threads),
+           "OMP_WAIT_POLICY": "PASSIVE"}
+    procs = {}
+    for group in SIDE_GROUPS:
+        out = str(Path(tmp.name) / group[0])
+        with open(out + ".log", "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, str(root / "chip_smoke.py"), "--side",
+                 ",".join(group), out], cwd=str(root), env=env, stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        proc.log = out + ".log"
+        procs.update({name: (proc, f"{out}.{name}.json") for name in group})
+    atexit.register(stop_processes, {p for p, _ in procs.values()})
+    return {"procs": procs, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def finish_side(started: dict, names=None) -> dict:
+    """Wait for the side work ``names`` (default: all) that
+    :func:`start_side` started and put the results in SIDE; a process
+    that ends without a part fails the script. With ``names`` None, each
+    process must also have exited 0. Returns each part's seconds."""
+    seconds = {}
+    for name, (proc, path) in started["procs"].items():
+        if (names is not None and name not in names) or name in SIDE:
+            continue
+        while not Path(path).exists():
+            if proc.poll() is not None and not Path(path).exists():
+                require(False, f"the side work {name} ended without its "
+                        f"result, exit {proc.returncode}:\n"
+                        f"{Path(proc.log).read_text()[-3000:]}")
+            time.sleep(0.1)
+        got = json.loads(Path(path).read_text())
+        SIDE[name], seconds[name] = got["result"], got["seconds"]
+    if names is None:
+        for proc in {p for p, _ in started["procs"].values()}:
+            proc.wait(timeout=600)
+            require(proc.returncode == 0, f"the side work exited "
+                    f"{proc.returncode}:\n"
+                    f"{Path(proc.log).read_text()[-3000:]}")
+    return seconds
+
+
+def _regress_fields(value, path: str, out: dict) -> None:
+    """The fields of a phase line that the regress phase's row keeps,
+    under their dotted paths (a list of dicts by index): walls (``*_ms``,
+    ``*_s``), collective counts, byte counts, and the sync steps with
+    their count."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            _regress_fields(v, f"{path}.{k}" if path else str(k), out)
+        return
+    if isinstance(value, list) and value and all(isinstance(v, dict)
+                                                 for v in value):
+        for i, v in enumerate(value):
+            _regress_fields(v, f"{path}.{i}", out)
+        return
+    leaf = path.rsplit(".", 1)[-1]
+    number = lambda v: isinstance(v, (int, float)) and not isinstance(v, bool)
+    if leaf == "sync_steps" and isinstance(value, list):
+        out[path] = value
+        out[path[:len(path) - len(leaf)] + "sync_rounds"] = len(value)
+    elif leaf.endswith(("_ms", "_s")) and (number(value) or (
+            isinstance(value, list) and value and all(map(number, value)))):
+        out[path] = value
+    elif number(value) and ("collectives" in leaf or "bytes" in leaf):
+        out[path] = value
+
+
+def regress_rows(by_phase: dict) -> list:
+    """One row a phase line emitted so far (``bench`` chip_smoke, ``mode``
+    the phase): the kernels' launches in it (``by_phase``), its seconds
+    (``phase_s``) and :func:`_regress_fields` of its line."""
+    seconds = phases_s()
+    rows = []
+    for line in PHASE_LINES:
+        name = line["phase"]
+        fields = {}
+        _regress_fields({k: v for k, v in line.items() if k != "phase"}, "",
+                        fields)
+        rows.append({"bench": "chip_smoke", "mode": name,
+                     "launches": dict(by_phase.get(name, {})),
+                     "phase_s": seconds[name], **fields})
+    return rows
+
+
+def regress_phase(root: Path, by_phase: dict) -> dict:
+    """The port's bench-regression gate (``python -m
+    repro_torch.obs.regress``) on this run's own rows (:func:`regress_rows`)
+    written as BENCH_chip_smoke.json into a baseline and a fresh
+    directory, four ways at once, each a process: the rows unchanged (exit
+    0), one launch count one higher (exit 1, that field named in the
+    report), every wall doubled (exit 0: walls are not compared) and one
+    row dropped (exit 1, "missing"). Nothing under benchmarks/ is read."""
+    import copy
+    rows = regress_rows(by_phase)
+    drift_row = next(i for i, r in enumerate(rows) if r["launches"])
+    kernel = sorted(rows[drift_row]["launches"])[0]
+    drifted = copy.deepcopy(rows)
+    drifted[drift_row]["launches"][kernel] += 1
+    doubled = copy.deepcopy(rows)
+    for row in doubled:
+        for k, v in row.items():
+            if k.endswith(("_ms", "_s")):
+                row[k] = [2 * x for x in v] if isinstance(v, list) else 2 * v
+    dropped = rows[:drift_row] + rows[drift_row + 1:]
+    cases = {"identical": (rows, 0), "launch_plus_1": (drifted, 1),
+             "walls_doubled": (doubled, 0), "row_dropped": (dropped, 1)}
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Path(tmp) / "baseline"
+        base.mkdir()
+        (base / "BENCH_chip_smoke.json").write_text(json.dumps(rows))
+        procs = {}
+        for case, (fresh_rows, _) in cases.items():
+            fresh = Path(tmp) / case
+            fresh.mkdir()
+            (fresh / "BENCH_chip_smoke.json").write_text(
+                json.dumps(fresh_rows))
+            procs[case] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.obs.regress",
+                 "--baselines", str(base), "--fresh", str(fresh),
+                 "--report", str(Path(tmp) / f"{case}.report.json")],
+                cwd=tmp, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        codes, reports = {}, {}
+        for case, p in procs.items():
+            text, _ = p.communicate(timeout=300)
+            codes[case] = p.returncode
+            reports[case] = json.loads(
+                (Path(tmp) / f"{case}.report.json").read_text())
+            require(p.returncode == cases[case][1],
+                    f"regress {case}: exit {p.returncode}, want "
+                    f"{cases[case][1]}:\n{text[-3000:]}")
+    field = f"launches.{kernel}"
+    named = [f["reason"] for f in reports["launch_plus_1"]["failures"]]
+    require(len(named) == 1 and named[0].startswith(field + ":"),
+            f"regress: a launch count of {kernel} one higher in "
+            f"{rows[drift_row]['mode']} reported as {named}")
+    missing = [f["reason"] for f in reports["row_dropped"]["failures"]]
+    require(len(missing) == 1 and "missing" in missing[0],
+            f"regress: the dropped row reported as {missing}")
+    require(not reports["identical"]["failures"]
+            and not reports["walls_doubled"]["failures"],
+            f"regress: failures on unchanged structure: "
+            f"{reports['identical']} {reports['walls_doubled']}")
+    compared = sum(1 for r in rows for k in _flat_keys(r)
+                   if _gate_tolerance(k) is not None)
+    return {"rows": len(rows), "fields": sum(len(_flat_keys(r))
+                                             for r in rows),
+            "fields_compared": compared,
+            "launch_drift": {"phase": rows[drift_row]["mode"],
+                             "field": field, "reason": named[0]},
+            "dropped": {"phase": rows[drift_row]["mode"],
+                        "reason": missing[0]},
+            "exit_codes": codes}
+
+
+def _flat_keys(row: dict) -> list:
+    """``row``'s fields as the gate flattens them (dicts by dotted path)."""
+    out = []
+    for k, v in row.items():
+        out += ([f"{k}.{s}" for s in _flat_keys(v)] if isinstance(v, dict)
+                else [k])
+    return out
+
+
+def _gate_tolerance(field: str):
+    from repro_torch.obs.regress import IDENTITY_KEYS, field_tolerance
+    return None if field in IDENTITY_KEYS else field_tolerance(field)
+
+
 EXAMPLE_RUNS = (
     ("quickstart", ["quickstart.py"]),
     ("serve_batched", ["serve_batched.py"]),
-    ("reproduce_paper", ["reproduce_paper.py", "--steps", "30"]),
+    ("reproduce_paper", ["reproduce_paper.py", "--steps", "16"]),
 )
-# train_100m: 10 steps with a checkpoint at 10, then resumed to 20
-EXAMPLE_100M = dict(first=10, resumed=20, every=10)
+# train_100m: 4 steps with a checkpoint at 4, then resumed to 8 (10 and 20
+# before the 600 s budget)
+EXAMPLE_100M = dict(first=4, resumed=8, every=4)
 
 
 def stop_processes(procs) -> None:
@@ -6432,9 +6973,9 @@ def stop_processes(procs) -> None:
 def start_examples(root: Path) -> dict:
     """Start the four examples of ``examples/torch/`` on the card, each a
     process of its own, all together: quickstart and serve_batched at
-    their defaults, reproduce_paper at 30 steps, train_100m for 10 steps
-    with a checkpoint and then resumed to 20 (one shell running the two
-    in turn). They run while the dry-run predicts and the kernels build,
+    their defaults, reproduce_paper at 16 steps, train_100m for
+    EXAMPLE_100M's first steps with a checkpoint and then resumed (one
+    shell running the two in turn). They run while the dry-run predicts and the kernels build,
     and :func:`finish_examples` waits for them before anything is timed
     on the card."""
     env = {**os.environ, "PYTHONPATH": str(root / "src")}
@@ -6458,23 +6999,34 @@ def start_examples(root: Path) -> dict:
         start_new_session=True)
     # a phase that fails before finish_examples leaves none running
     atexit.register(stop_processes, procs.values())
-    return {"procs": procs, "tmp": tmp, "outs": outs,
-            "t0": time.perf_counter()}
+    t0, logs, ended = time.perf_counter(), {}, {}
+
+    def watch(name, p):
+        logs[name] = p.stdout.read()
+        p.wait()
+        ended[name] = time.perf_counter() - t0
+    watchers = [threading.Thread(target=watch, args=item, daemon=True)
+                for item in procs.items()]
+    for w in watchers:
+        w.start()
+    return {"procs": procs, "tmp": tmp, "outs": outs, "t0": t0,
+            "logs": logs, "ended": ended, "watchers": watchers}
 
 
 def finish_examples(started: dict) -> dict:
     """Wait for the examples :func:`start_examples` started: each must
     exit 0, and train_100m's resumed run must start where the saved one
     stopped and continue its steps."""
-    logs, waited = {}, time.perf_counter()
-    for name, p in started["procs"].items():
-        try:
-            logs[name], _ = p.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            logs[name], _ = p.communicate()
+    waited = time.perf_counter()
+    procs, logs, ended = (started[k] for k in ("procs", "logs", "ended"))
+    for w in started["watchers"]:
+        w.join(timeout=max(1.0, 300 - (time.perf_counter() - waited)))
+    stop_processes(procs.values())          # any still running past 300 s
+    for w in started["watchers"]:
+        w.join(timeout=30)
+    for name, p in procs.items():
         require(p.returncode == 0, f"example {name} exited "
-                f"{p.returncode}:\n{logs[name][-3000:]}")
+                f"{p.returncode}:\n{logs.get(name, '')[-3000:]}")
     first, resumed = (json.loads(x.read_text()) for x in started["outs"])
     started["tmp"].cleanup()
     e = EXAMPLE_100M
@@ -6488,6 +7040,7 @@ def finish_examples(started: dict) -> dict:
             f"train_100m's resume: {first} then {resumed}")
     now = time.perf_counter()
     return {"seconds": now - started["t0"], "waited_s": now - waited,
+            "ended_s": ended,
             "train_100m": {"first": first, "resumed": resumed},
             "tails": {k: v.strip().splitlines()[-3:]
                       for k, v in logs.items()}}
@@ -6504,9 +7057,12 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
         return 1
-    # the examples run on the card while the dry-run predicts and the
-    # kernels build (finish_examples waits for them before any timing)
+    # the examples run on the card, and the CPU halves of the later
+    # card-against-CPU checks in processes of their own, while the dry-run
+    # predicts and the kernels build (finish_examples and
+    # finish_side wait for them before any timing)
     examples = start_examples(root)
+    side = start_side(root, torch.get_num_threads())
     sys.path.insert(0, str(root / "src"))
     global H100
     from repro_torch.hardware import H100
@@ -6542,62 +7098,91 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # ---- the dry-run predicts, before anything runs ------------------- #
-    emit({"phase": "dryrun", "nvidia_smi": smi, **dryrun_predictions()})
-
-    # ---- build ---------------------------------------------------------- #
+    # ---- the build, while the dry-run predicts before anything runs --- #
     t0 = time.perf_counter()
-    log = _build.build()
+    built = {}
+
+    def build():
+        try:
+            built["log"] = _build.build()
+        finally:
+            built["seconds"] = time.perf_counter() - t0
+    compiling = threading.Thread(target=build)
+    compiling.start()
+    emit({"phase": "dryrun", "nvidia_smi": smi, **dryrun_predictions()})
+    compiling.join()
+    require("log" in built, "the kernels' build failed (its error above)")
     _build.load()
-    ptxas = [ln.strip() for ln in log.splitlines()
+    ptxas = [ln.strip() for ln in built["log"].splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    emit({"phase": "build", "seconds": built["seconds"],
           "library": str(_build.library_path().relative_to(root)),
           "sources": [p.name for p in _build.sources()], "ptxas": ptxas})
     cfg = get_arch("biglstm")
+    R, batch, seq = 2, 64, 20       # the full-width runs' workers and shape
+    full = ShapeConfig("full", seq_len=seq, global_batch=batch, kind="train")
+    # the launches of two and of four ranks start now, while nothing is
+    # timed: their ranks import what they run, then wait for their
+    # phases' go (start_launch)
+    two = start_two_ranks(root, cfg, full)
+    four = start_fsdp_tp_launch(root, four_rank_loops(cfg)[1], hold=True)
 
     # ---- reduced reference: card + kernels vs CPU + plain versions ------ #
     # (nothing here is timed: it runs beside the examples)
     # lr 2 makes the losses move enough that a wrong update shows: the same
     # run on the CPU with η 2% larger must fall outside the tolerance
+    # (the CPU runs in their own process since the script started)
     small = dataclasses.replace(reduced(cfg), param_dtype="float32")
     base = init_lstm(torch.Generator().manual_seed(1), small)
-    shape = ShapeConfig("smoke", seq_len=16, global_batch=8, kind="train")
+    cuda = {name: reduced_losses("cuda", REFERENCE_LR, **kw)
+            for name, kw in REFERENCE_SETUPS.items()}
 
-    def reduced_losses(dev, lr, **kw):
-        oc = OptimizerConfig(compression="int8", use_kernels=True, H=4,
-                             lr=lr, warmup_steps=0, **kw)
-        res = train_loop(small, shape, oc, steps=TRAIN_STEPS, n_workers=2,
-                         verbose=False, device=dev, init_params=base)
-        require(res.sync_steps == [3, 7],
-                f"reduced run {kw} on {dev}: sync steps {res.sync_steps}")
-        return res.losses
-
-    setups = {"per_leaf": {}, "flat": {"flat": True},
-              "per_leaf_unfused": {"sync_fused": False},
-              "flat_unfused": {"flat": True, "sync_fused": False}}
+    # ---- the other card-against-CPU checks, which time nothing -------- #
+    # (they run beside the examples too, while the side work computes the
+    # CPU halves: on reduced models, each checked to a tolerance or bit
+    # for bit)
+    emit({"phase": "flat_eq", "runs": [flat_equals_per_leaf(small, base, f)
+                                       for f in (True, False)]})
+    emit({"phase": "reference_ssm", **reference_ssm(ssd.launches)})
+    emit({"phase": "reference_lstm_serve", **reference_lstm_serve(counters)})
+    for name, check in (("reference_moe", reference_moe),
+                        ("reference_cross", reference_cross),
+                        ("reference_hybrid", reference_hybrid)):
+        t0 = time.perf_counter()
+        emit({"phase": name, **check(counters),
+              "seconds": time.perf_counter() - t0})
+    side_s = finish_side(side, ["reference"])
     rtol, reference = 1e-4, {}
-    for name, kw in setups.items():
-        cuda, cpu = reduced_losses("cuda", 2.0, **kw), reduced_losses(
-            "cpu", 2.0, **kw)
-        rel = max_rel(cuda, cpu)
-        rel_wrong = max_rel(reduced_losses("cpu", 2.0 * 1.02, **kw), cpu)
+    for name in REFERENCE_SETUPS:
+        cpu = SIDE["reference"][name]["cpu"]
+        cuda_l = cuda[name]
+        rel = max_rel(cuda_l, cpu)
+        rel_wrong = max_rel(SIDE["reference"][name][
+            "cpu_eta_2pct_high"], cpu)
         require(rel <= rtol, f"reduced run {name}: losses differ by {rel} "
                 "relative")
         require(rel_wrong > rtol, f"reduced run {name}: an η 2% off moves "
                 f"the losses by only {rel_wrong}, within the tolerance")
-        reference[name] = {"losses_cuda": cuda, "losses_cpu": cpu,
+        reference[name] = {"losses_cuda": cuda_l, "losses_cpu": cpu,
                            "max_rel_diff": rel,
                            "max_rel_diff_eta_2pct_high": rel_wrong}
-    emit({"phase": "reference", "rtol": rtol, "setups": reference})
+    emit({"phase": "reference", "rtol": rtol, "setups": reference,
+          "cpu_threads": torch.get_num_threads()})
+    side_s.update(finish_side(side))
+    emit({"phase": "reference_dense", **SIDE["reference_dense"]})
+    t0 = time.perf_counter()
+    emit({"phase": "reference_train_families",
+          **reference_train_families(counters),
+          "seconds": time.perf_counter() - t0})
+    free_card()
 
-    # the examples end before anything is timed on the card
+    # the examples end before anything is timed
     emit({"phase": "examples", "nvidia_smi": smi,
-          **finish_examples(examples)})
+          **finish_examples(examples), "side_s": side_s})
+    side["tmp"].cleanup()
 
     # ---- kernels vs plain, at the full-width shapes of the paths -------- #
     V, P = cfg.vocab_size, cfg.lstm_proj
-    R, batch, seq = 2, 64, 20
     gen = torch.Generator("cuda").manual_seed(0)
     upd = [check_update(gen, (R, V, P), torch.bfloat16),
            check_update(gen, (R, P, 4 * cfg.d_model), torch.float32)]
@@ -6703,11 +7288,8 @@ def main() -> int:
           **dryrun_card_biglstm()})
 
     # ---- flat = per-leaf on the card ------------------------------------ #
-    emit({"phase": "flat_eq", "runs": [flat_equals_per_leaf(small, base, f)
-                                       for f in (True, False)]})
-
     # ---- full-width training through train_loop ------------------------- #
-    shape = ShapeConfig("full", seq_len=seq, global_batch=batch, kind="train")
+    shape = full
     n_leaves = 3 + 4 * cfg.n_layers
 
     def train(steps, **kw):
@@ -6793,9 +7375,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- mamba2: reduced card vs CPU, then full-width scoring and serving #
-    emit({"phase": "reference_ssm", **reference_ssm(ssd.launches)})
-
-    m2 = dataclasses.replace(m2, ssm_pallas=True)
+    m2 = dataclasses.replace(m2, ssm_pallas=True,
+                             **DEPTH_CUTS["mamba2-370m"])
     params = build_model(m2).init(torch.Generator("cuda").manual_seed(0))
     score, score_n = score_model(m2, params, counters, batch=8, seq=2048,
                                  ssd_calls=m2.n_layers)
@@ -6809,10 +7390,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- slice 5: the dense family (qwen2-7b) and Big LSTM serving ----- #
-    emit({"phase": "reference_dense", **reference_dense(counters)})
-    emit({"phase": "reference_lstm_serve", **reference_lstm_serve(counters)})
     torch.cuda.empty_cache()
-    qwen = get_arch("qwen2-7b")
+    qwen = dataclasses.replace(get_arch("qwen2-7b"), **DEPTH_CUTS["qwen2-7b"])
     torch.cuda.synchronize()
     m0 = torch.cuda.memory_allocated()
     params = build_model(qwen).init(torch.Generator("cuda").manual_seed(0))
@@ -6863,17 +7442,22 @@ def main() -> int:
     slice6_phases(counters, smi)
     hybrid_n = slice7_phases(counters, smi)
     t0 = time.perf_counter()
+    two = two_rank_launch(two)
     ranks, ranks_n, fsdp_cli, fsdp_launched = train_ranks_phase(
-        root, cfg, shape, smi, leaf, flat)
+        root, cfg, shape, smi, leaf, flat, two)
     emit({"phase": "train_ranks", **ranks,
           "seconds": time.perf_counter() - t0})
     fsdp_n = fsdp_phases(cfg, smi, fsdp_cli,
                          ranks["baseline_adaalter"]["steps"], fsdp_launched)
-    grid_n = grid_phases(root, cfg, smi, tp_want, list(counters))
-    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
+    grid_n = grid_phases(root, cfg, smi, tp_want, list(counters), two,
+                         four)
+    del two
     by_phase = {"train": leaf_n, "train_flat": flat_n,
                 "train_unfused": unfused_n, "score": score_n, **hybrid_n,
                 **ranks_n, **fsdp_n, **grid_n}
+    emit({"phase": "regress", **regress_phase(root, by_phase)})
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
+          "phases_s": phases_s(), "launches": LAUNCHES})
 
     def entry(name, source, replaces, n, err, timed, library_ms=None):
         return {"name": name, "route": "cuda",
@@ -6939,4 +7523,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--side"]:
+        sys.exit(side_main(*sys.argv[2:4]))
     sys.exit(main())

@@ -45,7 +45,8 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelismPlan
-from repro_torch.core.comm import RankGroup, nccl_shares_a_card
+from repro_torch.core.comm import (RankGroup, close_regions,
+                                   nccl_shares_a_card)
 from repro_torch.sharding.specs import GridLayout
 
 # Parameter-count thresholds steering worker granularity (the reference's)
@@ -243,7 +244,9 @@ def init_ranks(backend: Optional[str] = None, device: Optional[str] = None,
 
 
 def close_ranks() -> None:
-    """Tear the process group down (a no-op outside one)."""
+    """Unmap the ranks' shared regions and tear the process group down (a
+    no-op outside one)."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
+        close_regions()
         dist.destroy_process_group()
